@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX or of the JAX package.  Phases, one JSON line
+each on standard output:
+
+  build   — nvcc builds every kernel library from ``src/repro_torch/
+            kernels/csrc`` (one compiler per source, in parallel);
+  kernels — each hand-written kernel against its plain PyTorch version on
+            the card, at the shapes the serving path gives it, with its
+            device time from torch.profiler (``ms``; ``call_ms`` adds the
+            launch overhead the device waits for), the plain version's
+            device time, the least time the card could take (bound) and,
+            where one PyTorch call computes the same function, that
+            call's device time (``library_ms``, timed here only);
+  serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
+            random weights: a mixed-rank adapter set (ragged kernel) and a
+            uniform-width set (masked kernel), launch counts read around
+            that run, fused-vs-solo logits and token ids, tokens/s, peak
+            device memory, and one profiled serve per set (device busy
+            time against host wall time, the largest device kernels).
+
+Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+...}``.  Any failure raises and exits non-zero; without a CUDA device, or
+without the rest of the repository beside it, it exits 2 and prints no
+result.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES = 3.35e12          # HBM3 bytes/s
+PEAK_BF16 = 989e12            # bf16 tensor-core flop/s
+
+BLOCK_T = 16                  # LoRA token tile (one WMMA M tile)
+MULTIPLE = 16                 # rank padding granule (the bf16 MMA k-step)
+MIXED = (8, 16, 32, 64)       # pads 16/16/32/64: non-uniform -> ragged route
+UNIFORM = (16, 16, 12, 16)    # pads all 16: uniform -> masked route
+N_REQ = 16                    # requests per active set
+B_STD = 0.005                 # std of the random LoRA B (0 would make the
+#                               delta vanish: standard LoRA init has B = 0)
+
+# Tolerances, kernel vs plain version on the same inputs.  Both round at
+# the same points; what differs is the f32 summation order (tensor-core
+# tiles vs one large product), which can flip the bf16 rounding of an xa
+# lane or of p by one ulp (2^-8 relative), and the bf16 output rounding
+# itself (2^-9 relative).  Inputs are scaled so outputs are O(1).
+ATOL, RTOL = 2e-2, 2e-2
+# Fused vs solo prefill logits: the base projections go through cuBLAS at
+# another batch size M, which may pick another algorithm and flip bf16
+# roundings of hidden states; flips compound over 22 layers.  Logits are
+# O(1) bf16 values (ulp 2^-7 .. 2^-6 there): allow 0.25 absolute.
+LOGIT_ATOL = 0.25
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _device_us(prof) -> list:
+    """(name, device µs, calls) of every device-side event of a profile
+    (a CPU op's self device time would count its kernels twice)."""
+    import torch
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: the sum of the device work ``fn`` starts,
+    from torch.profiler, without the gaps in which the device waits for
+    the host to launch the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for _, us, _ in _device_us(prof)) / 1e3 / iters
+
+
+def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Wall time per call between CUDA events over back-to-back calls:
+    the device time plus whatever host launch overhead it cannot hide."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def compare(got, want) -> dict:
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool((err <= ATOL + RTOL * w.abs()).all())
+    return {"max_abs_err": err.max().item(),
+            "max_rel_err": (err / w.abs().clamp_min(1e-3)).max().item(),
+            "within_tol": ok}
+
+
+def make_requests(seed: int, names, vocab: int):
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(
+        prompt=rng.integers(1, vocab, size=int(rng.integers(16, 201)),
+                            dtype=np.int32),
+        adapter=names[i % len(names)],
+        max_new_tokens=int(rng.integers(16, 33))) for i in range(N_REQ)]
+
+
+def geometry(reqs):
+    """(rows per adapter, prompt width S) of the engine's fused batch."""
+    from repro_torch.serve.engine import _align
+    names = sorted({r.adapter for r in reqs})
+    rows = tuple(_align(sum(r.adapter == n for r in reqs), BLOCK_T)
+                 for n in names)
+    S = _align(max(len(r.prompt) for r in reqs), BLOCK_T)
+    return rows, S
+
+
+# ------------------------------------------------------------- kernels
+def lora_operands(ranks, d_in, d_out, T, g, dev):
+    """Packed (d_in, R)/(R, d_out) bf16 pair with dead lanes zero, and x."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    lay = RankLayout(ranks, MULTIPLE)
+    A = torch.randn((d_in, lay.total), generator=g, device=dev) / d_in ** 0.5
+    B = torch.zeros((lay.total, d_out), device=dev)
+    for k, (off, rp) in enumerate(zip(lay.offsets, lay.r_pads)):
+        r = ranks[k]
+        A[:, off + r:off + rp] = 0.0
+        B[off:off + r] = torch.randn((r, d_out), generator=g,
+                                     device=dev) / r ** 0.5
+    x = torch.randn((T, d_in), generator=g, device=dev)
+    bf = torch.bfloat16
+    return lay, x.to(bf), A.to(bf), B.to(bf)
+
+
+def kernels_phase(rows, S, dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.fused_lora import (fused_lora_cuda,
+                                                fused_lora_plain)
+    from repro_torch.kernels.ops import _tile_jobs_static
+    from repro_torch.kernels.ragged import (RaggedMeta, ragged_lora_fwd,
+                                            ragged_lora_fwd_plain)
+    g = torch.Generator(device=dev).manual_seed(1)
+    d_in = 2048
+    n_rows = sum(rows)
+    cases = []
+    for phase, seq in (("prefill", S), ("decode", 1)):
+        T = n_rows * seq
+        tile_jobs = _tile_jobs_static(rows, seq, BLOCK_T)
+        for d_out in (2048, 256):
+            # ---- kernel 1: ragged, mixed ranks
+            lay, x, A, B = lora_operands(MIXED, d_in, d_out, T, g, dev)
+            meta = RaggedMeta.build(tile_jobs, lay)
+            run = functools.partial(ragged_lora_fwd, x, A, B, meta,
+                                    block_t=BLOCK_T)
+            plain = functools.partial(ragged_lora_fwd_plain, x, A, B, meta,
+                                      block_t=BLOCK_T)
+            toks = [tile_jobs.count(k) * BLOCK_T for k in range(len(MIXED))]
+            nbytes = (T * d_in * 2 + T * d_out * 4 + sum(
+                (d_in + d_out) * r * 2 for k, r in enumerate(MIXED)
+                if toks[k]))
+            flops = sum(2 * toks[k] * r * (d_in + d_out)
+                        for k, r in enumerate(MIXED))
+            cases.append(("ragged_lora_fwd", phase,
+                          dict(T=T, d_in=d_in, d_out=d_out), run, plain,
+                          None, nbytes, flops))
+            # ---- kernel 2: masked, uniform widths (strided stacked view
+            # of the packed pair, as MultiLoRA.apply passes it)
+            lay, x, A, B = lora_operands(UNIFORM, d_in, d_out, T, g, dev)
+            K, rp = lay.num_jobs, lay.r_pads[0]
+            A_st = A.reshape(d_in, K, rp).movedim(-2, -3)
+            B_st = B.reshape(K, rp, d_out)
+            ids = torch.tensor(tile_jobs, dtype=torch.int32, device=dev)
+            ranks = torch.tensor(UNIFORM, dtype=torch.int32, device=dev)
+            run = functools.partial(fused_lora_cuda, x, A_st, B_st, ids,
+                                    ranks, block_t=BLOCK_T)
+            plain = functools.partial(fused_lora_plain, x, A_st, B_st, ids,
+                                      ranks, block_t=BLOCK_T)
+            nbytes = T * d_in * 2 + T * d_out * 2 + sum(
+                (d_in + d_out) * r * 2 for r in UNIFORM)
+            flops = sum(2 * tile_jobs.count(k) * BLOCK_T * r * (d_in + d_out)
+                        for k, r in enumerate(UNIFORM))
+            cases.append(("fused_lora_cuda", phase,
+                          dict(T=T, d_in=d_in, d_out=d_out), run, plain,
+                          None, nbytes, flops))
+    # ---- kernel 3: flash, causal prefill over the first S positions
+    H, KV, hd = 32, 4, 64
+    BH = n_rows * H
+    q = torch.randn((BH, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((BH // (H // KV), S, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device=dev).to(torch.bfloat16)
+    kr, vr = (t.repeat_interleave(H // KV, dim=0)[None] for t in (k, v))
+    run = lambda: flash_attention_fwd(q, k, v, causal=True, kv_groups=H // KV)
+    plain = lambda: flash_attention_ref(q, k, v, causal=True,
+                                        kv_groups=H // KV)
+    lib = lambda: F.scaled_dot_product_attention(q[None], kr, vr,
+                                                 is_causal=True)
+    nbytes = (2 * BH * S * hd + 2 * (BH // (H // KV)) * S * hd) * 2
+    flops = 4 * BH * hd * S * (S + 1) // 2
+    cases.append(("flash_attention_fwd", "prefill",
+                  dict(BH=BH, S=S, hd=hd, kv_groups=H // KV), run, plain,
+                  lib, nbytes, flops))
+
+    results = []
+    for name, step, shape, run, plain, lib, nbytes, flops in cases:
+        got = run()
+        torch.cuda.synchronize()         # surfaces a fault in the kernel
+        res = compare(got, plain())
+        bms, by = bound(nbytes, flops)
+        res.update(name=name, step=step, shape=shape,
+                   ms=device_ms(run), call_ms=call_ms(run),
+                   plain_ms=device_ms(plain, iters=5),
+                   library_ms=device_ms(lib) if lib else None,
+                   bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+        emit({"phase": "kernels", **res})
+        if not res["within_tol"]:
+            raise AssertionError(f"{name} ({step}, {shape}) disagrees with "
+                                 f"its plain version: {res}")
+        results.append(res)
+    return results
+
+
+# --------------------------------------------------------------- serve
+def publish(pool, cfg, names, ranks, seed, dev):
+    """Seeded adapters: the port's init (A random, B zero), then a random
+    B so that every adapter changes the output."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import slice_job
+    from repro_torch.core.lora import RankLayout, rank_axis_is_last
+    from repro_torch.models import model as M
+    for i, (n, r) in enumerate(zip(names, ranks)):
+        tree = M.init_adapters(cfg, [r], seed=seed + i, device=dev,
+                               layout=RankLayout((r,), MULTIPLE))
+        flat = slice_job(tree, 0, r)
+        g = torch.Generator(device=dev).manual_seed(seed + 1000 + i)
+        for key, t in flat.items():
+            if not rank_axis_is_last(key):
+                flat[key] = torch.randn(t.shape, generator=g,
+                                        device=dev) * B_STD
+        pool.publish(n, flat, rank=r)
+
+
+def profile_serve(engine, reqs) -> dict:
+    """One fused serve under torch.profiler: device-busy time (the sum of
+    the device kernels' own times) against host wall time, and the
+    kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = _device_us(prof)
+    if not rows:                       # the profiler saw no device time
+        return {"wall_s": wall, "device_busy_s": None}
+    busy_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                    for k, us, n in rows[:12]]}
+
+
+def serve_phase(cfg, sets, dev):
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_lora import fused_lora_cuda
+    from repro_torch.kernels.ragged import ragged_lora_fwd
+    from repro_torch.models import model as M
+    from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
+
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device=dev)
+    pool = AdapterPool(cfg, capacity=8, multiple=MULTIPLE, device=dev)
+    for si, (_, names, ranks, _) in enumerate(sets):
+        publish(pool, cfg, names, ranks, seed=100 * (si + 1), dev=dev)
+    engine = ServeEngine(cfg, params, pool, impl="cuda", block_t=BLOCK_T)
+    # warm-up (cuBLAS handles, first launches): not timed, not counted
+    engine.serve([ServeRequest(sets[0][3][0].prompt[:16], sets[0][1][0],
+                               max_new_tokens=2)])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    wrappers = (ragged_lora_fwd, fused_lora_cuda, flash_attention_fwd)
+    for w in wrappers:                   # the main path starts here
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for set_name, names, ranks, reqs in sets:
+        before = [w.launches for w in wrappers]
+        t = time.perf_counter()
+        res = engine.serve(reqs)
+        secs = time.perf_counter() - t
+        n_tok = sum(len(r.tokens) for r in res)
+        out[set_name] = dict(
+            results=res, seconds=secs, tokens=n_tok, tok_per_s=n_tok / secs,
+            launches={w.__name__: w.launches - b
+                      for w, b in zip(wrappers, before)})
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"main path never launched {name}")
+
+    # fused vs solo (outside the counted run): the prefill logits are
+    # held to LOGIT_ATOL; the first decode step's logits and the token
+    # ids are reported
+    for set_name, names, ranks, reqs in sets:
+        rec = out[set_name]
+        diffs, flips = [], []
+        for steps in (0, 1):
+            fused_lg = engine.next_token_logits(reqs, steps).float()
+            solo_lg = torch.cat([engine.next_token_logits([r], steps)
+                                 for r in reqs]).float()
+            if not bool(torch.isfinite(fused_lg).all()):
+                raise AssertionError(f"{set_name}: non-finite logits")
+            diffs.append((fused_lg - solo_lg).abs().max().item())
+            flips.append(int((fused_lg.argmax(-1)
+                              != solo_lg.argmax(-1)).sum()))
+        same = sum(int(f.tokens.tolist() == engine.serve([r])[0].tokens.tolist())
+                   for r, f in zip(reqs, rec["results"]))
+        emit({"phase": "serve", "set": set_name, "ranks": list(ranks),
+              "requests": len(reqs), "rows": sum(geometry(reqs)[0]),
+              "prompt_width": geometry(reqs)[1],
+              "generated_tokens": rec["tokens"], "seconds": rec["seconds"],
+              "tokens_per_s": rec["tok_per_s"], "launches": rec["launches"],
+              "prefill_logits_max_abs_diff_fused_vs_solo": diffs[0],
+              "logit_atol": LOGIT_ATOL,
+              "decode1_logits_max_abs_diff_fused_vs_solo": diffs[1],
+              "argmax_flips_prefill_decode1": flips,
+              "token_ids_identical_share": same / len(reqs)})
+        if diffs[0] > LOGIT_ATOL:
+            raise AssertionError(f"{set_name}: fused vs solo prefill logits "
+                                 f"differ by {diffs[0]} (atol {LOGIT_ATOL})")
+    prof = {set_name: profile_serve(engine, reqs)
+            for set_name, _, _, reqs in sets}
+    emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "setup_seconds": setup_s,
+          "peak_device_memory_bytes": peak, "launches": launches,
+          "profile": prof, "card": card_line()})
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke.py must run from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    per_source = build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_seconds": per_source})
+    for name in build.SOURCES:
+        log = build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            print(f"--- {name}\n{log.read_text()}", file=sys.stderr)
+
+    cfg = get_config("tinyllama-1.1b")
+    sets = []
+    for set_name, ranks in (("mixed", MIXED), ("uniform", UNIFORM)):
+        names = [f"{set_name}{i}-r{r}" for i, r in enumerate(ranks)]
+        # the same prompts and budgets in both sets: one batch geometry,
+        # so the two kernels are measured on the same shapes
+        sets.append((set_name, names, ranks,
+                     make_requests(0, names, cfg.vocab_size)))
+    rows, S = geometry(sets[0][3])
+    rows_u, S_u = geometry(sets[1][3])
+    assert rows == rows_u and S == S_u, "both sets share one geometry"
+
+    kern = kernels_phase(rows, S, dev)
+    launches = serve_phase(cfg, sets, dev)
+
+    src = {"ragged_lora_fwd": ("src/repro_torch/kernels/csrc/ragged_lora.cu",
+                               "src/repro/kernels/ragged.py:152"),
+           "fused_lora_cuda": ("src/repro_torch/kernels/csrc/fused_lora.cu",
+                               "src/repro/kernels/fused_lora.py:62"),
+           "flash_attention_fwd": (
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:87")}
+    summary = []
+    for name, (source, replaces) in src.items():
+        mine = [r for r in kern if r["name"] == name]
+        # headline shape: the decode step's d_out 2048 call for the LoRA
+        # kernels (88 of them per step), the prefill call for flash
+        head = next(r for r in mine if r["step"] == "decode"
+                    and r["shape"]["d_out"] == 2048) if name != \
+            "flash_attention_fwd" else mine[0]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "at": {"step": head["step"], **head["shape"]}})
+    emit({"kernels": summary})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

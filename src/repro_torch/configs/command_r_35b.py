@@ -1,0 +1,22 @@
+"""Command-R 35B — dense GQA, no biases.
+
+[dense] 40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000
+[hf:CohereForAI/c4ai-command-r-v01]
+"""
+from repro_torch.configs.base import ModelConfig, FULL_ATTN
+
+CONFIG = ModelConfig(
+    name="command-r-35b",
+    family="dense",
+    num_layers=40,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=22528,
+    vocab_size=256000,
+    layer_pattern=(FULL_ATTN,),
+    attn_bias=False,
+    rope_theta=8_000_000.0,
+    source="GQA, no-bias [hf:CohereForAI/c4ai-command-r-v01]",
+)

@@ -1,0 +1,182 @@
+// The CTA routine shared by the two LoRA forward kernels (ragged_lora.cu,
+// fused_lora.cu): 16 token rows that belong to ONE adapter, times a range
+// of output columns.
+//
+//   xa  = mask_{lane < rank}(x_rows · A_seg)    f32, then rounded to bf16
+//   out = xa · B_seg                           f32 accumulation
+//
+// A_seg is the adapter's column segment of A (``width`` lanes, row stride
+// ``lda``), B_seg the matching rows of B.  The rank walk that the TPU
+// kernels spread over a revisited grid axis is a loop inside the CTA, so
+// every output element is written exactly once, by one CTA, with a fixed
+// summation order: no atomics, deterministic, and a row's value does not
+// depend on which other rows share the launch.  Products run on the
+// tensor cores through WMMA bf16 16x16x16 tiles with f32 accumulators.
+// All operands are staged through shared memory with 16-byte loads and
+// bounds checks, so d_in, d_out and the segment width need be multiples
+// of 8 elements only, not of any tile.
+#pragma once
+
+#include "common.cuh"
+
+namespace repro {
+namespace lora {
+
+using namespace nvcuda;
+
+constexpr int kRows = 16;       // token rows per CTA: one WMMA M tile
+constexpr int kCols = 128;      // output columns per inner block: 4 warps x 32
+constexpr int kChunk = 256;     // d_in staged per step of x·A
+constexpr int kLanes = 16;      // rank lanes per xa chunk: one WMMA K step
+constexpr int kMaxWidth = 256;  // widest rank segment a CTA holds (16 chunks)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+struct __align__(128) Smem {
+  __nv_bfloat16 x[kRows][kChunk];       //  8 KB  x rows, one d_in chunk
+  __nv_bfloat16 a[kChunk][kLanes];      //  8 KB  A chunk, 16 rank lanes
+  float red[kWarps][kRows][kLanes];     //  4 KB  per-warp partial x·A
+  __nv_bfloat16 xa[kRows][kMaxWidth];   //  8 KB  masked xa, rounded to bf16
+  __nv_bfloat16 b[kLanes][kCols];       //  4 KB  B chunk
+  float out[kRows][kCols];              //  8 KB  f32 output block
+};                                      // 40 KB: static, under 48 KB
+
+// ---- staging of the three operands into shared memory, 16 bytes (8
+// bf16) per load.  The wrapper guarantees what that needs: every pointer
+// 16-byte aligned, every row stride, width and extent a multiple of 8
+// elements.  Out-of-range vectors become zero.
+__device__ __forceinline__ void stage_x(Smem& s,
+                                        const __nv_bfloat16* __restrict__ x,
+                                        long ldx, int n_rows, int k0,
+                                        int d_in) {
+  constexpr int V = kChunk / 8;
+  for (int i = threadIdx.x; i < kRows * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < n_rows && k0 + c < d_in)
+      v = *reinterpret_cast<const uint4*>(x + r * ldx + k0 + c);
+    *reinterpret_cast<uint4*>(&s.x[r][c]) = v;
+  }
+}
+
+__device__ __forceinline__ void stage_a(Smem& s,
+                                        const __nv_bfloat16* __restrict__ a,
+                                        long lda, int k0, int d_in, int rc,
+                                        int width) {
+  constexpr int V = kLanes / 8;
+  for (int i = threadIdx.x; i < kChunk * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    const int lane = rc * kLanes + c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (k0 + r < d_in && lane < width)
+      v = *reinterpret_cast<const uint4*>(a + (k0 + r) * lda + lane);
+    *reinterpret_cast<uint4*>(&s.a[r][c]) = v;
+  }
+}
+
+__device__ __forceinline__ void stage_b(Smem& s,
+                                        const __nv_bfloat16* __restrict__ b,
+                                        long ldb, int rc, int width, int c0,
+                                        int col_end) {
+  constexpr int V = kCols / 8;
+  for (int i = threadIdx.x; i < kLanes * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    const int lane = rc * kLanes + r, col = c0 + c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (lane < width && col < col_end)
+      v = *reinterpret_cast<const uint4*>(b + lane * ldb + col);
+    *reinterpret_cast<uint4*>(&s.b[r][c]) = v;
+  }
+}
+
+template <typename OutT>
+__device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
+                          const __nv_bfloat16* __restrict__ a, long lda,
+                          const __nv_bfloat16* __restrict__ b, long ldb,
+                          int width, int rank, int d_in, int d_out,
+                          int n_rows, int col_begin, int col_end,
+                          OutT* __restrict__ out, long ldo, Smem& s) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int n_rc = (width + kLanes - 1) / kLanes;
+
+  // ---- phase 1: xa for every 16-lane chunk of the segment.  The four
+  // warps split the d_in steps; their partial sums meet in ``red``.
+  for (int rc = 0; rc < n_rc; ++rc) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k0 = 0; k0 < d_in; k0 += kChunk) {
+      stage_x(s, x, ldx, n_rows, k0, d_in);
+      stage_a(s, a, lda, k0, d_in, rc, width);
+      __syncthreads();
+      for (int kk = warp; kk < kChunk / 16; kk += kWarps) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, &s.x[0][kk * 16], kChunk);
+        wmma::load_matrix_sync(fb, &s.a[kk * 16][0], kLanes);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      __syncthreads();
+    }
+    wmma::store_matrix_sync(&s.red[warp][0][0], acc, kLanes,
+                            wmma::mem_row_major);
+    __syncthreads();
+    // rank mask on the f32 value, THEN round to bf16 (the reference's
+    // order: ragged.py _fwd_kernel, fused_lora.py _fused_lora_kernel)
+    for (int i = tid; i < kRows * kLanes; i += kThreads) {
+      const int r = i / kLanes, c = i % kLanes;
+      const int lane = rc * kLanes + c;
+      float v = 0.0f;
+      for (int w = 0; w < kWarps; ++w) v += s.red[w][r][c];
+      s.xa[r][lane] = __float2bfloat16(lane < rank ? v : 0.0f);
+    }
+    __syncthreads();
+  }
+
+  // ---- phase 2: out[:, cols] = xa · B_seg[:, cols], block by block
+  for (int c0 = col_begin; c0 < col_end; c0 += kCols) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[2];
+    wmma::fill_fragment(o[0], 0.0f);
+    wmma::fill_fragment(o[1], 0.0f);
+    for (int rc = 0; rc < n_rc; ++rc) {
+      stage_b(s, b, ldb, rc, width, c0, col_end);
+      __syncthreads();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, &s.xa[0][rc * kLanes], kMaxWidth);
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, &s.b[0][warp * 32 + j * 16], kCols);
+        wmma::mma_sync(o[j], fa, fb, o[j]);
+      }
+      __syncthreads();
+    }
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&s.out[0][warp * 32 + j * 16], o[j], kCols,
+                              wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols, c = i % kCols;
+      const int col = c0 + c;
+      if (r < n_rows && col < col_end) store_out(&out[r * ldo + col], s.out[r][c]);
+    }
+    __syncthreads();
+  }
+}
+
+// Column range of CTA ``blockIdx.y`` when ``cols_per_cta`` columns each.
+__device__ __forceinline__ int col_end_of(int col_begin, int cols_per_cta,
+                                          int d_out) {
+  return min(d_out, col_begin + cols_per_cta);
+}
+
+inline int cols_per_cta(int d_out, int col_groups) {
+  const int per = (d_out + col_groups - 1) / col_groups;
+  return ((per + kCols - 1) / kCols) * kCols;
+}
+
+}  // namespace lora
+}  // namespace repro

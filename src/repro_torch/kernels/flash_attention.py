@@ -1,0 +1,79 @@
+"""Flash-attention forward (port of ``repro.kernels.flash_attention``).
+
+Flat (batch*heads) layout: q (BH, Sq, hd), k/v (BH / kv_groups, Skv, hd);
+query head bh reads kv head ``bh // kv_groups`` (GQA without a repeated
+copy; ``kv_groups=1`` is the reference's signature).  On a CUDA tensor
+``flash_attention_fwd`` launches the Hopper kernel
+``csrc/flash_attention.cu``; on a CPU tensor it runs
+``flash_attention_ref``, the plain softmax oracle.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_BIG = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        kv_groups: int = 1) -> torch.Tensor:
+    """Plain PyTorch oracle: naive softmax attention in f32."""
+    if kv_groups > 1:
+        k = k.repeat_interleave(kv_groups, dim=0)
+        v = v.repeat_interleave(kv_groups, dim=0)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    if causal:
+        Sq, Skv = s.shape[-2:]
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask[None], s, NEG_BIG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        kv_groups: int = 1) -> torch.Tensor:
+    """q: (BH, Sq, hd); k/v: (BH // kv_groups, Skv, hd).  Returns
+    (BH, Sq, hd) in q.dtype; the scores never reach device memory."""
+    BH, Sq, hd = q.shape
+    Skv = k.shape[1]
+    build.require(k.shape[0] * kv_groups == BH and v.shape == k.shape
+                  and k.shape[-1] == hd,
+                  f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                  f"{tuple(v.shape)}, kv_groups={kv_groups}")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   kv_groups=kv_groups)
+    build.require(q.device.type == "cuda", f"unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.require(t.device == q.device and t.dtype == torch.bfloat16
+                      and t.is_contiguous(),
+                      f"{name} must be a contiguous bf16 tensor on {q.device}")
+    build.require(hd in (32, 64, 128), f"head dim {hd} not in (32, 64, 128)")
+    o = torch.empty_like(q)
+    lib = _lib()
+    err = lib.flash_attention_fwd_launch(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), BH, Sq, Skv,
+        hd, kv_groups, int(causal), hd ** -0.5, build.stream_ptr(q.device))
+    build.check(lib, err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,117 @@
+"""Forward dispatch of the fused multi-LoRA kernels (port of the
+forward half of ``repro.kernels.ops``).
+
+``fused_lora`` — the MASKED max-rank family over stacked (K, d, r_pad)
+adapters: "cuda" (kernels/fused_lora.py), "ref" (gather oracle), "loop"
+(one GEMM pair per adapter, the unfused baseline).
+
+``fused_lora_ragged`` — the RAGGED family over packed (d, R)/(R, d)
+adapters with per-adapter padded segments: "cuda" (kernels/ragged.py,
+true-rank work per token tile), "ref"/"loop" (densify, then the oracles).
+
+The "torch" mirror of the reference's bucket-concatenated "xla" path is
+queued (ROADMAP A3) and raises here.  Contract for "cuda": tokens sorted
+by adapter id, contiguous segments, each segment a multiple of block_t.
+
+Scaling and rounding follow the reference exactly: the ragged kernel
+returns f32 unscaled and is scaled once, then cast; the masked kernel
+returns x.dtype unscaled and is scaled in f32, then cast again.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import ref as ref_impl
+from repro_torch.kernels.fused_lora import fused_lora_cuda
+from repro_torch.kernels.ragged import RaggedMeta, ragged_lora_fwd
+
+
+def _tile_map(ids: torch.Tensor, block_t: int) -> torch.Tensor:
+    return ids.reshape(ids.shape[0] // block_t, block_t)[:, 0] \
+        .to(torch.int32).contiguous()
+
+
+def _no_torch_impl():
+    raise NotImplementedError(
+        "the 'torch' mirror of the reference's 'xla' LoRA path is not "
+        "ported yet (ROADMAP queue A, item 3)")
+
+
+def _fused_lora_cuda(x, A, B, ids, ranks, scalings, block_t):
+    y = fused_lora_cuda(x, A, B, _tile_map(ids, block_t),
+                        ranks.to(torch.int32).contiguous(), block_t=block_t)
+    return (y.float() * scalings[ids][:, None]).to(x.dtype)
+
+
+def _tile_jobs_static(rows: Sequence[int], seq_len: int, block_t: int,
+                      order: Optional[Sequence[int]] = None
+                      ) -> Optional[Tuple[int, ...]]:
+    """Static token-tile -> job map of a job-proportional batch (rows
+    per job, segments in *order*).  None when any segment is not whole
+    token tiles — the caller then falls back to the masked path."""
+    order = list(order) if order is not None else list(range(len(rows)))
+    out = []
+    for j in order:
+        toks = rows[j] * seq_len
+        if toks % block_t:
+            return None
+        out.extend([j] * (toks // block_t))
+    return tuple(out)
+
+
+def fused_lora_ragged(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                      ids: torch.Tensor, scalings: torch.Tensor, layout,
+                      *, impl: str = "cuda", block_t: int = 128,
+                      slice_rows: Optional[Tuple[int, ...]] = None,
+                      seq_len: int = 1,
+                      ranks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused heterogeneous multi-LoRA over PACKED RAGGED adapters.
+
+    x (T, d_in), A (d_in, R), B (R, d_out) with R = Σ_k r_pad_k
+    (``layout``: core/lora.RankLayout).  ``slice_rows`` is the static
+    per-job row count of this batch — required for the static tile map
+    of the "cuda" kernel; without it the call densifies and takes the
+    masked family, whose device tile map handles any tile-aligned layout.
+    """
+    from repro_torch.core.lora import unpack_dense
+    rk = ranks if ranks is not None else torch.tensor(
+        layout.ranks, dtype=torch.int32, device=x.device)
+    if impl in ("ref", "loop"):
+        Af, Bf = unpack_dense(A, B, layout)
+        fn = (ref_impl.fused_lora_loop if impl == "loop"
+              else ref_impl.fused_lora_ref)
+        return fn(x, Af.to(x.dtype), Bf.to(x.dtype), ids, rk, scalings)
+    if impl == "torch":
+        _no_torch_impl()
+    if impl == "cuda":
+        T = x.shape[0]
+        tile_jobs = None
+        if slice_rows is not None and T % block_t == 0:
+            tile_jobs = _tile_jobs_static(slice_rows, seq_len, block_t)
+        if tile_jobs is None:
+            Af, Bf = unpack_dense(A, B, layout)
+            return _fused_lora_cuda(x, Af.to(x.dtype), Bf.to(x.dtype), ids,
+                                    rk, scalings, block_t)
+        meta = RaggedMeta.build(tile_jobs, layout)
+        y = ragged_lora_fwd(x, A, B, meta, block_t=block_t)
+        return (y * scalings[ids][:, None]).to(x.dtype)
+    raise ValueError(f"unknown fused_lora_ragged impl {impl!r}")
+
+
+def fused_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               ids: torch.Tensor, ranks: torch.Tensor,
+               scalings: torch.Tensor, impl: str = "ref",
+               block_t: int = 128) -> torch.Tensor:
+    """Fused heterogeneous multi-LoRA: y_t = s_a ((x_t A_a) B_a), a=ids[t].
+    x (T, d_in), A (K, d_in, r), B (K, r, d_out) -> (T, d_out)."""
+    if impl == "cuda":
+        return _fused_lora_cuda(x, A, B, ids, ranks, scalings, block_t)
+    if impl == "torch":
+        _no_torch_impl()
+    if impl == "loop":
+        return ref_impl.fused_lora_loop(x, A, B, ids, ranks, scalings)
+    if impl == "ref":
+        return ref_impl.fused_lora_ref(x, A, B, ids, ranks, scalings)
+    raise ValueError(f"unknown fused_lora impl {impl!r}")

@@ -1,0 +1,226 @@
+"""GQA attention forward and KV caches (port of the forward paths of
+``repro.models.attention``).
+
+  * prefill  — q at position 0 over its own S keys: the flash kernel
+               (kernels/flash_attention.py) on the first S cache columns,
+               which is the reference's chunked scan over the whole
+               ``buf``-wide cache with ``kv_len = S``, the same function;
+  * decode   — q (S=1..n) over the cache with per-row positions: the
+               online-softmax chunk scan in plain PyTorch (the reference
+               runs it outside any Pallas kernel too).
+
+KV caches are updated IN PLACE (the reference returns new arrays): one
+buffer per segment for the whole request batch, no copy per step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.lora import MultiLoRA, proj
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_BIG = -1e30
+
+
+def _is_vec(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.ndim == 1
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, q_offset, kv_len, causal: bool,
+                      window: Optional[int], chunk: int = 1024
+                      ) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd). Returns (B, Sq, H, hd).
+
+    q_offset: absolute position of q[0] — an int or a per-row (B,) tensor.
+    kv_len:   number of valid kv entries (<= Skv), int or per-row (B,).
+
+    Static geometry with q at position 0 over exactly Sq keys (prefill)
+    goes to the flash kernel; everything else takes the chunk scan.
+    """
+    if (window is None and isinstance(q_offset, int) and q_offset == 0
+            and isinstance(kv_len, int) and kv_len == q.shape[1]):
+        B, Sq, H, hd = q.shape
+        KV = k.shape[2]
+        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+        kf = k[:, :kv_len].transpose(1, 2).reshape(B * KV, kv_len, hd)
+        vf = v[:, :kv_len].transpose(1, 2).reshape(B * KV, kv_len, -1)
+        out = flash_attention_fwd(qf.contiguous(), kf.contiguous(),
+                                  vf.contiguous(), causal=causal,
+                                  kv_groups=H // KV)
+        return out.reshape(B, H, Sq, -1).transpose(1, 2)
+    out, _ = _chunked_attention_fwd(q, k, v, q_offset=q_offset,
+                                    kv_len=kv_len, causal=causal,
+                                    window=window, chunk=chunk)
+    return out
+
+
+def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
+                           window: Optional[int], chunk: int = 1024):
+    """Online-softmax chunk scan; returns (out (B,Sq,H,vd), lse (B,H,Sq)).
+
+    Per-row geometry (batched serving decode): (B,) q_offset / kv_len
+    give every row its own causal frontier; masked keys contribute an
+    exact 0.0, so a padded fused batch reproduces each row's solo
+    attention.  Scores and p·v run on f32 copies of the storage-dtype
+    operands (f32 accumulation of exactly the reference's products)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    G = H // KV
+    chunk = min(chunk, Skv)
+    n_chunks = (Skv + chunk - 1) // chunk
+    scale = hd ** -0.5
+    dev = q.device
+    ar = torch.arange(Sq, device=dev)
+    per_row = _is_vec(q_offset) or _is_vec(kv_len)
+    if per_row:
+        qo = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+        qpos = (qo + ar).expand(B, Sq)                         # (B, Sq)
+        kv_len_b = torch.as_tensor(kv_len, device=dev).reshape(-1, 1) \
+            .expand(B, 1)
+    else:
+        qpos = q_offset + ar
+
+    # query head h = n * G + g reads kv head n: group the query heads
+    # instead of repeating k/v G times (same products, G x fewer bytes)
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    m = torch.full((B, H, Sq), NEG_BIG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, H, vd), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        k_c = k[:, ci * chunk:(ci + 1) * chunk].float()
+        v_c = v[:, ci * chunk:(ci + 1) * chunk].float()
+        c = k_c.shape[1]
+        kpos = ci * chunk + torch.arange(c, device=dev)
+        s = torch.einsum("bsngd,bcnd->bngsc", qg, k_c).reshape(
+            B, H, Sq, c) * scale
+        if per_row:
+            valid = kpos[None, None, :] < kv_len_b[:, :, None]
+            if causal:
+                valid = valid & (kpos[None, None, :] <= qpos[:, :, None])
+            if window is not None:
+                valid = valid & (kpos[None, None, :]
+                                 > qpos[:, :, None] - window)
+            s = torch.where(valid[:, None], s, NEG_BIG)       # (B,H,Sq,c)
+        else:
+            valid = kpos[None, :] < kv_len
+            if causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                valid = valid & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(valid[None, None], s, NEG_BIG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bngsc,bcnd->bsngd",
+                          p.to(q.dtype).float().reshape(B, KV, G, Sq, c),
+                          v_c).reshape(B, Sq, H, vd)
+        acc = acc * corr.transpose(1, 2)[..., None] + pv
+        m = m_new
+    lden = torch.where(l == 0, 1.0, l)
+    out = acc / lden.transpose(1, 2)[..., None]
+    lse = m + torch.log(lden)
+    return out.to(q.dtype), lse
+
+
+# ----------------------------------------------------------------- caches
+class KVCache(NamedTuple):
+    """Full KV cache for one attention segment.
+
+    k/v: (L?, B, buf, KV, hd) — leading layer axis when stacked."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def init(batch, buf, kv_heads, hd, dtype, layers: Optional[int] = None,
+             device="cuda"):
+        shape = (batch, buf, kv_heads, hd)
+        if layers is not None:
+            shape = (layers,) + shape
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos) -> KVCache:
+    """Write k/v (B, S, KV, hd) at absolute position *pos*, in place.
+
+    ``pos`` may be a per-row ``(B,)`` tensor (batched serving decode:
+    each right-padded request writes at its own head)."""
+    S = k_new.shape[1]
+    if _is_vec(pos):
+        rows = torch.arange(cache.k.shape[0], device=pos.device)[:, None]
+        cols = pos.long()[:, None] + torch.arange(S, device=pos.device)
+        cache.k[rows, cols] = k_new.to(cache.k.dtype)
+        cache.v[rows, cols] = v_new.to(cache.v.dtype)
+    else:
+        cache.k[:, pos:pos + S] = k_new.to(cache.k.dtype)
+        cache.v[:, pos:pos + S] = v_new.to(cache.v.dtype)
+    return cache
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache, pos, *,
+                     window: Optional[int], chunk: int = 2048
+                     ) -> torch.Tensor:
+    """q: (B, S=1.., H, hd) attending over the cache after update at pos.
+
+    ``pos`` int or per-row ``(B,)``: kv_len and the causal frontier then
+    mask per row, so a fused batch of requests at different depths
+    attends exactly like each would solo."""
+    kv_len = pos + q.shape[1]
+    return chunked_attention(q, cache.k, cache.v, q_offset=pos,
+                             kv_len=kv_len, causal=True, window=window,
+                             chunk=chunk)
+
+
+# ----------------------------------------------------------------- block
+def attn_init(cfg, dtype, *, generator: torch.Generator, device="cuda",
+              layers: int = 1) -> dict:
+    kw = dict(generator=generator, device=device, layers=layers)
+    p = {"wq": dense_init(cfg.d_model, cfg.q_dim, dtype, **kw),
+         "wk": dense_init(cfg.d_model, cfg.kv_dim, dtype, **kw),
+         "wv": dense_init(cfg.d_model, cfg.kv_dim, dtype, **kw),
+         "wo": dense_init(cfg.q_dim, cfg.d_model, dtype, **kw)}
+    if cfg.attn_bias:
+        for name, d in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                        ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((layers, d), device=device)
+    return p
+
+
+def attn_block(cfg, params: dict, x: torch.Tensor, *,
+               positions: torch.Tensor,
+               lora: Optional[MultiLoRA] = None,
+               lora_ab: Optional[dict] = None,
+               cache: Optional[KVCache] = None,
+               cache_pos=None,
+               chunk: int = 1024) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """GQA attention with optional fused multi-LoRA on q/k/v/o.
+
+    x: (B, S, d). Returns (out, cache)."""
+    B, S, _ = x.shape
+    la = lora_ab or {}
+    q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"))
+    k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"))
+    v = proj(x, params["wv"], params.get("bv"), lora, la.get("v"))
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.causal:  # rope only for decoder archs
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        cache = cache_update(cache, k, v, cache_pos)
+        out = decode_attention(q, cache, cache_pos, window=None)
+    else:
+        out = chunked_attention(q, k, v, q_offset=0, kv_len=S,
+                                causal=cfg.causal, window=None, chunk=chunk)
+    out = out.reshape(B, S, cfg.q_dim)
+    y = proj(out, params["wo"], None, lora, la.get("o"))
+    return y, cache

@@ -1,0 +1,35 @@
+"""Carry weights across: nested dicts/lists of numpy arrays (e.g. the
+reference's parameter trees exported with ``np.asarray``) -> the port's
+trees of tensors, same structure and dtypes.
+
+bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` rejects; they go through float32 (exact) and back
+to ``torch.bfloat16``."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)    # writable copy
+
+
+def params_from_numpy(tree, device="cuda"):
+    """Backbone tree: dicts stay dicts, lists/tuples become lists, arrays
+    become tensors on *device* (bf16 weights, f32 norms kept as given)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def adapters_from_numpy(tree, device="cuda"):
+    """Packed adapter tree: the same conversion; adapters stay f32 and
+    are cast to the activation dtype where they are applied."""
+    return params_from_numpy(tree, device)

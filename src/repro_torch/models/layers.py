@@ -1,0 +1,73 @@
+"""Common building blocks (port of the forward parts of
+``repro.models.layers``).  Params are plain nested dicts of tensors;
+backbone weights live in ``cfg.dtype``, norms accumulate in f32."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------- init
+def dense_init(d_in: int, d_out: int, dtype, *, generator: torch.Generator,
+               device="cuda", layers: int = 1) -> torch.Tensor:
+    """(layers, d_in, d_out) weights ~ N(0, 1/d_in), drawn in f32."""
+    w = torch.randn((layers, d_in, d_out), generator=generator, device=device)
+    return (w * (1.0 / d_in) ** 0.5).to(dtype)
+
+
+def embed_init(vocab: int, d: int, dtype, *, generator: torch.Generator,
+               device="cuda") -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """``gamma`` is stored as (gamma - 1), so zeros == identity scale."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)           # (hd/2,)
+    ang = positions[..., :, None, None].float() * freqs     # (...,S,1,hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+def swiglu_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
+                device="cuda", layers: int = 1) -> dict:
+    kw = dict(generator=generator, device=device, layers=layers)
+    return {"gate": dense_init(d, d_ff, dtype, **kw),
+            "up": dense_init(d, d_ff, dtype, **kw),
+            "down": dense_init(d_ff, d, dtype, **kw)}
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["gate"]
+    u = x @ params["up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ params["down"]

@@ -1,0 +1,301 @@
+"""Model assembly, forward and decode (port of ``repro.models.model`` for
+the dense "attn" + "swiglu" family).
+
+A config's ``layer_pattern`` resolves into per-layer ``LayerSpec``s,
+segmented into ``[unrolled head] + [cycles] + [unrolled remainder]``.
+The parameter trees keep the reference's structure — ``segments/i/j/
+attn/wq`` with the cycle segment's leaves stacked on a leading
+``n_cycles`` axis — so weights carry across (models/convert.py).  The
+reference scans the cycles with ``lax.scan``; here they are a Python
+loop over that axis.  Frozen backbone params and the packed ragged
+adapter tree are separate trees, as in the reference.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import (FULL_ATTN, LOCAL_ATTN, RGLRU, SSD,
+                                      ModelConfig)
+from repro_torch.core.lora import MultiLoRA, RankLayout, init_adapter_pair
+from repro_torch.models.attention import KVCache, attn_block, attn_init
+from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
+                                       rms_norm, swiglu, swiglu_init)
+
+
+# ----------------------------------------------------------------- specs
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str        # "attn" | "local_attn" | "mla" | "ssd" | "rglru"
+    ffn: str          # "swiglu" | "moe" | "none"
+
+    @property
+    def lora_targets(self) -> Tuple[str, ...]:
+        return {
+            "attn": ("q", "k", "v", "o"),
+            "local_attn": ("q", "k", "v", "o"),
+            "mla": ("q", "kv_a", "o"),
+            "ssd": ("ssd_in", "ssd_out"),
+            "rglru": ("rg_in", "rg_gate", "rg_out"),
+        }[self.mixer]
+
+
+@dataclass(frozen=True)
+class Segment:
+    specs: Tuple[LayerSpec, ...]   # one cycle
+    repeats: int                   # n_cycles
+    scanned: bool
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    specs = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind in (FULL_ATTN, LOCAL_ATTN):
+            mixer = "mla" if cfg.use_mla else (
+                "local_attn" if kind == LOCAL_ATTN else "attn")
+        elif kind == SSD:
+            mixer = "ssd"
+        elif kind == RGLRU:
+            mixer = "rglru"
+        else:
+            raise ValueError(kind)
+        if mixer == "ssd":
+            ffn = "none"
+        elif cfg.num_experts and i >= cfg.first_k_dense:
+            ffn = "moe"
+        else:
+            ffn = "swiglu"
+        specs.append(LayerSpec(mixer, ffn))
+    return specs
+
+
+def segment_plan(cfg: ModelConfig) -> List[Segment]:
+    """Head (first_k_dense) unrolled, then scanned cycles + remainder."""
+    specs = layer_specs(cfg)
+    segs: List[Segment] = []
+    head = cfg.first_k_dense
+    if head:
+        segs.append(Segment(tuple(specs[:head]), 1, False))
+        specs = specs[head:]
+    cl = len(cfg.layer_pattern)
+    n_full = len(specs) // cl
+    if n_full:
+        segs.append(Segment(tuple(specs[:cl]), n_full, True))
+    rem = specs[n_full * cl:]
+    if rem:
+        segs.append(Segment(tuple(rem), 1, False))
+    return segs
+
+
+# Where each mixer/FFN family that the port does not run yet is queued.
+_NOT_PORTED = {
+    "local_attn": "sliding-window ring caches (ROADMAP queue A, item 11)",
+    "mla": "models/mla.py (ROADMAP queue A, item 11)",
+    "ssd": "models/ssd.py (ROADMAP queue A, item 11)",
+    "rglru": "models/rglru.py (ROADMAP queue A, item 11)",
+    "moe": "models/moe.py (ROADMAP queue A, item 11)",
+    "none": "mixer-only blocks (ROADMAP queue A, item 11)",
+}
+
+
+def _check_ported(spec: LayerSpec) -> None:
+    for part in (spec.mixer, spec.ffn):
+        if part in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{part!r} is not in the port yet: {_NOT_PORTED[part]}")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family in ("audio", "vlm") or cfg.frontend_dim:
+        raise NotImplementedError(
+            "modality front ends are not in the port yet (ROADMAP queue A, "
+            "item 11)")
+    for spec in layer_specs(cfg):
+        _check_ported(spec)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return KVCache(*(fn(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+# ----------------------------------------------------------------- init
+def _block_init(cfg: ModelConfig, spec: LayerSpec, layers: int, *,
+                generator: torch.Generator, device) -> dict:
+    _check_ported(spec)
+    dt = dtype_of(cfg)
+    kw = dict(generator=generator, device=device, layers=layers)
+    return {"ln1": torch.zeros((layers, cfg.d_model), device=device),
+            "attn": attn_init(cfg, dt, **kw),
+            "ln2": torch.zeros((layers, cfg.d_model), device=device),
+            "ffn": swiglu_init(cfg.d_model, cfg.d_ff, dt, **kw)}
+
+
+def _unstack(tree):
+    """Drop the leading layer axis of an unrolled segment's leaves."""
+    return _tree_map(lambda t: t[0], tree)
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device="cuda") -> dict:
+    """Frozen backbone parameter tree, drawn on *device* from a seeded
+    ``torch.Generator`` (the reference's distributions, not its draws)."""
+    _check_family(cfg)
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = dtype_of(cfg)
+    p: Dict[str, Any] = {
+        "embed": embed_init(cfg.vocab_size, cfg.d_model, dt, generator=g,
+                            device=device),
+        "ln_f": torch.zeros((cfg.d_model,), device=device),
+        "segments": [],
+    }
+    for seg in segment_plan(cfg):
+        tree = {}
+        for j, spec in enumerate(seg.specs):
+            blk = _block_init(cfg, spec, seg.repeats, generator=g,
+                              device=device)
+            tree[str(j)] = blk if seg.scanned else _unstack(blk)
+        p["segments"].append(tree)
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(cfg.d_model, cfg.vocab_size, dt, generator=g,
+                               device=device)[0]
+    return p
+
+
+def _adapter_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
+    return {"q": (cfg.d_model, cfg.q_dim), "k": (cfg.d_model, cfg.kv_dim),
+            "v": (cfg.d_model, cfg.kv_dim), "o": (cfg.q_dim, cfg.d_model)}
+
+
+def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
+                  r_pad: Optional[int] = None,
+                  layout: Optional[RankLayout] = None,
+                  device="cuda") -> dict:
+    """Adapter tree mirroring the segment structure, leaves packed ragged
+    — (n_cycles, d, R)/(n_cycles, R, d), R = Σ_k r_pad_k — per *layout*
+    (default: per-adapter ``pad_rank``; ``r_pad`` forces a uniform
+    width).  A ~ N(0, 1/r_pad_k) with dead lanes zero, B = 0."""
+    _check_family(cfg)
+    if layout is None:
+        rk = tuple(int(r) for r in ranks)
+        layout = RankLayout.uniform(rk, r_pad) if r_pad else RankLayout(rk)
+    dims = _adapter_dims(cfg)
+    segs = []
+    for i, seg in enumerate(segment_plan(cfg)):
+        seg_tree = {}
+        for j, spec in enumerate(seg.specs):
+            blk = {}
+            for t in spec.lora_targets:
+                # one generator per (segment, layer, target), seeded by a
+                # stable crc32 of its path: a leaf's draw does not depend
+                # on which other leaves exist
+                key = zlib.crc32(f"{seed}/{i}/{j}/{t}".encode())
+                g = torch.Generator(device=device).manual_seed(key)
+                blk[t] = init_adapter_pair(layout, *dims[t], generator=g,
+                                           layers=seg.repeats,
+                                           device=device)
+            seg_tree[str(j)] = blk if seg.scanned else _unstack(blk)
+        segs.append(seg_tree)
+    return {"segments": segs}
+
+
+# ----------------------------------------------------------------- caches
+def init_caches(cfg: ModelConfig, batch: int, buf: int, *,
+                device="cuda") -> list:
+    """Per-segment KV cache stacks matching segment_plan structure."""
+    caches = []
+    for seg in segment_plan(cfg):
+        seg_c = {}
+        for j, spec in enumerate(seg.specs):
+            _check_ported(spec)
+            seg_c[str(j)] = KVCache.init(
+                batch, buf, cfg.num_kv_heads, cfg.head_dim, dtype_of(cfg),
+                layers=seg.repeats if seg.scanned else None, device=device)
+        caches.append(seg_c)
+    return caches
+
+
+# ----------------------------------------------------------------- blocks
+def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
+                lora: Optional[MultiLoRA], x: torch.Tensor, positions,
+                cache, cache_pos):
+    """One pre-norm block. Returns (x, cache)."""
+    _check_ported(spec)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, cache = attn_block(cfg, p["attn"], h, positions=positions,
+                            lora=lora, lora_ab=ad, cache=cache,
+                            cache_pos=cache_pos)
+    x = x + out
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(p["ffn"], h2), cache
+
+
+def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
+                   lora: Optional[MultiLoRA], x, positions, caches,
+                   cache_pos):
+    """Apply one segment; caches are updated in place."""
+    def cycle(x, layer_p, layer_ad, layer_c):
+        for j, spec in enumerate(seg.specs):
+            c = layer_c.get(str(j)) if layer_c else None
+            x, _ = apply_block(cfg, spec, layer_p[str(j)],
+                               layer_ad.get(str(j), {}), lora, x, positions,
+                               c, cache_pos)
+        return x
+
+    if not seg.scanned:
+        return cycle(x, p, ad, caches)
+    for i in range(seg.repeats):
+        sl = lambda t: _tree_map(lambda v: v[i], t)
+        x = cycle(x, sl(p), sl(ad), sl(caches) if caches else None)
+    return x
+
+
+# ----------------------------------------------------------------- forward
+def _logits(cfg, params, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ head
+
+
+def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
+            lora: Optional[MultiLoRA], batch: dict, *,
+            caches: Optional[list] = None, cache_pos=None) -> torch.Tensor:
+    """Token-input model forward.  Returns logits (B, S, vocab).
+
+    ``cache_pos``: None (no caches), an int, or a per-row (B,) tensor
+    (batched serving decode: every request at its own depth)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    B, S, _ = x.shape
+    ar = torch.arange(S, device=x.device)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1:
+        positions = cache_pos.long()[:, None] + ar[None, :]
+    else:
+        positions = ((cache_pos or 0) + ar)[None, :].expand(B, S)
+
+    ad_segs = (adapters["segments"] if adapters
+               else [{} for _ in segment_plan(cfg)])
+    for i, seg in enumerate(segment_plan(cfg)):
+        c = caches[i] if caches is not None else None
+        x = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i], lora,
+                           x, positions, c, cache_pos)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return _logits(cfg, params, x)
+
+
+def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],
+                lora: Optional[MultiLoRA], token: torch.Tensor, pos,
+                caches: list):
+    """One decode step. token: (B, 1..S) int; pos: int position or a
+    per-row (B,) tensor.  Returns (logits (B, S, V), caches)."""
+    logits = forward(cfg, params, adapters, lora, {"tokens": token},
+                     caches=caches, cache_pos=pos)
+    return logits, caches
