@@ -11,18 +11,27 @@ each on standard output:
   build   — nvcc builds every kernel library from ``src/repro_torch/
             kernels/csrc`` (one compiler per source, in parallel);
   kernels — each hand-written kernel against its plain PyTorch version on
-            the card, at the shapes the serving path gives it, with its
-            device time from torch.profiler (``ms``; ``call_ms`` adds the
-            launch overhead the device waits for), the plain version's
-            device time, the least time the card could take (bound) and,
-            where one PyTorch call computes the same function, that
-            call's device time (``library_ms``, timed here only);
+            the card, at the shapes the serving and the training paths
+            give it, with its device time from torch.profiler (``ms``;
+            ``call_ms`` adds the launch overhead the device waits for),
+            the plain version's device time, the least time the card
+            could take (bound) and, where one PyTorch call computes the
+            same function, that call's device time (``library_ms``, timed
+            here only);
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
             that run, fused-vs-solo logits and token ids, tokens/s, peak
             device memory, and one profiled serve per set (device busy
-            time against host wall time, the largest device kernels).
+            time against host wall time, the largest device kernels);
+  train   — ``train_group`` over the same backbone: four LoRA jobs of
+            ranks {8, 16, 32, 64} (a ragged layout) for 8 steps in chunks
+            of 4 with remat, launch counts read around that run and
+            checked per step, per-step per-job losses, step time,
+            tokens/s, peak device memory; then one step's adapter
+            gradients against the "loop" impl (autograd through one GEMM
+            pair per adapter), one job's fused loss against its solo
+            loss, and one profiled step.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
@@ -59,6 +68,30 @@ B_STD = 0.005                 # std of the random LoRA B (0 would make the
 # lane or of p by one ulp (2^-8 relative), and the bf16 output rounding
 # itself (2^-9 relative).  Inputs are scaled so outputs are O(1).
 ATOL, RTOL = 2e-2, 2e-2
+# Training: four jobs, 4 sequences of 512 tokens each, 8192 tokens a step
+TRAIN_RANKS = (8, 16, 32, 64)     # pads 16/16/32/64: ragged route
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_BLOCK_T = 128
+TRAIN_STEPS, TRAIN_CHUNK = 8, 4
+TRAIN_LR = 1e-3
+# Kernel launches per training step on tinyllama (22 layers, LoRA on
+# q/k/v/o: 88 projections).  remat recomputes each layer's forward in
+# the backward, so the forward kernels run twice.
+TRAIN_LAUNCHES = {"ragged_lora_fwd": 176, "ragged_lora_dgrad": 88,
+                  "ragged_xa": 88, "ragged_dxa": 88, "ragged_wgrad": 176,
+                  "flash_attention_fwd": 44}
+# cuda vs loop adapter gradients, same step: relative Frobenius error per
+# leaf.  The loop impl keeps x·A in f32 where the kernels round it to
+# bf16 (the reference's rounding point), and both run a bf16 backbone
+# whose one-ulp flips (2^-8) carry through 22 layers of backward; a
+# gradient that lost the LoRA path, or took another adapter's, is off
+# by O(1).
+GRAD_RTOL = 5e-2
+# Fused vs solo per-job loss (a mean CE of ~10 over ~1000 tokens): the
+# solo group's one adapter takes the masked kernel and cuBLAS runs at
+# another batch size, which may flip bf16 roundings of hidden states;
+# the flips average out in the mean.
+LOSS_ATOL = 2e-2
 # Fused vs solo prefill logits: the base projections go through cuBLAS at
 # another batch size M, which may pick another algorithm and flip bf16
 # roundings of hidden states; flips compound over 22 layers.  Logits are
@@ -123,12 +156,18 @@ def bound(nbytes: float, flops: float):
 
 
 def compare(got, want) -> dict:
-    import torch
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    ok = bool((err <= ATOL + RTOL * w.abs()).all())
-    return {"max_abs_err": err.max().item(),
-            "max_rel_err": (err / w.abs().clamp_min(1e-3)).max().item(),
+    """Kernel against plain version; a tuple of outputs compares each."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        g, w = a.float(), b.float()
+        err = (g - w).abs()
+        ok &= bool((err <= ATOL + RTOL * w.abs()).all())
+        abs_err = max(abs_err, err.max().item())
+        rel_err = max(rel_err,
+                      (err / w.abs().clamp_min(1e-3)).max().item())
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
             "within_tol": ok}
 
 
@@ -169,6 +208,90 @@ def lora_operands(ranks, d_in, d_out, T, g, dev):
     x = torch.randn((T, d_in), generator=g, device=dev)
     bf = torch.bfloat16
     return lay, x.to(bf), A.to(bf), B.to(bf)
+
+
+def flash_cost(BH, S, hd, groups):
+    """(bytes, flops) of causal flash attention: q, k, v read once, out
+    and lse written once; the causal triangle of q·k and p·v."""
+    nbytes = (2 * BH * S * hd + 2 * (BH // groups) * S * hd) * 2 + BH * S * 4
+    return nbytes, 4 * BH * hd * S * (S + 1) // 2
+
+
+def train_kernel_cases(g, dev):
+    """The training step's kernels at its shapes: T = 8192 tokens (4 jobs
+    x 4 x 512), ranks {8, 16, 32, 64}, block_t 128; the q/o projections
+    (2048 -> 2048) and the k/v ones (2048 -> 256); flash over 16 x 32
+    heads of 512 tokens, 8 query heads per kv head."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.ops import _tile_jobs_static
+    rows = (TRAIN_BATCH,) * len(TRAIN_RANKS)
+    T = sum(rows) * TRAIN_SEQ
+    tile_jobs = _tile_jobs_static(rows, TRAIN_SEQ, TRAIN_BLOCK_T)
+    toks = [tile_jobs.count(k) * TRAIN_BLOCK_T for k in range(len(rows))]
+    rt = sum(t * r for t, r in zip(toks, TRAIN_RANKS))   # token x true rank
+    r_sum = sum(TRAIN_RANKS)
+    bt = TRAIN_BLOCK_T
+    d_in = 2048
+    cases = []
+    for d_out in (2048, 256):
+        lay, x, A, B = lora_operands(TRAIN_RANKS, d_in, d_out, T, g, dev)
+        meta = rg.RaggedMeta.build(tile_jobs, lay)
+        R = lay.total
+        dy = (torch.randn((T, d_out), generator=g, device=dev)
+              ).to(torch.bfloat16)
+        xa = rg.ragged_xa_plain(x, A, meta, block_t=bt)
+        dxa = rg.ragged_dxa_plain(dy, B, meta, block_t=bt)
+        shape = dict(T=T, d_in=d_in, d_out=d_out)
+        ab = (d_in + d_out) * r_sum * 2           # A and B segments, once
+        for name, args, nbytes, flops in (
+                ("ragged_lora_fwd", (x, A, B),
+                 T * d_in * 2 + ab + T * d_out * 4,
+                 2 * rt * (d_in + d_out)),
+                ("ragged_lora_dgrad", (dy, A, B),
+                 T * d_out * 2 + ab + T * d_in * 4,
+                 2 * rt * (d_in + d_out)),
+                ("ragged_xa", (x, A),
+                 T * d_in * 2 + d_in * r_sum * 2 + T * R * 2,
+                 2 * rt * d_in),
+                ("ragged_dxa", (dy, B),
+                 T * d_out * 2 + d_out * r_sum * 2 + T * R * 2,
+                 2 * rt * d_out)):
+            fn, plain = getattr(rg, name), getattr(rg, name + "_plain")
+            cases.append((name, "train", shape,
+                          functools.partial(fn, *args, meta, block_t=bt),
+                          functools.partial(plain, *args, meta, block_t=bt),
+                          None, nbytes, flops))
+        # wgrad: dB = wgrad(xa, dy_s) (d = d_out), dA^T = wgrad(dxa, x)
+        for operand, u, v in (("dB", xa, dy), ("dA", dxa, x)):
+            d = v.shape[1]
+            cases.append(("ragged_wgrad", "train",
+                          dict(shape, operand=operand, d=d),
+                          functools.partial(rg.ragged_wgrad, u, v, meta,
+                                            block_t=bt),
+                          functools.partial(rg.ragged_wgrad_plain, u, v,
+                                            meta, block_t=bt),
+                          None, rt * 2 + T * d * 2 + R * d * 4,
+                          2 * rt * d))
+    H, KV, hd = 32, 4, 64
+    BH, S = TRAIN_BATCH * len(TRAIN_RANKS) * H, TRAIN_SEQ
+    q = torch.randn((BH, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((BH // (H // KV), S, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device=dev).to(torch.bfloat16)
+    kr, vr = (t.repeat_interleave(H // KV, dim=0)[None] for t in (k, v))
+    cases.append((
+        "flash_attention_fwd", "train",
+        dict(BH=BH, S=S, hd=hd, kv_groups=H // KV),
+        lambda: flash_attention_fwd(q, k, v, causal=True, kv_groups=H // KV),
+        lambda: flash_attention_ref(q, k, v, causal=True, kv_groups=H // KV),
+        lambda: F.scaled_dot_product_attention(q[None], kr, vr,
+                                               is_causal=True),
+        *flash_cost(BH, S, hd, H // KV)))
+    return cases
 
 
 def kernels_phase(rows, S, dev):
@@ -237,11 +360,10 @@ def kernels_phase(rows, S, dev):
                                         kv_groups=H // KV)
     lib = lambda: F.scaled_dot_product_attention(q[None], kr, vr,
                                                  is_causal=True)
-    nbytes = (2 * BH * S * hd + 2 * (BH // (H // KV)) * S * hd) * 2
-    flops = 4 * BH * hd * S * (S + 1) // 2
     cases.append(("flash_attention_fwd", "prefill",
                   dict(BH=BH, S=S, hd=hd, kv_groups=H // KV), run, plain,
-                  lib, nbytes, flops))
+                  lib, *flash_cost(BH, S, hd, H // KV)))
+    cases += train_kernel_cases(g, dev)
 
     results = []
     for name, step, shape, run, plain, lib, nbytes, flops in cases:
@@ -282,9 +404,9 @@ def publish(pool, cfg, names, ranks, seed, dev):
         pool.publish(n, flat, rank=r)
 
 
-def profile_serve(engine, reqs) -> dict:
-    """One fused serve under torch.profiler: device-busy time (the sum of
-    the device kernels' own times) against host wall time, and the
+def profile_run(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: device-busy time (the sum
+    of the device kernels' own times) against host wall time, and the
     kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -292,7 +414,7 @@ def profile_serve(engine, reqs) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        engine.serve(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = _device_us(prof)
@@ -300,22 +422,43 @@ def profile_serve(engine, reqs) -> dict:
         return {"wall_s": wall, "device_busy_s": None}
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    families = {}
+    for k, us, n in rows:
+        fam = _family(k)
+        ms, calls = families.get(fam, (0.0, 0))
+        families[fam] = (ms + us / 1e3, calls + n)
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "by_family": {f: {"device_ms": ms, "calls": n}
+                          for f, (ms, n) in sorted(
+                              families.items(), key=lambda kv: -kv[1][0])},
             "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
                     for k, us, n in rows[:12]]}
 
 
-def serve_phase(cfg, sets, dev):
+def _family(kernel_name: str) -> str:
+    """The port's kernels by name; f32 GEMMs (the plain attention
+    backward's einsums run in f32), the other library GEMMs, and
+    everything else."""
+    for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
+                 "ragged_wgrad", "fused_lora_fwd", "flash_fwd"):
+        if port in kernel_name:
+            return port
+    if "f32f32" in kernel_name:
+        return "gemm_f32"
+    if any(t in kernel_name for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm_library"
+    return "elementwise_copy_reduce"
+
+
+def serve_phase(cfg, params, sets, dev):
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_lora import fused_lora_cuda
     from repro_torch.kernels.ragged import ragged_lora_fwd
-    from repro_torch.models import model as M
     from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
 
     t0 = time.perf_counter()
-    params = M.init_model(cfg, seed=0, device=dev)
     pool = AdapterPool(cfg, capacity=8, multiple=MULTIPLE, device=dev)
     for si, (_, names, ranks, _) in enumerate(sets):
         publish(pool, cfg, names, ranks, seed=100 * (si + 1), dev=dev)
@@ -377,12 +520,167 @@ def serve_phase(cfg, sets, dev):
         if diffs[0] > LOGIT_ATOL:
             raise AssertionError(f"{set_name}: fused vs solo prefill logits "
                                  f"differ by {diffs[0]} (atol {LOGIT_ATOL})")
-    prof = {set_name: profile_serve(engine, reqs)
+    prof = {set_name: profile_run(functools.partial(engine.serve, reqs))
             for set_name, _, _, reqs in sets}
     emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "setup_seconds": setup_s,
           "peak_device_memory_bytes": peak, "launches": launches,
           "profile": prof, "card": card_line()})
+    return launches
+
+
+# --------------------------------------------------------------- train
+def train_specs():
+    from repro_torch.core.jobs import LoRAJobSpec
+    return [LoRAJobSpec(f"train{i}-r{r}", rank=r, batch_size=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ)
+            for i, r in enumerate(TRAIN_RANKS)]
+
+
+def adapter_grads(cfg, params, specs, impl, adapters, batch):
+    """One step's adapter gradients through ``impl`` (the train step's
+    loss: per-job denominators over the full batch, remat on)."""
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel, _per_job_token_counts
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    ssm = SharedSuperModel(cfg, specs, impl=impl, block_t=TRAIN_BLOCK_T)
+    ad = tree_map(lambda _, t: t.detach().clone().requires_grad_(), adapters)
+    denom = _per_job_token_counts(batch, len(specs), causal=cfg.causal)
+    total, _ = M.loss_fn(cfg, params, ad, ssm.lora_ctx(batch["adapter_ids"]),
+                         batch, remat=True, per_job_denom=denom)
+    return torch.autograd.grad(total, list(tree_leaves(ad)))
+
+
+def train_phase(cfg, params, dev):
+    import numpy as np
+    import torch
+    from repro_torch.core.lora import rank_axis_is_last
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.train_loop import train_group
+
+    specs = train_specs()
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    assert not layout.is_uniform, layout.r_pads
+    # the port's init (A random, lanes >= rank zero), then a random B so
+    # that every kernel of the step does real work from the first step
+    adapters = M.init_adapters(cfg, TRAIN_RANKS, seed=7, layout=layout,
+                               device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    act = torch.as_tensor(layout.active_cols, device=dev)[:, None]
+    adapters = tree_map(
+        lambda p, t: t if rank_axis_is_last(p[-1]) else
+        torch.randn(t.shape, generator=g, device=dev) * B_STD * act,
+        adapters)
+
+    wrappers = (rg.ragged_lora_fwd, rg.ragged_lora_dgrad, rg.ragged_xa,
+                rg.ragged_dxa, rg.ragged_wgrad, flash_attention_fwd)
+    torch.cuda.synchronize()
+    for w in wrappers:                   # the main path starts here
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_group(cfg, specs, steps=TRAIN_STEPS, lr=TRAIN_LR, seed=0,
+                      impl="cuda", block_t=TRAIN_BLOCK_T,
+                      chunk_size=TRAIN_CHUNK, remat=True, params=params,
+                      adapters=adapters, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    if per_step != TRAIN_LAUNCHES:
+        raise AssertionError(f"launches per training step {per_step}, "
+                             f"expected {TRAIN_LAUNCHES}")
+    rep = out["report"]
+    losses = np.stack(rep.per_job_losses)
+    if losses.shape != (TRAIN_STEPS, len(specs)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"per-job losses not finite: {losses}")
+
+    # tokens trained: the same data streams replayed on the host
+    replay = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=0)
+    batches = [replay.next_batch() for _ in range(TRAIN_STEPS)]
+    real = int(sum(b["loss_mask"].sum() for b in batches))
+    padded = int(sum(b["loss_mask"].size for b in batches))
+    steady = float(np.mean(rep.step_times[TRAIN_CHUNK:]))
+
+    # one step's gradients, cuda (the kernels) vs loop (autograd through
+    # plain per-adapter GEMMs), on a fresh batch, outside the counted run
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=1).next_batch().items()}
+    g_cuda = adapter_grads(cfg, params, specs, "cuda", out["adapters"],
+                           batch)
+    g_loop = adapter_grads(cfg, params, specs, "loop", out["adapters"],
+                           batch)
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(g_cuda, g_loop)]
+    grad_check = {"leaves": len(rel), "max_rel_fro_err": max(rel),
+                  "mean_rel_fro_err": float(np.mean(rel)),
+                  "rtol": GRAD_RTOL,
+                  "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(g_cuda, g_loop)),
+                  "max_abs_grad": max(b.abs().max().item() for b in g_loop)}
+
+    # one job's loss in the fused group against the job alone
+    k = 0
+    with torch.no_grad():
+        fused = SharedSuperModel(cfg, specs, impl="cuda",
+                                 block_t=TRAIN_BLOCK_T)
+        _, aux = M.loss_fn(cfg, params, out["adapters"],
+                           fused.lora_ctx(batch["adapter_ids"]), batch,
+                           remat=False)
+        solo = SharedSuperModel(cfg, [specs[k]], impl="cuda",
+                                block_t=TRAIN_BLOCK_T)
+        off, rp = layout.slice_of(k)
+        solo_ad = tree_map(lambda p, t: t[..., off:off + rp]
+                           if rank_axis_is_last(p[-1])
+                           else t[..., off:off + rp, :], out["adapters"])
+        rows = batch["adapter_ids"] == k
+        solo_b = {key: v[rows] for key, v in batch.items()}
+        solo_b["adapter_ids"] = torch.zeros_like(solo_b["adapter_ids"])
+        _, solo_aux = M.loss_fn(cfg, params, solo_ad,
+                                solo.lora_ctx(solo_b["adapter_ids"]),
+                                solo_b, remat=False)
+    fused_vs_solo = {"job": specs[k].job_id,
+                     "fused_loss": aux["per_job"][k].item(),
+                     "solo_loss": solo_aux["per_job"][0].item(),
+                     "atol": LOSS_ATOL}
+    fused_vs_solo["abs_diff"] = abs(fused_vs_solo["fused_loss"]
+                                    - fused_vs_solo["solo_loss"])
+
+    prof = profile_run(functools.partial(out["runtime"].run, 1))
+    emit({"phase": "train", "model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model,
+          "jobs": [{"id": sp.job_id, "rank": sp.rank, "r_pad": rp_}
+                   for sp, rp_ in zip(specs, layout.r_pads)],
+          "batch_size": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "block_t": TRAIN_BLOCK_T, "steps": TRAIN_STEPS,
+          "chunk_size": TRAIN_CHUNK, "remat": True,
+          "per_step_per_job_loss": losses.tolist(),
+          "step_times_s": rep.step_times, "wall_s": wall,
+          "step_s_steady": steady,
+          "tokens_real": real, "tokens_padded": padded,
+          "tokens_per_s_real": real / wall,
+          "tokens_per_s_padded": padded / wall,
+          "tokens_per_s_real_steady": real / TRAIN_STEPS / steady,
+          "tokens_per_s_padded_steady": padded / TRAIN_STEPS / steady,
+          "peak_device_memory_bytes": peak,
+          "launches": launches, "launches_per_step": per_step,
+          "grad_check_cuda_vs_loop": grad_check,
+          "fused_vs_solo_loss": fused_vs_solo,
+          "profile_one_step": prof, "card": card_line()})
+    if grad_check["max_rel_fro_err"] > GRAD_RTOL:
+        raise AssertionError(f"cuda vs loop adapter gradients: {grad_check}")
+    if fused_vs_solo["abs_diff"] > LOSS_ATOL:
+        raise AssertionError(f"fused vs solo loss: {fused_vs_solo}")
     return launches
 
 
@@ -425,28 +723,51 @@ def main() -> int:
     assert rows == rows_u and S == S_u, "both sets share one geometry"
 
     kern = kernels_phase(rows, S, dev)
-    launches = serve_phase(cfg, sets, dev)
+    from repro_torch.models import model as M
+    params = M.init_model(cfg, seed=0, device=dev)
+    counts = {"serve": serve_phase(cfg, params, sets, dev),
+              "train": train_phase(cfg, params, dev)}
 
-    src = {"ragged_lora_fwd": ("src/repro_torch/kernels/csrc/ragged_lora.cu",
-                               "src/repro/kernels/ragged.py:152"),
-           "fused_lora_cuda": ("src/repro_torch/kernels/csrc/fused_lora.cu",
-                               "src/repro/kernels/fused_lora.py:62"),
+    csrc = "src/repro_torch/kernels/csrc/"
+    # name: (source, TPU kernel replaced, headline (step, shape filter))
+    lora_2048 = lambda step: (lambda r: r["step"] == step
+                              and r["shape"]["d_out"] == 2048)
+    src = {"ragged_lora_fwd": (csrc + "ragged_lora.cu",
+                               "src/repro/kernels/ragged.py:152",
+                               lora_2048("decode")),
+           "fused_lora_cuda": (csrc + "fused_lora.cu",
+                               "src/repro/kernels/fused_lora.py:62",
+                               lora_2048("decode")),
            "flash_attention_fwd": (
-               "src/repro_torch/kernels/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention.py:87")}
+               csrc + "flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:87",
+               lambda r: r["step"] == "train"),
+           "ragged_lora_dgrad": (csrc + "ragged_bwd.cu",
+                                 "src/repro/kernels/ragged.py:213",
+                                 lora_2048("train")),
+           "ragged_xa": (csrc + "ragged_bwd.cu",
+                         "src/repro/kernels/ragged.py:262",
+                         lora_2048("train")),
+           "ragged_dxa": (csrc + "ragged_bwd.cu",
+                          "src/repro/kernels/ragged.py:305",
+                          lora_2048("train")),
+           "ragged_wgrad": (csrc + "ragged_bwd.cu",
+                            "src/repro/kernels/ragged.py:350",
+                            lambda r: r["step"] == "train"
+                            and r["shape"]["operand"] == "dA"
+                            and r["shape"]["d_out"] == 2048)}
     summary = []
-    for name, (source, replaces) in src.items():
+    for name, (source, replaces, headline) in src.items():
         mine = [r for r in kern if r["name"] == name]
-        # headline shape: the decode step's d_out 2048 call for the LoRA
-        # kernels (88 of them per step), the prefill call for flash
-        head = next(r for r in mine if r["step"] == "decode"
-                    and r["shape"]["d_out"] == 2048) if name != \
-            "flash_attention_fwd" else mine[0]
+        head = next(r for r in mine if headline(r))
+        by_path = {path: c.get(name, 0) for path, c in counts.items()}
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "call_ms": head["call_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "at": {"step": head["step"], **head["shape"]}})

@@ -1,0 +1,172 @@
+"""Shared Super-Model (SSM) — the paper's core abstraction (§3.2), port
+of the single-device part of ``repro.core.ssm``.
+
+``SharedSuperModel`` consolidates K LoRA jobs sharing one frozen backbone
+into a single executable model:
+
+  * backbone operators run once over the *union* of all jobs' batches
+    (job-major concatenation, tile-aligned — data/pipeline.FusedBatcher);
+  * adapters stay job-private branches, packed ragged ``(L, d, R)`` /
+    ``(L, R, d)`` with per-adapter padded rank segments
+    (core/lora.RankLayout), run by the rank-bucketed ragged kernels;
+  * per-job loss normalization keeps forward, backward and optimizer
+    semantics identical to isolated training (the lossless claim).
+
+Not ported yet, and refused where asked for: the sharded and pipeline
+steps (ROADMAP queue A, item 13) and nano-batch grad accumulation
+(item 8).  The masked kernels' backward (ROADMAP B7/B8) is not ported
+either, so ``impl="cuda"`` trains only groups whose rank layout is not
+uniform (the ragged route).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.jobs import LoRAJobSpec, tile_rows
+from repro_torch.core.lora import MultiLoRA, RankLayout
+from repro_torch.kernels.ops import MASKED_NO_GRAD
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+
+NO_MESH = ("sharded and pipeline group execution are not ported yet "
+           "(ROADMAP queue A, item 13)")
+NO_NANO = ("nano-batch grad accumulation (nano_batches > 1) is not ported "
+           "yet (ROADMAP queue A, item 8); its contiguous split also takes "
+           "the masked LoRA route, whose backward kernels grouped_matmul "
+           "and grouped_wgrad are ROADMAP B7/B8")
+
+
+@dataclass
+class SharedSuperModel:
+    """One fused group: frozen backbone + K packed adapters."""
+    cfg: ModelConfig
+    jobs: List[LoRAJobSpec]
+    impl: str = "cuda"           # fused-LoRA kernel impl (cuda|ref|loop)
+    block_t: int = 128           # token tile of the LoRA kernels
+
+    ranks: np.ndarray = field(init=False)
+    scalings: np.ndarray = field(init=False)
+    layout: RankLayout = field(init=False)
+
+    def __post_init__(self):
+        assert self.jobs, "SSM needs at least one job"
+        self.ranks = np.array([j.rank for j in self.jobs], np.int32)
+        self.scalings = np.array([j.scaling for j in self.jobs], np.float32)
+        # each job pads its OWN rank to a small multiple (the bf16 MMA
+        # k-step caps it at 16), never to the group max: the packed
+        # layout gives every adapter its own segment
+        self.layout = RankLayout(tuple(int(r) for r in self.ranks),
+                                 multiple=min(self.block_t, 16))
+
+    @property
+    def num_jobs(self) -> int:
+        return len(self.jobs)
+
+    def init(self, *, seed: int = 0, device="cuda") -> Tuple[dict, dict]:
+        """(frozen backbone params, trainable packed adapter tree), drawn
+        from seeded generators on *device*."""
+        params = M.init_model(self.cfg, seed=seed, device=device)
+        adapters = M.init_adapters(self.cfg, self.ranks.tolist(),
+                                   seed=seed + 1, layout=self.layout,
+                                   device=device)
+        return params, adapters
+
+    def rows_per_job(self) -> List[int]:
+        """Tile-aligned row count per job (mirrors FusedBatcher)."""
+        return [tile_rows(j.batch_size, j.seq_len, self.block_t)
+                for j in self.jobs]
+
+    def lora_ctx(self, adapter_ids: torch.Tensor) -> MultiLoRA:
+        """Apply context of one fused batch (single device)."""
+        dev = adapter_ids.device
+        return MultiLoRA(adapter_ids=adapter_ids,
+                         ranks=torch.as_tensor(self.ranks, device=dev),
+                         scalings=torch.as_tensor(self.scalings, device=dev),
+                         impl=self.impl, block_t=self.block_t,
+                         layout=self.layout,
+                         rows_all=tuple(self.rows_per_job()))
+
+    # --------------------------------------------------------- train step
+    def make_train_step(self, *, lr_fn: Callable, nano_batches: int = 1,
+                        remat: bool = True, weight_decay: float = 0.0,
+                        steps: Optional[int] = None, mesh=None,
+                        pipeline_stages: int = 1) -> Callable:
+        """Build the fused train step: per-job-normalized loss, adapter
+        grads by autograd through the kernels' Functions, one AdamW
+        update with per-job step vectors over packed columns.
+
+        ``steps`` != None returns the chunked variant: a loop over a
+        (steps, ...) stack of staged batches carrying (adapters,
+        opt_state), with metrics stacked per step (the reference's
+        ``lax.scan`` over the chunk).  Raises, on every device, for what
+        the port does not run yet: a mesh or pipeline stages, nano
+        batches, and ``impl="cuda"`` over a uniform rank layout (the
+        masked route, whose backward kernels are not ported)."""
+        if mesh is not None or pipeline_stages > 1:
+            raise NotImplementedError(NO_MESH)
+        if nano_batches > 1:
+            raise NotImplementedError(NO_NANO)
+        if self.impl == "cuda" and self.layout.is_uniform:
+            raise NotImplementedError(MASKED_NO_GRAD)
+        cfg, K = self.cfg, self.num_jobs
+        col_jobs = self.layout.col_jobs
+
+        def train_step(params, adapters, opt_state, batch):
+            denom = _per_job_token_counts(batch, K, causal=cfg.causal)
+            ad = adamw.tree_map(
+                lambda _, t: t.detach().requires_grad_(True), adapters)
+            leaves = list(adamw.tree_leaves(ad))
+            with torch.enable_grad():
+                total, aux = M.loss_fn(cfg, params, ad,
+                                       self.lora_ctx(batch["adapter_ids"]),
+                                       batch, remat=remat,
+                                       per_job_denom=denom)
+                g_leaves = iter(torch.autograd.grad(total, leaves))
+            grads = adamw.tree_map(lambda _, t: next(g_leaves), ad)
+            per_job = aux["per_job"].detach()
+            lr = lr_fn(opt_state.step)
+            new_adapters, new_opt = adamw.update(
+                grads, opt_state, adapters, lr=lr,
+                weight_decay=weight_decay, col_jobs=col_jobs)
+            metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
+                       "lr": torch.as_tensor(lr)}
+            return new_adapters, new_opt, metrics
+
+        if steps is None:
+            return train_step
+
+        def chunked_step(params, adapters, opt_state, batches):
+            """batches: the train_step batch dict with a leading (steps,)
+            chunk axis.  The loop body is the exact single train_step."""
+            ms = []
+            for i in range(next(iter(batches.values())).shape[0]):
+                adapters, opt_state, m = train_step(
+                    params, adapters, opt_state,
+                    {k: v[i] for k, v in batches.items()})
+                ms.append(m)
+            metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            return adapters, opt_state, metrics
+
+        return chunked_step
+
+
+def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,
+                          causal: bool) -> torch.Tensor:
+    """Full-batch per-job loss-token counts (denominators), clipped at 1."""
+    ids = batch["adapter_ids"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        key = "labels" if "labels" in batch else "tokens"
+        S = batch[key].shape[-1] - (1 if causal else 0)
+        counts = torch.full(ids.shape, float(S), device=ids.device)
+    else:
+        m = mask[:, 1:] if causal else mask
+        counts = m.float().sum(-1)
+    onehot = F.one_hot(ids.long(), K).float()
+    return (onehot.T @ counts).clamp_min(1)

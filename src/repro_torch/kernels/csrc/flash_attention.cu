@@ -7,7 +7,9 @@
 //   o = softmax(q k^T * hd^-0.5 [causal mask]) v
 //
 // q (BH, Sq, hd) bf16, k/v (BH / groups, Skv, hd) bf16 -> o (BH, Sq, hd)
-// bf16.  Query head bh reads kv head bh / groups, so GQA needs no
+// bf16 and lse (BH, Sq) f32, the log-sum-exp of each row's scaled scores
+// (m + log l, what _chunked_attention_fwd returns beside the output and
+// what the training backward recomputes p from).  Query head bh reads kv head bh / groups, so GQA needs no
 // repeated copy of k and v.  Arithmetic follows the TPU kernel: scores in
 // f32, masked keys at -1e30, running max m, running sum l of the f32
 // probabilities, p rounded to bf16 before the p·v product, rows with
@@ -52,8 +54,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int groups,
-                 int causal, float scale) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int groups, int causal, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   FlashSmem<HD>& s = *reinterpret_cast<FlashSmem<HD>*>(smem_raw);
 
@@ -165,12 +167,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       ob[static_cast<long>(qpos) * HD + col] =
           __float2bfloat16(s.o[row][col] / den);
     }
+    if (half == 0) lse[static_cast<long>(bh) * Sq + qpos] = m + logf(den);
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Skv, int groups, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o,
+           void* lse, int BH, int Sq, int Skv, int groups, int causal, float scale,
            cudaStream_t stream) {
   const int bytes = static_cast<int>(sizeof(FlashSmem<HD>));
   // above 48 KB of dynamic shared memory only after this opt-in (once)
@@ -183,22 +186,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, groups, causal, scale);
+      static_cast<float*>(lse), Sq, Skv, groups, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
-                                          const void* v, void* o, int BH,
+                                          const void* v, void* o,
+                                          void* lse, int BH,
                                           int Sq, int Skv, int hd, int groups,
                                           int causal, float scale,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, BH, Sq, Skv, groups, causal, scale, st);
-    case 64: return launch<64>(q, k, v, o, BH, Sq, Skv, groups, causal, scale, st);
-    case 128: return launch<128>(q, k, v, o, BH, Sq, Skv, groups, causal, scale, st);
+    case 32: return launch<32>(q, k, v, o, lse, BH, Sq, Skv, groups, causal, scale, st);
+    case 64: return launch<64>(q, k, v, o, lse, BH, Sq, Skv, groups, causal, scale, st);
+    case 128: return launch<128>(q, k, v, o, lse, BH, Sq, Skv, groups, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,21 +1,26 @@
-// The CTA routine shared by the two LoRA forward kernels (ragged_lora.cu,
-// fused_lora.cu): 16 token rows that belong to ONE adapter, times a range
-// of output columns.
+// The CTA routines shared by the ragged and masked LoRA kernels
+// (ragged_lora.cu, fused_lora.cu, ragged_bwd.cu): 16 token rows that
+// belong to ONE adapter, times a range of output columns.
 //
 //   xa  = mask_{lane < rank}(x_rows · A_seg)    f32, then rounded to bf16
 //   out = xa · B_seg                           f32 accumulation
 //
-// A_seg is the adapter's column segment of A (``width`` lanes, row stride
-// ``lda``), B_seg the matching rows of B.  The rank walk that the TPU
-// kernels spread over a revisited grid axis is a loop inside the CTA, so
-// every output element is written exactly once, by one CTA, with a fixed
-// summation order: no atomics, deterministic, and a row's value does not
-// depend on which other rows share the launch.  Products run on the
-// tensor cores through WMMA bf16 16x16x16 tiles with f32 accumulators.
-// All operands are staged through shared memory with 16-byte loads and
-// bounds checks, so d_in, d_out and the segment width need be multiples
-// of 8 elements only, not of any tile.
+// A_seg is the adapter's (d_in x width) operand and B_seg its (width x
+// d_out) one.  Each is read either as stored (row-major: element (i, j)
+// at p[i * ld + j]) or TRANSPOSED (element (i, j) at p[j * ld + i]): the
+// backward's dgrad is the same routine with dy_s for x, B_seg^T for A_seg
+// and A_seg^T for B_seg, both read in place from the packed pair.  The
+// rank walk that the TPU kernels spread over a revisited grid axis is a
+// loop inside the CTA, so every output element is written exactly once,
+// by one CTA, with a fixed summation order: no atomics, deterministic,
+// and a row's value does not depend on which other rows share the
+// launch.  Products run on the tensor cores through WMMA bf16 16x16x16
+// tiles with f32 accumulators.  All operands are staged through shared
+// memory with 16-byte loads and bounds checks, so d_in, d_out and the
+// segment width need be multiples of 8 elements only, not of any tile.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,63 +64,106 @@ __device__ __forceinline__ void stage_x(Smem& s,
   }
 }
 
+// A_seg chunk: d_in rows [k0, k0 + kChunk) x 16 lanes of rank chunk rc.
+// Stored: s.a[k][lane].  Transposed (A_seg^T is what memory holds, lanes
+// as rows): s.a viewed as [kLanes][kChunk], lane-major, so that each
+// 16-byte load runs along d_in; the WMMA fragment then reads it
+// column-major.
+template <bool kTrans>
 __device__ __forceinline__ void stage_a(Smem& s,
                                         const __nv_bfloat16* __restrict__ a,
                                         long lda, int k0, int d_in, int rc,
                                         int width) {
-  constexpr int V = kLanes / 8;
-  for (int i = threadIdx.x; i < kChunk * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    const int lane = rc * kLanes + c;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (k0 + r < d_in && lane < width)
-      v = *reinterpret_cast<const uint4*>(a + (k0 + r) * lda + lane);
-    *reinterpret_cast<uint4*>(&s.a[r][c]) = v;
+  if constexpr (kTrans) {
+    constexpr int V = kChunk / 8;
+    __nv_bfloat16 (*at)[kChunk] =
+        reinterpret_cast<__nv_bfloat16 (*)[kChunk]>(&s.a[0][0]);
+    for (int i = threadIdx.x; i < kLanes * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 8;
+      const int lane = rc * kLanes + r;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (lane < width && k0 + c < d_in)
+        v = *reinterpret_cast<const uint4*>(a + lane * lda + k0 + c);
+      *reinterpret_cast<uint4*>(&at[r][c]) = v;
+    }
+  } else {
+    constexpr int V = kLanes / 8;
+    for (int i = threadIdx.x; i < kChunk * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 8;
+      const int lane = rc * kLanes + c;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k0 + r < d_in && lane < width)
+        v = *reinterpret_cast<const uint4*>(a + (k0 + r) * lda + lane);
+      *reinterpret_cast<uint4*>(&s.a[r][c]) = v;
+    }
   }
 }
 
+// B_seg chunk: 16 lanes of rank chunk rc x output columns [c0, c0 +
+// kCols).  Stored: s.b[lane][col].  Transposed: s.b viewed as
+// [kCols][kLanes], column-major for the fragment.
+template <bool kTrans>
 __device__ __forceinline__ void stage_b(Smem& s,
                                         const __nv_bfloat16* __restrict__ b,
                                         long ldb, int rc, int width, int c0,
                                         int col_end) {
-  constexpr int V = kCols / 8;
-  for (int i = threadIdx.x; i < kLanes * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    const int lane = rc * kLanes + r, col = c0 + c;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (lane < width && col < col_end)
-      v = *reinterpret_cast<const uint4*>(b + lane * ldb + col);
-    *reinterpret_cast<uint4*>(&s.b[r][c]) = v;
+  if constexpr (kTrans) {
+    constexpr int V = kLanes / 8;
+    __nv_bfloat16 (*bt)[kLanes] =
+        reinterpret_cast<__nv_bfloat16 (*)[kLanes]>(&s.b[0][0]);
+    for (int i = threadIdx.x; i < kCols * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 8;
+      const int lane = rc * kLanes + c, col = c0 + r;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (lane < width && col < col_end)
+        v = *reinterpret_cast<const uint4*>(b + col * ldb + lane);
+      *reinterpret_cast<uint4*>(&bt[r][c]) = v;
+    }
+  } else {
+    constexpr int V = kCols / 8;
+    for (int i = threadIdx.x; i < kLanes * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 8;
+      const int lane = rc * kLanes + r, col = c0 + c;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (lane < width && col < col_end)
+        v = *reinterpret_cast<const uint4*>(b + lane * ldb + col);
+      *reinterpret_cast<uint4*>(&s.b[r][c]) = v;
+    }
   }
 }
 
-template <typename OutT>
-__device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
-                          const __nv_bfloat16* __restrict__ a, long lda,
-                          const __nv_bfloat16* __restrict__ b, long ldb,
-                          int width, int rank, int d_in, int d_out,
-                          int n_rows, int col_begin, int col_end,
-                          OutT* __restrict__ out, long ldo, Smem& s) {
+template <bool kTrans>
+using FragB = wmma::fragment<
+    wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+    typename std::conditional<kTrans, wmma::col_major,
+                              wmma::row_major>::type>;
+
+// Phase 1: s.xa[:, 0:width) = bf16(mask_{lane < rank}(x_rows · A_seg)),
+// every 16-lane chunk of the segment.  The four warps split the d_in
+// steps; their partial sums meet in ``red``.
+template <bool kTransA>
+__device__ void xa_rows(const __nv_bfloat16* __restrict__ x, long ldx,
+                        const __nv_bfloat16* __restrict__ a, long lda,
+                        int width, int rank, int d_in, int n_rows, Smem& s) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int n_rc = (width + kLanes - 1) / kLanes;
-
-  // ---- phase 1: xa for every 16-lane chunk of the segment.  The four
-  // warps split the d_in steps; their partial sums meet in ``red``.
   for (int rc = 0; rc < n_rc; ++rc) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.0f);
     for (int k0 = 0; k0 < d_in; k0 += kChunk) {
       stage_x(s, x, ldx, n_rows, k0, d_in);
-      stage_a(s, a, lda, k0, d_in, rc, width);
+      stage_a<kTransA>(s, a, lda, k0, d_in, rc, width);
       __syncthreads();
       for (int kk = warp; kk < kChunk / 16; kk += kWarps) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
+        FragB<kTransA> fb;
         wmma::load_matrix_sync(fa, &s.x[0][kk * 16], kChunk);
-        wmma::load_matrix_sync(fb, &s.a[kk * 16][0], kLanes);
+        if constexpr (kTransA)
+          wmma::load_matrix_sync(fb, &s.a[0][0] + kk * 16, kChunk);
+        else
+          wmma::load_matrix_sync(fb, &s.a[kk * 16][0], kLanes);
         wmma::mma_sync(acc, fa, fb, acc);
       }
       __syncthreads();
@@ -124,7 +172,8 @@ __device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
                             wmma::mem_row_major);
     __syncthreads();
     // rank mask on the f32 value, THEN round to bf16 (the reference's
-    // order: ragged.py _fwd_kernel, fused_lora.py _fused_lora_kernel)
+    // order: ragged.py _fwd_kernel / _dgrad_kernel / _xa_kernel /
+    // _dxa_kernel, fused_lora.py _fused_lora_kernel)
     for (int i = tid; i < kRows * kLanes; i += kThreads) {
       const int r = i / kLanes, c = i % kLanes;
       const int lane = rc * kLanes + c;
@@ -134,22 +183,33 @@ __device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
     }
     __syncthreads();
   }
+}
 
-  // ---- phase 2: out[:, cols] = xa · B_seg[:, cols], block by block
+// Phase 2: out[:, cols] = s.xa · B_seg[:, cols], block by block.
+template <typename OutT, bool kTransB>
+__device__ void xa_times_b(const __nv_bfloat16* __restrict__ b, long ldb,
+                           int width, int n_rows, int col_begin, int col_end,
+                           OutT* __restrict__ out, long ldo, Smem& s) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int n_rc = (width + kLanes - 1) / kLanes;
   for (int c0 = col_begin; c0 < col_end; c0 += kCols) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[2];
     wmma::fill_fragment(o[0], 0.0f);
     wmma::fill_fragment(o[1], 0.0f);
     for (int rc = 0; rc < n_rc; ++rc) {
-      stage_b(s, b, ldb, rc, width, c0, col_end);
+      stage_b<kTransB>(s, b, ldb, rc, width, c0, col_end);
       __syncthreads();
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                      wmma::row_major> fa;
       wmma::load_matrix_sync(fa, &s.xa[0][rc * kLanes], kMaxWidth);
       for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, &s.b[0][warp * 32 + j * 16], kCols);
+        FragB<kTransB> fb;
+        if constexpr (kTransB)
+          wmma::load_matrix_sync(
+              fb, &s.b[0][0] + (warp * 32 + j * 16) * kLanes, kLanes);
+        else
+          wmma::load_matrix_sync(fb, &s.b[0][warp * 32 + j * 16], kCols);
         wmma::mma_sync(o[j], fa, fb, o[j]);
       }
       __syncthreads();
@@ -165,6 +225,20 @@ __device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
     }
     __syncthreads();
   }
+}
+
+// The whole LoRA product for 16 rows: phase 1, then phase 2.  kTrans
+// reads both A_seg and B_seg transposed (the dgrad).
+template <typename OutT, bool kTrans = false>
+__device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
+                          const __nv_bfloat16* __restrict__ a, long lda,
+                          const __nv_bfloat16* __restrict__ b, long ldb,
+                          int width, int rank, int d_in, int d_out,
+                          int n_rows, int col_begin, int col_end,
+                          OutT* __restrict__ out, long ldo, Smem& s) {
+  xa_rows<kTrans>(x, ldx, a, lda, width, rank, d_in, n_rows, s);
+  xa_times_b<OutT, kTrans>(b, ldb, width, n_rows, col_begin, col_end, out,
+                           ldo, s);
 }
 
 // Column range of CTA ``blockIdx.y`` when ``cols_per_cta`` columns each.

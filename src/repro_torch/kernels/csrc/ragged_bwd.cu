@@ -1,0 +1,228 @@
+// Ragged multi-LoRA backward for Hopper (sm_90a): the four kernels of the
+// ragged custom VJP (src/repro/kernels/ops.py, _make_ragged_pallas_fn).
+//
+// Replaces, in src/repro/kernels/ragged.py:
+//   ragged_lora_dgrad / _dgrad_kernel  dx   = Σ_rt mask(dy_s·B[rt]^T)·A[:,rt]^T
+//   ragged_xa / _xa_kernel             xa   = mask(x·A[:,seg(t)])   packed (T,R)
+//   ragged_dxa / _dxa_kernel           dxa  = mask(dy_s·B[seg(t)]^T) packed (T,R)
+//   ragged_wgrad / _wgrad_kernel       out[seg_k] = Σ_{t in k} u[t,seg_k]^T·v_t
+//
+// Shapes and types: dy_s (T, d_out) bf16, x (T, d_in) bf16, A (d_in, R)
+// and B (R, d_out) bf16 packed ragged; dx (T, d_in) f32; xa and dxa (T, R)
+// bf16; wgrad u (T, R) bf16, v (T, d) bf16 -> (R, d) f32.
+//
+// dgrad, xa and dxa read the per-token-tile table of the forward kernel
+// ((first packed column, padded width, true rank) of the tile's adapter,
+// RaggedMeta.tile_table) and run the CTA routines of lora_tile.cuh: the
+// dgrad is the forward routine with dy_s for x and both operands read
+// transposed in place; xa and dxa are its phase 1 alone.  Every entry of
+// xa and dxa outside the token's own segment is written as zero (Pallas
+// leaves those blocks unwritten; the reference never reads them).
+//
+// wgrad: one CTA owns one 16-lane rank tile and one 128-column block of
+// the output and walks ALL of its adapter's tokens itself, in a fixed
+// order, accumulating on the tensor cores in registers: the loop that
+// the TPU grid ran as revisits of one output block (ragged.py:19-25), so
+// there are no atomics and the result is deterministic.  Its token list
+// comes from RaggedMeta.wgrad_runs: runs of consecutive token tiles of
+// the adapter.  Rank tiles of adapters that own no tiles have no runs
+// and are written as zeros.
+//
+// Bound on the H100: bytes, as for the forward (ragged_lora.cu): each
+// token's work is (true rank) x (d_in + d_out) multiply-adds against the
+// 2 (d_in + d_out) bytes of its activation rows, far under the 295
+// flop/byte ridge at LoRA ranks.  What the design does about it: every
+// operand is staged once per CTA with 16-byte loads; the one known waste
+// is that the wgrad re-reads v once per rank tile of the adapter (a
+// rank-64 adapter reads its rows four times), and dgrad CTAs that split
+// columns recompute their rows' dxa.
+#include "lora_tile.cuh"
+
+namespace {
+
+using namespace repro;
+using namespace nvcuda;
+
+// ----------------------------------------------------------------- dgrad
+__global__ void __launch_bounds__(lora::kThreads)
+ragged_dgrad_kernel(const __nv_bfloat16* __restrict__ dy,
+                    const __nv_bfloat16* __restrict__ a,
+                    const __nv_bfloat16* __restrict__ b,
+                    const int* __restrict__ tiles, float* __restrict__ dx,
+                    int T, int d_in, int d_out, int R, int block_t,
+                    int cols_per_cta) {
+  __shared__ lora::Smem s;
+  const int row0 = blockIdx.x * lora::kRows;
+  const int tile = row0 / block_t;     // block_t % 16 == 0: one adapter
+  const int col0 = tiles[3 * tile];
+  const int width = tiles[3 * tile + 1];
+  const int rank = tiles[3 * tile + 2];
+  const int col_begin = blockIdx.y * cols_per_cta;
+  // phase 1 reads B_seg^T (d_out x width): B rows col0.. hold it with
+  // stride d_out; phase 2 reads A_seg^T (width x d_in): A columns col0..
+  // with stride R
+  lora::lora_rows<float, true>(
+      dy + static_cast<long>(row0) * d_out, d_out,
+      b + static_cast<long>(col0) * d_out, d_out, a + col0, R, width, rank,
+      d_out, d_in, min(lora::kRows, T - row0), col_begin,
+      lora::col_end_of(col_begin, cols_per_cta, d_in),
+      dx + static_cast<long>(row0) * d_in, d_in, s);
+}
+
+// -------------------------------------------------------------- xa / dxa
+// kTrans = false: xa  = x    · A_seg    (A columns col0.., stride R)
+// kTrans = true:  dxa = dy_s · B_seg^T  (B rows col0.., stride d)
+template <bool kTrans>
+__global__ void __launch_bounds__(lora::kThreads)
+ragged_packed_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const int* __restrict__ tiles,
+                     __nv_bfloat16* __restrict__ out, int T, int d, int R,
+                     int block_t) {
+  __shared__ lora::Smem s;
+  const int row0 = blockIdx.x * lora::kRows;
+  const int tile = row0 / block_t;
+  const int col0 = tiles[3 * tile];
+  const int width = tiles[3 * tile + 1];
+  const int rank = tiles[3 * tile + 2];
+  const int n_rows = min(lora::kRows, T - row0);
+  const __nv_bfloat16* seg =
+      kTrans ? w + static_cast<long>(col0) * d : w + col0;
+  lora::xa_rows<kTrans>(x + static_cast<long>(row0) * d, d, seg,
+                        kTrans ? d : R, width, rank, d, n_rows, s);
+  // the token's own segment from s.xa, every other packed column zero
+  for (int i = threadIdx.x; i < lora::kRows * R; i += lora::kThreads) {
+    const int r = i / R, c = i % R;
+    if (r >= n_rows) continue;
+    const int lane = c - col0;
+    out[static_cast<long>(row0 + r) * R + c] =
+        (lane >= 0 && lane < width) ? s.xa[r][lane] : bf16_zero();
+  }
+}
+
+// ----------------------------------------------------------------- wgrad
+constexpr int kTok = 64;               // tokens staged per step
+
+struct __align__(128) WgradSmem {
+  __nv_bfloat16 u[kTok][lora::kLanes];   //  2 KB  u rows, this rank tile
+  __nv_bfloat16 v[kTok][lora::kCols];    // 16 KB  v rows, this column block
+  float out[lora::kLanes][lora::kCols];  //  8 KB  f32 output block
+};
+
+__global__ void __launch_bounds__(lora::kThreads)
+ragged_wgrad_kernel(const __nv_bfloat16* __restrict__ u,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ rt_runs,
+                    const int* __restrict__ runs, float* __restrict__ out,
+                    int R, int d, int block_t) {
+  __shared__ WgradSmem s;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int lane0 = blockIdx.x * lora::kLanes;
+  const int c0 = blockIdx.y * lora::kCols;
+  const int run_begin = rt_runs[2 * blockIdx.x];
+  const int run_end = run_begin + rt_runs[2 * blockIdx.x + 1];
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.0f);
+  wmma::fill_fragment(acc[1], 0.0f);
+  for (int run = run_begin; run < run_end; ++run) {
+    const int t_begin = runs[2 * run] * block_t;
+    const int t_end = t_begin + runs[2 * run + 1] * block_t;
+    for (int t0 = t_begin; t0 < t_end; t0 += kTok) {
+      const int n = min(kTok, t_end - t0);
+      for (int i = tid; i < kTok * (lora::kLanes / 8); i += lora::kThreads) {
+        const int r = i / (lora::kLanes / 8), c = (i % (lora::kLanes / 8)) * 8;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (r < n)
+          val = *reinterpret_cast<const uint4*>(
+              u + static_cast<long>(t0 + r) * R + lane0 + c);
+        *reinterpret_cast<uint4*>(&s.u[r][c]) = val;
+      }
+      for (int i = tid; i < kTok * (lora::kCols / 8); i += lora::kThreads) {
+        const int r = i / (lora::kCols / 8), c = (i % (lora::kCols / 8)) * 8;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (r < n && c0 + c < d)
+          val = *reinterpret_cast<const uint4*>(
+              v + static_cast<long>(t0 + r) * d + c0 + c);
+        *reinterpret_cast<uint4*>(&s.v[r][c]) = val;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kTok / 16; ++kk) {
+        // u^T (lanes x tokens): u rows read column-major
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fa;
+        wmma::load_matrix_sync(fa, &s.u[kk * 16][0], lora::kLanes);
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, &s.v[kk * 16][warp * 32 + j * 16],
+                                 lora::kCols);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(&s.out[0][warp * 32 + j * 16], acc[j],
+                            lora::kCols, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < lora::kLanes * lora::kCols; i += lora::kThreads) {
+    const int r = i / lora::kCols, c = i % lora::kCols;
+    if (c0 + c < d) out[static_cast<long>(lane0 + r) * d + c0 + c] = s.out[r][c];
+  }
+}
+
+}  // namespace
+
+extern "C" int ragged_dgrad_launch(const void* dy, const void* a,
+                                   const void* b, const void* tiles,
+                                   void* dx, int T, int d_in, int d_out,
+                                   int R, int block_t, int col_groups,
+                                   void* stream) {
+  const int per = repro::lora::cols_per_cta(d_in, col_groups);
+  dim3 grid((T + repro::lora::kRows - 1) / repro::lora::kRows,
+            (d_in + per - 1) / per);
+  ragged_dgrad_kernel<<<grid, repro::lora::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<const int*>(tiles),
+      static_cast<float*>(dx), T, d_in, d_out, R, block_t, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// transposed = 0: xa (x, A); transposed = 1: dxa (dy_s, B)
+extern "C" int ragged_packed_launch(const void* x, const void* w,
+                                    const void* tiles, void* out, int T,
+                                    int d, int R, int block_t,
+                                    int transposed, void* stream) {
+  dim3 grid((T + repro::lora::kRows - 1) / repro::lora::kRows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const __nv_bfloat16*>(x);
+  auto wp = static_cast<const __nv_bfloat16*>(w);
+  auto tp = static_cast<const int*>(tiles);
+  auto op = static_cast<__nv_bfloat16*>(out);
+  if (transposed)
+    ragged_packed_kernel<true><<<grid, repro::lora::kThreads, 0, st>>>(
+        xp, wp, tp, op, T, d, R, block_t);
+  else
+    ragged_packed_kernel<false><<<grid, repro::lora::kThreads, 0, st>>>(
+        xp, wp, tp, op, T, d, R, block_t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ragged_wgrad_launch(const void* u, const void* v,
+                                   const void* rt_runs, const void* runs,
+                                   void* out, int R, int d, int block_t,
+                                   void* stream) {
+  dim3 grid(R / repro::lora::kLanes,
+            (d + repro::lora::kCols - 1) / repro::lora::kCols);
+  ragged_wgrad_kernel<<<grid, repro::lora::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(u),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const int*>(rt_runs), static_cast<const int*>(runs),
+      static_cast<float*>(out), R, d, block_t);
+  return static_cast<int>(cudaGetLastError());
+}

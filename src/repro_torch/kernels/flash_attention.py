@@ -2,14 +2,18 @@
 
 Flat (batch*heads) layout: q (BH, Sq, hd), k/v (BH / kv_groups, Skv, hd);
 query head bh reads kv head ``bh // kv_groups`` (GQA without a repeated
-copy; ``kv_groups=1`` is the reference's signature).  On a CUDA tensor
-``flash_attention_fwd`` launches the Hopper kernel
+copy; ``kv_groups=1`` is the reference's signature).  Both return the
+output and ``lse`` (BH, Sq) f32, each row's log-sum-exp of its scaled
+scores — what ``_chunked_attention_fwd`` returns beside the output and
+the training backward (``models/attention._Flash``) recomputes p from.
+On a CUDA tensor ``flash_attention_fwd`` launches the Hopper kernel
 ``csrc/flash_attention.cu``; on a CPU tensor it runs
 ``flash_attention_ref``, the plain softmax oracle.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -20,8 +24,10 @@ NEG_BIG = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        kv_groups: int = 1) -> torch.Tensor:
-    """Plain PyTorch oracle: naive softmax attention in f32."""
+                        kv_groups: int = 1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch oracle: naive softmax attention in f32.  Returns
+    (out in q.dtype, lse f32)."""
     if kv_groups > 1:
         k = k.repeat_interleave(kv_groups, dim=0)
         v = v.repeat_interleave(kv_groups, dim=0)
@@ -33,14 +39,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 <= torch.arange(Sq, device=q.device)[:, None])
         s = torch.where(mask[None], s, NEG_BIG)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -48,9 +55,11 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        kv_groups: int = 1) -> torch.Tensor:
+                        kv_groups: int = 1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (BH, Sq, hd); k/v: (BH // kv_groups, Skv, hd).  Returns
-    (BH, Sq, hd) in q.dtype; the scores never reach device memory."""
+    (out (BH, Sq, hd) in q.dtype, lse (BH, Sq) f32); the scores never
+    reach device memory."""
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     build.require(k.shape[0] * kv_groups == BH and v.shape == k.shape
@@ -67,13 +76,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       f"{name} must be a contiguous bf16 tensor on {q.device}")
     build.require(hd in (32, 64, 128), f"head dim {hd} not in (32, 64, 128)")
     o = torch.empty_like(q)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.flash_attention_fwd_launch(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), BH, Sq, Skv,
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
+        build.ptr(lse), BH, Sq, Skv,
         hd, kv_groups, int(causal), hd ** -0.5, build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return o
+    return o, lse
 
 
 flash_attention_fwd.launches = 0

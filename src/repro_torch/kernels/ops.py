@@ -1,5 +1,5 @@
-"""Forward dispatch of the fused multi-LoRA kernels (port of the
-forward half of ``repro.kernels.ops``).
+"""Dispatch of the fused multi-LoRA kernels (port of
+``repro.kernels.ops``, single device).
 
 ``fused_lora`` — the MASKED max-rank family over stacked (K, d, r_pad)
 adapters: "cuda" (kernels/fused_lora.py), "ref" (gather oracle), "loop"
@@ -7,7 +7,13 @@ adapters: "cuda" (kernels/fused_lora.py), "ref" (gather oracle), "loop"
 
 ``fused_lora_ragged`` — the RAGGED family over packed (d, R)/(R, d)
 adapters with per-adapter padded segments: "cuda" (kernels/ragged.py,
-true-rank work per token tile), "ref"/"loop" (densify, then the oracles).
+true-rank work per token tile, differentiable through ``_RaggedLoRA``,
+whose backward launches the dgrad, xa, dxa and wgrad kernels),
+"ref"/"loop" (densify, then the oracles; autograd differentiates them).
+
+The masked "cuda" route is forward only: its backward kernels (ROADMAP
+B7/B8) are not ported, so it refuses to run where a gradient is wanted
+rather than return a tensor without one.
 
 The "torch" mirror of the reference's bucket-concatenated "xla" path is
 queued (ROADMAP A3) and raises here.  Contract for "cuda": tokens sorted
@@ -23,9 +29,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import ragged as rg
 from repro_torch.kernels import ref as ref_impl
 from repro_torch.kernels.fused_lora import fused_lora_cuda
-from repro_torch.kernels.ragged import RaggedMeta, ragged_lora_fwd
+from repro_torch.kernels.ragged import RaggedMeta
+
+MASKED_NO_GRAD = (
+    "the masked LoRA route ('cuda' with a uniform rank layout, or a batch "
+    "without a static tile map) has no backward yet: its kernels "
+    "grouped_matmul and grouped_wgrad are ROADMAP B7/B8")
 
 
 def _tile_map(ids: torch.Tensor, block_t: int) -> torch.Tensor:
@@ -40,9 +52,42 @@ def _no_torch_impl():
 
 
 def _fused_lora_cuda(x, A, B, ids, ranks, scalings, block_t):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, A, B)):
+        raise NotImplementedError(MASKED_NO_GRAD)
     y = fused_lora_cuda(x, A, B, _tile_map(ids, block_t),
                         ranks.to(torch.int32).contiguous(), block_t=block_t)
     return (y.float() * scalings[ids][:, None]).to(x.dtype)
+
+
+class _RaggedLoRA(torch.autograd.Function):
+    """The ragged "cuda" path with its backward (the reference's
+    ``_make_ragged_pallas_fn``).  Backward = one dgrad launch (dx) + two
+    packed launches (xa, dxa) + two wgrad launches (dA, dB), all over the
+    active (token tile, rank tile) pairs.  Rounding points as in the
+    reference: dy_s = bf16(dy · s[ids]) in f32; dx f32 then cast to
+    x.dtype; dA, dB f32 then cast to A's and B's dtypes.  ids and the
+    scalings (alpha / r constants, never trained) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, A, B, ids, scalings, meta: RaggedMeta,
+                block_t: int):
+        ctx.save_for_backward(x, A, B, ids, scalings)
+        ctx.meta, ctx.block_t = meta, block_t
+        y = rg.ragged_lora_fwd(x, A, B, meta, block_t=block_t)
+        return (y * scalings[ids][:, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, ids, scalings = ctx.saved_tensors
+        meta, bt = ctx.meta, ctx.block_t
+        dy_s = (dy.float() * scalings[ids][:, None]).to(dy.dtype)
+        dx = rg.ragged_lora_dgrad(dy_s, A, B, meta, block_t=bt)
+        xa = rg.ragged_xa(x, A, meta, block_t=bt)
+        dxa = rg.ragged_dxa(dy_s, B, meta, block_t=bt).to(x.dtype)
+        dA = rg.ragged_wgrad(dxa, x, meta, block_t=bt)         # (R, d_in)
+        dB = rg.ragged_wgrad(xa, dy_s, meta, block_t=bt)       # (R, d_out)
+        return (dx.to(x.dtype), dA.T.to(A.dtype), dB.to(B.dtype), None,
+                None, None, None)
 
 
 def _tile_jobs_static(rows: Sequence[int], seq_len: int, block_t: int,
@@ -95,8 +140,7 @@ def fused_lora_ragged(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             return _fused_lora_cuda(x, Af.to(x.dtype), Bf.to(x.dtype), ids,
                                     rk, scalings, block_t)
         meta = RaggedMeta.build(tile_jobs, layout)
-        y = ragged_lora_fwd(x, A, B, meta, block_t=block_t)
-        return (y * scalings[ids][:, None]).to(x.dtype)
+        return _RaggedLoRA.apply(x, A, B, ids, scalings, meta, block_t)
     raise ValueError(f"unknown fused_lora_ragged impl {impl!r}")
 
 

@@ -1,17 +1,25 @@
-"""Rank-bucketed ragged multi-LoRA forward (port of the forward half of
+"""Rank-bucketed ragged multi-LoRA kernels (port of
 ``repro.kernels.ragged``).
 
 ``RaggedMeta`` is the static (batch layout, rank layout) geometry: one
 adapter per token tile, segments contiguous, each adapter's padded rank
-cut into rank tiles of width ``layout.multiple``.  ``ragged_lora_fwd``
-computes the packed ragged LoRA forward over the active (token tile,
-rank tile) pairs only:
+cut into rank tiles of width ``layout.multiple``.  The five kernels work
+over the active (token tile, rank tile) pairs only, seg(t) being the
+packed segment of token t's adapter and mask() zeroing lanes >= its rank:
 
-    y[t] = Σ_{rank tiles rt of adapter(t)} mask(x_t · A[:, rt]) · B[rt, :]
+    ragged_lora_fwd    y[t]  = mask(x_t · A[:, seg(t)]) · B[seg(t)]     f32
+    ragged_lora_dgrad  dx[t] = mask(dy_t · B[seg(t)]^T) · A[:, seg(t)]^T f32
+    ragged_xa          xa[t, seg(t)]  = mask(x_t · A[:, seg(t)])        (T, R)
+    ragged_dxa         dxa[t, seg(t)] = mask(dy_t · B[seg(t)]^T)        (T, R)
+    ragged_wgrad       out[seg_k] = Σ_{t of adapter k} u[t, seg_k]^T · v_t
 
-in f32, unscaled (the caller scales and casts).  On a CUDA tensor it
-launches the Hopper kernel ``csrc/ragged_lora.cu``; on a CPU tensor it
-runs ``ragged_lora_fwd_plain``, the same function in plain PyTorch.
+The masked intermediate is rounded to the input dtype before a second
+product, as the TPU kernels do; xa and dxa are zero outside seg(t), and
+wgrad rows of adapters that own no token tile are zero.  On a CUDA
+tensor each wrapper launches its Hopper kernel (``csrc/ragged_lora.cu``
+for the forward, ``csrc/ragged_bwd.cu`` for the other four) and counts
+the launch; on a CPU tensor it runs its ``*_plain`` version, the same
+function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -112,6 +120,29 @@ class RaggedMeta:
                          np.add.reduceat(lanes, starts)],
                         axis=1).astype(np.int32)
 
+    def wgrad_runs(self, lanes: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``wgrad_flat`` folded for the wgrad kernel, whose CTAs own
+        *lanes* packed rank rows each: (rt_runs (total_r / lanes, 2),
+        runs (n, 2)) int32.  Group g reads runs[first:first + count] with
+        (first, count) = rt_runs[g]; a run is (first token tile, tile
+        count) of consecutive token tiles of the group's adapter."""
+        assert self.r_blk % lanes == 0, (self.r_blk, lanes)
+        tile, rtile, _ = self.wgrad_flat
+        per_rt = {}
+        for t, rt in zip(tile.tolist(), rtile.tolist()):
+            per_rt.setdefault(rt, []).append(t)
+        runs, rt_runs = [], []
+        for g in range(self.total_r // lanes):
+            first = len(runs)
+            for t in per_rt.get(g * lanes // self.r_blk, []):
+                if len(runs) > first and sum(runs[-1]) == t:
+                    runs[-1][1] += 1
+                else:
+                    runs.append([t, 1])
+            rt_runs.append([first, len(runs) - first])
+        return (np.asarray(rt_runs, np.int32).reshape(-1, 2),
+                np.asarray(runs or [[0, 0]], np.int32).reshape(-1, 2))
+
 
 @functools.lru_cache(maxsize=64)
 def _device_table(meta: RaggedMeta, device: torch.device) -> torch.Tensor:
@@ -120,36 +151,142 @@ def _device_table(meta: RaggedMeta, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(meta.tile_table).to(device)
 
 
+_LANES = 16    # packed rank rows per wgrad CTA (csrc/ragged_bwd.cu)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_runs(meta: RaggedMeta, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``meta.wgrad_runs`` for 16-lane CTAs on *device*, copied once."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in meta.wgrad_runs(_LANES))
+
+
+def _segments(meta: RaggedMeta, device, block_t: int):
+    """(token rows of its tiles, segment offset, padded width, rank) for
+    every adapter that owns at least one token tile."""
+    jobs = np.asarray(meta.tile_jobs)
+    for k in np.unique(jobs):
+        tiles = np.flatnonzero(jobs == k)
+        rows = (tiles[:, None] * block_t + np.arange(block_t)).reshape(-1)
+        yield (torch.from_numpy(rows).to(device), meta.offsets[k],
+               meta.r_pads[k], meta.ranks[k])
+
+
 def ragged_lora_fwd_plain(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                           meta: RaggedMeta, *, block_t: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: per adapter, its token tiles
     times its own padded segment; lanes >= the true rank are zeroed in
     f32 and xa is rounded to x.dtype before the second product."""
-    T, d_in = x.shape
-    d_out = B.shape[-1]
-    n_tiles = T // block_t
-    y = torch.empty((n_tiles, block_t, d_out), dtype=torch.float32,
+    y = torch.empty((x.shape[0], B.shape[-1]), dtype=torch.float32,
                     device=x.device)
-    xt = x.reshape(n_tiles, block_t, d_in)
-    jobs = np.asarray(meta.tile_jobs)
-    for k in np.unique(jobs):
-        sel = torch.from_numpy(np.flatnonzero(jobs == k)).to(x.device)
-        off, rp, r = meta.offsets[k], meta.r_pads[k], meta.ranks[k]
-        xa = xt[sel].reshape(-1, d_in).float() @ A[:, off:off + rp].float()
+    for rows, off, rp, r in _segments(meta, x.device, block_t):
+        xa = x[rows].float() @ A[:, off:off + rp].float()
         xa[:, r:] = 0.0
-        yk = xa.to(x.dtype).float() @ B[off:off + rp].float()
-        y[sel] = yk.reshape(len(sel), block_t, d_out)
-    return y.reshape(T, d_out)
+        y[rows] = xa.to(x.dtype).float() @ B[off:off + rp].float()
+    return y
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("ragged_lora")
-    fn = lib.ragged_lora_fwd_launch
+def ragged_lora_dgrad_plain(dy_s: torch.Tensor, A: torch.Tensor,
+                            B: torch.Tensor, meta: RaggedMeta, *,
+                            block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the dgrad kernel: per adapter, dxa =
+    dy_s · B_seg^T masked in f32 and rounded to dy_s.dtype, then
+    dx = dxa · A_seg^T in f32."""
+    dx = torch.empty((dy_s.shape[0], A.shape[0]), dtype=torch.float32,
+                     device=dy_s.device)
+    for rows, off, rp, r in _segments(meta, dy_s.device, block_t):
+        dxa = dy_s[rows].float() @ B[off:off + rp].float().T
+        dxa[:, r:] = 0.0
+        dx[rows] = dxa.to(dy_s.dtype).float() @ A[:, off:off + rp].float().T
+    return dx
+
+
+def _packed_plain(x: torch.Tensor, W_seg, meta: RaggedMeta,
+                  block_t: int) -> torch.Tensor:
+    out = torch.zeros((x.shape[0], meta.total_r), dtype=x.dtype,
+                      device=x.device)
+    for rows, off, rp, r in _segments(meta, x.device, block_t):
+        xa = x[rows].float() @ W_seg(off, rp).float()
+        xa[:, r:] = 0.0
+        out[rows, off:off + rp] = xa.to(x.dtype)
+    return out
+
+
+def ragged_xa_plain(x: torch.Tensor, A: torch.Tensor, meta: RaggedMeta, *,
+                    block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the xa kernel: (T, R) in x.dtype."""
+    return _packed_plain(x, lambda off, rp: A[:, off:off + rp], meta,
+                         block_t)
+
+
+def ragged_dxa_plain(dy_s: torch.Tensor, B: torch.Tensor, meta: RaggedMeta,
+                     *, block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the dxa kernel: (T, R) in dy_s.dtype."""
+    return _packed_plain(dy_s, lambda off, rp: B[off:off + rp].T, meta,
+                         block_t)
+
+
+def ragged_wgrad_plain(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta,
+                       *, block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the wgrad kernel: (R, d) f32."""
+    out = torch.zeros((meta.total_r, v.shape[-1]), dtype=torch.float32,
+                      device=u.device)
+    for rows, off, rp, _ in _segments(meta, u.device, block_t):
+        out[off:off + rp] = u[rows, off:off + rp].float().T @ v[rows].float()
+    return out
+
+
+_ARGTYPES = {
+    # (library, entry point): (pointer args, int args); a stream pointer
+    # follows them all
+    ("ragged_lora", "ragged_lora_fwd_launch"): (5, 6),
+    ("ragged_bwd", "ragged_dgrad_launch"): (5, 6),
+    ("ragged_bwd", "ragged_packed_launch"): (4, 5),
+    ("ragged_bwd", "ragged_wgrad_launch"): (5, 3),
+}
+
+
+def _entry(lib_name: str, fn_name: str):
+    lib = build.load(lib_name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        n_ptr, n_int = _ARGTYPES[(lib_name, fn_name)]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
+
+
+def _check_common(what: str, T: int, block_t: int, meta: RaggedMeta,
+                  A_shape, B_shape, d_in: int) -> None:
+    """Shape checks every wrapper makes on every device."""
+    build.require(T % block_t == 0 and T // block_t == len(meta.tile_jobs),
+                  f"{what}: T={T} is not {len(meta.tile_jobs)} tiles of "
+                  f"{block_t}")
+    build.require((A_shape is None or tuple(A_shape) == (d_in, meta.total_r))
+                  and (B_shape is None or B_shape[0] == meta.total_r),
+                  f"{what}: A {A_shape} / B {B_shape} do not match "
+                  f"d_in={d_in}, R={meta.total_r}")
+
+
+def _check_cuda(what: str, tensors, block_t: int, meta: RaggedMeta,
+                extents) -> None:
+    """What the CUDA kernels take: contiguous bf16 on one device, one
+    adapter per 16-row CTA, segments of at most 256 lanes, 16-byte
+    staging."""
+    dev = tensors[0][1].device
+    build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
+    for name, t in tensors:
+        build.require(t.device == dev and t.dtype == torch.bfloat16
+                      and t.is_contiguous(),
+                      f"{what}: {name} must be a contiguous bf16 tensor "
+                      f"on {dev}")
+    build.require(block_t % 16 == 0, f"{what}: block_t={block_t}: need a "
+                  "multiple of 16 (one CTA's rows must share an adapter)")
+    build.require(max(meta.r_pads) <= 256, f"{what}: rank segments wider "
+                  "than 256 lanes are not supported by the CUDA kernel")
+    build.require_vectors([t for _, t in tensors], *extents, meta.r_blk)
 
 
 def ragged_lora_fwd(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -160,35 +297,122 @@ def ragged_lora_fwd(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     the plain version; a CUDA tensor launches the kernel or raises."""
     T, d_in = x.shape
     d_out = B.shape[-1]
-    build.require(T % block_t == 0 and T // block_t == len(meta.tile_jobs),
-                  f"T={T} is not {len(meta.tile_jobs)} tiles of {block_t}")
-    build.require(A.shape == (d_in, meta.total_r)
-                  and B.shape[0] == meta.total_r,
-                  f"A {tuple(A.shape)} / B {tuple(B.shape)} do not match "
-                  f"d_in={d_in}, R={meta.total_r}")
+    _check_common("ragged_lora_fwd", T, block_t, meta, A.shape, B.shape,
+                  d_in)
     if x.device.type == "cpu":
         return ragged_lora_fwd_plain(x, A, B, meta, block_t=block_t)
-    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
-    for name, t in (("x", x), ("A", A), ("B", B)):
-        build.require(t.device == x.device and t.dtype == torch.bfloat16
-                      and t.is_contiguous(),
-                      f"{name} must be a contiguous bf16 tensor on {x.device}")
-    build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
-                  "of 16 (one CTA's rows must share an adapter)")
-    build.require(max(meta.r_pads) <= 256, "rank segments wider than 256 "
-                  "lanes are not supported by the CUDA kernel")
-    build.require_vectors((x, A, B), d_in, d_out, meta.r_blk)
+    _check_cuda("ragged_lora_fwd", (("x", x), ("A", A), ("B", B)), block_t,
+                meta, (d_in, d_out))
     out = torch.empty((T, d_out), dtype=torch.float32, device=x.device)
-    table = _device_table(meta, x.device)
-    lib = _lib()
+    lib, fn = _entry("ragged_lora", "ragged_lora_fwd_launch")
     groups = build.col_groups(T // 16, d_out, 128, x.device)
-    err = lib.ragged_lora_fwd_launch(
-        build.ptr(x), build.ptr(A), build.ptr(B), build.ptr(table),
-        build.ptr(out), T, d_in, d_out, meta.total_r, block_t, groups,
-        build.stream_ptr(x.device))
+    err = fn(build.ptr(x), build.ptr(A), build.ptr(B),
+             build.ptr(_device_table(meta, x.device)), build.ptr(out), T,
+             d_in, d_out, meta.total_r, block_t, groups,
+             build.stream_ptr(x.device))
     build.check(lib, err, "ragged_lora_fwd")
     ragged_lora_fwd.launches += 1
     return out
 
 
-ragged_lora_fwd.launches = 0
+def ragged_lora_dgrad(dy_s: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                      meta: RaggedMeta, *, block_t: int = 128
+                      ) -> torch.Tensor:
+    """dy_s: (T, d_out) pre-scaled cotangent; A (d_in, R), B (R, d_out).
+    Returns dx (T, d_in) f32 over the active rank tiles only."""
+    T, d_out = dy_s.shape
+    d_in = A.shape[0]
+    _check_common("ragged_lora_dgrad", T, block_t, meta, A.shape, B.shape,
+                  d_in)
+    build.require(B.shape[-1] == d_out, f"B {tuple(B.shape)} vs dy_s "
+                  f"{tuple(dy_s.shape)}")
+    if dy_s.device.type == "cpu":
+        return ragged_lora_dgrad_plain(dy_s, A, B, meta, block_t=block_t)
+    _check_cuda("ragged_lora_dgrad", (("dy_s", dy_s), ("A", A), ("B", B)),
+                block_t, meta, (d_in, d_out))
+    dx = torch.empty((T, d_in), dtype=torch.float32, device=dy_s.device)
+    lib, fn = _entry("ragged_bwd", "ragged_dgrad_launch")
+    groups = build.col_groups(T // 16, d_in, 128, dy_s.device)
+    err = fn(build.ptr(dy_s), build.ptr(A), build.ptr(B),
+             build.ptr(_device_table(meta, dy_s.device)), build.ptr(dx), T,
+             d_in, d_out, meta.total_r, block_t, groups,
+             build.stream_ptr(dy_s.device))
+    build.check(lib, err, "ragged_lora_dgrad")
+    ragged_lora_dgrad.launches += 1
+    return dx
+
+
+def _packed(what: str, x: torch.Tensor, w: torch.Tensor, meta: RaggedMeta,
+            block_t: int, transposed: bool) -> torch.Tensor:
+    T, d = x.shape
+    _check_cuda(what, (("x", x), ("w", w)), block_t, meta, (d,))
+    out = torch.empty((T, meta.total_r), dtype=x.dtype, device=x.device)
+    lib, fn = _entry("ragged_bwd", "ragged_packed_launch")
+    err = fn(build.ptr(x), build.ptr(w),
+             build.ptr(_device_table(meta, x.device)), build.ptr(out), T, d,
+             meta.total_r, block_t, int(transposed),
+             build.stream_ptr(x.device))
+    build.check(lib, err, what)
+    return out
+
+
+def ragged_xa(x: torch.Tensor, A: torch.Tensor, meta: RaggedMeta, *,
+              block_t: int = 128) -> torch.Tensor:
+    """Packed masked xa: (T, R) in x.dtype, xa[t, seg(t)] = mask(x_t ·
+    A[:, seg(t)]), zero elsewhere.  Operand of dB's wgrad."""
+    _check_common("ragged_xa", x.shape[0], block_t, meta, A.shape, None,
+                  x.shape[1])
+    if x.device.type == "cpu":
+        return ragged_xa_plain(x, A, meta, block_t=block_t)
+    out = _packed("ragged_xa", x, A, meta, block_t, transposed=False)
+    ragged_xa.launches += 1
+    return out
+
+
+def ragged_dxa(dy_s: torch.Tensor, B: torch.Tensor, meta: RaggedMeta, *,
+               block_t: int = 128) -> torch.Tensor:
+    """Packed masked cotangent of xa: (T, R) in dy_s.dtype, dxa[t, seg(t)]
+    = mask(dy_s_t · B[seg(t)]^T), zero elsewhere.  Operand of dA's
+    wgrad."""
+    _check_common("ragged_dxa", dy_s.shape[0], block_t, meta, None,
+                  B.shape, 0)
+    build.require(B.shape[-1] == dy_s.shape[1], f"B {tuple(B.shape)} vs "
+                  f"dy_s {tuple(dy_s.shape)}")
+    if dy_s.device.type == "cpu":
+        return ragged_dxa_plain(dy_s, B, meta, block_t=block_t)
+    out = _packed("ragged_dxa", dy_s, B, meta, block_t, transposed=True)
+    ragged_dxa.launches += 1
+    return out
+
+
+def ragged_wgrad(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta, *,
+                 block_t: int = 128) -> torch.Tensor:
+    """u: (T, R) packed (xa or dxa), v: (T, d).  Returns (R, d) f32:
+    dB directly (u = xa, v = dy_s) or dA transposed (u = dxa, v = x).
+    Deterministic: each output block is summed by one CTA in token
+    order."""
+    T, R = u.shape
+    d = v.shape[-1]
+    _check_common("ragged_wgrad", T, block_t, meta, None, (R,), 0)
+    build.require(v.shape[0] == T, f"u {tuple(u.shape)} vs v "
+                  f"{tuple(v.shape)}")
+    if u.device.type == "cpu":
+        return ragged_wgrad_plain(u, v, meta, block_t=block_t)
+    _check_cuda("ragged_wgrad", (("u", u), ("v", v)), block_t, meta, (d,))
+    build.require(meta.r_blk % _LANES == 0, f"ragged_wgrad: rank tiles of "
+                  f"{meta.r_blk} lanes; the CUDA kernel needs multiples of "
+                  f"{_LANES}")
+    out = torch.empty((R, d), dtype=torch.float32, device=u.device)
+    rt_runs, runs = _device_runs(meta, u.device)
+    lib, fn = _entry("ragged_bwd", "ragged_wgrad_launch")
+    err = fn(build.ptr(u), build.ptr(v), build.ptr(rt_runs), build.ptr(runs),
+             build.ptr(out), R, d, block_t, build.stream_ptr(u.device))
+    build.check(lib, err, "ragged_wgrad")
+    ragged_wgrad.launches += 1
+    return out
+
+
+for _fn in (ragged_lora_fwd, ragged_lora_dgrad, ragged_xa, ragged_dxa,
+            ragged_wgrad):
+    _fn.launches = 0
+del _fn

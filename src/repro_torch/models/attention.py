@@ -1,10 +1,15 @@
-"""GQA attention forward and KV caches (port of the forward paths of
-``repro.models.attention``).
+"""GQA attention and KV caches (port of ``repro.models.attention``).
 
-  * prefill  — q at position 0 over its own S keys: the flash kernel
-               (kernels/flash_attention.py) on the first S cache columns,
-               which is the reference's chunked scan over the whole
-               ``buf``-wide cache with ``kv_len = S``, the same function;
+  * train / prefill — q at position 0 over its own S keys: ``_Flash``,
+               the counterpart of the reference's flash custom VJP
+               (``_make_flash``).  Its forward is the flash kernel
+               (kernels/flash_attention.py) on a CUDA tensor and the
+               chunked online-softmax scan on a CPU tensor; its backward
+               re-walks the key chunks in plain PyTorch, recomputing p
+               from the saved lse, as the reference does outside any
+               Pallas kernel.  Prefill reads the first S cache columns,
+               which is the reference's scan over the whole ``buf``-wide
+               cache with ``kv_len = S``, the same function;
   * decode   — q (S=1..n) over the cache with per-row positions: the
                online-softmax chunk scan in plain PyTorch (the reference
                runs it outside any Pallas kernel too).
@@ -38,24 +43,101 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offset: absolute position of q[0] — an int or a per-row (B,) tensor.
     kv_len:   number of valid kv entries (<= Skv), int or per-row (B,).
 
-    Static geometry with q at position 0 over exactly Sq keys (prefill)
-    goes to the flash kernel; everything else takes the chunk scan.
+    Static geometry with q at position 0 over exactly Sq keys (training,
+    prefill) goes through ``_Flash``; everything else takes the chunk
+    scan (decode, never differentiated).
     """
     if (window is None and isinstance(q_offset, int) and q_offset == 0
             and isinstance(kv_len, int) and kv_len == q.shape[1]):
-        B, Sq, H, hd = q.shape
-        KV = k.shape[2]
-        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
-        kf = k[:, :kv_len].transpose(1, 2).reshape(B * KV, kv_len, hd)
-        vf = v[:, :kv_len].transpose(1, 2).reshape(B * KV, kv_len, -1)
-        out = flash_attention_fwd(qf.contiguous(), kf.contiguous(),
-                                  vf.contiguous(), causal=causal,
-                                  kv_groups=H // KV)
-        return out.reshape(B, H, Sq, -1).transpose(1, 2)
+        return _Flash.apply(q, k[:, :kv_len], v[:, :kv_len], causal, chunk)
     out, _ = _chunked_attention_fwd(q, k, v, q_offset=q_offset,
                                     kv_len=kv_len, causal=causal,
                                     window=window, chunk=chunk)
     return out
+
+
+def _flash_kernel(q, k, v, causal: bool):
+    """(B, Sq, H, hd) q over (B, Skv, KV, hd) k/v through the flash
+    kernel's flat layout; returns (out (B, Sq, H, hd), lse (B, H, Sq))."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+    kf = k.transpose(1, 2).reshape(B * KV, Skv, hd)
+    vf = v.transpose(1, 2).reshape(B * KV, Skv, -1)
+    out, lse = flash_attention_fwd(qf.contiguous(), kf.contiguous(),
+                                   vf.contiguous(), causal=causal,
+                                   kv_groups=H // KV)
+    return (out.reshape(B, H, Sq, -1).transpose(1, 2),
+            lse.reshape(B, H, Sq))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with a hand-written backward, static geometry
+    (q at position 0, kv_len = Skv, no window): the reference's
+    ``_make_flash``.  Forward saves (q, k, v, out, lse), never the
+    (Sq x Skv) scores.  Backward re-walks the key chunks, recomputing
+    p = exp(s - lse), with the reference's rounding points: p rounded to
+    q.dtype for dv, ds rounded to q.dtype for dq and dk, every product of
+    those storage-dtype values accumulated in f32, and the GQA head
+    broadcast folded back by a sum over the groups."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        if q.is_cuda:
+            out, lse = _flash_kernel(q, k, v, causal)
+        else:
+            out, lse = _chunked_attention_fwd(
+                q, k, v, q_offset=0, kv_len=k.shape[1], causal=causal,
+                window=None, chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, Sq, H, hd = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        vd = v.shape[-1]
+        G = H // KV
+        ck = min(ctx.chunk, Skv)
+        n_chunks = (Skv + ck - 1) // ck
+        pad = n_chunks * ck - Skv
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        scale = hd ** -0.5
+        dev = q.device
+        qpos = torch.arange(Sq, device=dev)
+        # the cotangent in the storage dtype, as the reference takes it
+        dout = dout.to(q.dtype).float()
+        qf = q.float()
+        # D_i = sum_d dout_i * out_i  (flash-2 backward identity)
+        D = torch.einsum("bshd,bshd->bhs", dout, out.float())
+        dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=dev)
+        dks, dvs = [], []
+        for ci in range(n_chunks):
+            sl = slice(ci * ck, (ci + 1) * ck)
+            kH = k[:, sl].repeat_interleave(G, dim=2).float()
+            vH = v[:, sl].repeat_interleave(G, dim=2).float()
+            kpos = ci * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bshd,bchd->bhsc", qf, kH) * scale
+            valid = kpos[None, :] < Skv
+            if ctx.causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            s = torch.where(valid[None, None], s, NEG_BIG)
+            p = torch.exp(s - lse[..., None])                   # (B,H,Sq,c)
+            pb = p.to(q.dtype).float()
+            dvH = torch.einsum("bhsc,bshd->bchd", pb, dout)
+            dp = torch.einsum("bshd,bchd->bhsc", dout, vH)
+            ds = (p * (dp - D[..., None]) * scale).to(q.dtype).float()
+            dq += torch.einsum("bhsc,bchd->bshd", ds, kH)
+            dkH = torch.einsum("bhsc,bshd->bchd", ds, qf)
+            dks.append(dkH.reshape(B, ck, KV, G, hd).sum(dim=3))
+            dvs.append(dvH.reshape(B, ck, KV, G, vd).sum(dim=3))
+        dk = torch.cat(dks, dim=1)[:, :Skv]
+        dv = torch.cat(dvs, dim=1)[:, :Skv]
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,

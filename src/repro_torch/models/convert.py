@@ -33,3 +33,26 @@ def adapters_from_numpy(tree, device="cuda"):
     """Packed adapter tree: the same conversion; adapters stay f32 and
     are cast to the activation dtype where they are applied."""
     return params_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The reference's ``AdamWState`` (step, mu, nu) as numpy trees -> the
+    port's ``optim.adamw.AdamWState``: the (K,) per-job step vector as
+    int32, f32 moments in the adapter tree's structure."""
+    from repro_torch.optim.adamw import AdamWState
+    step, mu, nu = state
+    return AdamWState(
+        torch.as_tensor(np.asarray(step), dtype=torch.int32, device=device),
+        params_from_numpy(mu, device), params_from_numpy(nu, device))
+
+
+def to_numpy(tree):
+    """The port's trees (adapters, moments, params) -> nested dicts and
+    lists of numpy arrays, for comparison with the reference's trees;
+    bf16 tensors come back as exact float32."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

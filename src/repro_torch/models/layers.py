@@ -1,5 +1,5 @@
-"""Common building blocks (port of the forward parts of
-``repro.models.layers``).  Params are plain nested dicts of tensors;
+"""Common building blocks (port of ``repro.models.layers`` for the dense
+family).  Params are plain nested dicts of tensors;
 backbone weights live in ``cfg.dtype``, norms accumulate in f32."""
 from __future__ import annotations
 
@@ -71,3 +71,18 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     u = x @ params["up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ params["down"]
+
+
+# ---------------------------------------------------------------- losses
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Token-level CE in f32. logits (..., V); labels (...,) int.
+
+    Returns the per-token loss (...,), zero where ``mask`` is 0."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - picked
+    if mask is not None:
+        loss = loss * mask.float()
+    return loss

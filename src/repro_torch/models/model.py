@@ -1,5 +1,5 @@
-"""Model assembly, forward and decode (port of ``repro.models.model`` for
-the dense "attn" + "swiglu" family).
+"""Model assembly, forward, loss and decode (port of
+``repro.models.model`` for the dense "attn" + "swiglu" family).
 
 A config's ``layer_pattern`` resolves into per-layer ``LayerSpec``s,
 segmented into ``[unrolled head] + [cycles] + [unrolled remainder]``.
@@ -7,8 +7,10 @@ The parameter trees keep the reference's structure — ``segments/i/j/
 attn/wq`` with the cycle segment's leaves stacked on a leading
 ``n_cycles`` axis — so weights carry across (models/convert.py).  The
 reference scans the cycles with ``lax.scan``; here they are a Python
-loop over that axis.  Frozen backbone params and the packed ragged
-adapter tree are separate trees, as in the reference.
+loop over that axis, and ``remat`` (the reference's ``jax.checkpoint``
+of each cycle) wraps each cycle in ``torch.utils.checkpoint``.  Frozen
+backbone params and the packed ragged adapter tree are separate trees,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -17,13 +19,16 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (FULL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.core.lora import MultiLoRA, RankLayout, init_adapter_pair
 from repro_torch.models.attention import KVCache, attn_block, attn_init
-from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       rms_norm, swiglu, swiglu_init)
+from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
+                                       embed_init, rms_norm, swiglu,
+                                       swiglu_init)
 
 
 # ----------------------------------------------------------------- specs
@@ -240,8 +245,10 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
 
 def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
                    lora: Optional[MultiLoRA], x, positions, caches,
-                   cache_pos):
-    """Apply one segment; caches are updated in place."""
+                   cache_pos, remat: bool = False):
+    """Apply one segment; caches are updated in place.  ``remat``
+    recomputes each cycle of a scanned segment in the backward instead of
+    keeping its activations (the reference's ``jax.checkpoint``)."""
     def cycle(x, layer_p, layer_ad, layer_c):
         for j, spec in enumerate(seg.specs):
             c = layer_c.get(str(j)) if layer_c else None
@@ -254,7 +261,11 @@ def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
         return cycle(x, p, ad, caches)
     for i in range(seg.repeats):
         sl = lambda t: _tree_map(lambda v: v[i], t)
-        x = cycle(x, sl(p), sl(ad), sl(caches) if caches else None)
+        if remat:
+            x = checkpoint(cycle, x, sl(p), sl(ad), None,
+                           use_reentrant=False)
+        else:
+            x = cycle(x, sl(p), sl(ad), sl(caches) if caches else None)
     return x
 
 
@@ -266,11 +277,14 @@ def _logits(cfg, params, x):
 
 def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
-            caches: Optional[list] = None, cache_pos=None) -> torch.Tensor:
+            caches: Optional[list] = None, cache_pos=None,
+            remat: bool = False) -> torch.Tensor:
     """Token-input model forward.  Returns logits (B, S, vocab).
 
     ``cache_pos``: None (no caches), an int, or a per-row (B,) tensor
-    (batched serving decode: every request at its own depth)."""
+    (batched serving decode: every request at its own depth).  ``remat``
+    (training, no caches) recomputes each layer cycle in the backward."""
+    assert not (remat and caches is not None), "remat is for training"
     _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
@@ -286,9 +300,45 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
     for i, seg in enumerate(segment_plan(cfg)):
         c = caches[i] if caches is not None else None
         x = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i], lora,
-                           x, positions, c, cache_pos)
+                           x, positions, c, cache_pos, remat=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
+            lora: Optional[MultiLoRA], batch: dict, *, remat: bool = True,
+            per_job_denom: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-job-separated LM loss over a fused batch (lossless contract).
+
+    Each job's loss is normalized over *its own* token count
+    (``per_job_denom``, the full batch's, when given), so the gradient
+    w.r.t. job j's adapter is the one training j alone gives.  Returns
+    (total = Σ_j loss_j, {"per_job", "aux", "per_job_count"})."""
+    logits = forward(cfg, params, adapters, lora, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.causal:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, -labels.shape[-1]:]
+    tok_loss = cross_entropy(logits, labels, mask=mask)         # (B, S')
+    seq_loss = tok_loss.sum(dim=-1)                             # (B,)
+    seq_count = (torch.full(seq_loss.shape, float(labels.shape[-1]),
+                            device=seq_loss.device)
+                 if mask is None else mask.float().sum(-1))
+    aux = torch.zeros((), device=seq_loss.device)    # dense FFNs: no aux
+    if lora is not None:
+        onehot = F.one_hot(lora.adapter_ids.long(),
+                           lora.num_adapters).float()              # (B, K)
+        denom = (per_job_denom if per_job_denom is not None
+                 else (onehot.T @ seq_count).clamp_min(1))
+        per_job = (onehot.T @ seq_loss) / denom
+        return per_job.sum() + aux, {"per_job": per_job, "aux": aux,
+                                     "per_job_count": onehot.T @ seq_count}
+    total = seq_loss.sum() / seq_count.sum().clamp_min(1) + aux
+    return total, {"per_job": total[None], "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],

@@ -123,7 +123,7 @@ def test_flash_plain_matches_pallas(causal, Sq, Skv):
     want = ref_flash.flash_attention_fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         block_q=16, block_k=16, interpret=True)
-    got = flash_attention.flash_attention_fwd(
+    got, _ = flash_attention.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal)
     _close(got, want, TOL["float32"])
@@ -138,7 +138,7 @@ def test_flash_kv_groups_matches_repeated_heads(groups):
     v = rng.standard_normal((2, 32, 16)).astype(np.float32)
     rep = lambda a: jnp.repeat(jnp.asarray(a), groups, axis=0)
     want = ref_flash.flash_attention_ref(jnp.asarray(q), rep(k), rep(v))
-    got = flash_attention.flash_attention_fwd(
+    got, _ = flash_attention.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         kv_groups=groups)
     _close(got, want, TOL["float32"])
@@ -349,7 +349,10 @@ def test_config_copies_match_reference(arch):
 def test_port_imports_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.configs, repro_torch.core, "
             "repro_torch.kernels, repro_torch.models, repro_torch.serve, "
-            "repro_torch.checkpoint\n"
+            "repro_torch.checkpoint, repro_torch.core.ssm, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.optim, repro_torch.data, repro_torch.elastic, "
+            "repro_torch.train.train_loop, repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -368,6 +371,13 @@ def test_cuda_wrappers_refuse_bad_input_before_any_build():
                                ragged.RaggedMeta.build(
                                    (0,), lora.RankLayout((8,), 8)),
                                block_t=8)
+    meta = ragged.RaggedMeta.build((0,), lora.RankLayout((8,), 8))
+    with pytest.raises(ValueError):
+        ragged.ragged_lora_dgrad(torch.zeros((8, 4)), torch.zeros((4, 16)),
+                                 torch.zeros((8, 4)), meta, block_t=8)
+    with pytest.raises(ValueError):
+        ragged.ragged_wgrad(torch.zeros((8, 8)), torch.zeros((16, 4)), meta,
+                            block_t=8)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_fwd(torch.zeros((3, 8, 16)),
                                             torch.zeros((2, 8, 16)),
