@@ -1,4 +1,4 @@
-"""Multi-adapter LoRA parameters and application, forward only (port of
+"""Multi-adapter LoRA parameters and application (port of
 ``repro.core.lora``).
 
 K heterogeneous adapters (ranks r_1..r_K) over one frozen backbone are

@@ -10,18 +10,17 @@ into a single executable model:
     ``(L, R, d)`` with per-adapter padded rank segments
     (core/lora.RankLayout), run by the rank-bucketed ragged kernels;
   * per-job loss normalization keeps forward, backward and optimizer
-    semantics identical to isolated training (the lossless claim).
+    semantics identical to isolated training (the lossless claim), also
+    under nano-batch grad accumulation (the batch split contiguously into
+    N slices, per-job denominators taken over the full batch).
 
 Not ported yet, and refused where asked for: the sharded and pipeline
-steps (ROADMAP queue A, item 13) and nano-batch grad accumulation
-(item 8).  The masked kernels' backward (ROADMAP B7/B8) is not ported
-either, so ``impl="cuda"`` trains only groups whose rank layout is not
-uniform (the ragged route).
+steps (ROADMAP queue A, item 13).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,16 +29,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec, tile_rows
 from repro_torch.core.lora import MultiLoRA, RankLayout
-from repro_torch.kernels.ops import MASKED_NO_GRAD
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
 NO_MESH = ("sharded and pipeline group execution are not ported yet "
            "(ROADMAP queue A, item 13)")
-NO_NANO = ("nano-batch grad accumulation (nano_batches > 1) is not ported "
-           "yet (ROADMAP queue A, item 8); its contiguous split also takes "
-           "the masked LoRA route, whose backward kernels grouped_matmul "
-           "and grouped_wgrad are ROADMAP B7/B8")
 
 
 @dataclass
@@ -101,19 +95,20 @@ class SharedSuperModel:
         grads by autograd through the kernels' Functions, one AdamW
         update with per-job step vectors over packed columns.
 
+        ``nano_batches`` = N > 1 splits the batch contiguously into N
+        slices (``_reshape_nano``) and accumulates their gradients in
+        f32 before the one update; the per-job loss denominators are
+        taken over the full batch first, so the step is the N = 1 step
+        re-granulated.  A slice has no static tile map, so the "cuda"
+        impl takes the masked family for it.
+
         ``steps`` != None returns the chunked variant: a loop over a
         (steps, ...) stack of staged batches carrying (adapters,
         opt_state), with metrics stacked per step (the reference's
-        ``lax.scan`` over the chunk).  Raises, on every device, for what
-        the port does not run yet: a mesh or pipeline stages, nano
-        batches, and ``impl="cuda"`` over a uniform rank layout (the
-        masked route, whose backward kernels are not ported)."""
+        ``lax.scan`` over the chunk).  Raises, on every device, for a
+        mesh or pipeline stages, which the port does not run yet."""
         if mesh is not None or pipeline_stages > 1:
             raise NotImplementedError(NO_MESH)
-        if nano_batches > 1:
-            raise NotImplementedError(NO_NANO)
-        if self.impl == "cuda" and self.layout.is_uniform:
-            raise NotImplementedError(MASKED_NO_GRAD)
         cfg, K = self.cfg, self.num_jobs
         col_jobs = self.layout.col_jobs
 
@@ -122,14 +117,29 @@ class SharedSuperModel:
             ad = adamw.tree_map(
                 lambda _, t: t.detach().requires_grad_(True), adapters)
             leaves = list(adamw.tree_leaves(ad))
-            with torch.enable_grad():
-                total, aux = M.loss_fn(cfg, params, ad,
-                                       self.lora_ctx(batch["adapter_ids"]),
-                                       batch, remat=remat,
-                                       per_job_denom=denom)
-                g_leaves = iter(torch.autograd.grad(total, leaves))
-            grads = adamw.tree_map(lambda _, t: next(g_leaves), ad)
-            per_job = aux["per_job"].detach()
+
+            def grad_fn(nb):
+                with torch.enable_grad():
+                    total, aux = M.loss_fn(cfg, params, ad,
+                                           self.lora_ctx(nb["adapter_ids"]),
+                                           nb, remat=remat,
+                                           per_job_denom=denom)
+                    g = torch.autograd.grad(total, leaves)
+                return g, aux["per_job"].detach()
+
+            if nano_batches == 1:
+                g_leaves, per_job = grad_fn(batch)
+            else:
+                g_leaves = [torch.zeros(t.shape, dtype=torch.float32,
+                                        device=t.device) for t in leaves]
+                per_job = torch.zeros((K,), dtype=torch.float32,
+                                      device=denom.device)
+                for nb in _reshape_nano(batch, nano_batches):
+                    g, pj = grad_fn(nb)
+                    g_leaves = [a + b.float() for a, b in zip(g_leaves, g)]
+                    per_job = per_job + pj
+            it = iter(g_leaves)
+            grads = adamw.tree_map(lambda _, t: next(it), ad)
             lr = lr_fn(opt_state.step)
             new_adapters, new_opt = adamw.update(
                 grads, opt_state, adapters, lr=lr,
@@ -170,3 +180,60 @@ def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,
         counts = m.float().sum(-1)
     onehot = F.one_hot(ids.long(), K).float()
     return (onehot.T @ counts).clamp_min(1)
+
+
+def _reshape_nano(batch: Dict[str, torch.Tensor], n: int
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """(R, ...) -> n contiguous slices of R/n rows each (the reference's
+    (n, R/n, ...) scan input, as a list of views)."""
+    rows = {x.shape[0] for x in batch.values()}
+    assert len(rows) == 1 and rows.pop() % n == 0, (batch.keys(), n)
+    m = next(iter(batch.values())).shape[0] // n
+    return [{k: x[i * m:(i + 1) * m] for k, x in batch.items()}
+            for i in range(n)]
+
+
+def _nano_index(rows: Sequence[int], n: int,
+                order: Optional[Sequence[int]] = None) -> np.ndarray:
+    """Static row permutation of the job-proportional nano/micro split:
+    slice *i* takes rows ``[i*r_j/n, (i+1)*r_j/n)`` of every job, with
+    segments inside a slice in *order* (default: job index order)."""
+    order = list(order) if order is not None else list(range(len(rows)))
+    assert sorted(order) == list(range(len(rows))), order
+    offs = np.concatenate([[0], np.cumsum(rows)])
+    return np.concatenate([
+        np.arange(offs[j] + i * (rows[j] // n),
+                  offs[j] + (i + 1) * (rows[j] // n))
+        for i in range(n) for j in order])
+
+
+def valid_nano_counts(rows: int, max_n: Optional[int] = None, *,
+                      seg_rows: Optional[Sequence[int]] = None,
+                      seq_len: int = 1,
+                      block_t: int = 1,
+                      stages: int = 1) -> List[int]:
+    """Divisors of the fused row count (legal nano-batch counts), sorted
+    ascending; O(sqrt(rows)) paired enumeration.
+
+    ``seg_rows`` keeps only counts that leave every listed segment's
+    per-slice token count whole token tiles: (seg_rows[j] * seq_len) %
+    (n * block_t) == 0 for all j.  ``stages`` > 1 keeps only counts that
+    cover a pipeline of that depth (n >= stages)."""
+    small, large = [], []
+    d = 1
+    while d * d <= rows:
+        if rows % d == 0:
+            small.append(d)
+            if d != rows // d:
+                large.append(rows // d)
+        d += 1
+    out = small + large[::-1]
+    if max_n is not None:
+        out = [n for n in out if n <= max_n]
+    if seg_rows is not None:
+        out = [n for n in out
+               if all((r * seq_len) % (n * block_t) == 0
+                      for r in seg_rows)]
+    if stages > 1:
+        out = [n for n in out if n >= stages]
+    return out

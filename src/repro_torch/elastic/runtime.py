@@ -1,19 +1,24 @@
-"""GroupRuntime — one live fused group (port of the single-device subset
-of ``repro.elastic.runtime``).
+"""GroupRuntime — one live fused group (port of the single-device part of
+``repro.elastic.runtime``).
 
 The runtime owns one SSM's training state — frozen backbone, packed
-adapter tree, per-job AdamW state, fused batcher, step cache — and
-``run(steps)`` advances the whole group in chunks: each chunk stages its
-batches on the device in one copy, runs its steps back to back and
-reads the metrics back to the host once, at its end.
+adapter tree, per-job AdamW state, fused batcher, AIMD nano-batch
+controller, step cache — and ``run(steps)`` advances the whole group in
+chunks: each chunk stages its batches on the device in one copy, runs its
+steps back to back and reads the metrics back to the host once, at its
+end.  State enters and leaves through ``JobTrainState``
+(``elastic/migrate.py``): ``from_states`` fuses members, ``export``
+takes one out, ``save_checkpoints`` writes every member's per-job file
+and ``publish_to`` hands the adapters to a serving ``AdapterPool``.
 
 Not ported yet, and refused where asked for: meshes (ROADMAP queue A,
-item 13), the quantized backbone (item 10), AIMD nano-batch adaptation
-and nano batches (item 8), and the elastic layer around the runtime —
-migration, checkpoints, publishing to a serving pool (item 9).
+item 13) and the quantized backbone (item 10).  ``refresh_member`` and
+the elastic engine around the runtime are queued (item 9).
 """
 from __future__ import annotations
 
+import copy
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
@@ -23,8 +28,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
-from repro_torch.core.ssm import NO_MESH, SharedSuperModel
-from repro_torch.data.pipeline import FusedBatcher
+from repro_torch.core.nanobatch import AIMDController
+from repro_torch.core.ssm import NO_MESH, SharedSuperModel, valid_nano_counts
+from repro_torch.data.pipeline import FusedBatcher, JobStream
+from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
+                                         unfuse_state)
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
 
@@ -70,44 +78,84 @@ class GroupRuntime:
 
     def __init__(self, cfg: ModelConfig, params, specs: Sequence[LoRAJobSpec],
                  adapters, opt_state: adamw.AdamWState, *,
+                 streams: Optional[Sequence[JobStream]] = None,
+                 steps_done: Optional[Dict[str, int]] = None,
                  lr: float = 1e-3, lr_fn: Optional[Callable] = None,
                  impl: str = "cuda", block_t: int = 128,
                  nano_batches: int = 1, adaptive_nano: bool = False,
-                 remat: bool = True, quantize: Optional[str] = None,
-                 weight_decay: float = 0.0, chunk_size: int = 4,
-                 mesh=None, seed: int = 0, device="cuda"):
+                 aimd_max_n: int = 16, remat: bool = True,
+                 quantize: Optional[str] = None, weight_decay: float = 0.0,
+                 chunk_size: int = 4, mesh=None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 seed: int = 0, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(NO_MESH)
         if quantize is not None:
             raise NotImplementedError(
                 "the quantized backbone is not ported yet (ROADMAP queue A, "
                 "item 10; kernel B10)")
-        if adaptive_nano:
-            raise NotImplementedError(
-                "AIMD nano-batch adaptation is not ported yet (ROADMAP "
-                "queue A, item 8)")
         self.cfg = cfg
         self.specs = list(specs)
         self.device = torch.device(device)
         self.ssm = SharedSuperModel(cfg, self.specs, impl=impl,
                                     block_t=block_t)
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,
-                                    block_t=block_t, seed=seed)
+                                    block_t=block_t, seed=seed,
+                                    streams=streams)
         # own (copy) the trainable state: the caller's trees stay as given
         self.params = params
         self.adapters = _clone(adapters)
         self.opt_state = adamw.AdamWState(opt_state.step.clone(),
                                           _clone(opt_state.mu),
                                           _clone(opt_state.nu))
-        self.steps_done: Dict[str, int] = {s.job_id: 0 for s in self.specs}
+        self.steps_done: Dict[str, int] = dict(
+            steps_done or {s.job_id: 0 for s in self.specs})
         self.lr_fn = lr_fn or constant(lr)
         self.remat = remat
         self.weight_decay = weight_decay
         self.n = nano_batches
+        nano_rows = self.batcher.total_rows()
+        # The CUDA kernels need every contiguous nano slice to be whole
+        # token tiles, (rows / N) * seq_len % block_t == 0; the legal set
+        # keeps only such N (the reference leaves it unfiltered on one
+        # device and fails inside the step instead; ROADMAP §C).
+        legal = (valid_nano_counts(nano_rows, min(nano_rows, aimd_max_n),
+                                   seg_rows=[nano_rows],
+                                   seq_len=self.specs[0].seq_len,
+                                   block_t=block_t)
+                 if impl == "cuda" else None)
+        self.aimd = AIMDController(rows=nano_rows, n=self.n,
+                                   max_n=min(nano_rows, aimd_max_n),
+                                   legal=legal) if adaptive_nano else None
         self.chunk_size = max(1, chunk_size)
         self._step_cache: Dict[tuple, Callable] = {}
+        # periodic per-job checkpoints, every N collected chunks
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self._chunks_collected = 0
         self.report = TrainReport(
             samples_per_step=sum(s.batch_size for s in self.specs))
+
+    # ------------------------------------------------------- constructors
+    @classmethod
+    def from_states(cls, cfg: ModelConfig, params,
+                    states: Sequence[JobTrainState], *, seed: int = 0,
+                    device="cuda", **kw) -> "GroupRuntime":
+        """Fuse K portable job states into a live group on *device*
+        (join/migrate): each member copies into its own padded segment,
+        keeps its Adam step, its data stream and its step count."""
+        specs = [s.spec for s in states]
+        probe = SharedSuperModel(cfg, specs, impl=kw.get("impl", "cuda"),
+                                 block_t=kw.get("block_t", 128))
+        adapters, opt_state = fuse_states(cfg, states, probe.layout,
+                                          device=device)
+        streams = [s.stream if s.stream is not None
+                   else JobStream(s.spec, cfg.vocab_size, seed)
+                   for s in states]
+        return cls(cfg, params, specs, adapters, opt_state, streams=streams,
+                   steps_done={s.spec.job_id: s.steps_done for s in states},
+                   seed=seed, device=device, **kw)
 
     @classmethod
     def from_specs(cls, cfg: ModelConfig, specs: Sequence[LoRAJobSpec], *,
@@ -127,9 +175,13 @@ class GroupRuntime:
         return cls(cfg, params, specs, adapters, opt_state, seed=seed,
                    device=device, **kw)
 
+    # ----------------------------------------------------------- training
     @property
     def job_ids(self) -> List[str]:
         return [s.job_id for s in self.specs]
+
+    def index_of(self, job_id: str) -> int:
+        return self.job_ids.index(job_id)
 
     def _get_step(self, n: int, chunk: int) -> Callable:
         """The chunked step for (nano_batches, chunk length)."""
@@ -146,10 +198,11 @@ class GroupRuntime:
                 for k, v in self.batcher.next_batches(n).items()}
 
     def run_chunk(self, length: int,
-                  log: Optional[Callable[[str], None]] = None
-                  ) -> TrainReport:
+                  log: Optional[Callable[[str], None]] = None,
+                  count_aimd: bool = True) -> TrainReport:
         """Run one chunk of *length* steps and fold its metrics into the
-        report: one host read per chunk."""
+        report: one host read per chunk.  Also feeds AIMD (unless
+        *count_aimd* is False) and fires the periodic checkpoint hook."""
         log = log or (lambda s: None)
         rep = self.report
         L = int(length)
@@ -169,8 +222,17 @@ class GroupRuntime:
         rep.nano_history.extend([self.n] * L)
         for jid in self.job_ids:
             self.steps_done[jid] += L
+        # AIMD (Eq. 2) fed the chunk's mean step time
+        if self.aimd is not None and count_aimd:
+            self.n = self.aimd.update(dt)
         log(f"steps {rep.steps - L:4d}..{rep.steps - 1:4d} "
             f"loss {losses[-1]:.4f} nano {self.n} dt {dt*1e3:.1f}ms/step")
+        self._chunks_collected += 1
+        # no batch is staged ahead, so the live stream positions are the
+        # ones this chunk's state was trained to
+        if self.checkpoint_every and \
+                self._chunks_collected % self.checkpoint_every == 0:
+            self.save_checkpoints()
         return rep
 
     def run(self, steps: int, log: Optional[Callable[[str], None]] = None,
@@ -178,13 +240,62 @@ class GroupRuntime:
         """Advance the whole group by *steps* fused iterations, in chunks
         of ``chunk_size``.  A remainder shorter than a chunk runs one step
         at a time; a call with steps < chunk runs as one chunk of its own
-        length (the reference's chunk schedule)."""
+        length (the reference's chunk schedule).  Single-step tails
+        inside a longer run do not feed AIMD: their un-amortized dispatch
+        would read as a slowdown; with ``chunk_size=1`` every step
+        counts."""
         chunk = max(1, chunk_size or self.chunk_size)
         L = min(chunk, steps)
         done = 0
         while done < steps:
-            self.run_chunk(L, log=log)
+            self.run_chunk(L, log=log, count_aimd=L > 1 or chunk == 1)
             done += L
             remaining = steps - done
             L = chunk if remaining >= chunk else min(1, remaining)
         return self.report
+
+    # -------------------------------------------------------- checkpoints
+    def save_checkpoints(self, directory: Optional[str] = None) -> List[str]:
+        """Write every member's per-job checkpoint (adapter, Adam moments,
+        per-job Adam step, data-stream rng position, steps done) to
+        ``<dir>/<job_id>.npz``, the portable format a job restores from
+        into any group, in this package or the reference."""
+        from repro_torch.checkpoint.checkpoint import save_job, stream_state
+        directory = directory or self.checkpoint_dir
+        assert directory, "no checkpoint_dir configured"
+        step_vec = np.atleast_1d(self.opt_state.step.detach().cpu().numpy())
+        paths = []
+        for idx, spec in enumerate(self.specs):
+            off, _ = self.ssm.layout.slice_of(idx)
+            path = os.path.join(directory, f"{spec.job_id}.npz")
+            save_job(path, spec.job_id, off, spec.rank, self.adapters,
+                     self.opt_state,
+                     step=int(step_vec[idx % step_vec.size]),
+                     meta={"steps_done": self.steps_done[spec.job_id],
+                           "stream": stream_state(self.batcher.streams[idx])})
+            paths.append(path)
+        return paths
+
+    # ---------------------------------------------------------- migration
+    def export(self, job_id: str) -> JobTrainState:
+        """Non-destructive snapshot of one member in portable form.  The
+        data stream is deep-copied, so the snapshot's rng position stays
+        at the snapshotted state while the runtime trains on."""
+        idx = self.index_of(job_id)
+        return unfuse_state(self.adapters, self.opt_state, idx,
+                            self.specs[idx], layout=self.ssm.layout,
+                            steps_done=self.steps_done[job_id],
+                            stream=copy.deepcopy(self.batcher.streams[idx]))
+
+    def export_all(self) -> List[JobTrainState]:
+        return [self.export(jid) for jid in self.job_ids]
+
+    # ----------------------------------------------------------- serving
+    def publish_to(self, pool, job_ids: Optional[Sequence[str]] = None
+                   ) -> Dict[str, int]:
+        """Publish members' host snapshots (``export``) into a serving
+        ``AdapterPool`` under their job ids, between chunks; training
+        does not pause.  Returns {job_id: published version}."""
+        return {jid: pool.publish_state(self.export(jid))
+                for jid in (job_ids if job_ids is not None
+                            else self.job_ids)}

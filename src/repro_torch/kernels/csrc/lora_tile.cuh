@@ -1,6 +1,7 @@
 // The CTA routines shared by the ragged and masked LoRA kernels
-// (ragged_lora.cu, fused_lora.cu, ragged_bwd.cu): 16 token rows that
-// belong to ONE adapter, times a range of output columns.
+// (ragged_lora.cu, fused_lora.cu, ragged_bwd.cu, grouped.cu): 16 token
+// rows that belong to ONE adapter, times a range of output columns; and,
+// at the end, the weight-gradient accumulation of the two wgrads.
 //
 //   xa  = mask_{lane < rank}(x_rows · A_seg)    f32, then rounded to bf16
 //   out = xa · B_seg                           f32 accumulation
@@ -239,6 +240,86 @@ __device__ void lora_rows(const __nv_bfloat16* __restrict__ x, long ldx,
   xa_rows<kTrans>(x, ldx, a, lda, width, rank, d_in, n_rows, s);
   xa_times_b<OutT, kTrans>(b, ldb, width, n_rows, col_begin, col_end, out,
                            ldo, s);
+}
+
+// ---- weight gradients: out = u^T · v summed over token rows, for one
+// 16-lane slice of the narrow operand u and one 128-column block of the
+// wide operand v.  The caller walks its rows (the runs of token tiles
+// of one adapter) in a fixed order and accumulates on the tensor cores
+// in registers: the loop that the TPU grids ran as revisits of one
+// output block, so there are no atomics and the sum is deterministic.
+constexpr int kTok = 64;               // token rows staged per step
+
+struct __align__(128) WgradSmem {
+  __nv_bfloat16 u[kTok][kLanes];       //  2 KB  u rows, the CTA's 16 lanes
+  __nv_bfloat16 v[kTok][kCols];        // 16 KB  v rows, one column block
+  float out[kLanes][kCols];            //  8 KB  f32 output block
+};
+
+using WgradAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc += u[t_begin:t_end, 0:16)^T · v[t_begin:t_end, c0:c0 + kCols).
+// u points at the CTA's first lane (16 lanes, 16-byte aligned), v at
+// column 0 of its rows; columns >= d stage as zero.
+__device__ void wgrad_rows(const __nv_bfloat16* __restrict__ u, long ldu,
+                           const __nv_bfloat16* __restrict__ v, long ldv,
+                           int d, int c0, int t_begin, int t_end,
+                           WgradAcc (&acc)[2], WgradSmem& s) {
+  const int tid = threadIdx.x, warp = tid / 32;
+  for (int t0 = t_begin; t0 < t_end; t0 += kTok) {
+    const int n = min(kTok, t_end - t0);
+    for (int i = tid; i < kTok * (kLanes / 8); i += kThreads) {
+      const int r = i / (kLanes / 8), c = (i % (kLanes / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r < n)
+        val = *reinterpret_cast<const uint4*>(
+            u + static_cast<long>(t0 + r) * ldu + c);
+      *reinterpret_cast<uint4*>(&s.u[r][c]) = val;
+    }
+    for (int i = tid; i < kTok * (kCols / 8); i += kThreads) {
+      const int r = i / (kCols / 8), c = (i % (kCols / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r < n && c0 + c < d)
+        val = *reinterpret_cast<const uint4*>(
+            v + static_cast<long>(t0 + r) * ldv + c0 + c);
+      *reinterpret_cast<uint4*>(&s.v[r][c]) = val;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kTok / 16; ++kk) {
+      // u^T (lanes x tokens): u rows read column-major
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major> fa;
+      wmma::load_matrix_sync(fa, &s.u[kk * 16][0], kLanes);
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, &s.v[kk * 16][warp * 32 + j * 16],
+                               kCols);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Writes the CTA's (16 lanes x kCols) block: lane r, column c0 + c goes
+// to out[r * ld_lane + (c0 + c) * ld_col], columns >= d skipped.  The
+// element order follows whichever of the two strides is 1, so that
+// neighbouring threads write neighbouring addresses.
+__device__ void wgrad_store(WgradAcc (&acc)[2], float* __restrict__ out,
+                            long ld_lane, long ld_col, int d, int c0,
+                            WgradSmem& s) {
+  const int tid = threadIdx.x, warp = tid / 32;
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(&s.out[0][warp * 32 + j * 16], acc[j], kCols,
+                            wmma::mem_row_major);
+  __syncthreads();
+  const bool lanes_inner = ld_lane == 1;
+  for (int i = tid; i < kLanes * kCols; i += kThreads) {
+    const int r = lanes_inner ? i % kLanes : i / kCols;
+    const int c = lanes_inner ? i / kLanes : i % kCols;
+    if (c0 + c < d) out[r * ld_lane + (c0 + c) * ld_col] = s.out[r][c];
+  }
 }
 
 // Column range of CTA ``blockIdx.y`` when ``cols_per_cta`` columns each.

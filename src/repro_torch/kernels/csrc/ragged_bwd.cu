@@ -101,76 +101,28 @@ ragged_packed_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ----------------------------------------------------------------- wgrad
-constexpr int kTok = 64;               // tokens staged per step
-
-struct __align__(128) WgradSmem {
-  __nv_bfloat16 u[kTok][lora::kLanes];   //  2 KB  u rows, this rank tile
-  __nv_bfloat16 v[kTok][lora::kCols];    // 16 KB  v rows, this column block
-  float out[lora::kLanes][lora::kCols];  //  8 KB  f32 output block
-};
-
 __global__ void __launch_bounds__(lora::kThreads)
 ragged_wgrad_kernel(const __nv_bfloat16* __restrict__ u,
                     const __nv_bfloat16* __restrict__ v,
                     const int* __restrict__ rt_runs,
                     const int* __restrict__ runs, float* __restrict__ out,
                     int R, int d, int block_t) {
-  __shared__ WgradSmem s;
-  const int tid = threadIdx.x, warp = tid / 32;
+  __shared__ lora::WgradSmem s;
   const int lane0 = blockIdx.x * lora::kLanes;
   const int c0 = blockIdx.y * lora::kCols;
   const int run_begin = rt_runs[2 * blockIdx.x];
   const int run_end = run_begin + rt_runs[2 * blockIdx.x + 1];
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  lora::WgradAcc acc[2];
   wmma::fill_fragment(acc[0], 0.0f);
   wmma::fill_fragment(acc[1], 0.0f);
   for (int run = run_begin; run < run_end; ++run) {
     const int t_begin = runs[2 * run] * block_t;
-    const int t_end = t_begin + runs[2 * run + 1] * block_t;
-    for (int t0 = t_begin; t0 < t_end; t0 += kTok) {
-      const int n = min(kTok, t_end - t0);
-      for (int i = tid; i < kTok * (lora::kLanes / 8); i += lora::kThreads) {
-        const int r = i / (lora::kLanes / 8), c = (i % (lora::kLanes / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r < n)
-          val = *reinterpret_cast<const uint4*>(
-              u + static_cast<long>(t0 + r) * R + lane0 + c);
-        *reinterpret_cast<uint4*>(&s.u[r][c]) = val;
-      }
-      for (int i = tid; i < kTok * (lora::kCols / 8); i += lora::kThreads) {
-        const int r = i / (lora::kCols / 8), c = (i % (lora::kCols / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r < n && c0 + c < d)
-          val = *reinterpret_cast<const uint4*>(
-              v + static_cast<long>(t0 + r) * d + c0 + c);
-        *reinterpret_cast<uint4*>(&s.v[r][c]) = val;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kTok / 16; ++kk) {
-        // u^T (lanes x tokens): u rows read column-major
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, &s.u[kk * 16][0], lora::kLanes);
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, &s.v[kk * 16][warp * 32 + j * 16],
-                                 lora::kCols);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
+    lora::wgrad_rows(u + lane0, R, v, d, d, c0, t_begin,
+                     t_begin + runs[2 * run + 1] * block_t, acc, s);
   }
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(&s.out[0][warp * 32 + j * 16], acc[j],
-                            lora::kCols, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < lora::kLanes * lora::kCols; i += lora::kThreads) {
-    const int r = i / lora::kCols, c = i % lora::kCols;
-    if (c0 + c < d) out[static_cast<long>(lane0 + r) * d + c0 + c] = s.out[r][c];
-  }
+  lora::wgrad_store(acc, out + static_cast<long>(lane0) * d, d, 1, d, c0,
+                    s);
 }
 
 }  // namespace

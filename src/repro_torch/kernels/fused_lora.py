@@ -1,14 +1,20 @@
-"""Masked max-rank multi-LoRA forward (port of the forward kernel of
-``repro.kernels.fused_lora``).
+"""The masked max-rank multi-LoRA kernels (port of
+``repro.kernels.fused_lora``, all but the quantized backbone's dequant
+kernel).
 
 Stacked adapters A (K, d_in, r_pad) / B (K, r_pad, d_out), one adapter
 per token tile (``tile_map``), lanes >= each adapter's true rank masked:
 
-    xa = mask(x_tile · A[k]) rounded to x.dtype;  y_tile = xa · B[k]
+    fused_lora      xa = mask(x_tile · A[k]) rounded to x.dtype;
+                    y_tile = xa · B[k]        (x.dtype, unscaled)
+    grouped_matmul  y_t = x_t · W[k]          (x.dtype, f32 accumulation)
+    grouped_wgrad   out[k] = Σ_{t of adapter k} x_t^T · g_t   (f32)
 
-returned in x.dtype, unscaled.  On a CUDA tensor ``fused_lora_cuda``
-launches the Hopper kernel ``csrc/fused_lora.cu``; on a CPU tensor it
-runs ``fused_lora_plain``, the same function in plain PyTorch.
+The last two are the backward of the first (``kernels/ops._MaskedLoRA``).
+On a CUDA tensor each ``*_cuda`` wrapper launches its Hopper kernel
+(``csrc/fused_lora.cu``, ``csrc/grouped.cu``) and counts the launch; on a
+CPU tensor it runs its ``*_plain`` version, the same function in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -105,3 +111,149 @@ def fused_lora_cuda(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 fused_lora_cuda.launches = 0
+
+
+# ------------------------------------------------------------ grouped mm
+def grouped_matmul_plain(x: torch.Tensor, W: torch.Tensor,
+                         tile_map: torch.Tensor, *,
+                         block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the grouped product: one batched product
+    over the token tiles, each against its adapter's W, in f32."""
+    T, d_in = x.shape
+    n = T // block_t
+    y = torch.bmm(x.reshape(n, block_t, d_in).float(),
+                  W[tile_map.long()].float())
+    return y.reshape(T, -1).to(x.dtype)
+
+
+def _w_layout(W: torch.Tensor) -> tuple:
+    """(transposed, leading dim) of W's (d_in, d_out) matrices: as stored
+    (last dim contiguous) or a transposed view (middle dim contiguous)."""
+    if W.stride(-1) == 1:
+        return False, W.stride(1)
+    build.require(W.stride(1) == 1, "W needs its last or its middle dim "
+                  f"contiguous (strides {tuple(W.stride())})")
+    return True, W.stride(2)
+
+
+def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
+                        tile_map: torch.Tensor, *,
+                        block_t: int = 128) -> torch.Tensor:
+    """x: (T, d_in), W: (K, d_in, d_out), tile_map: (T // block_t,) adapter
+    per token tile.  Returns y (T, d_out) in x.dtype, y_t = x_t · W[k].
+
+    W may be a strided view: its last dim contiguous, or its middle dim
+    (the transposed B^T and A^T views of the masked VJP, read in place).
+    One of d_in and d_out must be at most 256 (a LoRA rank width).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    T, d_in = x.shape
+    K, _, d_out = W.shape
+    build.require(T % block_t == 0 and tile_map.shape == (T // block_t,),
+                  f"T={T}, block_t={block_t}, tile_map {tuple(tile_map.shape)}")
+    build.require(W.shape[1] == d_in, f"W {tuple(W.shape)} vs x "
+                  f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, W, tile_map, block_t=block_t)
+    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+                  "x must be a contiguous bf16 tensor")
+    build.require(W.device == x.device and W.dtype == torch.bfloat16,
+                  f"W must be bf16 on {x.device}")
+    build.require(tile_map.device == x.device
+                  and tile_map.dtype == torch.int32
+                  and tile_map.is_contiguous(),
+                  f"tile_map must be contiguous int32 on {x.device}")
+    build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
+                  "of 16 (one CTA's rows must share an adapter)")
+    narrow = d_out <= 256
+    build.require(narrow or d_in <= 256, f"d_in={d_in}, d_out={d_out}: the "
+                  "kernel needs one of them at most 256")
+    trans, ld = _w_layout(W)
+    build.require_vectors((x, W), d_in, d_out, W.stride(0), ld)
+    out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
+    lib = _grouped_lib()
+    groups = build.col_groups(T // 16, d_out, 128, x.device)
+    err = lib.grouped_matmul_launch(
+        build.ptr(x), build.ptr(W), build.ptr(tile_map), build.ptr(out), T,
+        d_in, d_out, W.stride(0), ld, int(trans), int(narrow), block_t,
+        groups, build.stream_ptr(x.device))
+    build.check(lib, err, "grouped_matmul_cuda")
+    grouped_matmul_cuda.launches += 1
+    return out
+
+
+# --------------------------------------------------------- grouped wgrad
+def grouped_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
+                        tile_map: torch.Tensor, num_adapters: int, *,
+                        block_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the grouped wgrad: per token tile x^T·g in
+    f32, summed per adapter with ``index_add_`` (zeros for adapters that
+    own no tile)."""
+    T, d_x = x.shape
+    n = T // block_t
+    per_tile = torch.bmm(x.reshape(n, block_t, d_x).float().transpose(1, 2),
+                         g.reshape(n, block_t, -1).float())
+    out = torch.zeros((num_adapters, d_x, g.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, tile_map.long(), per_tile)
+
+
+def grouped_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
+                       tile_map: torch.Tensor, num_adapters: int, *,
+                       block_t: int = 128) -> torch.Tensor:
+    """x: (T, d_x), g: (T, d_g), tile_map: (T // block_t,).  Returns
+    (K, d_x, d_g) f32, out[k] = Σ_{t of adapter k} x_t^T · g_t: dA =
+    wgrad(x, dxa), dB = wgrad(xa, dy_s).  The smaller of d_x and d_g (a
+    rank width) must be a multiple of 16.  Deterministic: each output
+    block is summed by one CTA in token order."""
+    T, d_x = x.shape
+    d_g = g.shape[-1]
+    build.require(T % block_t == 0 and tile_map.shape == (T // block_t,)
+                  and g.shape[0] == T,
+                  f"x {tuple(x.shape)}, g {tuple(g.shape)}, block_t="
+                  f"{block_t}, tile_map {tuple(tile_map.shape)}")
+    if x.device.type == "cpu":
+        return grouped_wgrad_plain(x, g, tile_map, num_adapters,
+                                   block_t=block_t)
+    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    for name, t in (("x", x), ("g", g)):
+        build.require(t.device == x.device and t.dtype == torch.bfloat16
+                      and t.is_contiguous(),
+                      f"{name} must be a contiguous bf16 tensor on {x.device}")
+    build.require(tile_map.device == x.device
+                  and tile_map.dtype == torch.int32
+                  and tile_map.is_contiguous(),
+                  f"tile_map must be contiguous int32 on {x.device}")
+    build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
+                  "of 16")
+    build.require(min(d_x, d_g) % 16 == 0, f"d_x={d_x}, d_g={d_g}: the "
+                  "narrow operand must be whole 16-lane tiles")
+    build.require_vectors((x, g), d_x, d_g)
+    out = torch.empty((num_adapters, d_x, d_g), dtype=torch.float32,
+                      device=x.device)
+    lib = _grouped_lib()
+    err = lib.grouped_wgrad_launch(
+        build.ptr(x), build.ptr(g), build.ptr(tile_map), build.ptr(out), T,
+        d_x, d_g, num_adapters, block_t, build.stream_ptr(x.device))
+    build.check(lib, err, "grouped_wgrad_cuda")
+    grouped_wgrad_cuda.launches += 1
+    return out
+
+
+def _grouped_lib() -> ctypes.CDLL:
+    lib = build.load("grouped")
+    mm, wg = lib.grouped_matmul_launch, lib.grouped_wgrad_launch
+    if mm.argtypes is None:
+        mm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        mm.restype = ctypes.c_int
+        wg.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        wg.restype = ctypes.c_int
+    return lib
+
+
+grouped_matmul_cuda.launches = 0
+grouped_wgrad_cuda.launches = 0

@@ -2,18 +2,18 @@
 ``repro.kernels.ops``, single device).
 
 ``fused_lora`` — the MASKED max-rank family over stacked (K, d, r_pad)
-adapters: "cuda" (kernels/fused_lora.py), "ref" (gather oracle), "loop"
-(one GEMM pair per adapter, the unfused baseline).
+adapters: "cuda" (kernels/fused_lora.py, differentiable through
+``_MaskedLoRA``, whose backward launches the grouped product three times
+and the grouped wgrad twice), "ref" (gather oracle), "loop" (one GEMM
+pair per adapter, the unfused baseline).
 
 ``fused_lora_ragged`` — the RAGGED family over packed (d, R)/(R, d)
 adapters with per-adapter padded segments: "cuda" (kernels/ragged.py,
 true-rank work per token tile, differentiable through ``_RaggedLoRA``,
 whose backward launches the dgrad, xa, dxa and wgrad kernels),
 "ref"/"loop" (densify, then the oracles; autograd differentiates them).
-
-The masked "cuda" route is forward only: its backward kernels (ROADMAP
-B7/B8) are not ported, so it refuses to run where a gradient is wanted
-rather than return a tensor without one.
+A batch without a static tile map (a contiguous nano slice) densifies
+and takes the masked family.
 
 The "torch" mirror of the reference's bucket-concatenated "xla" path is
 queued (ROADMAP A3) and raises here.  Contract for "cuda": tokens sorted
@@ -31,13 +31,10 @@ import torch
 
 from repro_torch.kernels import ragged as rg
 from repro_torch.kernels import ref as ref_impl
-from repro_torch.kernels.fused_lora import fused_lora_cuda
+from repro_torch.kernels.fused_lora import (fused_lora_cuda,
+                                            grouped_matmul_cuda,
+                                            grouped_wgrad_cuda)
 from repro_torch.kernels.ragged import RaggedMeta
-
-MASKED_NO_GRAD = (
-    "the masked LoRA route ('cuda' with a uniform rank layout, or a batch "
-    "without a static tile map) has no backward yet: its kernels "
-    "grouped_matmul and grouped_wgrad are ROADMAP B7/B8")
 
 
 def _tile_map(ids: torch.Tensor, block_t: int) -> torch.Tensor:
@@ -51,12 +48,40 @@ def _no_torch_impl():
         "ported yet (ROADMAP queue A, item 3)")
 
 
-def _fused_lora_cuda(x, A, B, ids, ranks, scalings, block_t):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, A, B)):
-        raise NotImplementedError(MASKED_NO_GRAD)
-    y = fused_lora_cuda(x, A, B, _tile_map(ids, block_t),
-                        ranks.to(torch.int32).contiguous(), block_t=block_t)
-    return (y.float() * scalings[ids][:, None]).to(x.dtype)
+class _MaskedLoRA(torch.autograd.Function):
+    """The masked "cuda" path with its backward (the reference's
+    ``_make_pallas_fn``).  Backward = five launches over the device tile
+    map: dxa = dy_s ·g B^T and dx = dxa ·g A^T (grouped products), xa =
+    x ·g A (grouped product), dA = Σ_seg x^T·dxa and dB = Σ_seg xa^T·dy_s
+    (grouped wgrads).  B^T and A^T are strided views, never copies.
+    Rounding points as in the reference: dy_s = bf16(dy · s[ids]) in f32;
+    dxa and xa rank-masked in f32, then cast to x.dtype; dA, dB f32, then
+    cast to A's and B's dtypes.  ids, ranks and the scalings (alpha / r
+    constants, never trained) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, A, B, ids, ranks, scalings, block_t: int):
+        tm = _tile_map(ids, block_t)
+        rk = ranks.to(torch.int32).contiguous()
+        ctx.save_for_backward(x, A, B, ids, rk, scalings, tm)
+        ctx.block_t = block_t
+        y = fused_lora_cuda(x, A, B, tm, rk, block_t=block_t)
+        return (y.float() * scalings[ids][:, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, ids, rk, scalings, tm = ctx.saved_tensors
+        bt, K = ctx.block_t, A.shape[0]
+        dy_s = (dy.float() * scalings[ids][:, None]).to(dy.dtype)
+        dxa = grouped_matmul_cuda(dy_s, B.transpose(1, 2), tm, block_t=bt)
+        dxa = ref_impl.rank_mask(dxa.float(), ids, rk).to(x.dtype)
+        dx = grouped_matmul_cuda(dxa, A.transpose(1, 2), tm, block_t=bt)
+        xa = grouped_matmul_cuda(x, A, tm, block_t=bt)
+        xa = ref_impl.rank_mask(xa.float(), ids, rk).to(x.dtype)
+        dA = grouped_wgrad_cuda(x, dxa, tm, K, block_t=bt)
+        dB = grouped_wgrad_cuda(xa, dy_s, tm, K, block_t=bt)
+        return (dx.to(x.dtype), dA.to(A.dtype), dB.to(B.dtype), None, None,
+                None, None)
 
 
 class _RaggedLoRA(torch.autograd.Function):
@@ -136,9 +161,12 @@ def fused_lora_ragged(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         if slice_rows is not None and T % block_t == 0:
             tile_jobs = _tile_jobs_static(slice_rows, seq_len, block_t)
         if tile_jobs is None:
+            # no static tile map (the contiguous nano split): densify to
+            # the layout's widest segment and take the masked family,
+            # whose device tile map takes any tile-aligned layout
             Af, Bf = unpack_dense(A, B, layout)
-            return _fused_lora_cuda(x, Af.to(x.dtype), Bf.to(x.dtype), ids,
-                                    rk, scalings, block_t)
+            return _MaskedLoRA.apply(x, Af.to(x.dtype), Bf.to(x.dtype),
+                                     ids, rk, scalings, block_t)
         meta = RaggedMeta.build(tile_jobs, layout)
         return _RaggedLoRA.apply(x, A, B, ids, scalings, meta, block_t)
     raise ValueError(f"unknown fused_lora_ragged impl {impl!r}")
@@ -151,7 +179,7 @@ def fused_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """Fused heterogeneous multi-LoRA: y_t = s_a ((x_t A_a) B_a), a=ids[t].
     x (T, d_in), A (K, d_in, r), B (K, r, d_out) -> (T, d_out)."""
     if impl == "cuda":
-        return _fused_lora_cuda(x, A, B, ids, ranks, scalings, block_t)
+        return _MaskedLoRA.apply(x, A, B, ids, ranks, scalings, block_t)
     if impl == "torch":
         _no_torch_impl()
     if impl == "loop":

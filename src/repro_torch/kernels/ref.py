@@ -40,6 +40,16 @@ def grouped_matmul_ref(x: torch.Tensor, W: torch.Tensor,
     return y.to(x.dtype)
 
 
+def grouped_wgrad_ref(x: torch.Tensor, g: torch.Tensor, ids: torch.Tensor,
+                      num_adapters: int) -> torch.Tensor:
+    """out[k] = Σ_{t: ids[t]=k} x_tᵀ g_t — oracle for the grouped wgrad.
+
+    x: (T, d_in); g: (T, d_out); returns (K, d_in, d_out) f32.  The one-hot
+    densification over K is what the kernel avoids; fine at test scale."""
+    onehot = torch.nn.functional.one_hot(ids.long(), num_adapters).float()
+    return torch.einsum("tk,td,to->kdo", onehot, x.float(), g.float())
+
+
 def fused_lora_loop(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                     ids: torch.Tensor, ranks: torch.Tensor,
                     scalings: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,11 @@
         --jobs 4 --steps 8
 
 Runs on the GPU by default (``--device cpu`` for the kernels' plain
-versions).  The default ranks {8, 16, 32, 64} pad to 16/16/32/64 at the
-rank multiple 16, a non-uniform layout, so training takes the ragged
-kernels; the reference's default ranks {16, 8, 4, 2} all pad to 16,
-which is uniform and takes the masked route, whose backward kernels are
-not ported yet (ROADMAP B7/B8).  The reference's ``serve`` and
-``simulate`` subcommands are not ported yet (ROADMAP queue A, item 15).
+versions).  The defaults are the reference's: ranks {16, 8, 4, 2}, which
+all pad to 16 (a uniform layout: the masked kernels), and AIMD nano-batch
+adaptation on (``--no-aimd`` turns it off).  The reference's ``serve``
+and ``simulate`` subcommands are not ported yet (ROADMAP queue A, item
+15).
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.jobs import LoRAJobSpec
 
-RANKS = (8, 16, 32, 64)
+RANKS = (16, 8, 4, 2)
 
 
 def cmd_train(args):
@@ -35,10 +34,12 @@ def cmd_train(args):
     out = train_group(cfg, jobs, steps=args.steps, lr=args.lr,
                       impl=args.impl, block_t=args.block_t,
                       chunk_size=args.chunk_size, seed=args.seed,
-                      device=args.device, log=print)
+                      adaptive_nano=not args.no_aimd, device=args.device,
+                      log=print)
     rep = out["report"]
     print(f"\nfinal loss {rep.losses[-1]:.4f}  "
-          f"avg step {np.mean(rep.step_times[1:] or rep.step_times):.3f}s")
+          f"avg step {np.mean(rep.step_times[1:] or rep.step_times):.3f}s  "
+          f"nano trajectory {rep.nano_history}")
 
 
 def main(argv=None):
@@ -56,6 +57,7 @@ def main(argv=None):
     t.add_argument("--block-t", type=int, default=128)
     t.add_argument("--chunk-size", type=int, default=4)
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--no-aimd", action="store_true")
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
     args = ap.parse_args(argv)

@@ -109,6 +109,11 @@ class AdapterPool:
         self.stats["publishes"] += 1
         return version
 
+    def publish_state(self, state) -> int:
+        """Publish a ``JobTrainState`` (e.g. ``GroupRuntime.export``)."""
+        return self.publish(state.spec.job_id, state.adapter,
+                            rank=state.spec.rank, alpha=state.spec.alpha)
+
     def publish_group(self, specs: Sequence, adapters: dict,
                       layout: RankLayout) -> List[int]:
         """Publish every member of a packed fused stack (slices per job)."""

@@ -1,10 +1,6 @@
 """End-to-end multi-LoRA training of one fused group (port of
-``repro.train.train_loop``): data -> SSM train step -> per-job AdamW,
-through ``elastic.runtime.GroupRuntime``.
-
-AIMD nano-batch adaptation is not ported yet (ROADMAP queue A, item 8),
-so ``adaptive_nano`` defaults to False here (the reference's default is
-True) and True raises.
+``repro.train.train_loop``): data -> SSM train step -> AIMD nano-batch
+adaptation -> per-job AdamW, through ``elastic.runtime.GroupRuntime``.
 """
 from __future__ import annotations
 
@@ -20,14 +16,16 @@ __all__ = ["train_group", "TrainReport", "GroupRuntime"]
 def train_group(cfg: ModelConfig, jobs: Sequence[LoRAJobSpec], *,
                 steps: int = 20, lr: float = 1e-3, seed: int = 0,
                 impl: str = "cuda", block_t: int = 128,
-                adaptive_nano: bool = False, nano_batches: int = 1,
+                adaptive_nano: bool = True, nano_batches: int = 1,
                 remat: bool = True, quantize: Optional[str] = None,
                 chunk_size: int = 4, params=None, adapters=None,
                 log: Optional[Callable[[str], None]] = None,
                 device="cuda") -> Dict:
     """Train a fused group for *steps* iterations on *device* (the GPU
     unless the caller asks for the CPU), in chunks of ``chunk_size``
-    steps with one host read of the metrics per chunk."""
+    steps with one host read of the metrics per chunk; AIMD (on by
+    default, as in the reference) picks the nano-batch count from each
+    chunk's mean step time."""
     rt = GroupRuntime.from_specs(cfg, list(jobs), params=params,
                                  adapters=adapters, seed=seed,
                                  device=device, lr=lr, impl=impl,

@@ -352,7 +352,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.checkpoint, repro_torch.core.ssm, "
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.optim, repro_torch.data, repro_torch.elastic, "
-            "repro_torch.train.train_loop, repro_torch.launch.train\n"
+            "repro_torch.train.train_loop, repro_torch.launch.train, "
+            "repro_torch.core.nanobatch, repro_torch.elastic.migrate, "
+            "repro_torch.elastic.runtime, "
+            "repro_torch.checkpoint.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

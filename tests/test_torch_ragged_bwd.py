@@ -237,9 +237,20 @@ def test_ragged_function_backward_runs_the_four_plain_kernels(monkeypatch):
                                     "ragged_wgrad_plain"])
 
 
-def test_masked_route_refuses_to_run_under_grad():
-    """The masked route has no backward yet (ROADMAP B7/B8): it raises
-    where a gradient is wanted, and still runs without one."""
+def test_masked_route_refuses_to_run_under_grad(monkeypatch):
+    """The masked route under grad: a uniform layout (MultiLoRA.apply's
+    stacked views) and a batch without a static tile map (densified) both
+    run, and their backward goes through B7/B8's plain versions on a CPU
+    tensor (grouped_matmul three times, grouped_wgrad twice), not through
+    autograd of the plain forward; without grad the route runs too."""
+    from repro_torch.kernels import fused_lora
+    calls = []
+    for name in ("grouped_matmul_plain", "grouped_wgrad_plain"):
+        fn = getattr(fused_lora, name)
+        monkeypatch.setattr(fused_lora, name,
+                            lambda *a, _fn=fn, _n=name, **k:
+                            calls.append(_n) or _fn(*a, **k))
+    want = ["grouped_matmul_plain"] * 3 + ["grouped_wgrad_plain"] * 2
     rng = np.random.default_rng(0)
     ranks = (8, 3)                        # uniform pads: the masked route
     A = torch.from_numpy(rng.standard_normal((D_IN, 16)).astype(np.float32))
@@ -253,16 +264,19 @@ def test_masked_route_refuses_to_run_under_grad():
                          block_t=BLOCK_T,
                          layout=lora.RankLayout(ranks, 8), rows_all=(1, 1))
     xs = x.reshape(2, BLOCK_T, D_IN)
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        ctx.apply(xs, {"A": A.requires_grad_(), "B": B})
+    y = ctx.apply(xs, {"A": A.requires_grad_(), "B": B})
+    assert calls == []
+    y.sum().backward()
+    assert sorted(calls) == want and A.grad.shape == A.shape
+    calls.clear()
     A32 = torch.from_numpy(rng.standard_normal((D_IN, 32)).astype(
         np.float32)).requires_grad_()
     B32 = torch.from_numpy(rng.standard_normal((32, D_OUT)).astype(
         np.float32))
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        ops.fused_lora_ragged(x, A32, B32, ids, torch.tensor([2.0, 5.0]),
-                              lora.RankLayout((8, 20), 8), impl="cuda",
-                              block_t=BLOCK_T)    # no tile map: masked
+    ops.fused_lora_ragged(x, A32, B32, ids, torch.tensor([2.0, 5.0]),
+                          lora.RankLayout((8, 20), 8), impl="cuda",
+                          block_t=BLOCK_T).sum().backward()   # no tile map
+    assert sorted(calls) == want and A32.grad.shape == A32.shape
     with torch.no_grad():
         assert ctx.apply(xs, {"A": A, "B": B}).shape == (2, BLOCK_T, D_OUT)
 
