@@ -45,7 +45,18 @@ each on standard output:
   elastic — a uniform group trains and checkpoints every member; two of
             its jobs move into a mixed group beside a fresh rank-64 job,
             then one of them trains alone; its losses against a control
-            run of that job alone, its checkpoint against its export.
+            run of that job alone, its checkpoint against its export;
+  quant   — the int8 backbone: quantized once (seconds, resident bytes
+            bf16 against int8), then the ``train`` group on the same
+            batches with every base projection through the dequant-matmul
+            kernel (exact launches per step, per-job losses within 0.05
+            relative of the bf16 run, one step's adapter gradients
+            through the "cuda" against the "torch" dequant impl, step
+            time, one profiled step), then ``ServeEngine(quantize=
+            "int8")`` on the mixed set's requests (launches per decode
+            step, fused-vs-solo prefill logits and first token ids,
+            tokens/s, top-1 agreement with the bf16 engine, reported;
+            one profiled serve).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
@@ -62,6 +73,7 @@ import subprocess
 import sys
 import time
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
@@ -95,7 +107,8 @@ TRAIN_LR = 1e-3
 TRAIN_LAUNCHES = {"ragged_lora_fwd": 176, "ragged_lora_dgrad": 88,
                   "ragged_xa": 88, "ragged_dxa": 88, "ragged_wgrad": 176,
                   "flash_attention_fwd": 44, "fused_lora_cuda": 0,
-                  "grouped_matmul_cuda": 0, "grouped_wgrad_cuda": 0}
+                  "grouped_matmul_cuda": 0, "grouped_wgrad_cuda": 0,
+                  "dequant_matmul_cuda": 0}
 # The masked route (uniform widths; contiguous nano slices): forward 2 x
 # 88, backward 3 grouped products and 2 grouped wgrads per projection;
 # nano_batches = N multiplies every count by N.
@@ -104,7 +117,19 @@ NANO_N = 4
 MASKED_LAUNCHES = {"fused_lora_cuda": 176, "grouped_matmul_cuda": 264,
                    "grouped_wgrad_cuda": 176, "flash_attention_fwd": 44,
                    "ragged_lora_fwd": 0, "ragged_lora_dgrad": 0,
-                   "ragged_xa": 0, "ragged_dxa": 0, "ragged_wgrad": 0}
+                   "ragged_xa": 0, "ragged_dxa": 0, "ragged_wgrad": 0,
+                   "dequant_matmul_cuda": 0}
+# The int8 backbone (quant phase): every base projection (7 a layer: q,
+# k, v, o, gate, up, down; 154 in all) launches the dequant-matmul
+# kernel.  A training step: 2 x 154 forward (remat) and 151 backward
+# (dx): layer 0's q/k/v read the frozen embedding, so autograd asks no
+# dx of them.  A serve: 154 per prefill and per decode step.
+QUANT_PROJ = 154
+QUANT_LAUNCHES = dict(TRAIN_LAUNCHES, dequant_matmul_cuda=2 * QUANT_PROJ
+                      + QUANT_PROJ - 3)
+# int8 against bf16 per-job losses, relative: the reference's own bar
+# (tests/test_quant.py, test_train_group_quantized_loss_close)
+QUANT_LOSS_RTOL = 0.05
 AIMD_CHUNKS = 6                   # chunks of TRAIN_CHUNK steps under AIMD
 ELASTIC_K = 4                     # steps per stage of the elastic phase
 # cuda vs loop adapter gradients, same step: relative Frobenius error per
@@ -134,6 +159,8 @@ LOGIT_ATOL = 0.25
 
 
 def emit(obj) -> None:
+    if "phase" in obj:                  # seconds since the script began
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -425,6 +452,76 @@ def masked_kernel_cases(g, dev):
     return cases
 
 
+def dequant_library(x, q, scale, trans: bool):
+    """One ``torch._weight_int8pack_mm`` call computing the same product
+    from the same int8 codes (its int8 operand is (N, K): for the
+    backward's q^T that is the stored codes themselves, for the forward a
+    transposed copy made here, outside the timing), for timing only; None
+    where this PyTorch has no such call or refuses these operands (the
+    reason goes to stderr)."""
+    import torch
+    if not hasattr(torch, "_weight_int8pack_mm"):
+        return None
+    w = q.T if trans else q.T.contiguous()
+    s = (scale if scale is not None else torch.ones(
+        q.shape[1], device=x.device)).to(x.dtype)
+    fn = lambda: torch._weight_int8pack_mm(x, w, s)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except RuntimeError as e:
+        print(f"torch._weight_int8pack_mm refused: {e}", file=sys.stderr)
+        return None
+
+
+def dequant_kernel_cases(g, dev):
+    """B10 at the int8 backbone's shapes: decode (64 rows) at 2048 ->
+    5632 and 2048 -> 2048; training (8192 tokens) at 2048 -> 2048 (q, o),
+    2048 -> 256 (k, v), 2048 -> 5632 (gate, up) and 5632 -> 2048 (down);
+    and the backward's transposed read, dx (8192, 5632) = dys · q_down^T.
+    Besides the library call, each case times what the bf16 backbone
+    pays for the same projection: cuBLAS on a bf16 copy of the weight."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.models.quant import quantize_array
+    cases = []
+    library = "torch._weight_int8pack_mm"
+    for step, T, d_in, d_out, trans in (
+            ("decode", 64, 2048, 5632, False),
+            ("decode", 64, 2048, 2048, False),
+            ("train", 8192, 2048, 2048, False),
+            ("train", 8192, 2048, 256, False),
+            ("train", 8192, 2048, 5632, False),
+            ("train", 8192, 5632, 2048, False),
+            ("train", 8192, 5632, 2048, True)):
+        qt = quantize_array(torch.randn((d_in, d_out), generator=g,
+                                        device=dev) / d_in ** 0.5)
+        if trans:       # dx = dys · q^T: unit scales, q read transposed
+            x = torch.randn((T, d_out), generator=g, device=dev)
+            x = (x * qt.scale).to(torch.bfloat16)
+            q, scale, K, N = qt.q.T, None, d_out, d_in
+        else:
+            x = torch.randn((T, d_in), generator=g,
+                            device=dev).to(torch.bfloat16)
+            q, scale, K, N = qt.q, qt.scale, d_in, d_out
+        wb = (q.float() * (scale if scale is not None else 1.0)
+              ).to(torch.bfloat16)
+        nbytes = T * K * 2 + K * N + (N * 4 if scale is not None else 0) \
+            + T * N * 2
+        lib = dequant_library(x, q, scale, trans)
+        cases.append((
+            "dequant_matmul_cuda", step,
+            dict(op="dx = dys . q^T" if trans else "y = (x . q) * scale",
+                 T=T, d_in=K, d_out=N),
+            functools.partial(fl.dequant_matmul_cuda, x, q, scale),
+            functools.partial(fl.dequant_matmul_plain, x, q, scale),
+            lib, nbytes, 2 * T * K * N,
+            {"library": library if lib else None,
+             "cublas_bf16_ms": functools.partial(torch.matmul, x, wb)}))
+    return cases
+
+
 def kernels_phase(rows, S, dev):
     import torch
     import torch.nn.functional as F
@@ -496,9 +593,12 @@ def kernels_phase(rows, S, dev):
                   lib, *flash_cost(BH, S, hd, H // KV)))
     cases += train_kernel_cases(g, dev)
     cases += masked_kernel_cases(g, dev)
+    cases += dequant_kernel_cases(g, dev)
 
     results = []
-    for name, step, shape, run, plain, lib, nbytes, flops in cases:
+    # a case may end with a dict of further fields: a callable is timed
+    # like the library call (the key names it), any other value is copied
+    for name, step, shape, run, plain, lib, nbytes, flops, *more in cases:
         got = run()
         torch.cuda.synchronize()         # surfaces a fault in the kernel
         res = compare(got, plain())
@@ -508,6 +608,8 @@ def kernels_phase(rows, S, dev):
                    plain_ms=device_ms(plain, iters=5),
                    library_ms=device_ms(lib) if lib else None,
                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+        for key, v in (more[0] if more else {}).items():
+            res[key] = device_ms(v) if callable(v) else v
         emit({"phase": "kernels", **res})
         if not res["within_tol"]:
             raise AssertionError(f"{name} ({step}, {shape}) disagrees with "
@@ -574,7 +676,7 @@ def _family(kernel_name: str) -> str:
     everything else."""
     for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
                  "ragged_wgrad", "fused_lora_fwd", "grouped_mm",
-                 "grouped_wgrad", "flash_fwd"):
+                 "grouped_wgrad", "flash_fwd", "dequant_mm"):
         if port in kernel_name:
             return port
     if "f32f32" in kernel_name:
@@ -638,8 +740,11 @@ def serve_phase(cfg, params, sets, dev):
             diffs.append((fused_lg - solo_lg).abs().max().item())
             flips.append(int((fused_lg.argmax(-1)
                               != solo_lg.argmax(-1)).sum()))
+        # whole sequences solo for one request per adapter only: 16 solo
+        # serves a set took minutes of the run's time limit on slow hosts
+        probe = list(zip(reqs, rec["results"]))[:len(names)]
         same = sum(int(f.tokens.tolist() == engine.serve([r])[0].tokens.tolist())
-                   for r, f in zip(reqs, rec["results"]))
+                   for r, f in probe)
         emit({"phase": "serve", "set": set_name, "ranks": list(ranks),
               "requests": len(reqs), "rows": sum(geometry(reqs)[0]),
               "prompt_width": geometry(reqs)[1],
@@ -649,7 +754,8 @@ def serve_phase(cfg, params, sets, dev):
               "logit_atol": LOGIT_ATOL,
               "decode1_logits_max_abs_diff_fused_vs_solo": diffs[1],
               "argmax_flips_prefill_decode1": flips,
-              "token_ids_identical_share": same / len(reqs)})
+              "token_ids_identical_share": same / len(probe),
+              "token_ids_compared": len(probe)})
         if diffs[0] > LOGIT_ATOL:
             raise AssertionError(f"{set_name}: fused vs solo prefill logits "
                                  f"differ by {diffs[0]} (atol {LOGIT_ATOL})")
@@ -671,14 +777,15 @@ def train_specs(ranks=TRAIN_RANKS, prefix="train"):
 
 
 def lora_wrappers():
-    """Every kernel wrapper of the training path, with its counter."""
+    """Every kernel wrapper of the training path (the int8 backbone's
+    included), with its counter."""
     from repro_torch.kernels import fused_lora as fl
     from repro_torch.kernels import ragged as rg
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     return (rg.ragged_lora_fwd, rg.ragged_lora_dgrad, rg.ragged_xa,
             rg.ragged_dxa, rg.ragged_wgrad, fl.fused_lora_cuda,
             fl.grouped_matmul_cuda, fl.grouped_wgrad_cuda,
-            flash_attention_fwd)
+            flash_attention_fwd, fl.dequant_matmul_cuda)
 
 
 def counted(fn):
@@ -869,7 +976,168 @@ def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
                              f"gradients differ: {grad_check}")
     if fused_vs_solo["abs_diff"] > LOSS_ATOL:
         raise AssertionError(f"{phase}: fused vs solo loss: {fused_vs_solo}")
-    return launches
+    return launches, losses
+
+
+def tree_bytes(tree) -> int:
+    """Resident bytes of a parameter tree (a QuantTensor: codes and
+    scales)."""
+    from repro_torch.models.quant import QuantTensor, leaves
+    return sum(t.numel() * t.element_size()
+               for leaf in leaves(tree)
+               for t in ((leaf.q, leaf.scale) if isinstance(leaf, QuantTensor)
+                         else (leaf,)))
+
+
+def quant_phase(cfg, params, sets, bf16_losses, dev):
+    """The int8 backbone: quantize once; train the ``train`` group on the
+    same batches (launches per step, losses against the bf16 run, one
+    step's gradients through the "cuda" and the "torch" dequant impls);
+    serve the mixed adapter set with the same requests (launches per
+    decode step, fused against solo, agreement with the bf16 engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.models import quant
+    from repro_torch.serve import AdapterPool, ServeEngine
+    from repro_torch.train.train_loop import train_group
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quant.quantize_params(params, "int8")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    resident = {"bf16": tree_bytes(params), "int8": tree_bytes(qparams)}
+
+    # ---- training: the train phase's group, adapters and batches
+    specs = train_specs(TRAIN_RANKS)
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: train_group(
+        cfg, specs, steps=TRAIN_STEPS, lr=TRAIN_LR, seed=0, impl="cuda",
+        block_t=TRAIN_BLOCK_T, chunk_size=TRAIN_CHUNK, remat=True,
+        adaptive_nano=False, params=qparams, adapters=adapters,
+        quantize="int8", device=dev))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    per_step = check_launches("quant", launches, TRAIN_STEPS, QUANT_LAUNCHES)
+    rep = out["report"]
+    losses = np.stack(rep.per_job_losses)
+    if losses.shape != bf16_losses.shape or not np.isfinite(losses).all():
+        raise AssertionError(f"quant: per-job losses {losses}")
+    loss_rel = float(np.max(np.abs(losses - bf16_losses)
+                            / np.abs(bf16_losses)))
+    if not quant.is_quantized(out["params"]) or \
+            quant.is_quantized(out["adapters"]):
+        raise AssertionError("quant: the backbone must be int8 and the "
+                             "adapters not")
+    steady = float(np.mean(rep.step_times[TRAIN_CHUNK:]))
+    padded = TRAIN_STEPS * len(specs) * TRAIN_BATCH * TRAIN_SEQ
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=1).next_batch().items()}
+    grads = {}
+    try:
+        for impl in ("cuda", "torch"):
+            quant.set_dequant_impl(impl)
+            grads[impl] = adapter_grads(cfg, qparams, specs, "cuda",
+                                        out["adapters"], batch)
+    finally:
+        quant.set_dequant_impl("cuda")
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(grads["cuda"], grads["torch"])]
+    prof = profile_run(functools.partial(out["runtime"].run, 1))
+
+    # ---- serving: the mixed set, the serve phase's adapters and requests
+    set_name, names, ranks, reqs = sets[0]
+    pool = AdapterPool(cfg, capacity=8, multiple=MULTIPLE, device=dev)
+    publish(pool, cfg, names, ranks, seed=100, dev=dev)
+    engine = ServeEngine(cfg, qparams, pool, impl="cuda", block_t=BLOCK_T,
+                         quantize="int8")
+    dense = ServeEngine(cfg, params, pool, impl="cuda", block_t=BLOCK_T)
+    engine.serve(reqs[:1])               # warm-up: not timed, not counted
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, serve_launches = counted(lambda: engine.serve(reqs))
+    secs = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    max_new = max(r.max_new_tokens for r in reqs)   # prefill + decodes
+    if serve_launches["dequant_matmul_cuda"] != QUANT_PROJ * max_new:
+        raise AssertionError(
+            f"quant: {serve_launches['dequant_matmul_cuda']} dequant "
+            f"launches for a prefill and {max_new - 1} decode steps, "
+            f"expected {QUANT_PROJ} each")
+    n_tok = sum(len(r.tokens) for r in res)
+    fused_lg = engine.next_token_logits(reqs, 0).float()
+    solo_lg = torch.cat([engine.next_token_logits([r], 0)
+                         for r in reqs]).float()
+    if not bool(torch.isfinite(fused_lg).all()):
+        raise AssertionError("quant: non-finite logits")
+    logit_diff = (fused_lg - solo_lg).abs().max().item()
+    # each request's first token is the argmax of its prefill logits:
+    # held fused vs solo.  Later tokens come from decode steps at another
+    # batch size, which diverge in bf16 too (the serve phase reports it)
+    flips = int((fused_lg.argmax(-1) != solo_lg.argmax(-1)).sum())
+    first = torch.tensor([r.tokens[0] for r in res], device=dev)
+    if not bool((first == fused_lg.argmax(-1)).all()):
+        raise AssertionError("quant: served first tokens are not the "
+                             "argmax of the prefill logits")
+    dense_lg = dense.next_token_logits(reqs, 0).float()
+    dense_res = dense.serve(reqs)
+    top1 = float((dense_lg.argmax(-1) == fused_lg.argmax(-1)
+                  ).float().mean())
+    tok_agree = float(np.mean([a == b for d, q_ in zip(dense_res, res)
+                               for a, b in zip(d.tokens.tolist(),
+                                               q_.tokens.tolist())]))
+    serve_prof = profile_run(functools.partial(engine.serve, reqs))
+    emit({"phase": "quant", "model": cfg.name, "layers": cfg.num_layers,
+          "quantize_seconds": quant_s, "resident_backbone_bytes": resident,
+          "train": {
+              "jobs": [{"id": sp.job_id, "rank": sp.rank} for sp in specs],
+              "steps": TRAIN_STEPS, "chunk_size": TRAIN_CHUNK,
+              "per_step_per_job_loss": losses.tolist(),
+              "max_rel_loss_diff_vs_bf16": loss_rel,
+              "loss_rtol": QUANT_LOSS_RTOL,
+              "step_times_s": rep.step_times, "wall_s": wall,
+              "step_s_steady": steady,
+              "tokens_per_s_padded_steady": padded / TRAIN_STEPS / steady,
+              "peak_device_memory_bytes": peak, "launches": launches,
+              "launches_per_step": per_step,
+              "grad_check_cuda_vs_torch": {
+                  "leaves": len(rel), "max_rel_fro_err": max(rel),
+                  "mean_rel_fro_err": float(np.mean(rel)),
+                  "rtol": GRAD_RTOL},
+              "profile_one_step": prof},
+          "serve": {
+              "set": set_name, "requests": len(reqs),
+              "generated_tokens": n_tok, "seconds": secs,
+              "tokens_per_s": n_tok / secs, "launches": serve_launches,
+              "decode_steps": max_new - 1,
+              "peak_device_memory_bytes": serve_peak,
+              "prefill_logits_max_abs_diff_fused_vs_solo": logit_diff,
+              "logit_atol": LOGIT_ATOL,
+              "first_token_flips_fused_vs_solo": flips,
+              "top1_agreement_int8_vs_bf16_prefill": top1,
+              "token_agreement_int8_vs_bf16": tok_agree,
+              "profile": serve_prof},
+          "card": card_line()})
+    if loss_rel > QUANT_LOSS_RTOL:
+        raise AssertionError(f"quant: int8 vs bf16 losses differ by "
+                             f"{loss_rel} relative")
+    if max(rel) > GRAD_RTOL:
+        raise AssertionError(f"quant: cuda vs torch dequant adapter "
+                             f"gradients differ by {max(rel)}")
+    if logit_diff > LOGIT_ATOL:
+        raise AssertionError(f"quant: fused vs solo prefill logits differ "
+                             f"by {logit_diff} (atol {LOGIT_ATOL})")
+    if flips:
+        raise AssertionError(f"quant: fused vs solo first token ids differ "
+                             f"for {flips} requests")
+    return {k: launches[k] + serve_launches[k] for k in launches}
 
 
 def unpack_dense_cost(cfg, layout, dev):
@@ -1078,20 +1346,19 @@ def main() -> int:
     params = M.init_model(cfg, seed=0, device=dev)
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    counts = {"serve": serve_phase(cfg, params, sets, dev),
-              "train": train_phase(cfg, params, dev),
-              # the uniform group's scalings alpha / r reach 8 (rank 2):
-              # there the loop impl's unrounded x·A moves the gradients
-              # by more than GRAD_RTOL (7.2% after 8 steps, PERF.md), so
-              # the phase asserts the masked kernels' gradients against
-              # the ragged kernels' (ROUTE_RTOL) and reports the loop's
-              "train_uniform": train_phase(cfg, params, dev,
-                                           phase="train_uniform",
-                                           ranks=UNIFORM_RANKS,
-                                           expect=MASKED_LAUNCHES,
-                                           loop_rtol=None),
-              "nano": nano_phase(cfg, params, dev),
-              "elastic": elastic_phase(cfg, params, dev, ckpt_dir)}
+    counts = {"serve": serve_phase(cfg, params, sets, dev)}
+    counts["train"], bf16_losses = train_phase(cfg, params, dev)
+    # the uniform group's scalings alpha / r reach 8 (rank 2): there the
+    # loop impl's unrounded x·A moves the gradients by more than
+    # GRAD_RTOL (7.2% after 8 steps, PERF.md), so the phase asserts the
+    # masked kernels' gradients against the ragged kernels' (ROUTE_RTOL)
+    # and reports the loop's
+    counts["train_uniform"], _ = train_phase(
+        cfg, params, dev, phase="train_uniform", ranks=UNIFORM_RANKS,
+        expect=MASKED_LAUNCHES, loop_rtol=None)
+    counts["nano"] = nano_phase(cfg, params, dev)
+    counts["elastic"] = elastic_phase(cfg, params, dev, ckpt_dir)
+    counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))
@@ -1130,7 +1397,12 @@ def main() -> int:
                                    masked("dxa = dy_s . B^T", 2048)),
            "grouped_wgrad_cuda": (csrc + "grouped.cu",
                                   "src/repro/kernels/fused_lora.py:121",
-                                  masked("dB = xa^T . dy_s", 2048))}
+                                  masked("dB = xa^T . dy_s", 2048)),
+           "dequant_matmul_cuda": (csrc + "dequant.cu",
+                                   "src/repro/kernels/fused_lora.py:179",
+                                   lambda r: r["step"] == "train"
+                                   and r["shape"]["op"][0] == "y"
+                                   and r["shape"]["d_out"] == 5632)}
     summary = []
     for name, (source, replaces, headline) in src.items():
         mine = [r for r in kern if r["name"] == name]

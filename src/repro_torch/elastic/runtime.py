@@ -11,9 +11,15 @@ end.  State enters and leaves through ``JobTrainState``
 takes one out, ``save_checkpoints`` writes every member's per-job file
 and ``publish_to`` hands the adapters to a serving ``AdapterPool``.
 
+``quantize="int8"`` stores the frozen backbone as int8 codes with f32
+per-channel scales (models/quant), quantized once, before the step is
+built; an already quantized tree (a migrated group reusing its donor's
+``QuantTensor``s) passes through unchanged.  Adapters and optimizer
+state never quantize.
+
 Not ported yet, and refused where asked for: meshes (ROADMAP queue A,
-item 13) and the quantized backbone (item 10).  ``refresh_member`` and
-the elastic engine around the runtime are queued (item 9).
+item 13).  ``refresh_member`` and the elastic engine around the runtime
+are queued (item 9).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.core.ssm import NO_MESH, SharedSuperModel, valid_nano_counts
 from repro_torch.data.pipeline import FusedBatcher, JobStream
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
+from repro_torch.models import quant
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
 
@@ -91,13 +98,13 @@ class GroupRuntime:
                  seed: int = 0, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(NO_MESH)
-        if quantize is not None:
-            raise NotImplementedError(
-                "the quantized backbone is not ported yet (ROADMAP queue A, "
-                "item 10; kernel B10)")
         self.cfg = cfg
         self.specs = list(specs)
         self.device = torch.device(device)
+        # the frozen backbone in int8, once, before any step is built
+        # (idempotent: a quantized tree's QuantTensors are reused)
+        self.quantize = quantize
+        params = quant.quantize_params(params, quantize)
         self.ssm = SharedSuperModel(cfg, self.specs, impl=impl,
                                     block_t=block_t)
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,

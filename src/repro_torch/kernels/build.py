@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ragged_lora", "ragged_bwd", "fused_lora", "grouped",
-           "flash_attention")
+           "flash_attention", "dequant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,8 +123,15 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
+def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of *device* (the current one when it
+    carries no index)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def col_groups(row_ctas: int, d_out: int, col_block: int,
@@ -134,9 +141,7 @@ def col_groups(row_ctas: int, d_out: int, col_block: int,
     blocks.  Each CTA recomputes its rows' x·A, so fewer groups means
     less recomputation when the rows alone fill the card."""
     blocks = -(-d_out // col_block)
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    want = -(-2 * sm_count(index) // max(row_ctas, 1))
+    want = -(-2 * sm_count(device) // max(row_ctas, 1))
     return max(1, min(blocks, want))
 
 

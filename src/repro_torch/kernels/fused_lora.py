@@ -1,6 +1,5 @@
-"""The masked max-rank multi-LoRA kernels (port of
-``repro.kernels.fused_lora``, all but the quantized backbone's dequant
-kernel).
+"""The masked max-rank multi-LoRA kernels and the quantized backbone's
+dequant-matmul (port of ``repro.kernels.fused_lora``).
 
 Stacked adapters A (K, d_in, r_pad) / B (K, r_pad, d_out), one adapter
 per token tile (``tile_map``), lanes >= each adapter's true rank masked:
@@ -11,14 +10,21 @@ per token tile (``tile_map``), lanes >= each adapter's true rank masked:
     grouped_wgrad   out[k] = Σ_{t of adapter k} x_t^T · g_t   (f32)
 
 The last two are the backward of the first (``kernels/ops._MaskedLoRA``).
-On a CUDA tensor each ``*_cuda`` wrapper launches its Hopper kernel
-(``csrc/fused_lora.cu``, ``csrc/grouped.cu``) and counts the launch; on a
-CPU tensor it runs its ``*_plain`` version, the same function in plain
-PyTorch.
+The int8 frozen backbone's projection:
+
+    dequant_matmul  y = (x · q) * scale       (x.dtype, f32 accumulation,
+                    q int8 (d_in, d_out), scale f32 per output column)
+
+whose backward is the same kernel on q^T with unit scales
+(``kernels/ops._DequantMM``).  On a CUDA tensor each ``*_cuda`` wrapper
+launches its Hopper kernel (``csrc/fused_lora.cu``, ``csrc/grouped.cu``,
+``csrc/dequant.cu``) and counts the launch; on a CPU tensor it runs its
+``*_plain`` version, the same function in plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -126,14 +132,16 @@ def grouped_matmul_plain(x: torch.Tensor, W: torch.Tensor,
     return y.reshape(T, -1).to(x.dtype)
 
 
-def _w_layout(W: torch.Tensor) -> tuple:
-    """(transposed, leading dim) of W's (d_in, d_out) matrices: as stored
-    (last dim contiguous) or a transposed view (middle dim contiguous)."""
+def _layout(W: torch.Tensor) -> tuple:
+    """(transposed, leading dim) of W's (rows, cols) matrices (its last
+    two dims): as stored (last dim contiguous) or a transposed view
+    (second-to-last dim contiguous)."""
     if W.stride(-1) == 1:
-        return False, W.stride(1)
-    build.require(W.stride(1) == 1, "W needs its last or its middle dim "
-                  f"contiguous (strides {tuple(W.stride())})")
-    return True, W.stride(2)
+        return False, W.stride(-2)
+    build.require(W.stride(-2) == 1, "W needs its last or its "
+                  "second-to-last dim contiguous (strides "
+                  f"{tuple(W.stride())})")
+    return True, W.stride(-1)
 
 
 def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
@@ -169,7 +177,7 @@ def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
     narrow = d_out <= 256
     build.require(narrow or d_in <= 256, f"d_in={d_in}, d_out={d_out}: the "
                   "kernel needs one of them at most 256")
-    trans, ld = _w_layout(W)
+    trans, ld = _layout(W)
     build.require_vectors((x, W), d_in, d_out, W.stride(0), ld)
     out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     lib = _grouped_lib()
@@ -257,3 +265,76 @@ def _grouped_lib() -> ctypes.CDLL:
 
 grouped_matmul_cuda.launches = 0
 grouped_wgrad_cuda.launches = 0
+
+
+# ------------------------------------------------------------ dequant mm
+def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor,
+                         scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the dequant-matmul: bf16 and int8 are
+    exact in f32, so this is the reference's f32-accumulated dot, scaled
+    per output column (``scale=None``: unit scales) and rounded once."""
+    y = x.float() @ q.float()
+    if scale is not None:
+        y = y * scale.float()
+    return y.to(x.dtype)
+
+
+def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
+                        scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """x: (T, K), q: (K, N) int8, scale: (N,) f32 or None (unit scales).
+    Returns (T, N) in x.dtype: ((x · q) * scale) accumulated in f32 and
+    rounded once.
+
+    q may be a transposed view of the stored (d_in, d_out) codes (the
+    backward's q^T), read in place.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    build.require(x.ndim == 2 and q.ndim == 2 and x.shape[1] == q.shape[0],
+                  f"x {tuple(x.shape)} and q {tuple(q.shape)} do not chain")
+    T, K = x.shape
+    N = q.shape[1]
+    build.require(q.dtype == torch.int8, f"q must be int8, not {q.dtype}")
+    build.require(scale is None or (scale.shape == (N,)
+                                    and scale.dtype == torch.float32),
+                  f"scale must be f32 of shape ({N},)")
+    if x.device.type == "cpu":
+        return dequant_matmul_plain(x, q, scale)
+    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+                  "x must be a contiguous bf16 tensor")
+    build.require(q.device == x.device, f"q must be on {x.device}")
+    build.require(scale is None or (scale.device == x.device
+                                    and scale.is_contiguous()),
+                  f"scale must be contiguous on {x.device}")
+    build.require(T >= 1 and K % 16 == 0 and N % 16 == 0,
+                  f"T={T}, K={K}, N={N}: the kernel needs rows and "
+                  "K, N multiples of 16")
+    trans, ld = _layout(q)
+    build.require(all(t.data_ptr() % 16 == 0 for t in (x, q))
+                  and ld % 16 == 0,
+                  "x and q must be 16-byte aligned with a leading dim of "
+                  f"q that is a multiple of 16 (got {ld})")
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    lib = _dequant_lib()
+    small = int(((T + 127) // 128) * ((N + 127) // 128)
+                < build.sm_count(x.device))
+    err = lib.dequant_matmul_launch(
+        build.ptr(x), build.ptr(q),
+        build.ptr(scale) if scale is not None else None, build.ptr(out), T,
+        K, N, ld, int(trans), small, build.stream_ptr(x.device))
+    build.check(lib, err, "dequant_matmul_cuda")
+    dequant_matmul_cuda.launches += 1
+    return out
+
+
+def _dequant_lib() -> ctypes.CDLL:
+    lib = build.load("dequant")
+    fn = lib.dequant_matmul_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_long] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+dequant_matmul_cuda.launches = 0

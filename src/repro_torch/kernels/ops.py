@@ -19,6 +19,11 @@ The "torch" mirror of the reference's bucket-concatenated "xla" path is
 queued (ROADMAP A3) and raises here.  Contract for "cuda": tokens sorted
 by adapter id, contiguous segments, each segment a multiple of block_t.
 
+``dequant_matmul`` — the int8 frozen backbone's projection: "cuda"
+(kernels/fused_lora.py, through ``_DequantMM``, whose backward is a
+second launch on q^T) and "torch" (``_DequantTorch``, the plain mirror
+of the reference's "xla" expression).
+
 Scaling and rounding follow the reference exactly: the ragged kernel
 returns f32 unscaled and is scaled once, then cast; the masked kernel
 returns x.dtype unscaled and is scaled in f32, then cast again.
@@ -31,7 +36,9 @@ import torch
 
 from repro_torch.kernels import ragged as rg
 from repro_torch.kernels import ref as ref_impl
-from repro_torch.kernels.fused_lora import (fused_lora_cuda,
+from repro_torch.kernels.fused_lora import (dequant_matmul_cuda,
+                                            dequant_matmul_plain,
+                                            fused_lora_cuda,
                                             grouped_matmul_cuda,
                                             grouped_wgrad_cuda)
 from repro_torch.kernels.ragged import RaggedMeta
@@ -187,3 +194,61 @@ def fused_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if impl == "ref":
         return ref_impl.fused_lora_ref(x, A, B, ids, ranks, scalings)
     raise ValueError(f"unknown fused_lora impl {impl!r}")
+
+
+# ---------------------------------------------------------- dequant mm
+class _DequantMM(torch.autograd.Function):
+    """The "cuda" dequant-matmul with its backward (the reference's
+    ``_make_dequant_pallas_fn``).  The base weight is frozen: only dx
+    flows, from a second launch of the same kernel, dx = ((dy · scale)
+    rounded to dy.dtype) · q^T with unit scales; q^T is a strided view of
+    the codes, never a copy.  Saves q and scale only, never a
+    dequantized copy; q and scale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        return dequant_matmul_cuda(x.contiguous(), q, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        dys = (dy.float() * scale).to(dy.dtype).contiguous()
+        return dequant_matmul_cuda(dys, q.T, None), None, None
+
+
+class _DequantTorch(torch.autograd.Function):
+    """The "torch" dequant-matmul: the reference's ``_dequant_xla``
+    expression in plain PyTorch, f32-accumulated and scaled per output
+    column.  Its backward recomputes from q, as ``jax.checkpoint`` makes
+    the reference do, so no dequantized copy of q lives across the
+    backward: dx = (dy · scale in f32) · q^T, then cast to dy.dtype."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        return dequant_matmul_plain(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        dx = (dy.float() * scale) @ q.T.float()
+        return dx.to(dy.dtype), None, None
+
+
+def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                   impl: str = "cuda") -> torch.Tensor:
+    """y = (x @ q) * scale for an int8 per-output-channel-quantized base
+    projection (models/quant.QuantTensor storage).  x: (T, d_in); q:
+    (d_in, d_out) int8; scale: (d_out,) f32 -> (T, d_out) in x.dtype.
+
+    Both impls evaluate a full-contraction product of x.dtype operands,
+    accumulated in f32 and scaled per output column, and differ only in
+    the f32 summation order; their backwards differ in where dy · scale
+    is rounded (to dy.dtype before the product for "cuda", as the
+    reference's "pallas"; not at all for "torch", as its "xla")."""
+    if impl == "cuda":
+        return _DequantMM.apply(x, q, scale)
+    if impl == "torch":
+        return _DequantTorch.apply(x, q, scale)
+    raise ValueError(f"unknown dequant_matmul impl {impl!r}")

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.quant import QuantTensor
+
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -21,11 +23,19 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cuda"):
     """Backbone tree: dicts stay dicts, lists/tuples become lists, arrays
-    become tensors on *device* (bf16 weights, f32 norms kept as given)."""
+    become tensors on *device* (bf16 weights, f32 norms kept as given),
+    and a quantized weight (the reference's ``QuantTensor`` after
+    ``jax.tree.map(np.asarray, ...)``) becomes the port's, its int8 codes
+    and f32 scales unchanged."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        # a quantized weight of either package, recognised by its
+        # attributes: the port never imports the reference's class
+        return QuantTensor(_tensor(tree.q, device),
+                           _tensor(tree.scale, device))
     return _tensor(tree, device)
 
 
@@ -49,10 +59,13 @@ def opt_state_from_numpy(state, device="cuda"):
 def to_numpy(tree):
     """The port's trees (adapters, moments, params) -> nested dicts and
     lists of numpy arrays, for comparison with the reference's trees;
-    bf16 tensors come back as exact float32."""
+    bf16 tensors come back as exact float32, a ``QuantTensor`` as one
+    holding its numpy codes and scales."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_numpy(v) for v in tree]
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(to_numpy(tree.q), to_numpy(tree.scale))
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

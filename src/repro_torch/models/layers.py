@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.quant import qdot
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -67,10 +69,11 @@ def swiglu_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params["gate"]
-    u = x @ params["up"]
+    # qdot: fused int8 dequant when the FFN mats are QuantTensors
+    g = qdot(x, params["gate"])
+    u = qdot(x, params["up"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["down"]
+    return qdot(h, params["down"])
 
 
 # ---------------------------------------------------------------- losses

@@ -10,7 +10,8 @@ reference scans the cycles with ``lax.scan``; here they are a Python
 loop over that axis, and ``remat`` (the reference's ``jax.checkpoint``
 of each cycle) wraps each cycle in ``torch.utils.checkpoint``.  Frozen
 backbone params and the packed ragged adapter tree are separate trees,
-as in the reference.
+as in the reference.  A backbone tree may hold int8 ``QuantTensor``s
+(models/quant.py); the tree walks slice their codes and scales together.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.models.attention import KVCache, attn_block, attn_init
 from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_init, rms_norm, swiglu,
                                        swiglu_init)
+from repro_torch.models.quant import QuantTensor
 
 
 # ----------------------------------------------------------------- specs
@@ -127,6 +129,9 @@ def _tree_map(fn, tree):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, KVCache):
         return KVCache(*(fn(t) for t in tree))
+    if isinstance(tree, QuantTensor):
+        # codes and scales share the leading (layer) axes: slice together
+        return QuantTensor(fn(tree.q), fn(tree.scale))
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
     return fn(tree)

@@ -19,7 +19,9 @@ Prefill is ``decode_step`` at width S; the decode loop (the reference's
 ``lax.scan``) is a Python loop whose tokens stay on the device, with
 one host copy per batch.  Per-request ``max_new_tokens`` and stop tokens
 truncate each returned row.  Recurrent mixers, ring caches and
-non-causal configs are rejected at construction.
+non-causal configs are rejected at construction.  ``quantize="int8"``
+quantizes the backbone once, at construction; every base projection then
+runs the dequant-matmul kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import MultiLoRA
 from repro_torch.models import model as M
+from repro_torch.models import quant
 from repro_torch.serve.pool import AdapterPool, FusedAdapters
 
 
@@ -77,9 +80,14 @@ class ServeEngine:
     impl: str = "cuda"                # fused-LoRA kernel impl
     block_t: int = 16                 # token tile of the LoRA kernels
     greedy: bool = True
+    # int8 frozen backbone (models/quant): halves the resident weight
+    # bytes and the weight bytes every decode step streams.  None = keep
+    # the params' dtype (an already-quantized tree passes through).
+    quantize: Optional[str] = None
 
     def __post_init__(self):
         cfg = self.cfg
+        self.params = quant.quantize_params(self.params, self.quantize)
         if not cfg.causal:
             raise ValueError("serving needs a causal decoder config")
         if cfg.family in ("audio", "vlm"):

@@ -25,7 +25,9 @@ def train_group(cfg: ModelConfig, jobs: Sequence[LoRAJobSpec], *,
     unless the caller asks for the CPU), in chunks of ``chunk_size``
     steps with one host read of the metrics per chunk; AIMD (on by
     default, as in the reference) picks the nano-batch count from each
-    chunk's mean step time."""
+    chunk's mean step time.  ``quantize="int8"`` trains over an int8
+    backbone: the returned ``params`` is the quantized tree, the
+    ``adapters`` are not quantized."""
     rt = GroupRuntime.from_specs(cfg, list(jobs), params=params,
                                  adapters=adapters, seed=seed,
                                  device=device, lr=lr, impl=impl,

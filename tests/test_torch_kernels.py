@@ -355,7 +355,7 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.train.train_loop, repro_torch.launch.train, "
             "repro_torch.core.nanobatch, repro_torch.elastic.migrate, "
             "repro_torch.elastic.runtime, "
-            "repro_torch.checkpoint.checkpoint\n"
+            "repro_torch.checkpoint.checkpoint, repro_torch.models.quant\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -367,7 +367,8 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_cuda_wrappers_refuse_bad_input_before_any_build():
-    """A wrong shape raises on any device, before a kernel is built."""
+    """A wrong shape or dtype raises on any device, before a kernel is
+    built."""
     with pytest.raises(ValueError):
         ragged.ragged_lora_fwd(torch.zeros((12, 4)), torch.zeros((4, 8)),
                                torch.zeros((8, 4)),
@@ -385,3 +386,13 @@ def test_cuda_wrappers_refuse_bad_input_before_any_build():
         flash_attention.flash_attention_fwd(torch.zeros((3, 8, 16)),
                                             torch.zeros((2, 8, 16)),
                                             torch.zeros((2, 8, 16)))
+    q8 = torch.zeros((16, 32), dtype=torch.int8)
+    with pytest.raises(ValueError):          # x and q do not chain
+        fused_lora.dequant_matmul_cuda(torch.zeros((8, 24)), q8,
+                                       torch.ones(32))
+    with pytest.raises(ValueError):          # q not int8
+        fused_lora.dequant_matmul_cuda(torch.zeros((8, 16)),
+                                       torch.zeros((16, 32)), torch.ones(32))
+    with pytest.raises(ValueError):          # scale not f32 of (N,)
+        fused_lora.dequant_matmul_cuda(torch.zeros((8, 16)), q8,
+                                       torch.ones(16))

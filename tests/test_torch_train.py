@@ -698,8 +698,7 @@ def test_aimd_legal_set_keeps_slices_whole_tiles():
 # --------------------------------------------------------- refusals
 def test_make_train_step_refuses_what_is_not_ported():
     """On every device: meshes and pipeline stages (ROADMAP queue A,
-    item 13) and the quantized backbone (item 10).  Uniform layouts and
-    nano batches build."""
+    item 13).  Uniform layouts and nano batches build."""
     cfg = _cfgs("float32")[1]
     lr = constant(LR)
     ragged = SharedSuperModel(cfg, _specs(LoRAJobSpec), impl="cuda",
@@ -708,9 +707,6 @@ def test_make_train_step_refuses_what_is_not_ported():
         ragged.make_train_step(lr_fn=lr, mesh=object())
     with pytest.raises(NotImplementedError, match="item 13"):
         ragged.make_train_step(lr_fn=lr, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_group(cfg, _specs(LoRAJobSpec), steps=1, block_t=BT,
-                    quantize="int8", device="cpu")
     uniform = SharedSuperModel(cfg, _specs(LoRAJobSpec, ranks=(4, 8, 16)),
                                impl="cuda", block_t=BT)
     assert uniform.layout.is_uniform
