@@ -17,13 +17,18 @@ each on standard output:
             the plain version's device time, the least time the card
             could take (bound) and, where one PyTorch call computes the
             same function, that call's device time (``library_ms``, timed
-            here only);
+            here only); then two bit-equality checks: the flash kernel's
+            row invariance (the first 48 rows at S = 192 against S = 48,
+            64 heads inside BH 2048 against those heads alone) and B5
+            against B8 on one uniform layout (dB and dA);
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
-            that run, fused-vs-solo logits and token ids, tokens/s, peak
-            device memory, and one profiled serve per set (device busy
-            time against host wall time, the largest device kernels);
+            that run, fused-vs-solo logits, the C1 probe (request 1's
+            decode steps fused and solo, op by op) and whole-sequence
+            token ids of two requests per adapter, both asserted equal, tokens/s, peak device memory,
+            and one profiled serve per set (device busy time against host
+            wall time, the largest device kernels);
   train   — ``train_group`` over the same backbone: four LoRA jobs of
             ranks {8, 16, 32, 64} (a ragged layout) for 8 steps in chunks
             of 4 with remat, launch counts read around that run and
@@ -188,11 +193,17 @@ def device_ms(fn, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for _, us, _ in _device_us(prof)) / 1e3 / iters
+    for _ in range(3):          # a profile that caught no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(us for _, us, _ in _device_us(prof))
+        if total > 0:
+            break               # is read again; a time of 0 is no time
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total / 1e3 / iters
 
 
 def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -382,7 +393,7 @@ def grouped_library(x, W, tile_map, K, wgrad: bool):
 
 
 def masked_kernel_cases(g, dev):
-    """B7 and B8 at the masked route's training shapes: T = 8192 tokens of
+    """B6, B7 and B8 at the masked route's training shapes: T = 8192 tokens of
     4 jobs (16 token tiles of 128 each), r_pad 16 (a uniform group: the
     packed pair's strided stacked views) and 64 (a mixed group densified
     for a nano slice: contiguous stacks), the q/o projections (2048 ->
@@ -424,6 +435,22 @@ def masked_kernel_cases(g, dev):
             grouped_library(x, y, tm, K, wgrad=True),
             nbytes, 2 * T_ * d_x * d_g))
 
+    def add_fwd(what, x, A, B, tm, rp, ranks):
+        T_, d_out = x.shape[0], B.shape[-1]
+        rk = torch.tensor(ranks, dtype=torch.int32, device=dev)
+        present = sorted(set(tm.tolist()))
+        toks = [int((tm == k).sum()) * bt for k in range(K)]
+        cases.append((
+            "fused_lora_cuda", "train",
+            dict(op=what, T=T_, d_in=d_in, d_out=d_out, r_pad=rp,
+                 tiles=len(tm), strided=not A.is_contiguous()),
+            lambda: fl.fused_lora_cuda(x, A, B, tm, rk, block_t=bt),
+            lambda: fl.fused_lora_plain(x, A, B, tm, rk, block_t=bt),
+            None,
+            T_ * (d_in + d_out) * 2 + sum((d_in + d_out) * rp * 2
+                                          for _ in present),
+            sum(2 * toks[k] * ranks[k] * (d_in + d_out) for k in range(K))))
+
     for rp in (16, 64):
         x = (rnd(T, d_in)).to(bf)
         xa = (rnd(T, rp)).to(bf)
@@ -440,11 +467,16 @@ def masked_kernel_cases(g, dev):
             add_mm("dxa = dy_s . B^T", dy, B_st.transpose(1, 2), full, rp)
             add_wg("dB = xa^T . dy_s", xa, dy, full, rp)
             if d_out == 2048:   # d_in is 2048 for every projection
+                ranks = UNIFORM_RANKS if rp == 16 else TRAIN_RANKS
+                add_fwd("y = mask(x . A) . B", x, A_st, B_st, full, rp,
+                        ranks)
                 add_mm("xa = x . A", x, A_st, full, rp)
                 add_mm("dx = dxa . A^T", xa, A_st.transpose(1, 2), full, rp)
                 add_wg("dA = x^T . dxa", x, xa, full, rp)
                 if rp == 64:    # one nano slice: mid-adapter, two absent
                     Ts = len(sl) * bt
+                    add_fwd("y = mask(x . A) . B (slice)",
+                            x[:Ts].contiguous(), A_st, B_st, sl, rp, ranks)
                     add_mm("xa = x . A (slice)", x[:Ts].contiguous(), A_st,
                            sl, rp)
                     add_wg("dA = x^T . dxa (slice)", x[:Ts].contiguous(),
@@ -615,7 +647,195 @@ def kernels_phase(rows, S, dev):
             raise AssertionError(f"{name} ({step}, {shape}) disagrees with "
                                  f"its plain version: {res}")
         results.append(res)
+    checks = {"flash_row_invariance": flash_invariance(dev),
+              "wgrad_b5_b8": wgrad_families_bit_equal(dev)}
+    emit({"phase": "kernels", "bit_equal_checks": checks})
+    failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
+              if not ok]
+    if failed:
+        raise AssertionError(f"bit-equality checks failed: {failed}")
     return results
+
+
+# --------------------------------------------- invariance and equality
+def flash_invariance(dev) -> dict:
+    """The flash kernel's row invariance, bit for bit: a row's output and
+    lse depend only on its own q and on its keys up to the causal
+    frontier, not on Sq, Skv or BH (what keeps fused and solo prefill
+    logits equal).  The first 48 rows at S = 192 against S = 48, and
+    heads 512..575 of a BH 2048 launch against those 64 heads alone (GQA
+    8, hd 64, the serving prefill's shapes)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    g = torch.Generator(device=dev).manual_seed(3)
+    G, S, h0 = 8, 192, 512
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = rnd(2048, S, 64), rnd(2048 // G, S, 64), rnd(2048 // G, S, 64)
+    run = lambda q_, k_, v_: flash_attention_fwd(
+        q_.contiguous(), k_.contiguous(), v_.contiguous(), causal=True,
+        kv_groups=G)
+    o, lse = run(q, k, v)
+    o48, lse48 = run(q[:64, :48], k[:8, :48], v[:8, :48])
+    o64, lse64 = run(q[h0:h0 + 64], k[h0 // G:(h0 + 64) // G],
+                     v[h0 // G:(h0 + 64) // G])
+    torch.cuda.synchronize()
+    return {"rows_48_of_192_bit_equal": bool(
+                torch.equal(o48, o[:64, :48])
+                and torch.equal(lse48, lse[:64, :48])),
+            "heads_64_of_2048_bit_equal": bool(
+                torch.equal(o64, o[h0:h0 + 64])
+                and torch.equal(lse64, lse[h0:h0 + 64]))}
+
+
+def wgrad_families_bit_equal(dev) -> dict:
+    """B5 (ragged_wgrad) against B8 (grouped_wgrad) on one uniform layout
+    (ranks {16, 16, 12, 16}, 4 jobs x 2048 tokens, block_t 128, width
+    2048): dB and dA bit for bit, the two kernels summing through the one
+    routine of csrc/lora_tile.cuh in one order."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.ops import _tile_jobs_static
+    g = torch.Generator(device=dev).manual_seed(4)
+    lay = RankLayout(UNIFORM, MULTIPLE)
+    K, rp, bt = len(UNIFORM), lay.r_pads[0], TRAIN_BLOCK_T
+    tile_jobs = _tile_jobs_static((TRAIN_BATCH,) * K, TRAIN_SEQ, bt)
+    meta = rg.RaggedMeta.build(tile_jobs, lay)
+    T = len(tile_jobs) * bt
+    tm = torch.tensor(tile_jobs, dtype=torch.int32, device=dev)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(
+        torch.bfloat16)
+    x, dy, xa, dxa = rnd(T, 2048), rnd(T, 2048), rnd(T, rp), rnd(T, rp)
+    ids = torch.repeat_interleave(tm.long(), bt)
+    cols = (torch.as_tensor(lay.offsets, device=dev)[ids][:, None]
+            + torch.arange(rp, device=dev))
+
+    def packed(u):          # each token's lanes in its adapter's segment
+        return torch.zeros((T, lay.total), dtype=u.dtype,
+                           device=dev).scatter_(1, cols, u)
+
+    dB8 = fl.grouped_wgrad_cuda(xa, dy, tm, K, block_t=bt)
+    dB5 = rg.ragged_wgrad(packed(xa), dy, meta, block_t=bt)
+    dA8 = fl.grouped_wgrad_cuda(x, dxa, tm, K, block_t=bt)
+    dA5 = rg.ragged_wgrad(packed(dxa), x, meta, block_t=bt)
+    torch.cuda.synchronize()
+    return {"dB_bit_equal": bool(torch.equal(dB8, dB5.reshape(K, rp, -1))),
+            "dA_bit_equal": bool(torch.equal(
+                dA8, dA5.reshape(K, rp, -1).transpose(1, 2)))}
+
+
+def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
+             row_blocks: bool = True) -> dict:
+    """Where fused and solo decoding part (ROADMAP C1): the first *steps*
+    decode steps of ``reqs[request]``, through the engine's own
+    ``_generate``, in the fused batch of ``reqs`` and alone, op by op for
+    its row -- each layer's input norm, q/k/v projections, decode
+    attention, o projection, MLP norm, MLP and residual, then the final
+    norm and the logits.  Returns the first op whose row differs (None
+    when every op is bit-equal), its max abs diff and the number of ops
+    compared; and, beside them, whether cuBLAS gives each 16-row block of
+    a 64-row product the bits of a 16-row product (the LM head, layer 0's
+    q, gate and down projections, decode attention's score product):
+    where it does not, one product over the fused batch's rows would part
+    from the solo one.
+    ``row_blocks=False`` decodes without the engine's row blocks
+    (``ServeEngine.row_blocks``), to show where the fused and solo paths
+    part without them."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    ops, state = [], {"layer": -1, "n": 0, "in_block": False, "step": 0,
+                      "row": 0}
+    names = {"rms_norm": ("ln1", "ln2"), "proj": ("q", "k", "v", "o")}
+    patched = [(M, "rms_norm"), (A, "proj"), (A, "decode_attention"),
+               (M, "swiglu"), (M, "apply_block"), (M, "_logits")]
+    saved = [getattr(mod, name) for mod, name in patched]
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            decode = name == "apply_block" and args[5].shape[1] == 1
+            if decode:                      # x of apply_block(cfg, spec,
+                state.update(layer=state["layer"] + 1, n=0,   # p, ad,
+                             in_block=True)                   # lora, x..)
+            out = fn(*args, **kw)
+            if decode:
+                state["in_block"] = False
+            t = out[0] if isinstance(out, tuple) else out
+            if t.shape[1] != 1:             # the prefill: not recorded
+                return out
+            tag = name
+            if name in names:
+                per = names[name]
+                tag = per[state["n"] % len(per)] if state["in_block"] \
+                    else "ln_f"
+                state["n"] += 1
+            where = f"step{state['step']}."
+            ops.append((where + (f"L{state['layer']}.{tag}"
+                                 if name != "_logits" else "logits"),
+                        t[state["row"]].detach().clone()))
+            if name == "_logits":           # the step's last op
+                state.update(step=state["step"] + 1, layer=-1)
+            return out
+        return rec
+
+    def run(rs, i):                         # rs[i] is the probed request
+        b = engine._batch(rs)
+        ops.clear()
+        state.update(layer=-1, n=0, step=1, row=b.row_req.index(i))
+        engine._generate(b, steps)
+        return list(ops)
+
+    try:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, wrap(name, fn))
+        engine.row_blocks = row_blocks
+        with torch.inference_mode():
+            fused = run(reqs, request)
+            solo = run([reqs[request]], 0)
+    finally:
+        engine.row_blocks = True
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    assert [n for n, _ in fused] == [n for n, _ in solo], "op order"
+    first, diff = None, 0.0
+    for (name, a), (_, b) in zip(fused, solo):
+        if not torch.equal(a, b):
+            first = name
+            diff = (a.float() - b.float()).abs().max().item()
+            break
+    g = torch.Generator(device=engine.device).manual_seed(5)
+    p0 = engine.params["segments"][0]["0"]
+    head = engine.params["embed"].T if engine.cfg.tie_embeddings \
+        else engine.params["head"]
+    cublas = {}
+    for what, w in (("head", head), ("wq", p0["attn"]["wq"]),
+                    ("gate", p0["ffn"]["gate"]), ("down", p0["ffn"]["down"])):
+        if not isinstance(w, torch.Tensor):      # an int8 leaf: no cuBLAS
+            continue
+        w = w[0] if w.ndim == 3 else w
+        x = torch.randn((64, w.shape[0]), generator=g,
+                        device=engine.device).to(w.dtype)
+        full = x @ w
+        cublas[what] = all(torch.equal(full[i:i + 16], x[i:i + 16] @ w)
+                           for i in range(0, 64, 16))
+    # decode attention's score product over 128 keys (f32 copies of bf16),
+    # 64 rows in one batched product against the first 16 alone
+    cfg = engine.cfg
+    kv, grp = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    qg = torch.randn((64, 1, kv, grp, cfg.head_dim), generator=g,
+                     device=engine.device).bfloat16().float()
+    kc = torch.randn((64, 128, kv, cfg.head_dim), generator=g,
+                     device=engine.device).bfloat16().float()
+    eq = "bsngd,bcnd->bngsc"
+    cublas["attn_scores"] = torch.equal(torch.einsum(eq, qg, kc)[:16],
+                                        torch.einsum(eq, qg[:16], kc[:16]))
+    return {"request": request, "steps": steps, "row_blocks": row_blocks,
+            "fused_rows": len(engine._batch(reqs).row_req),
+            "ops_compared": len(fused), "first_differing_op": first,
+            "first_diff_max_abs": diff,
+            "cublas_16_row_blocks_bit_equal_at_64_rows": cublas}
 
 
 # --------------------------------------------------------------- serve
@@ -645,8 +865,9 @@ def profile_run(fn) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events would multiply the
+    # profiler's own cost (minutes for a serve's ~100k launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -663,6 +884,7 @@ def profile_run(fn) -> dict:
         families[fam] = (ms + us / 1e3, calls + n)
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_kernels": sum(r[2] for r in rows),
             "by_family": {f: {"device_ms": ms, "calls": n}
                           for f, (ms, n) in sorted(
                               families.items(), key=lambda kv: -kv[1][0])},
@@ -671,12 +893,12 @@ def profile_run(fn) -> dict:
 
 
 def _family(kernel_name: str) -> str:
-    """The port's kernels by name; f32 GEMMs (the plain attention
-    backward's einsums run in f32), the other library GEMMs, and
-    everything else."""
+    """The port's kernels by name (``wgrad_*``: the two passes B5 and B8
+    share); f32 GEMMs (the plain attention backward's einsums run in
+    f32), the other library GEMMs, and everything else."""
     for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
-                 "ragged_wgrad", "fused_lora_fwd", "grouped_mm",
-                 "grouped_wgrad", "flash_fwd", "dequant_mm"):
+                 "wgrad_partials", "wgrad_reduce", "fused_lora_fwd",
+                 "grouped_mm", "flash_fwd", "dequant_mm"):
         if port in kernel_name:
             return port
     if "f32f32" in kernel_name:
@@ -726,8 +948,9 @@ def serve_phase(cfg, params, sets, dev):
             raise AssertionError(f"main path never launched {name}")
 
     # fused vs solo (outside the counted run): the prefill logits are
-    # held to LOGIT_ATOL; the first decode step's logits and the token
-    # ids are reported
+    # held to LOGIT_ATOL and the first decode step's are reported; the
+    # C1 probe walks every decode step of request 1 op by op, and every
+    # compared request's whole sequence must come out the same
     for set_name, names, ranks, reqs in sets:
         rec = out[set_name]
         diffs, flips = [], []
@@ -740,11 +963,16 @@ def serve_phase(cfg, params, sets, dev):
             diffs.append((fused_lg - solo_lg).abs().max().item())
             flips.append(int((fused_lg.argmax(-1)
                               != solo_lg.argmax(-1)).sum()))
-        # whole sequences solo for one request per adapter only: 16 solo
+        probe = c1_probe(engine, reqs, request=1,
+                         steps=reqs[1].max_new_tokens - 1)
+        unblocked = c1_probe(engine, reqs, request=1, steps=1,
+                             row_blocks=False)
+        # whole sequences solo for two requests per adapter: 16 solo
         # serves a set took minutes of the run's time limit on slow hosts
-        probe = list(zip(reqs, rec["results"]))[:len(names)]
-        same = sum(int(f.tokens.tolist() == engine.serve([r])[0].tokens.tolist())
-                   for r, f in probe)
+        pairs = list(zip(reqs, rec["results"]))[:2 * len(names)]
+        same = sum(int(f.tokens.tolist() ==
+                       engine.serve([r])[0].tokens.tolist())
+                   for r, f in pairs)
         emit({"phase": "serve", "set": set_name, "ranks": list(ranks),
               "requests": len(reqs), "rows": sum(geometry(reqs)[0]),
               "prompt_width": geometry(reqs)[1],
@@ -754,18 +982,54 @@ def serve_phase(cfg, params, sets, dev):
               "logit_atol": LOGIT_ATOL,
               "decode1_logits_max_abs_diff_fused_vs_solo": diffs[1],
               "argmax_flips_prefill_decode1": flips,
-              "token_ids_identical_share": same / len(probe),
-              "token_ids_compared": len(probe)})
+              "c1_probe": probe, "c1_probe_without_row_blocks": unblocked,
+              "token_ids_identical_share": same / len(pairs),
+              "token_ids_compared": len(pairs)})
         if diffs[0] > LOGIT_ATOL:
             raise AssertionError(f"{set_name}: fused vs solo prefill logits "
                                  f"differ by {diffs[0]} (atol {LOGIT_ATOL})")
+        if probe["first_differing_op"] is not None or same != len(pairs):
+            raise AssertionError(
+                f"{set_name}: fused and solo decoding part: {same} of "
+                f"{len(pairs)} sequences equal; first decode step {probe}")
     prof = {set_name: profile_run(functools.partial(engine.serve, reqs))
+            for set_name, _, _, reqs in sets}
+    cost = {set_name: row_blocks_cost(engine, reqs, prof[set_name])
             for set_name, _, _, reqs in sets}
     emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "setup_seconds": setup_s,
           "peak_device_memory_bytes": peak, "launches": launches,
-          "profile": prof, "card": card_line()})
+          "profile": prof, "row_blocks_cost": cost, "card": card_line()})
     return launches
+
+
+def row_blocks_cost(engine, reqs, prof_blocked: dict) -> dict:
+    """What the decode steps' row blocks (``ServeEngine.row_blocks``)
+    cost a serve of *reqs*: tokens per second with them and without,
+    served alternately (on, off, on, off) in this run, untraced; and the
+    device kernels and device-busy time of one serve each way, traced
+    (*prof_blocked*: the phase's own profile, taken with them)."""
+    import torch
+    rates = {True: [], False: []}
+    try:
+        for on in (True, False, True, False):
+            engine.row_blocks = on
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = engine.serve(reqs)
+            secs = time.perf_counter() - t
+            rates[on].append(sum(len(r.tokens) for r in res) / secs)
+        engine.row_blocks = False
+        whole = profile_run(functools.partial(engine.serve, reqs))
+    finally:
+        engine.row_blocks = True
+    return {"tokens_per_s_row_blocks": rates[True],
+            "tokens_per_s_whole": rates[False],
+            "device_kernels_per_serve_row_blocks":
+                prof_blocked.get("device_kernels"),
+            "device_kernels_per_serve_whole": whole.get("device_kernels"),
+            "device_busy_s_row_blocks": prof_blocked.get("device_busy_s"),
+            "device_busy_s_whole": whole.get("device_busy_s")}
 
 
 # --------------------------------------------------------------- train
@@ -1079,8 +1343,8 @@ def quant_phase(cfg, params, sets, bf16_losses, dev):
         raise AssertionError("quant: non-finite logits")
     logit_diff = (fused_lg - solo_lg).abs().max().item()
     # each request's first token is the argmax of its prefill logits:
-    # held fused vs solo.  Later tokens come from decode steps at another
-    # batch size, which diverge in bf16 too (the serve phase reports it)
+    # held fused vs solo (whole sequences are held in the serve phase; no
+    # solo serves here, they cost a minute on slow hosts)
     flips = int((fused_lg.argmax(-1) != solo_lg.argmax(-1)).sum())
     first = torch.tensor([r.tokens[0] for r in res], device=dev)
     if not bool((first == fused_lg.argmax(-1)).all()):

@@ -229,14 +229,17 @@ class MultiLoRA:
 
 def proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
          lora: Optional[MultiLoRA] = None,
-         ab: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+         ab: Optional[Dict[str, torch.Tensor]] = None,
+         row_block: Optional[int] = None) -> torch.Tensor:
     """Frozen dense projection + optional fused multi-LoRA delta.
 
     ``w`` may be a quantized ``models/quant.QuantTensor``: ``qdot`` fuses
     the int8 dequant into the base matmul; the LoRA delta path is
-    untouched (adapters stay high precision and take the gradient)."""
-    from repro_torch.models.quant import qdot   # lazy: models imports us
-    y = qdot(x, w)
+    untouched (adapters stay high precision and take the gradient).
+    ``row_block``: the base product's rows per product
+    (``models/layers.dense``)."""
+    from repro_torch.models.layers import dense   # lazy: models imports us
+    y = dense(x, w, row_block)
     if b is not None:
         y = y + b.to(y.dtype)
     if lora is not None and ab is not None:

@@ -25,20 +25,26 @@
 //     columns, which are split over CTAs only when the rows alone do not
 //     fill the card.
 // The contraction is never split over CTAs, so a result does not depend
-// on the launch geometry.  The grouped wgrad gives every CTA one adapter,
-// 16 lanes of the narrow operand and 128 columns of the wide one; the CTA
-// walks the tile map itself and sums its adapter's runs of tiles in token
-// order (the TPU kernel revisited one output block across those tiles,
-// fused_lora.py:98-118).  No host copy of the tile map, no atomics,
-// deterministic; an adapter that owns no tile gets zeros (the Pallas
+// on the launch geometry.
+//
+// The grouped wgrad runs the two-pass routine of lora_tile.cuh (also
+// B5's, ragged_bwd.cu): each CTA takes one chunk of token tiles at a
+// fixed position, up to 64 lanes of the narrow operand and 64 columns of
+// the wide one, and computes the f32 partial of each run of one
+// adapter's tiles in its chunk; a second pass adds each adapter's
+// partials in tile order (the TPU kernel revisited one output block
+// across an adapter's tiles in tile order, fused_lora.py:98-118).  It
+// reads the device tile map itself, needs no host copy of it, uses no
+// atomics, and gives an adapter that owns no tile zeros (the Pallas
 // wrapper masks uninitialised memory instead, fused_lora.py:160-163).
 //
 // Bound on the H100: bytes.  At LoRA ranks each product does 2 * rank
 // flops per byte of its wide operand, far under the 295 flop/byte ridge.
 // What the design does about it: every operand is staged once per pass
-// with 16-byte loads.  Known waste: a narrow output of width w re-stages
-// the x rows once per 16 lanes (w / 16 passes), and the wgrad re-reads
-// the wide operand once per 16 lanes of the narrow one.
+// with 16-byte loads; the wgrad reads the wide operand once for all the
+// lanes it holds and keeps a four-stage cp.async ring in flight over
+// hundreds of CTAs.  The narrow-output product still re-stages the x
+// rows once per 16 lanes (the next redesign, B7).
 #include "lora_tile.cuh"
 
 namespace {
@@ -104,46 +110,6 @@ grouped_mm_wide_kernel(const __nv_bfloat16* __restrict__ x,
       out + static_cast<long>(row0) * d_out, d_out, s);
 }
 
-// ------------------------------------------------------------ wgrad
-// narrow_x = 1: x is the narrow operand (dB = wgrad(xa, dy_s)), out[k]
-// is (d_x lanes, d_g columns).  narrow_x = 0: g is (dA = wgrad(x, dxa)),
-// out[k] is (d_x columns, d_g lanes) and the block is stored transposed.
-__global__ void __launch_bounds__(lora::kThreads)
-grouped_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ g,
-                     const int* __restrict__ tile_map,
-                     float* __restrict__ out, int n_tiles, int d_x, int d_g,
-                     int narrow_x, int lane_tiles, int block_t) {
-  __shared__ lora::WgradSmem s;
-  const int k = blockIdx.x / lane_tiles;
-  const int lane0 = (blockIdx.x % lane_tiles) * lora::kLanes;
-  const int c0 = blockIdx.y * lora::kCols;
-  const __nv_bfloat16* u = narrow_x ? x + lane0 : g + lane0;
-  const __nv_bfloat16* v = narrow_x ? g : x;
-  const int ldu = narrow_x ? d_x : d_g;
-  const int d = narrow_x ? d_g : d_x;
-
-  lora::WgradAcc acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int t = 0; t < n_tiles;) {           // the adapter's runs, in order
-    if (tile_map[t] != k) {
-      ++t;
-      continue;
-    }
-    int e = t + 1;
-    while (e < n_tiles && tile_map[e] == k) ++e;
-    lora::wgrad_rows(u, ldu, v, d, d, c0, t * block_t, e * block_t, acc, s);
-    t = e;
-  }
-  float* out_k = out + static_cast<long>(k) * d_x * d_g;
-  if (narrow_x)
-    lora::wgrad_store(acc, out_k + static_cast<long>(lane0) * d_g, d_g, 1,
-                      d, c0, s);
-  else
-    lora::wgrad_store(acc, out_k + lane0, 1, d_g, d, c0, s);
-}
-
 }  // namespace
 
 // trans_w = 0: W[k] element (i, j) at w[k * w_k + i * w_ld + j];
@@ -182,21 +148,27 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grouped wgrad through the shared two-pass routine of lora_tile.cuh.
+// The narrow operand (the smaller of d_x and d_g) is u.  x narrow (dB =
+// wgrad(xa, dy_s)): out[k] is (d_x lanes, d_g columns), row-major.  g
+// narrow (dA = wgrad(x, dxa)): out[k] is (d_x columns, d_g lanes), the
+// lanes contiguous.  W: n_tiles slots of d_x * d_g floats.
 extern "C" int grouped_wgrad_launch(const void* x, const void* g,
-                                    const void* tile_map, void* out, int T,
-                                    int d_x, int d_g, int num_adapters,
-                                    int block_t, void* stream) {
-  const int narrow_x = d_x <= d_g;
+                                    const void* tile_map, void* out,
+                                    void* work, int T, int d_x, int d_g,
+                                    int num_adapters, int block_t,
+                                    int chunk_tiles, void* stream) {
+  const bool narrow_x = d_x <= d_g;
   const int narrow = narrow_x ? d_x : d_g;
   const int wide = narrow_x ? d_g : d_x;
-  const int lane_tiles = narrow / repro::lora::kLanes;
-  dim3 grid(num_adapters * lane_tiles,
-            (wide + repro::lora::kCols - 1) / repro::lora::kCols);
-  grouped_wgrad_kernel<<<grid, repro::lora::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(g), static_cast<const int*>(tile_map),
-      static_cast<float*>(out), T / block_t, d_x, d_g, narrow_x, lane_tiles,
-      block_t);
-  return static_cast<int>(cudaGetLastError());
+  auto xp = static_cast<const __nv_bfloat16*>(x);
+  auto gp = static_cast<const __nv_bfloat16*>(g);
+  return repro::lora::wgrad_launch(
+      narrow_x ? xp : gp, narrow, narrow_x ? gp : xp, wide, wide,
+      static_cast<const int*>(tile_map), T / block_t, block_t, chunk_tiles,
+      nullptr, num_adapters, narrow, narrow, static_cast<float*>(work),
+      static_cast<long>(narrow) * wide, narrow_x ? wide : 1,
+      narrow_x ? 1 : narrow, static_cast<float*>(out),
+      static_cast<long>(num_adapters) * narrow * wide,
+      static_cast<cudaStream_t>(stream));
 }

@@ -19,23 +19,24 @@
 // xa and dxa outside the token's own segment is written as zero (Pallas
 // leaves those blocks unwritten; the reference never reads them).
 //
-// wgrad: one CTA owns one 16-lane rank tile and one 128-column block of
-// the output and walks ALL of its adapter's tokens itself, in a fixed
-// order, accumulating on the tensor cores in registers: the loop that
-// the TPU grid ran as revisits of one output block (ragged.py:19-25), so
-// there are no atomics and the result is deterministic.  Its token list
-// comes from RaggedMeta.wgrad_runs: runs of consecutive token tiles of
-// the adapter.  Rank tiles of adapters that own no tiles have no runs
-// and are written as zeros.
+// wgrad runs the two-pass routine of lora_tile.cuh, the grouped wgrad's
+// (grouped.cu): the adapter of each token tile and each adapter's packed
+// segment (first column, padded width) come from small device tables
+// (RaggedMeta); each CTA takes one chunk of token tiles at a fixed
+// position, up to 64 lanes of one adapter's segment and 64 columns of v,
+// and a second pass adds each adapter's chunk partials in tile order --
+// the loop that the TPU grid ran as revisits of one output block
+// (ragged.py:19-25), without atomics and in one order with B8, so the
+// two families' gradients agree bit for bit.  Rows of adapters that own
+// no tiles are written as zeros.
 //
 // Bound on the H100: bytes, as for the forward (ragged_lora.cu): each
 // token's work is (true rank) x (d_in + d_out) multiply-adds against the
 // 2 (d_in + d_out) bytes of its activation rows, far under the 295
 // flop/byte ridge at LoRA ranks.  What the design does about it: every
-// operand is staged once per CTA with 16-byte loads; the one known waste
-// is that the wgrad re-reads v once per rank tile of the adapter (a
-// rank-64 adapter reads its rows four times), and dgrad CTAs that split
-// columns recompute their rows' dxa.
+// operand is staged once per CTA with 16-byte loads, and the wgrad reads
+// v once for up to 64 lanes of a segment; dgrad CTAs that split columns
+// still recompute their rows' dxa.
 #include "lora_tile.cuh"
 
 namespace {
@@ -100,31 +101,6 @@ ragged_packed_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ----------------------------------------------------------------- wgrad
-__global__ void __launch_bounds__(lora::kThreads)
-ragged_wgrad_kernel(const __nv_bfloat16* __restrict__ u,
-                    const __nv_bfloat16* __restrict__ v,
-                    const int* __restrict__ rt_runs,
-                    const int* __restrict__ runs, float* __restrict__ out,
-                    int R, int d, int block_t) {
-  __shared__ lora::WgradSmem s;
-  const int lane0 = blockIdx.x * lora::kLanes;
-  const int c0 = blockIdx.y * lora::kCols;
-  const int run_begin = rt_runs[2 * blockIdx.x];
-  const int run_end = run_begin + rt_runs[2 * blockIdx.x + 1];
-
-  lora::WgradAcc acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int run = run_begin; run < run_end; ++run) {
-    const int t_begin = runs[2 * run] * block_t;
-    lora::wgrad_rows(u + lane0, R, v, d, d, c0, t_begin,
-                     t_begin + runs[2 * run + 1] * block_t, acc, s);
-  }
-  lora::wgrad_store(acc, out + static_cast<long>(lane0) * d, d, 1, d, c0,
-                    s);
-}
-
 }  // namespace
 
 extern "C" int ragged_dgrad_launch(const void* dy, const void* a,
@@ -164,17 +140,22 @@ extern "C" int ragged_packed_launch(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ragged wgrad through the shared two-pass routine of lora_tile.cuh:
+// u (T, R) packed, v (T, d) -> (R, d).  tile_jobs: adapter of each token
+// tile; seg: per adapter (first packed column, padded width), in column
+// order.  W: n_tiles slots of max_width * d floats.
 extern "C" int ragged_wgrad_launch(const void* u, const void* v,
-                                   const void* rt_runs, const void* runs,
-                                   void* out, int R, int d, int block_t,
+                                   const void* tile_jobs, const void* seg,
+                                   void* out, void* work, int T, int R,
+                                   int d, int n_seg, int max_width,
+                                   int block_t, int chunk_tiles,
                                    void* stream) {
-  dim3 grid(R / repro::lora::kLanes,
-            (d + repro::lora::kCols - 1) / repro::lora::kCols);
-  ragged_wgrad_kernel<<<grid, repro::lora::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(u),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const int*>(rt_runs), static_cast<const int*>(runs),
-      static_cast<float*>(out), R, d, block_t);
-  return static_cast<int>(cudaGetLastError());
+  return repro::lora::wgrad_launch(
+      static_cast<const __nv_bfloat16*>(u), R,
+      static_cast<const __nv_bfloat16*>(v), d, d,
+      static_cast<const int*>(tile_jobs), T / block_t, block_t, chunk_tiles,
+      static_cast<const int*>(seg), n_seg, 0, max_width,
+      static_cast<float*>(work), static_cast<long>(max_width) * d, d, 1,
+      static_cast<float*>(out), static_cast<long>(R) * d,
+      static_cast<cudaStream_t>(stream));
 }

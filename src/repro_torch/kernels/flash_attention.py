@@ -43,6 +43,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, torch.logsumexp(s, dim=-1)
 
 
+KERNEL_HEAD_DIM = 64     # the model's head width, one wgmma tile wide
+
+
+def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> None:
+    """What the Hopper kernel takes, checked before any build: q, k, v
+    contiguous bf16 on one CUDA device, head dim 64, at least one query
+    and one key row (raises ValueError otherwise)."""
+    build.require(q.shape[-1] == KERNEL_HEAD_DIM,
+                  f"head dim {q.shape[-1]}: the kernel takes "
+                  f"{KERNEL_HEAD_DIM} only")
+    build.require(q.shape[1] >= 1 and k.shape[1] >= 1,
+                  f"empty attention: Sq={q.shape[1]}, Skv={k.shape[1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.require(t.dtype == torch.bfloat16 and t.is_contiguous(),
+                      f"{name} must be a contiguous bf16 tensor")
+    build.require(q.device.type == "cuda", f"unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.require(t.device == q.device and t.data_ptr() % 16 == 0,
+                      f"{name} must be 16-byte aligned on {q.device}")
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd_launch
@@ -69,12 +91,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    kv_groups=kv_groups)
-    build.require(q.device.type == "cuda", f"unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.require(t.device == q.device and t.dtype == torch.bfloat16
-                      and t.is_contiguous(),
-                      f"{name} must be a contiguous bf16 tensor on {q.device}")
-    build.require(hd in (32, 64, 128), f"head dim {hd} not in (32, 64, 128)")
+    check_kernel_operands(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()

@@ -7,7 +7,8 @@ per token tile (``tile_map``), lanes >= each adapter's true rank masked:
     fused_lora      xa = mask(x_tile · A[k]) rounded to x.dtype;
                     y_tile = xa · B[k]        (x.dtype, unscaled)
     grouped_matmul  y_t = x_t · W[k]          (x.dtype, f32 accumulation)
-    grouped_wgrad   out[k] = Σ_{t of adapter k} x_t^T · g_t   (f32)
+    grouped_wgrad   out[k] = Σ_{t of adapter k} x_t^T · g_t   (f32,
+                    summed in the order of ``wgrad_pieces``)
 
 The last two are the backward of the first (``kernels/ops._MaskedLoRA``).
 The int8 frozen backbone's projection:
@@ -24,7 +25,7 @@ launches its Hopper kernel (``csrc/fused_lora.cu``, ``csrc/grouped.cu``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -192,19 +193,51 @@ def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
 
 
 # --------------------------------------------------------- grouped wgrad
+# The weight gradients' summation order (B8 here, B5 in kernels/ragged.py,
+# their CUDA kernels through one routine of csrc/lora_tile.cuh): token
+# tiles are cut into chunks of WGRAD_CHUNK_TILES tiles at absolute tile
+# positions; each maximal run of one adapter's tiles inside one chunk (a
+# piece) gets one f32 partial, and an adapter's partials are summed in
+# tile order.  A constant of the design, not of the card.
+WGRAD_CHUNK_TILES = 4
+
+
+def wgrad_pieces(tile_map: Sequence[int],
+                 chunk_tiles: int = WGRAD_CHUNK_TILES
+                 ) -> List[Tuple[int, int, int]]:
+    """(first tile, end tile, adapter) of every piece, in tile order."""
+    pieces = []
+    for t, k in enumerate(tile_map):
+        if t % chunk_tiles == 0 or k != tile_map[t - 1]:
+            pieces.append([t, t + 1, k])
+        else:
+            pieces[-1][1] = t + 1
+    return [tuple(p) for p in pieces]
+
+
+def wgrad_partial(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One piece's f32 partial u^T·v, narrow operand first, as the kernel
+    computes it (the plain B5 and B8 share it, so that they agree bit for
+    bit on one layout)."""
+    return u.float().contiguous().T @ v.float().contiguous()
+
+
 def grouped_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
                         tile_map: torch.Tensor, num_adapters: int, *,
                         block_t: int) -> torch.Tensor:
-    """Plain PyTorch version of the grouped wgrad: per token tile x^T·g in
-    f32, summed per adapter with ``index_add_`` (zeros for adapters that
-    own no tile)."""
-    T, d_x = x.shape
-    n = T // block_t
-    per_tile = torch.bmm(x.reshape(n, block_t, d_x).float().transpose(1, 2),
-                         g.reshape(n, block_t, -1).float())
-    out = torch.zeros((num_adapters, d_x, g.shape[-1]), dtype=torch.float32,
+    """Plain PyTorch version of the grouped wgrad, in the kernel's order:
+    one f32 partial per piece (``wgrad_pieces``), each adapter's partials
+    added in tile order to zeros (adapters that own no tile stay zero)."""
+    d_x, d_g = x.shape[1], g.shape[1]
+    out = torch.zeros((num_adapters, d_x, d_g), dtype=torch.float32,
                       device=x.device)
-    return out.index_add_(0, tile_map.long(), per_tile)
+    for t0, t1, k in wgrad_pieces(tile_map.tolist()):
+        rows = slice(t0 * block_t, t1 * block_t)
+        if d_x <= d_g:
+            out[k] += wgrad_partial(x[rows], g[rows])
+        else:
+            out[k] += wgrad_partial(g[rows], x[rows]).T
+    return out
 
 
 def grouped_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
@@ -213,8 +246,9 @@ def grouped_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
     """x: (T, d_x), g: (T, d_g), tile_map: (T // block_t,).  Returns
     (K, d_x, d_g) f32, out[k] = Σ_{t of adapter k} x_t^T · g_t: dA =
     wgrad(x, dxa), dB = wgrad(xa, dy_s).  The smaller of d_x and d_g (a
-    rank width) must be a multiple of 16.  Deterministic: each output
-    block is summed by one CTA in token order."""
+    rank width) must be a multiple of 16.  Deterministic: partials per
+    piece (``wgrad_pieces``), summed in tile order by a second pass; one
+    wrapper call, two launches."""
     T, d_x = x.shape
     d_g = g.shape[-1]
     build.require(T % block_t == 0 and tile_map.shape == (T // block_t,)
@@ -240,10 +274,14 @@ def grouped_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
     build.require_vectors((x, g), d_x, d_g)
     out = torch.empty((num_adapters, d_x, d_g), dtype=torch.float32,
                       device=x.device)
+    # one partial slot per token tile, named by the piece's first tile
+    work = torch.empty((T // block_t, d_x * d_g), dtype=torch.float32,
+                       device=x.device)
     lib = _grouped_lib()
     err = lib.grouped_wgrad_launch(
-        build.ptr(x), build.ptr(g), build.ptr(tile_map), build.ptr(out), T,
-        d_x, d_g, num_adapters, block_t, build.stream_ptr(x.device))
+        build.ptr(x), build.ptr(g), build.ptr(tile_map), build.ptr(out),
+        build.ptr(work), T, d_x, d_g, num_adapters, block_t,
+        WGRAD_CHUNK_TILES, build.stream_ptr(x.device))
     build.check(lib, err, "grouped_wgrad_cuda")
     grouped_wgrad_cuda.launches += 1
     return out
@@ -257,7 +295,7 @@ def _grouped_lib() -> ctypes.CDLL:
                        + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         mm.restype = ctypes.c_int
-        wg.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        wg.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         wg.restype = ctypes.c_int
     return lib

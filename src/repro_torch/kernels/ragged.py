@@ -12,6 +12,7 @@ packed segment of token t's adapter and mask() zeroing lanes >= its rank:
     ragged_xa          xa[t, seg(t)]  = mask(x_t · A[:, seg(t)])        (T, R)
     ragged_dxa         dxa[t, seg(t)] = mask(dy_t · B[seg(t)]^T)        (T, R)
     ragged_wgrad       out[seg_k] = Σ_{t of adapter k} u[t, seg_k]^T · v_t
+                       (summed in the grouped wgrad's order)
 
 The masked intermediate is rounded to the input dtype before a second
 product, as the TPU kernels do; xa and dxa are zero outside seg(t), and
@@ -34,6 +35,8 @@ import torch
 
 from repro_torch.core.lora import RankLayout
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_lora import (WGRAD_CHUNK_TILES, wgrad_partial,
+                                            wgrad_pieces)
 
 
 @dataclass(frozen=True)
@@ -120,29 +123,6 @@ class RaggedMeta:
                          np.add.reduceat(lanes, starts)],
                         axis=1).astype(np.int32)
 
-    def wgrad_runs(self, lanes: int) -> Tuple[np.ndarray, np.ndarray]:
-        """``wgrad_flat`` folded for the wgrad kernel, whose CTAs own
-        *lanes* packed rank rows each: (rt_runs (total_r / lanes, 2),
-        runs (n, 2)) int32.  Group g reads runs[first:first + count] with
-        (first, count) = rt_runs[g]; a run is (first token tile, tile
-        count) of consecutive token tiles of the group's adapter."""
-        assert self.r_blk % lanes == 0, (self.r_blk, lanes)
-        tile, rtile, _ = self.wgrad_flat
-        per_rt = {}
-        for t, rt in zip(tile.tolist(), rtile.tolist()):
-            per_rt.setdefault(rt, []).append(t)
-        runs, rt_runs = [], []
-        for g in range(self.total_r // lanes):
-            first = len(runs)
-            for t in per_rt.get(g * lanes // self.r_blk, []):
-                if len(runs) > first and sum(runs[-1]) == t:
-                    runs[-1][1] += 1
-                else:
-                    runs.append([t, 1])
-            rt_runs.append([first, len(runs) - first])
-        return (np.asarray(rt_runs, np.int32).reshape(-1, 2),
-                np.asarray(runs or [[0, 0]], np.int32).reshape(-1, 2))
-
 
 @functools.lru_cache(maxsize=64)
 def _device_table(meta: RaggedMeta, device: torch.device) -> torch.Tensor:
@@ -151,15 +131,15 @@ def _device_table(meta: RaggedMeta, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(meta.tile_table).to(device)
 
 
-_LANES = 16    # packed rank rows per wgrad CTA (csrc/ragged_bwd.cu)
-
-
 @functools.lru_cache(maxsize=64)
-def _device_runs(meta: RaggedMeta, device: torch.device
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``meta.wgrad_runs`` for 16-lane CTAs on *device*, copied once."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in meta.wgrad_runs(_LANES))
+def _device_wgrad_tables(meta: RaggedMeta, device: torch.device
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the wgrad kernel reads on *device*, copied once: the adapter
+    of each token tile, and per adapter (first packed column, padded
+    width)."""
+    seg = np.stack([meta.offsets, meta.r_pads], axis=1).astype(np.int32)
+    return (torch.tensor(meta.tile_jobs, dtype=torch.int32, device=device),
+            torch.from_numpy(seg).to(device))
 
 
 def _segments(meta: RaggedMeta, device, block_t: int):
@@ -229,11 +209,15 @@ def ragged_dxa_plain(dy_s: torch.Tensor, B: torch.Tensor, meta: RaggedMeta,
 
 def ragged_wgrad_plain(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta,
                        *, block_t: int) -> torch.Tensor:
-    """Plain PyTorch version of the wgrad kernel: (R, d) f32."""
+    """Plain PyTorch version of the wgrad kernel: (R, d) f32, in the
+    kernel's order (that of the grouped wgrad, ``wgrad_pieces``): one f32
+    partial per piece of an adapter's tiles, added in tile order."""
     out = torch.zeros((meta.total_r, v.shape[-1]), dtype=torch.float32,
                       device=u.device)
-    for rows, off, rp, _ in _segments(meta, u.device, block_t):
-        out[off:off + rp] = u[rows, off:off + rp].float().T @ v[rows].float()
+    for t0, t1, k in wgrad_pieces(meta.tile_jobs):
+        rows = slice(t0 * block_t, t1 * block_t)
+        off, rp = meta.offsets[k], meta.r_pads[k]
+        out[off:off + rp] += wgrad_partial(u[rows, off:off + rp], v[rows])
     return out
 
 
@@ -243,7 +227,7 @@ _ARGTYPES = {
     ("ragged_lora", "ragged_lora_fwd_launch"): (5, 6),
     ("ragged_bwd", "ragged_dgrad_launch"): (5, 6),
     ("ragged_bwd", "ragged_packed_launch"): (4, 5),
-    ("ragged_bwd", "ragged_wgrad_launch"): (5, 3),
+    ("ragged_bwd", "ragged_wgrad_launch"): (6, 7),
 }
 
 
@@ -389,8 +373,8 @@ def ragged_wgrad(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta, *,
                  block_t: int = 128) -> torch.Tensor:
     """u: (T, R) packed (xa or dxa), v: (T, d).  Returns (R, d) f32:
     dB directly (u = xa, v = dy_s) or dA transposed (u = dxa, v = x).
-    Deterministic: each output block is summed by one CTA in token
-    order."""
+    Deterministic, in the grouped wgrad's order (``wgrad_pieces``): one
+    wrapper call, two launches (partials, then their sum)."""
     T, R = u.shape
     d = v.shape[-1]
     _check_common("ragged_wgrad", T, block_t, meta, None, (R,), 0)
@@ -399,14 +383,20 @@ def ragged_wgrad(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta, *,
     if u.device.type == "cpu":
         return ragged_wgrad_plain(u, v, meta, block_t=block_t)
     _check_cuda("ragged_wgrad", (("u", u), ("v", v)), block_t, meta, (d,))
-    build.require(meta.r_blk % _LANES == 0, f"ragged_wgrad: rank tiles of "
+    build.require(meta.r_blk % 16 == 0, f"ragged_wgrad: rank tiles of "
                   f"{meta.r_blk} lanes; the CUDA kernel needs multiples of "
-                  f"{_LANES}")
+                  "16")
     out = torch.empty((R, d), dtype=torch.float32, device=u.device)
-    rt_runs, runs = _device_runs(meta, u.device)
+    max_w = max(meta.r_pads)
+    # one partial slot per token tile, named by the piece's first tile
+    work = torch.empty((T // block_t, max_w * d), dtype=torch.float32,
+                       device=u.device)
+    tile_jobs, seg = _device_wgrad_tables(meta, u.device)
     lib, fn = _entry("ragged_bwd", "ragged_wgrad_launch")
-    err = fn(build.ptr(u), build.ptr(v), build.ptr(rt_runs), build.ptr(runs),
-             build.ptr(out), R, d, block_t, build.stream_ptr(u.device))
+    err = fn(build.ptr(u), build.ptr(v), build.ptr(tile_jobs),
+             build.ptr(seg), build.ptr(out), build.ptr(work), T, R, d,
+             meta.num_jobs, max_w, block_t, WGRAD_CHUNK_TILES,
+             build.stream_ptr(u.device))
     build.check(lib, err, "ragged_wgrad")
     ragged_wgrad.launches += 1
     return out

@@ -12,7 +12,9 @@
                cache with ``kv_len = S``, the same function;
   * decode   — q (S=1..n) over the cache with per-row positions: the
                online-softmax chunk scan in plain PyTorch (the reference
-               runs it outside any Pallas kernel too).
+               runs it outside any Pallas kernel too), over key chunks of
+               a fixed width (``DECODE_CHUNK``), so that a row's sums do
+               not depend on the cache width of the batch it decodes in.
 
 KV caches are updated IN PLACE (the reference returns new arrays): one
 buffer per segment for the whole request batch, no copy per step.
@@ -28,6 +30,13 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_BIG = -1e30
+# Keys per chunk of the decode scan.  Fixed, not cut to the cache width:
+# the width follows the batch's longest prompt, and a chunk as wide as
+# the cache would make each row's f32 sums (p.sum, p·v) run over another
+# number of terms, fused and solo.  Chunks past a row's kv_len add an
+# exact 0 and rescale by exp(0) = 1.  ``KVCache.init`` makes caches of
+# whole chunks, and ``decode_attention`` takes no other width.
+DECODE_CHUNK = 256
 
 
 def _is_vec(a) -> bool:
@@ -36,8 +45,8 @@ def _is_vec(a) -> bool:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset, kv_len, causal: bool,
-                      window: Optional[int], chunk: int = 1024
-                      ) -> torch.Tensor:
+                      window: Optional[int], chunk: int = 1024,
+                      row_block: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd). Returns (B, Sq, H, hd).
 
     q_offset: absolute position of q[0] — an int or a per-row (B,) tensor.
@@ -45,14 +54,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Static geometry with q at position 0 over exactly Sq keys (training,
     prefill) goes through ``_Flash``; everything else takes the chunk
-    scan (decode, never differentiated).
+    scan (decode, never differentiated), its chunk products on
+    *row_block* rows at a time when given (``_rows_einsum``).
     """
     if (window is None and isinstance(q_offset, int) and q_offset == 0
             and isinstance(kv_len, int) and kv_len == q.shape[1]):
         return _Flash.apply(q, k[:, :kv_len], v[:, :kv_len], causal, chunk)
     out, _ = _chunked_attention_fwd(q, k, v, q_offset=q_offset,
                                     kv_len=kv_len, causal=causal,
-                                    window=window, chunk=chunk)
+                                    window=window, chunk=chunk,
+                                    row_block=row_block)
     return out
 
 
@@ -140,8 +151,24 @@ class _Flash(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
+def _rows_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                 row_block: Optional[int]) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` with a leading row dim on both operands
+    and the output, *row_block* rows at a time (None: all at once):
+    cuBLAS picks a batched product's algorithm, and with it a row's
+    summation order, by the batch count (on the H100, 64 decode rows
+    part from 16 in both chunk products); the elementwise work and the
+    reductions around them do not depend on it and stay whole."""
+    if row_block is None or a.shape[0] <= row_block:
+        return torch.einsum(eq, a, b)
+    return torch.cat([torch.einsum(eq, a[i:i + row_block],
+                                   b[i:i + row_block])
+                      for i in range(0, a.shape[0], row_block)])
+
+
 def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
-                           window: Optional[int], chunk: int = 1024):
+                           window: Optional[int], chunk: int = 1024,
+                           row_block: Optional[int] = None):
     """Online-softmax chunk scan; returns (out (B,Sq,H,vd), lse (B,H,Sq)).
 
     Per-row geometry (batched serving decode): (B,) q_offset / kv_len
@@ -178,7 +205,7 @@ def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
         v_c = v[:, ci * chunk:(ci + 1) * chunk].float()
         c = k_c.shape[1]
         kpos = ci * chunk + torch.arange(c, device=dev)
-        s = torch.einsum("bsngd,bcnd->bngsc", qg, k_c).reshape(
+        s = _rows_einsum("bsngd,bcnd->bngsc", qg, k_c, row_block).reshape(
             B, H, Sq, c) * scale
         if per_row:
             valid = kpos[None, None, :] < kv_len_b[:, :, None]
@@ -199,9 +226,9 @@ def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bngsc,bcnd->bsngd",
+        pv = _rows_einsum("bngsc,bcnd->bsngd",
                           p.to(q.dtype).float().reshape(B, KV, G, Sq, c),
-                          v_c).reshape(B, Sq, H, vd)
+                          v_c, row_block).reshape(B, Sq, H, vd)
         acc = acc * corr.transpose(1, 2)[..., None] + pv
         m = m_new
     lden = torch.where(l == 0, 1.0, l)
@@ -214,13 +241,15 @@ def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
 class KVCache(NamedTuple):
     """Full KV cache for one attention segment.
 
-    k/v: (L?, B, buf, KV, hd) — leading layer axis when stacked."""
+    k/v: (L?, B, buf, KV, hd) — leading layer axis when stacked; ``init``
+    rounds buf up to whole ``DECODE_CHUNK``-key chunks."""
     k: torch.Tensor
     v: torch.Tensor
 
     @staticmethod
     def init(batch, buf, kv_heads, hd, dtype, layers: Optional[int] = None,
              device="cuda"):
+        buf = -(-buf // DECODE_CHUNK) * DECODE_CHUNK
         shape = (batch, buf, kv_heads, hd)
         if layers is not None:
             shape = (layers,) + shape
@@ -247,17 +276,25 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, pos, *,
-                     window: Optional[int], chunk: int = 2048
-                     ) -> torch.Tensor:
+                     window: Optional[int],
+                     row_block: Optional[int] = None) -> torch.Tensor:
     """q: (B, S=1.., H, hd) attending over the cache after update at pos.
 
     ``pos`` int or per-row ``(B,)``: kv_len and the causal frontier then
     mask per row, so a fused batch of requests at different depths
-    attends exactly like each would solo."""
+    attends exactly like each would solo: the cache is whole
+    ``DECODE_CHUNK``-key chunks, so the chunk that holds a row's
+    frontier holds the same keys in any batch, and with *row_block* (a
+    solo batch's row count) the chunk products go that many rows at a
+    time (``_rows_einsum``), so every product has the solo shape."""
+    if cache.k.shape[1] % DECODE_CHUNK:
+        raise ValueError(f"decode_attention: a cache of {cache.k.shape[1]} "
+                         f"keys; it takes whole chunks of {DECODE_CHUNK} "
+                         "(KVCache.init)")
     kv_len = pos + q.shape[1]
     return chunked_attention(q, cache.k, cache.v, q_offset=pos,
                              kv_len=kv_len, causal=True, window=window,
-                             chunk=chunk)
+                             chunk=DECODE_CHUNK, row_block=row_block)
 
 
 # ----------------------------------------------------------------- block
@@ -281,15 +318,19 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
                lora_ab: Optional[dict] = None,
                cache: Optional[KVCache] = None,
                cache_pos=None,
-               chunk: int = 1024) -> Tuple[torch.Tensor, Optional[KVCache]]:
+               chunk: int = 1024,
+               row_block: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GQA attention with optional fused multi-LoRA on q/k/v/o.
 
-    x: (B, S, d). Returns (out, cache)."""
+    x: (B, S, d). Returns (out, cache).  ``row_block``: rows per base
+    product and per decode chunk product (``layers.dense``)."""
     B, S, _ = x.shape
     la = lora_ab or {}
-    q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"))
-    k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"))
-    v = proj(x, params["wv"], params.get("bv"), lora, la.get("v"))
+    rb = row_block
+    q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"), rb)
+    k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"), rb)
+    v = proj(x, params["wv"], params.get("bv"), lora, la.get("v"), rb)
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -299,10 +340,11 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
 
     if cache is not None:
         cache = cache_update(cache, k, v, cache_pos)
-        out = decode_attention(q, cache, cache_pos, window=None)
+        out = decode_attention(q, cache, cache_pos, window=None,
+                               row_block=rb)
     else:
         out = chunked_attention(q, k, v, q_offset=0, kv_len=S,
                                 causal=cfg.causal, window=None, chunk=chunk)
     out = out.reshape(B, S, cfg.q_dim)
-    y = proj(out, params["wo"], None, lora, la.get("o"))
+    y = proj(out, params["wo"], None, lora, la.get("o"), rb)
     return y, cache

@@ -3,10 +3,12 @@ family).  Params are plain nested dicts of tensors;
 backbone weights live in ``cfg.dtype``, norms accumulate in f32."""
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.quant import qdot
+from repro_torch.models.quant import QuantTensor, qdot
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -59,6 +61,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- dense
+def dense(x: torch.Tensor, w: Any,
+          row_block: Optional[int] = None) -> torch.Tensor:
+    """``qdot(x, w)``.  With *row_block* (the serving decode path on the
+    card), a plain tensor's product runs on that many rows of x at a
+    time: cuBLAS picks its algorithm, and with it a row's summation
+    order, by the row count, so blocks of a solo batch's row count give
+    a fused batch's rows the solo bits.  The int8 kernel's order does not
+    depend on the row count: a QuantTensor's product runs whole."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if (row_block is None or isinstance(w, QuantTensor)
+            or x2.shape[0] <= row_block):
+        return qdot(x, w)
+    y = torch.empty((x2.shape[0], w.shape[-1]), dtype=x.dtype,
+                    device=x.device)
+    for i in range(0, x2.shape[0], row_block):
+        torch.mm(x2[i:i + row_block], w, out=y[i:i + row_block])
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 # ---------------------------------------------------------------- mlp
 def swiglu_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
                 device="cuda", layers: int = 1) -> dict:
@@ -68,12 +90,13 @@ def swiglu_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
             "down": dense_init(d_ff, d, dtype, **kw)}
 
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: dict, x: torch.Tensor,
+           row_block: Optional[int] = None) -> torch.Tensor:
     # qdot: fused int8 dequant when the FFN mats are QuantTensors
-    g = qdot(x, params["gate"])
-    u = qdot(x, params["up"])
+    g = dense(x, params["gate"], row_block)
+    u = dense(x, params["up"], row_block)
     h = F.silu(g.float()).to(x.dtype) * u
-    return qdot(h, params["down"])
+    return dense(h, params["down"], row_block)
 
 
 # ---------------------------------------------------------------- losses

@@ -27,9 +27,9 @@ from repro_torch.configs.base import (FULL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.core.lora import MultiLoRA, RankLayout, init_adapter_pair
 from repro_torch.models.attention import KVCache, attn_block, attn_init
-from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
-                                       embed_init, rms_norm, swiglu,
-                                       swiglu_init)
+from repro_torch.models.layers import (cross_entropy, dense, dense_init,
+                                       dtype_of, embed_init, rms_norm,
+                                       swiglu, swiglu_init)
 from repro_torch.models.quant import QuantTensor
 
 
@@ -236,21 +236,23 @@ def init_caches(cfg: ModelConfig, batch: int, buf: int, *,
 # ----------------------------------------------------------------- blocks
 def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                 lora: Optional[MultiLoRA], x: torch.Tensor, positions,
-                cache, cache_pos):
-    """One pre-norm block. Returns (x, cache)."""
+                cache, cache_pos, row_block: Optional[int] = None):
+    """One pre-norm block. Returns (x, cache).  ``row_block``: rows per
+    dense product (``layers.dense``)."""
     _check_ported(spec)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     out, cache = attn_block(cfg, p["attn"], h, positions=positions,
                             lora=lora, lora_ab=ad, cache=cache,
-                            cache_pos=cache_pos)
+                            cache_pos=cache_pos, row_block=row_block)
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["ffn"], h2), cache
+    return x + swiglu(p["ffn"], h2, row_block), cache
 
 
 def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
                    lora: Optional[MultiLoRA], x, positions, caches,
-                   cache_pos, remat: bool = False):
+                   cache_pos, remat: bool = False,
+                   row_block: Optional[int] = None):
     """Apply one segment; caches are updated in place.  ``remat``
     recomputes each cycle of a scanned segment in the backward instead of
     keeping its activations (the reference's ``jax.checkpoint``)."""
@@ -259,7 +261,7 @@ def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
             c = layer_c.get(str(j)) if layer_c else None
             x, _ = apply_block(cfg, spec, layer_p[str(j)],
                                layer_ad.get(str(j), {}), lora, x, positions,
-                               c, cache_pos)
+                               c, cache_pos, row_block=row_block)
         return x
 
     if not seg.scanned:
@@ -275,20 +277,23 @@ def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
 
 
 # ----------------------------------------------------------------- forward
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, row_block: Optional[int] = None):
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ head
+    return dense(x, head, row_block)
 
 
 def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
             caches: Optional[list] = None, cache_pos=None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False,
+            row_block: Optional[int] = None) -> torch.Tensor:
     """Token-input model forward.  Returns logits (B, S, vocab).
 
     ``cache_pos``: None (no caches), an int, or a per-row (B,) tensor
     (batched serving decode: every request at its own depth).  ``remat``
-    (training, no caches) recomputes each layer cycle in the backward."""
+    (training, no caches) recomputes each layer cycle in the backward.
+    ``row_block``: rows per dense product and per decode-attention chunk
+    product (``layers.dense``; the serving decode path on the card)."""
     assert not (remat and caches is not None), "remat is for training"
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -305,9 +310,10 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
     for i, seg in enumerate(segment_plan(cfg)):
         c = caches[i] if caches is not None else None
         x = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i], lora,
-                           x, positions, c, cache_pos, remat=remat)
+                           x, positions, c, cache_pos, remat=remat,
+                           row_block=row_block)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, row_block)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
@@ -348,9 +354,10 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
 
 def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],
                 lora: Optional[MultiLoRA], token: torch.Tensor, pos,
-                caches: list):
+                caches: list, row_block: Optional[int] = None):
     """One decode step. token: (B, 1..S) int; pos: int position or a
-    per-row (B,) tensor.  Returns (logits (B, S, V), caches)."""
+    per-row (B,) tensor.  Returns (logits (B, S, V), caches).
+    ``row_block``: rows per dense and chunk product (``forward``)."""
     logits = forward(cfg, params, adapters, lora, {"tokens": token},
-                     caches=caches, cache_pos=pos)
+                     caches=caches, cache_pos=pos, row_block=row_block)
     return logits, caches

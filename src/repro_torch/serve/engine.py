@@ -12,8 +12,13 @@ The batch layout is the reference's:
     position 0 is exact and each request's first token reads
     ``logits[row, len_r - 1]``;
   * decode runs with PER-ROW positions (per-row KV scatter, rope and key
-    masking), so a fused batch decodes exactly like each request solo;
-  * the KV buffer pads to ``block_t`` past ``prompt_width + max_new``.
+    masking), over key chunks of a fixed width, so a fused batch decodes
+    exactly like each request solo.  On the card, where cuBLAS picks its
+    summation order by row and batch count, the decode steps run their
+    dense products and attention's chunk products on one row granule at
+    a time (``row_blocks``), so that holds there bit for bit too;
+  * the KV buffer pads to ``block_t`` past ``prompt_width + max_new``
+    (and the caches round it up to whole decode-attention key chunks).
 
 Prefill is ``decode_step`` at width S; the decode loop (the reference's
 ``lax.scan``) is a Python loop whose tokens stay on the device, with
@@ -84,6 +89,10 @@ class ServeEngine:
     # bytes and the weight bytes every decode step streams.  None = keep
     # the params' dtype (an already-quantized tree passes through).
     quantize: Optional[str] = None
+    # decode steps on the card run every dense and attention chunk
+    # product one row granule (a solo request's rows) at a time; False
+    # runs each whole, faster, and fused and solo may then part
+    row_blocks: bool = True
 
     def __post_init__(self):
         cfg = self.cfg
@@ -109,6 +118,18 @@ class ServeEngine:
     def device(self) -> torch.device:
         return self.params["embed"].device
 
+    @property
+    def _granule(self) -> int:
+        """Rows per adapter segment: a solo request's row count."""
+        return self.block_t if self.impl == "cuda" else 1
+
+    @property
+    def _row_block(self) -> Optional[int]:
+        """Rows per product in the decode steps: the granule on the card
+        (with ``row_blocks``), else None (whole products)."""
+        return (self._granule if self.row_blocks
+                and self.device.type == "cuda" else None)
+
     # ------------------------------------------------------------ layout
     def _batch(self, requests: Sequence[ServeRequest]) -> _Batch:
         assert requests, "serve needs at least one request"
@@ -119,7 +140,7 @@ class ServeEngine:
         fused = self.pool.acquire(names)
 
         # adapter-major row layout, segment rows padded to the granule
-        granule = self.block_t if self.impl == "cuda" else 1
+        granule = self._granule
         rows: List[int] = []
         row_req: List[Optional[int]] = []
         for n in names:
@@ -177,7 +198,7 @@ class ServeEngine:
         for _ in range(n_steps):
             lg, caches = M.decode_step(self.cfg, self.params,
                                        b.fused.adapters, lora, tok[:, None],
-                                       pos, caches)
+                                       pos, caches, row_block=self._row_block)
             last = lg[:, 0]
             tok = last.argmax(dim=-1).to(torch.int32)
             pos = pos + 1

@@ -366,6 +366,18 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("hd,dtype,match", [
+    (32, torch.bfloat16, "head dim"), (128, torch.bfloat16, "head dim"),
+    (64, torch.float32, "bf16"), (64, torch.bfloat16, "device")])
+def test_flash_kernel_refuses_what_it_does_not_take(hd, dtype, match):
+    """The Hopper flash kernel takes head dim 64 in bf16 on a CUDA device:
+    the check the wrapper makes before any build refuses the rest."""
+    q = torch.zeros((8, 16, hd), dtype=dtype)
+    kv = torch.zeros((2, 16, hd), dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        flash_attention.check_kernel_operands(q, kv, kv)
+
+
 def test_cuda_wrappers_refuse_bad_input_before_any_build():
     """A wrong shape or dtype raises on any device, before a kernel is
     built."""

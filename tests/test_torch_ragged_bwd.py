@@ -30,7 +30,7 @@ from repro.kernels import ragged as ref_ragged
 from repro.models import attention as ref_attn
 
 from repro_torch.core import lora
-from repro_torch.kernels import flash_attention, ops, ragged
+from repro_torch.kernels import flash_attention, fused_lora, ops, ragged
 from repro_torch.models import attention
 
 RANKS = (4, 8, 20, 3)
@@ -151,19 +151,29 @@ def test_wgrad_plain_matches_pallas(tile_jobs, dtype, operand):
 
 
 def test_wgrad_runs_fold_the_wgrad_flat_order():
-    """The kernel's per-16-lane run table walks exactly the token tiles of
-    ``wgrad_flat``, merged into runs of consecutive tiles."""
+    """The wgrad kernel's walk covers exactly the token tiles of
+    ``wgrad_flat``, in order: the device tables it reads (each tile's
+    adapter; each adapter's first packed column and padded width) name,
+    for every rank tile of ``wgrad_flat``, its adapter's tiles, and the
+    pieces it cuts them into (``piece_start`` in csrc/lora_tile.cuh:
+    ``wgrad_pieces``'s rule) hold those tiles in tile order.  An
+    adapter with no tile has no piece."""
     lay = lora.RankLayout((8, 16, 40, 3), 16)
     meta = ragged.RaggedMeta.build((0, 0, 2, 2, 2, 1, 2, 0), lay)
-    rt_runs, runs = meta.wgrad_runs(16)
+    tile_jobs, seg = (t.numpy() for t in ragged._device_wgrad_tables(
+        meta, torch.device("cpu")))
+    assert tile_jobs.tolist() == list(meta.tile_jobs)
+    pieces = fused_lora.wgrad_pieces(tile_jobs.tolist())
     tile, rtile, _ = meta.wgrad_flat
-    assert rt_runs.shape == (lay.total // 16, 2)
-    for g, (first, count) in enumerate(rt_runs):
-        tiles = [t for t0, n in runs[first:first + count]
-                 for t in range(t0, t0 + n)]
-        assert tiles == tile[rtile == g].tolist()
-    # adapter 3 (rank 3) owns no tile: its rank tile has no runs
-    assert rt_runs[lay.offsets[3] // 16][1] == 0
+    for k, (off, width) in enumerate(seg.tolist()):
+        assert (off, width) == (lay.offsets[k], lay.r_pads[k])
+        walked = [t for t0, t1, pk in pieces if pk == k
+                  for t in range(t0, t1)]
+        for rt in range(off // meta.r_blk, (off + width) // meta.r_blk):
+            assert walked == tile[rtile == rt].tolist(), (k, rt)
+    # adapter 3 (rank 3) owns no tile: no piece
+    assert not [p for p in pieces if p[2] == 3]
+    assert not (rtile == lay.offsets[3] // meta.r_blk).any()
 
 
 # ------------------------------------------------ the ragged Function

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from repro.configs import get_config as ref_get_config
 from repro.core.lora import MultiLoRA as RefMultiLoRA
 from repro.core.lora import RankLayout as RefRankLayout
+from repro.models import attention as ref_attn
 from repro.models import model as RM
 from repro.serve import AdapterPool as RefPool
 from repro.serve import ServeEngine as RefEngine
@@ -34,6 +35,7 @@ from repro.serve import ServeRequest as RefRequest
 from repro_torch.configs import get_config
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.lora import MultiLoRA, RankLayout
+from repro_torch.models import attention, layers
 from repro_torch.models import model as M
 from repro_torch.models.convert import adapters_from_numpy, params_from_numpy
 from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
@@ -175,6 +177,69 @@ def test_fused_matches_solo_exactly(ranks, impl):
     for r, f in zip(reqs, fused):
         solo = engine.serve([r])[0]
         assert np.array_equal(f.tokens, solo.tokens), (r.adapter, f, solo)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_does_not_depend_on_buffer_width(dtype):
+    """A row's decode attention over caches of one and three key chunks
+    (the columns past every row's kv_len holding other data), alone in a
+    cache of two, and in row blocks (the serving decode path on the
+    card): bit-equal in the storage dtype, since the key chunks have a
+    fixed width whatever the buffer's.  A cache of another width is
+    refused.  Against the reference's decode_attention: 1e-5 in f32,
+    2e-2 in bf16 (its output rounded to bf16)."""
+    rng = np.random.default_rng(0)
+    C = attention.DECODE_CHUNK
+    B, H, KV, hd, wide = 3, 4, 2, 16, 3 * C
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    pos = np.array([5, 17, C + 39])
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, wide, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, wide, KV, hd)).astype(np.float32)
+    qt, kt, vt = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    pt = torch.from_numpy(pos)
+
+    def port(rows, width, row_block=None):
+        cache = attention.KVCache(kt[rows, :width].contiguous(),
+                                  vt[rows, :width].contiguous())
+        return attention.decode_attention(qt[rows], cache, pt[rows],
+                                          window=None, row_block=row_block)
+
+    out2 = port(slice(0, 3), 2 * C)
+    assert torch.equal(out2, port(slice(0, 3), wide))
+    assert torch.equal(out2[:2], port(slice(0, 2), C))
+    assert torch.equal(out2, port(slice(0, 3), wide, row_block=2))
+    with pytest.raises(ValueError, match="whole chunks"):
+        port(slice(0, 3), C + 16)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = ref_attn.decode_attention(
+        jnp.asarray(q, jdt), ref_attn.KVCache(jnp.asarray(k[:, :2 * C], jdt),
+                                              jnp.asarray(v[:, :2 * C], jdt)),
+        jnp.asarray(pos, jnp.int32), window=None, ring=False)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out2.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_row_blocks_leave_products_unchanged():
+    """``layers.dense`` with a row block runs n rows at a time (the
+    decode path's solo row count on the card), without one all at once;
+    the values are the same.  The engine blocks its decode steps only on
+    the card."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((24, 7)).astype(np.float32))
+    whole = layers.dense(x, w)
+    blocked = layers.dense(x, w, row_block=4)
+    assert blocked.shape == (2, 5, 7)
+    torch.testing.assert_close(blocked, whole, rtol=1e-6, atol=1e-6)
+    ref_cfg, port_cfg = _cfgs("float32")
+    lay, params, _ = _weights(ref_cfg, (8,), seed=0)
+    engine = ServeEngine(port_cfg, params_from_numpy(params, "cpu"),
+                         AdapterPool(port_cfg, capacity=2, multiple=8,
+                                     device="cpu"), impl="cuda")
+    assert engine._row_block is None
 
 
 @pytest.mark.parametrize("steps", [0, 2])
