@@ -17,10 +17,15 @@ each on standard output:
             the plain version's device time, the least time the card
             could take (bound) and, where one PyTorch call computes the
             same function, that call's device time (``library_ms``, timed
-            here only); then two bit-equality checks: the flash kernel's
-            row invariance (the first 48 rows at S = 192 against S = 48,
-            64 heads inside BH 2048 against those heads alone) and B5
-            against B8 on one uniform layout (dB and dA);
+            here only), flash at head dims 64, 32 and 128; then the
+            bit-equality checks: the flash kernel's row invariance at
+            each head dim (the first 48 rows at S = 192 against S = 48,
+            64 heads inside BH 2048 against those heads alone), B5
+            against B8 on one uniform layout (dB and dA), B7 against B3,
+            B4 and B2 on one uniform layout (xa, dxa, dx), B7 at each
+            row count a CTA can take (64, 32, 16) on one N = 2 slice,
+            and B10's rows 0-15 at T = 16, 64 and 8192 (forward and
+            transposed); B10's host time per call;
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -61,7 +66,12 @@ each on standard output:
             "int8")`` on the mixed set's requests (launches per decode
             step, fused-vs-solo prefill logits and first token ids,
             tokens/s, top-1 agreement with the bf16 engine, reported;
-            one profiled serve).
+            one profiled serve);
+  wide    — command-r-35b at full width (d_model 8192, head dim 128,
+            vocab 256000) cut to 2 layers: ``train_group`` over the train
+            group's ranks, exact launches per step (flash 2 a layer),
+            finite per-job losses, peak device memory, one step's adapter
+            gradients against the "loop" impl.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
@@ -109,6 +119,7 @@ TRAIN_LR = 1e-3
 # Kernel launches per training step on tinyllama (22 layers, LoRA on
 # q/k/v/o: 88 projections).  remat recomputes each layer's forward in
 # the backward, so the forward kernels run twice.
+TRAIN_LAYERS = 22
 TRAIN_LAUNCHES = {"ragged_lora_fwd": 176, "ragged_lora_dgrad": 88,
                   "ragged_xa": 88, "ragged_dxa": 88, "ragged_wgrad": 176,
                   "flash_attention_fwd": 44, "fused_lora_cuda": 0,
@@ -135,6 +146,11 @@ QUANT_LAUNCHES = dict(TRAIN_LAUNCHES, dequant_matmul_cuda=2 * QUANT_PROJ
 # int8 against bf16 per-job losses, relative: the reference's own bar
 # (tests/test_quant.py, test_train_group_quantized_loss_close)
 QUANT_LOSS_RTOL = 0.05
+# The head-dim-128 step (wide phase): command-r-35b at full width (d_model
+# 8192, 64 heads, kv 8, hd 128, d_ff 22528, vocab 256000) cut to
+# WIDE_LAYERS layers, the train group's ranks and batches.  Launches per
+# step: TRAIN_LAUNCHES scaled from 22 layers to WIDE_LAYERS.
+WIDE_ARCH, WIDE_LAYERS, WIDE_STEPS = "command-r-35b", 2, 2
 AIMD_CHUNKS = 6                   # chunks of TRAIN_CHUNK steps under AIMD
 ELASTIC_K = 4                     # steps per stage of the elastic phase
 # cuda vs loop adapter gradients, same step: relative Frobenius error per
@@ -188,7 +204,10 @@ def _device_us(prof) -> list:
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call: the sum of the device work ``fn`` starts,
     from torch.profiler, without the gaps in which the device waits for
-    the host to launch the next call."""
+    the host to launch the next call.  Where three profiles in a row
+    catch no device event (torch.profiler drops them now and then), the
+    CUDA-event time per call instead, an upper bound, with a note on
+    stderr."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -202,7 +221,9 @@ def device_ms(fn, iters: int = 20) -> float:
         if total > 0:
             break               # is read again; a time of 0 is no time
     if total <= 0:
-        raise AssertionError("torch.profiler saw no device time")
+        print(f"torch.profiler saw no device time for {fn}: CUDA events "
+              "used", file=sys.stderr)
+        return call_ms(fn, iters)
     return total / 1e3 / iters
 
 
@@ -220,6 +241,57 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 459, warmup: int = 3) -> float:
+    """Host time per call, in microseconds, over back-to-back calls
+    issued without waiting for the device (459: B10's launches in one
+    int8 training step)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def tensor_map_encode_us(dev, iters: int = 459):
+    """Host time of the two ``cuTensorMapEncodeTiled`` calls a B10 launch
+    makes (its x and q maps at T 64, 2048 -> 2048, as csrc/dequant.cu's
+    make_map encodes them), called here through ctypes: microseconds a
+    pair, an upper bound since ctypes adds its own cost.  None where the
+    CUDA driver refuses (the reason goes to stderr)."""
+    import ctypes
+    import torch
+    enc = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    x = torch.zeros((64, 2048), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2048, 2048), dtype=torch.int8, device=dev)
+    buf = ctypes.create_string_buffer(256)       # a map: 128 B, 64-aligned
+    tm = ctypes.c_void_p(ctypes.addressof(buf) + (-ctypes.addressof(buf)
+                                                  % 64))
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    # (data type, address, rows, cols, row bytes, box rows, box cols,
+    # swizzle): bf16 = 9 with the 128-byte swizzle = 3, uint8 = 0 unswizzled
+    maps = [(9, x.data_ptr(), 64, 2048, 4096, 256, 64, 3),
+            (0, q.data_ptr(), 2048, 2048, 2048, 64, 128, 0)]
+    args = [(u32(t), u32(2), ctypes.c_void_p(p), (u64 * 2)(c, r),
+             (u64 * 1)(ld), (u32 * 2)(bc, br), (u32 * 2)(1, 1), u32(0),
+             u32(sw), u32(3), u32(0))
+            for t, p, r, c, ld, br, bc, sw in maps]
+    for a in args:
+        err = enc(tm, *a)
+        if err:
+            print(f"cuTensorMapEncodeTiled refused: {err}", file=sys.stderr)
+            return None
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        for a in args:
+            enc(tm, *a)
+    return (time.perf_counter() - t0) / iters * 1e6
 
 
 def bound(nbytes: float, flops: float):
@@ -348,21 +420,31 @@ def train_kernel_cases(g, dev):
                                             meta, block_t=bt),
                           None, rt * 2 + T * d * 2 + R * d * 4,
                           2 * rt * d))
-    H, KV, hd = 32, 4, 64
-    BH, S = TRAIN_BATCH * len(TRAIN_RANKS) * H, TRAIN_SEQ
-    q = torch.randn((BH, S, hd), generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn((BH // (H // KV), S, hd), generator=g,
-                    device=dev).to(torch.bfloat16)
-    v = torch.randn(k.shape, generator=g, device=dev).to(torch.bfloat16)
-    kr, vr = (t.repeat_interleave(H // KV, dim=0)[None] for t in (k, v))
-    cases.append((
-        "flash_attention_fwd", "train",
-        dict(BH=BH, S=S, hd=hd, kv_groups=H // KV),
-        lambda: flash_attention_fwd(q, k, v, causal=True, kv_groups=H // KV),
-        lambda: flash_attention_ref(q, k, v, causal=True, kv_groups=H // KV),
-        lambda: F.scaled_dot_product_attention(q[None], kr, vr,
-                                               is_causal=True),
-        *flash_cost(BH, S, hd, H // KV)))
+    # flash at the three head dims the kernel takes: tinyllama (32 heads,
+    # kv 4, hd 64) and its reduced config (4 heads, kv 2, hd 32) over the
+    # step's 16 sequences; command-r-35b (64 heads, kv 8, hd 128) over 4
+    for name, H, KV, hd, n_seq in (
+            ("tinyllama-1.1b", 32, 4, 64, TRAIN_BATCH * len(TRAIN_RANKS)),
+            ("tinyllama-1.1b-reduced", 4, 2, 32,
+             TRAIN_BATCH * len(TRAIN_RANKS)),
+            ("command-r-35b", 64, 8, 128, 4)):
+        BH, S, G = n_seq * H, TRAIN_SEQ, H // KV
+        q = torch.randn((BH, S, hd), generator=g,
+                        device=dev).to(torch.bfloat16)
+        k = torch.randn((BH // G, S, hd), generator=g,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn(k.shape, generator=g, device=dev).to(torch.bfloat16)
+        kr, vr = (t.repeat_interleave(G, dim=0)[None] for t in (k, v))
+        cases.append((
+            "flash_attention_fwd", "train",
+            dict(BH=BH, S=S, hd=hd, kv_groups=G, model=name),
+            functools.partial(flash_attention_fwd, q, k, v, causal=True,
+                              kv_groups=G),
+            functools.partial(flash_attention_ref, q, k, v, causal=True,
+                              kv_groups=G),
+            functools.partial(F.scaled_dot_product_attention, q[None], kr,
+                              vr, is_causal=True),
+            *flash_cost(BH, S, hd, G)))
     return cases
 
 
@@ -399,8 +481,11 @@ def masked_kernel_cases(g, dev):
     for a nano slice: contiguous stacks), the q/o projections (2048 ->
     2048) and the k/v ones (2048 -> 256); and one N = 4 slice (2048
     tokens) whose tile map starts inside adapter 1 and omits adapters 0
-    and 3."""
+    and 3; and one N = 2 slice (4096 tokens, tiles 8-39: inside adapter 0
+    to inside adapter 2), whose narrow products also time every row count
+    a CTA can take (``ms_rows_64`` etc.)."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_lora as fl
     bt, K, d_in = TRAIN_BLOCK_T, 4, 2048
     T = K * TRAIN_BATCH * TRAIN_SEQ
@@ -411,17 +496,21 @@ def masked_kernel_cases(g, dev):
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
     cases = []
 
-    def add_mm(what, x, W, tm, rp):
+    def add_mm(what, x, W, tm, rp, rows=()):
         T_, d, d_out = x.shape[0], x.shape[1], W.shape[-1]
         nbytes = (T_ * d + W.shape[0] * d * d_out + T_ * d_out) * 2
+        run = lambda: fl.grouped_matmul_cuda(x, W, tm, block_t=bt)
         cases.append((
             "grouped_matmul_cuda", "train",
             dict(op=what, T=T_, d_in=d, d_out=d_out, r_pad=rp,
-                 tiles=len(tm), strided=not W.is_contiguous()),
-            lambda: fl.grouped_matmul_cuda(x, W, tm, block_t=bt),
+                 tiles=len(tm), strided=not W.is_contiguous(),
+                 rows=fl.grouped_geometry(T_, d_out, bt,
+                                         build.sm_count(x.device))[1]),
+            run,
             lambda: fl.grouped_matmul_plain(x, W, tm, block_t=bt),
             grouped_library(x, W, tm, K, wgrad=False),
-            nbytes, 2 * T_ * d * d_out))
+            nbytes, 2 * T_ * d * d_out,
+            {f"ms_rows_{r}": grouped_rows(run, r) for r in rows}))
 
     def add_wg(what, x, y, tm, rp):
         T_, d_x, d_g = x.shape[0], x.shape[1], y.shape[1]
@@ -481,7 +570,31 @@ def masked_kernel_cases(g, dev):
                            sl, rp)
                     add_wg("dA = x^T . dxa (slice)", x[:Ts].contiguous(),
                            xa[:Ts].contiguous(), sl, rp)
+                    # one N = 2 slice: B7's narrow products at 4096 rows
+                    half = full[8:40].contiguous()
+                    Th = len(half) * bt
+                    add_mm("xa = x . A (N = 2 slice)", x[:Th].contiguous(),
+                           A_st, half, rp, fl.GROUPED_ROWS)
+                    add_mm("dxa = dy_s . B^T (N = 2 slice)",
+                           dy[:Th].contiguous(), B_st.transpose(1, 2), half,
+                           rp, fl.GROUPED_ROWS)
     return cases
+
+
+def grouped_rows(fn, rows: int):
+    """*fn* (a grouped product) with B7's token rows per CTA forced to
+    *rows*: for timing the row counts against each other and for the
+    bit-equality check across them."""
+    from repro_torch.kernels import fused_lora as fl
+
+    def run():
+        keep = fl.GROUPED_ROWS
+        fl.GROUPED_ROWS = (rows,)
+        try:
+            return fn()
+        finally:
+            fl.GROUPED_ROWS = keep
+    return run
 
 
 def dequant_library(x, q, scale, trans: bool):
@@ -642,14 +755,22 @@ def kernels_phase(rows, S, dev):
                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
         for key, v in (more[0] if more else {}).items():
             res[key] = device_ms(v) if callable(v) else v
+        if name == "dequant_matmul_cuda":   # tensor maps encoded per call
+            res["host_us_per_call"] = host_us(run)
         emit({"phase": "kernels", **res})
         if not res["within_tol"]:
             raise AssertionError(f"{name} ({step}, {shape}) disagrees with "
                                  f"its plain version: {res}")
         results.append(res)
     checks = {"flash_row_invariance": flash_invariance(dev),
-              "wgrad_b5_b8": wgrad_families_bit_equal(dev)}
-    emit({"phase": "kernels", "bit_equal_checks": checks})
+              "flash_row_invariance_hd32": flash_invariance(dev, hd=32),
+              "flash_row_invariance_hd128": flash_invariance(dev, hd=128),
+              "wgrad_b5_b8": wgrad_families_bit_equal(dev),
+              "grouped_b7_vs_ragged": grouped_families_bit_equal(dev),
+              "grouped_b7_rows": grouped_rows_bit_equal(dev),
+              "b10_rows_16_64_8192": dequant_rows_bit_equal(dev)}
+    emit({"phase": "kernels", "bit_equal_checks": checks,
+          "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
     failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
               if not ok]
     if failed:
@@ -658,20 +779,20 @@ def kernels_phase(rows, S, dev):
 
 
 # --------------------------------------------- invariance and equality
-def flash_invariance(dev) -> dict:
+def flash_invariance(dev, hd: int = 64) -> dict:
     """The flash kernel's row invariance, bit for bit: a row's output and
     lse depend only on its own q and on its keys up to the causal
     frontier, not on Sq, Skv or BH (what keeps fused and solo prefill
     logits equal).  The first 48 rows at S = 192 against S = 48, and
     heads 512..575 of a BH 2048 launch against those 64 heads alone (GQA
-    8, hd 64, the serving prefill's shapes)."""
+    8, the serving prefill's shapes), at head dim ``hd``."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     g = torch.Generator(device=dev).manual_seed(3)
     G, S, h0 = 8, 192, 512
     rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(
         torch.bfloat16)
-    q, k, v = rnd(2048, S, 64), rnd(2048 // G, S, 64), rnd(2048 // G, S, 64)
+    q, k, v = rnd(2048, S, hd), rnd(2048 // G, S, hd), rnd(2048 // G, S, hd)
     run = lambda q_, k_, v_: flash_attention_fwd(
         q_.contiguous(), k_.contiguous(), v_.contiguous(), causal=True,
         kv_groups=G)
@@ -724,6 +845,102 @@ def wgrad_families_bit_equal(dev) -> dict:
     return {"dB_bit_equal": bool(torch.equal(dB8, dB5.reshape(K, rp, -1))),
             "dA_bit_equal": bool(torch.equal(
                 dA8, dA5.reshape(K, rp, -1).transpose(1, 2)))}
+
+
+def grouped_families_bit_equal(dev) -> dict:
+    """B7 (grouped product) against the ragged family on one uniform
+    layout (4 adapters, every rank = r_pad 16, T 8192, d 2048, block_t
+    128), bit for bit: B3's segment columns against B7 narrow's xa = x·A,
+    B4's against B7 narrow's dxa = dy_s·B^T, and bf16(B2's f32 dx)
+    against B7 wide(B7 narrow(dy_s, B^T), A^T) -- the orders of
+    lora_tile.cuh's xa_rows and xa_times_b."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.ops import _tile_jobs_static
+    g = torch.Generator(device=dev).manual_seed(5)
+    K, rp, bt, d = 4, 16, TRAIN_BLOCK_T, 2048
+    lay = RankLayout((rp,) * K, MULTIPLE)
+    tile_jobs = _tile_jobs_static((TRAIN_BATCH,) * K, TRAIN_SEQ, bt)
+    meta = rg.RaggedMeta.build(tile_jobs, lay)
+    T = len(tile_jobs) * bt
+    tm = torch.tensor(tile_jobs, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    x = torch.randn((T, d), generator=g, device=dev).to(bf)
+    dy = torch.randn((T, d), generator=g, device=dev).to(bf)
+    A = (torch.randn((d, lay.total), generator=g, device=dev)
+         / d ** 0.5).to(bf)
+    B = (torch.randn((lay.total, d), generator=g, device=dev)
+         / rp ** 0.5).to(bf)
+    A_st = A.reshape(d, K, rp).movedim(-2, -3)   # MultiLoRA.apply's views
+    B_st = B.reshape(K, rp, d)
+    xa7 = fl.grouped_matmul_cuda(x, A_st, tm, block_t=bt)
+    dxa7 = fl.grouped_matmul_cuda(dy, B_st.transpose(1, 2), tm, block_t=bt)
+    dx7 = fl.grouped_matmul_cuda(dxa7, A_st.transpose(1, 2), tm, block_t=bt)
+    xa3 = rg.ragged_xa(x, A, meta, block_t=bt)
+    dxa4 = rg.ragged_dxa(dy, B, meta, block_t=bt)
+    dx2 = rg.ragged_lora_dgrad(dy, A, B, meta, block_t=bt)
+    torch.cuda.synchronize()
+    ids = torch.repeat_interleave(tm.long(), bt)
+    cols = (torch.as_tensor(lay.offsets, device=dev)[ids][:, None]
+            + torch.arange(rp, device=dev))
+    return {"xa_b3_b7": bool(torch.equal(xa3.gather(1, cols), xa7)),
+            "dxa_b4_b7": bool(torch.equal(dxa4.gather(1, cols), dxa7)),
+            "dx_b2_b7": bool(torch.equal(dx2.to(bf), dx7))}
+
+
+def grouped_rows_bit_equal(dev) -> dict:
+    """B7 at every row count a CTA can take, bit for bit, on one N = 2
+    slice (4096 tokens, tiles 8-39 of a 4-adapter step, r_pad 64,
+    contiguous stacks, d 2048): the narrow xa = x·A and dxa = dy_s·B^T
+    and the wide dx = dxa·A^T.  Which count the wrapper picks depends on
+    T and the card, so it must not change a result."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    g = torch.Generator(device=dev).manual_seed(7)
+    K, rp, bt, d = 4, 64, TRAIN_BLOCK_T, 2048
+    tm = torch.repeat_interleave(torch.arange(K, device=dev), 16)[8:40]
+    tm = tm.to(torch.int32).contiguous()
+    T = len(tm) * bt
+    rnd = lambda *s_: torch.randn(s_, generator=g, device=dev).to(
+        torch.bfloat16)
+    x, dy, dxa = rnd(T, d), rnd(T, d), rnd(T, rp)
+    A, B = rnd(K, d, rp) / d ** 0.5, rnd(K, rp, d) / rp ** 0.5
+    out = {}
+    for name, a, W in (("xa", x, A), ("dxa", dy, B.transpose(1, 2)),
+                       ("dx", dxa, A.transpose(1, 2))):
+        ys = [grouped_rows(lambda: fl.grouped_matmul_cuda(
+            a, W, tm, block_t=bt), r)() for r in fl.GROUPED_ROWS]
+        torch.cuda.synchronize()
+        out[f"{name}_rows_" + "_".join(map(str, fl.GROUPED_ROWS))] = all(
+            torch.equal(ys[0], y) for y in ys[1:])
+    return out
+
+
+def dequant_rows_bit_equal(dev) -> dict:
+    """B10's row invariance, bit for bit: rows 0-15 of a T = 16, a T = 64
+    and a T = 8192 call, forward (2048 -> 5632, scaled) and through the
+    transposed codes (5632 -> 2048, dx = dys · q^T, unit scales): a row's
+    output must not depend on how many rows share the call (fused vs
+    solo serving, decode vs training)."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.models.quant import quantize_array
+    g = torch.Generator(device=dev).manual_seed(6)
+    qt = quantize_array(torch.randn((2048, 5632), generator=g, device=dev)
+                        / 2048 ** 0.5)
+    out = {}
+    for name, q, scale in (("forward", qt.q, qt.scale),
+                           ("transposed", qt.q.T, None)):
+        x = torch.randn((8192, q.shape[0]), generator=g,
+                        device=dev).to(torch.bfloat16)
+        rows = [fl.dequant_matmul_cuda(x[:T].contiguous(), q, scale)[:16]
+                for T in (16, 64, 8192)]
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(rows[0], rows[1])
+                         and torch.equal(rows[0], rows[2]))
+    return out
 
 
 def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
@@ -1240,7 +1457,84 @@ def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
                              f"gradients differ: {grad_check}")
     if fused_vs_solo["abs_diff"] > LOSS_ATOL:
         raise AssertionError(f"{phase}: fused vs solo loss: {fused_vs_solo}")
-    return launches, losses
+    return launches, losses, steady
+
+
+def wide_phase(dev):
+    """One group of the train phase's ranks {8, 16, 32, 64} through
+    ``train_group`` on command-r-35b cut to WIDE_LAYERS layers at full
+    width: flash at head dim 128, every LoRA kernel at d_model 8192,
+    exact launches per step (flash: 2 a layer, remat) and finite
+    per-job losses.  The batch is the train phase's (4 sequences of 512
+    per job): 80 GB holds it.  Then one step's adapter gradients through
+    the kernels against the "loop" impl, at GRAD_RTOL: what holds B1-B5
+    to their plain versions at d_model 8192 (q/o 8192 -> 8192, k/v 8192
+    -> 1024)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import train_group
+    cfg = dataclasses.replace(get_config(WIDE_ARCH), num_layers=WIDE_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = train_specs(TRAIN_RANKS, prefix="wide")
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: train_group(
+        cfg, specs, steps=WIDE_STEPS, lr=TRAIN_LR, seed=0, impl="cuda",
+        block_t=TRAIN_BLOCK_T, chunk_size=WIDE_STEPS, remat=True,
+        adaptive_nano=False, params=params, adapters=adapters, device=dev))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: n * WIDE_LAYERS // TRAIN_LAYERS
+              for k, n in TRAIN_LAUNCHES.items()}
+    per_step = check_launches("wide", launches, WIDE_STEPS, expect)
+    report, trained = out["report"], out["adapters"]
+    del out
+    losses = np.stack(report.per_job_losses)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=1).next_batch().items()}
+    g_cuda = adapter_grads(cfg, params, specs, "cuda", trained, batch)
+    g_loop = adapter_grads(cfg, params, specs, "loop", trained, batch)
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(g_cuda, g_loop)]
+    grad_check = {"leaves": len(rel), "max_rel_fro_err": max(rel),
+                  "mean_rel_fro_err": float(np.mean(rel)),
+                  "rtol": GRAD_RTOL}
+    del g_cuda, g_loop
+    emit({"phase": "wide", "model": cfg.name, "layers": cfg.num_layers,
+          "layers_cut_from": get_config(WIDE_ARCH).num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "vocab": cfg.vocab_size,
+          "jobs": [{"id": sp.job_id, "rank": sp.rank} for sp in specs],
+          "batch_size": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "batch_cut": "none: the train phase's 4 x 512 per job fit",
+          "steps": WIDE_STEPS, "init_seconds": init_s,
+          "per_step_per_job_loss": losses.tolist(),
+          "step_times_s": report.step_times, "wall_s": wall,
+          "peak_device_memory_bytes": peak, "launches": launches,
+          "launches_per_step": per_step,
+          "grad_check_cuda_vs_loop": grad_check, "card": card_line()})
+    if losses.shape != (WIDE_STEPS, len(specs)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"wide: per-job losses not finite: {losses}")
+    if not grad_check["max_rel_fro_err"] <= GRAD_RTOL:
+        raise AssertionError(f"wide: cuda vs loop adapter gradients: "
+                             f"{grad_check}")
+    del params, adapters, trained
+    torch.cuda.empty_cache()
+    return launches
 
 
 def tree_bytes(tree) -> int:
@@ -1253,9 +1547,10 @@ def tree_bytes(tree) -> int:
                          else (leaf,)))
 
 
-def quant_phase(cfg, params, sets, bf16_losses, dev):
+def quant_phase(cfg, params, sets, bf16_losses, bf16_step, dev):
     """The int8 backbone: quantize once; train the ``train`` group on the
-    same batches (launches per step, losses against the bf16 run, one
+    same batches (launches per step, losses against the bf16 run, the
+    steady step against the bf16 run's ``bf16_step`` of this call, one
     step's gradients through the "cuda" and the "torch" dequant impls);
     serve the mixed adapter set with the same requests (launches per
     decode step, fused against solo, agreement with the bf16 engine)."""
@@ -1368,6 +1663,7 @@ def quant_phase(cfg, params, sets, bf16_losses, dev):
               "loss_rtol": QUANT_LOSS_RTOL,
               "step_times_s": rep.step_times, "wall_s": wall,
               "step_s_steady": steady,
+              "step_ratio_int8_vs_bf16": steady / bf16_step,
               "tokens_per_s_padded_steady": padded / TRAIN_STEPS / steady,
               "peak_device_memory_bytes": peak, "launches": launches,
               "launches_per_step": per_step,
@@ -1611,18 +1907,20 @@ def main() -> int:
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     counts = {"serve": serve_phase(cfg, params, sets, dev)}
-    counts["train"], bf16_losses = train_phase(cfg, params, dev)
+    counts["train"], bf16_losses, bf16_step = train_phase(cfg, params, dev)
     # the uniform group's scalings alpha / r reach 8 (rank 2): there the
     # loop impl's unrounded x·A moves the gradients by more than
     # GRAD_RTOL (7.2% after 8 steps, PERF.md), so the phase asserts the
     # masked kernels' gradients against the ragged kernels' (ROUTE_RTOL)
     # and reports the loop's
-    counts["train_uniform"], _ = train_phase(
+    counts["train_uniform"], _, _ = train_phase(
         cfg, params, dev, phase="train_uniform", ranks=UNIFORM_RANKS,
         expect=MASKED_LAUNCHES, loop_rtol=None)
     counts["nano"] = nano_phase(cfg, params, dev)
     counts["elastic"] = elastic_phase(cfg, params, dev, ckpt_dir)
-    counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, dev)
+    counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, bf16_step,
+                                  dev)
+    counts["wide"] = wide_phase(dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))
@@ -1641,7 +1939,7 @@ def main() -> int:
            "flash_attention_fwd": (
                csrc + "flash_attention.cu",
                "src/repro/kernels/flash_attention.py:87",
-               lambda r: r["step"] == "train"),
+               lambda r: r["step"] == "train" and r["shape"]["hd"] == 64),
            "ragged_lora_dgrad": (csrc + "ragged_bwd.cu",
                                  "src/repro/kernels/ragged.py:213",
                                  lora_2048("train")),
@@ -1684,6 +1982,14 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "at": {"step": head["step"], **head["shape"]}})
+        if name == "flash_attention_fwd":
+            summary[-1]["head_dims"] = {
+                r["shape"]["hd"]: {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms",
+                    "max_abs_err")}
+                for r in mine if r["step"] == "train"}
+        if "cublas_bf16_ms" in head:
+            summary[-1]["cublas_bf16_ms"] = head["cublas_bf16_ms"]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

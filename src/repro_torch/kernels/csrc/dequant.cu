@@ -7,263 +7,397 @@
 //   y = bf16((x · q) * scale)      x (T, K) bf16, q (K, N) int8,
 //                                  scale (N,) f32 or none (unit scales)
 //
-// The int8 tile is converted to bf16 as it is staged into shared memory
-// (values in -127..127 are exact in bf16); the tensor cores multiply bf16
-// by bf16 and accumulate in f32; the epilogue multiplies the f32 sum by
-// the column's scale and rounds once to bf16.  No bf16 copy of q ever
-// reaches device memory: halving the weight bytes is the point.
-//
 // q is read through its strides, either as stored (element (k, n) at
 // q[k * ldq + n]: the forward, q (d_in, d_out)) or transposed in place
 // (element (k, n) at q[n * ldq + k]: the backward's dx = dys · q^T, q
-// still the (d_in, d_out) codes).  Both stage 16-byte row segments with
-// coalesced loads; the transposed tile is kept in shared memory as it
-// lies in device memory and read by the tensor cores as a col_major
-// operand, so no transposed copy is made.
-//
-// Design: one CTA per (BM rows, BN columns) output tile; the whole
-// contraction stays in the CTA (no split-K, no atomics: a result does not
-// depend on the launch geometry).  K walks in steps of 32 through two
-// shared-memory stages: the next step's x and q are loaded into
-// registers while the tensor cores work on the current stage (WMMA
-// 16x16x16 bf16 fragments, f32 accumulators in registers), then
-// converted and stored into the other stage.  Two tile shapes: 128 x 128
-// with 8 warps (each 32 x 64) where that gives every SM a CTA; 64 x 64
-// with 4 warps (each 32 x 32) for short row counts (decode), so the
-// weight stream is spread over more SMs.  Edges are masked here: rows
-// past T, columns past N and contraction steps past K are zero-filled
-// and not stored.  The wrapper checks K and N are multiples of 16 and the
-// operands 16-byte aligned.
+// still the (d_in, d_out) codes); one kernel template serves both.  No
+// bf16 copy of q ever reaches device memory: halving the weight bytes is
+// the point.
 //
 // Bound on the H100: at training shapes (T = 8192) operations (2 T K N
-// flops against T K + T N bf16 and K N int8 bytes: 0.07-0.19 ms a call);
-// at decode (64 rows) bytes, nearly all of them the int8 codes.  A later
-// version moves to wgmma with TMA-fed stages and keeps the int8 tile in
-// shared memory until the warpgroup converts it.
-#include <cstdint>
-#include <type_traits>
+// flops against T K + T N bf16 and K N int8 bytes: 0.07-0.19 ms a call at
+// the bf16 tensor-core peak); at decode (64 rows) bytes, nearly all of
+// them the int8 codes.  What the design does about it:
+//   * wgmma: a CTA computes a 256-token x 128-column output tile; two
+//     consumer warpgroups of 128 tokens each run, per 16-deep k-step, two
+//     m64n128k16 products (bf16, f32 accumulate in 2 x 64 registers a
+//     thread) that share one B operand;
+//   * TMA: one thread of the producer warpgroup does nothing but load,
+//     64-deep steps ahead of their use: the x tile (256 x 64 bf16) in the
+//     128-byte swizzle wgmma reads, into a four-stage ring that the
+//     consumers release; the q tile as int8 (8 KB: half of what a bf16
+//     tile would take) into a six-stage ring that the conversion
+//     releases, so the codes -- at decode the whole of the traffic -- run
+//     up to six steps ahead.  Each load completes on its stage's
+//     mbarrier; rows, columns and steps past T, N and K arrive as zeros;
+//   * the conversion: the producer's other three warps turn each step's
+//     codes into a swizzled bf16 tile (three of them, so the conversion
+//     runs up to two steps ahead of the products) and signal the
+//     consumers, which release a tile when its products are done.  wgmma
+//     reads both operands from shared memory (SS).  The register-A
+//     alternative (y^T = q^T · x^T with the codes as A fragments) needs,
+//     for each thread, 2-byte pieces of four 8-byte groups of a code row
+//     per k-step, which no 16-byte load or byte permute delivers in fewer
+//     instructions than converting the tile once; the SS tile is
+//     converted once for all 256 tokens.  Codes become bf16 by the exact
+//     magic-number route: byte into the mantissa of 2^23 (prmt), subtract
+//     2^23 + 128 (the sign bit flipped first), keep the top half (prmt)
+//     -- values in -128..127 are exact;
+//   * every hand-off between the three roles polls its mbarrier with a
+//     short sleep (a suspended wait resumes hundreds of cycles late, a
+//     step here is about a thousand);
+//   * the column tiles vary fastest over the grid, so the CTAs resident
+//     at one time share a few x row blocks and all of q in L2;
+//   * the forward's stored q is an MN-major B operand (features along
+//     the 128-byte rows, two 64-feature parts), the backward's q^T a
+//     K-major one: only the tensor map and the descriptor differ;
+//   * the epilogue multiplies the f32 sum by the column's scale, rounds
+//     once to bf16, and leaves through shared memory as 16-byte rows.
+// Row invariance: the tile shape, the instruction shapes and the k order
+// are fixed, never chosen by T; rows past T are zero-filled and not
+// stored; no split of K, no atomics.  A row's output depends on its x
+// row, q, the scale, K and N only, so a 16-row call and an 8192-row call
+// give its row the same bits (what keeps fused and solo serving equal).
+#include <cuda.h>
+#include <dlfcn.h>
 
-#include "common.cuh"
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace repro::sm90;
 
-constexpr int kBK = 32;    // contraction step
-constexpr int kPad = 8;    // bf16 elements of padding per shared row
+constexpr int kBM = 256;                 // tokens a CTA: 2 x 128
+constexpr int kBN = 128;                 // output columns a CTA
+constexpr int kBK = 64;                  // contraction depth a step
+constexpr int kXStages = 4;              // x ring
+constexpr int kQStages = 6;              // code ring
+constexpr int kConv = 3;                 // converted bf16 tiles
+constexpr int kThreads = 384;            // producer + two consumers
+constexpr int kXBytes = kBM * kBK * 2;   // 32 KB, 128-byte swizzle
+constexpr int kQBytes = kBK * kBN;       // 8 KB of codes
+constexpr int kCBytes = kBK * kBN * 2;   // 16 KB bf16
+constexpr int kOffQ = kXStages * kXBytes;
+constexpr int kOffConv = kOffQ + kQStages * kQBytes;
+constexpr int kOffBar = kOffConv + kConv * kCBytes;
+constexpr int kConvThreads = 96;         // warps 1-3 of the producer
+// xfull[kXStages], xempty[kXStages], qfull[kQStages], qempty[kQStages],
+// ready[kConv], freed[kConv]
+constexpr int kBars = 2 * kXStages + 2 * kQStages + 2 * kConv;
+constexpr int kSmem = kOffBar + kBars * 8;
+constexpr int kLdo = kBN + 8;            // epilogue row (bf16): 272 B
+static_assert(kBM * kLdo * 2 <= kOffConv, "epilogue tile in the rings");
+static_assert(kSmem + 1024 <= 232448, "shared memory");
 
-template <int BM, int BN, int WM, int WN, bool kTrans>
-struct Cfg {
-  static constexpr int kWarpsN = BN / WN;
-  static constexpr int kWarps = (BM / WM) * kWarpsN;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kFm = WM / 16, kFn = WN / 16;
-  static constexpr int kLdx = kBK + kPad;              // x tile [BM][kLdx]
-  // q tile, bf16: stored [kBK][BN + kPad], transposed [BN][kBK + kPad]
-  static constexpr int kLdw = kTrans ? kBK + kPad : BN + kPad;
-  static constexpr int kXElems = BM * kLdx;
-  static constexpr int kWElems = kTrans ? BN * kLdw : kBK * kLdw;
-  static constexpr int kStage = kXElems + kWElems;
-  static constexpr int kXPer = BM * kBK / 8 / kThreads;   // 16 B chunks
-  static constexpr int kWPer = kBK * BN / 16 / kThreads;  // 16 B chunks
-  static_assert(BM * kBK / 8 % kThreads == 0, "x chunks per thread");
-  static_assert(kBK * BN / 16 % kThreads == 0, "q chunks per thread");
-  static_assert(2 * kStage * 2 >= kWarps * 256 * 4, "epilogue scratch");
-  static_assert(2 * kStage * 2 <= 48 * 1024, "static shared memory");
-};
-
-// Byte b of w as a sign-extended int8, in f32 (exact).
-__device__ __forceinline__ float i8_lane(uint32_t w, int b) {
-  return static_cast<float>(static_cast<int>(w << (24 - 8 * b)) >> 24);
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// Two int8 lanes (bytes b, b + 1 of w) -> two bf16, packed.
-__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, int b) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(i8_lane(w, b), i8_lane(w, b + 1));
-  return *reinterpret_cast<uint32_t*>(&p);
+// a 2-D TMA load of the box at (c0 innermost, c1) into shared dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
 }
 
-// 16 int8 codes -> 16 bf16 at dst (32 bytes, 16-byte aligned).
-__device__ __forceinline__ void store_i8x16(const uint4 v,
-                                            __nv_bfloat16* dst) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(i8x2_bf16(v.x, 0), i8x2_bf16(v.x, 2), i8x2_bf16(v.y, 0),
-                    i8x2_bf16(v.y, 2));
-  d[1] = make_uint4(i8x2_bf16(v.z, 0), i8x2_bf16(v.z, 2), i8x2_bf16(v.w, 0),
-                    i8x2_bf16(v.w, 2));
+// 4 int8 codes -> 4 bf16 (two packed pairs), exactly
+__device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;                // x + 128, unsigned
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b));
+    f[b] -= 8388736.0f;                              // 2^23 + 128
+  }
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
 }
 
-template <int BM, int BN, int WM, int WN, bool kTrans>
-__global__ void __launch_bounds__(Cfg<BM, BN, WM, WN, kTrans>::kThreads)
-dequant_mm_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ q,
+// One step's codes as the bf16 B operand in tile ``conv``, by the
+// producer's kConvThreads converting threads (qs and conv: byte offsets
+// from the aligned base ``sb``): stored q (64 k-rows of 128 codes, as
+// TMA lands them) becomes an MN-major tile (two 64-column parts, each 64
+// k-rows of 128 bytes); transposed q^T (128 column rows of 64 codes) a
+// K-major one (128 rows of 64 k, 128 bytes each).  A thread's loads
+// first, then its conversions and stores, so that they overlap.
+template <bool kTrans>
+__device__ __forceinline__ void convert(unsigned char* sb, uint32_t qs,
+                                        uint32_t conv, int pt) {
+  constexpr int kChunks = kQBytes / 16;
+  constexpr int kPer = (kChunks + kConvThreads - 1) / kConvThreads;
+  uint4 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = pt + kConvThreads * i;
+    if (c < kChunks)
+      v[i] = *reinterpret_cast<const uint4*>(sb + qs + c * 16);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = pt + kConvThreads * i;
+    if (c >= kChunks) break;
+    const uint2 a = i8x4_bf16(v[i].x), b = i8x4_bf16(v[i].y);
+    const uint2 e = i8x4_bf16(v[i].z), f = i8x4_bf16(v[i].w);
+    uint32_t lo, hi;
+    if constexpr (kTrans) {
+      const int nr = c / (kBK / 16), j = c % (kBK / 16);
+      lo = swz<128>(conv, nr, 2 * j);
+      hi = swz<128>(conv, nr, 2 * j + 1);
+    } else {
+      const int kr = c / (kBN / 16), j = c % (kBN / 16);
+      const uint32_t part = conv + (j / 4) * (kBK * 128);
+      lo = swz<128>(part, kr, 2 * (j % 4));
+      hi = swz<128>(part, kr, 2 * (j % 4) + 1);
+    }
+    *reinterpret_cast<uint4*>(sb + lo) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(sb + hi) = make_uint4(e.x, e.y, f.x, f.y);
+  }
+}
+
+// k-step kk (16 deep) of the converted tile
+template <bool kTrans>
+__device__ __forceinline__ uint64_t b_desc(uint32_t conv, int kk) {
+  if constexpr (kTrans)           // K-major: 32 bytes along each row
+    return desc<128>(conv + kk * 32, 1024);
+  else                            // MN-major: 16 k-rows; parts 8 KB apart
+    return desc<128>(conv + kk * 16 * 128, kBK * 128);
+}
+
+template <bool kTrans>
+__global__ void __launch_bounds__(kThreads, 1)
+dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_q,
                   const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ out, int T, int K, int N,
-                  long ldq) {
-  using C = Cfg<BM, BN, WM, WN, kTrans>;
-  using LayoutB = std::conditional_t<kTrans, wmma::col_major,
-                                     wmma::row_major>;
-  __shared__ __align__(128) __nv_bfloat16 smem[2 * C::kStage];
+                  __nv_bfloat16* __restrict__ out, int T, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;       // swizzle atoms
+  unsigned char* sb = smem_raw + (base - raw);       // the same, generic
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(sb + kOffBar);
+  uint64_t* xempty = xfull + kXStages;   // a step's products are done
+  uint64_t* qfull = xempty + kXStages;
+  uint64_t* qempty = qfull + kQStages;   // a step's codes are read
+  uint64_t* ready = qempty + kQStages;   // a step's codes are converted
+  uint64_t* freed = ready + kConv;       // a bf16 tile's products done
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::kFm][C::kFn];
-#pragma unroll
-  for (int i = 0; i < C::kFm; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kFn; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  uint4 xr[C::kXPer], wr[C::kWPer];
-  // global -> registers: the contraction step starting at k0
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < C::kXPer; ++p) {
-      const int c = tid + p * C::kThreads;
-      const int r = c / (kBK / 8), k = k0 + (c % (kBK / 8)) * 8;
-      xr[p] = make_uint4(0, 0, 0, 0);
-      if (m0 + r < T && k < K)
-        xr[p] = *reinterpret_cast<const uint4*>(
-            x + static_cast<long>(m0 + r) * K + k);
-    }
-#pragma unroll
-    for (int p = 0; p < C::kWPer; ++p) {
-      const int c = tid + p * C::kThreads;
-      wr[p] = make_uint4(0, 0, 0, 0);
-      if (kTrans) {          // rows of q^T's memory: n, 16 codes along k
-        const int n = n0 + c / (kBK / 16), k = k0 + (c % (kBK / 16)) * 16;
-        if (n < N && k < K)
-          wr[p] = *reinterpret_cast<const uint4*>(
-              q + static_cast<long>(n) * ldq + k);
-      } else {               // rows k, 16 codes along n
-        const int k = k0 + c / (BN / 16), n = n0 + (c % (BN / 16)) * 16;
-        if (k < K && n < N)
-          wr[p] = *reinterpret_cast<const uint4*>(
-              q + static_cast<long>(k) * ldq + n);
-      }
-    }
-  };
-  // registers -> shared stage s, the codes converted to bf16
-  auto store = [&](int s) {
-    __nv_bfloat16* xs = smem + s * C::kStage;
-    __nv_bfloat16* ws = xs + C::kXElems;
-#pragma unroll
-    for (int p = 0; p < C::kXPer; ++p) {
-      const int c = tid + p * C::kThreads;
-      *reinterpret_cast<uint4*>(xs + (c / (kBK / 8)) * C::kLdx +
-                                (c % (kBK / 8)) * 8) = xr[p];
-    }
-#pragma unroll
-    for (int p = 0; p < C::kWPer; ++p) {
-      const int c = tid + p * C::kThreads;
-      const int per_row = kTrans ? kBK / 16 : BN / 16;
-      store_i8x16(wr[p], ws + (c / per_row) * C::kLdw + (c % per_row) * 16);
-    }
-  };
-
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int n_k = (K + kBK - 1) / kBK;
-  load(0);
-  store(0);
+  if (tid == 0) {
+    for (int s = 0; s < kXStages; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], 256);
+    }
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], kConvThreads);
+    }
+    for (int c = 0; c < kConv; ++c) {
+      mbar_init(&ready[c], kConvThreads);
+      mbar_init(&freed[c], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_k) load((kt + 1) * kBK);
-    const __nv_bfloat16* xs = smem + cur * C::kStage;
-    const __nv_bfloat16* ws = xs + C::kXElems;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[C::kFm];
-#pragma unroll
-      for (int i = 0; i < C::kFm; ++i)
-        wmma::load_matrix_sync(fa[i], xs + (wm * WM + i * 16) * C::kLdx +
-                                          kk * 16, C::kLdx);
-#pragma unroll
-      for (int j = 0; j < C::kFn; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB>
-            fb;
-        const int n = wn * WN + j * 16;
-        wmma::load_matrix_sync(
-            fb, kTrans ? ws + n * C::kLdw + kk * 16
-                       : ws + (kk * 16) * C::kLdw + n, C::kLdw);
-#pragma unroll
-        for (int i = 0; i < C::kFm; ++i)
-          wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+
+  if (wg == 0) {
+    if (tid == 0) {
+      // ---- loads, one thread: each step's codes once the converters
+      // read the codes kQStages steps back, its x once the consumers
+      // released the x kXStages steps back
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&tm_q)) : "memory");
+      for (int i = 0; i < n_k; ++i) {
+        const int qs = i % kQStages, xs = i % kXStages;
+        if (i >= kQStages) mbar_spin(&qempty[qs], (i / kQStages - 1) & 1);
+        mbar_expect(&qfull[qs], kQBytes);
+        if constexpr (kTrans)
+          tma_load(base + kOffQ + qs * kQBytes, &tm_q, i * kBK, n0,
+                   &qfull[qs]);
+        else
+          tma_load(base + kOffQ + qs * kQBytes, &tm_q, n0, i * kBK,
+                   &qfull[qs]);
+        if (i >= kXStages) mbar_spin(&xempty[xs], (i / kXStages - 1) & 1);
+        mbar_expect(&xfull[xs], kXBytes);
+        tma_load(base + xs * kXBytes, &tm_x, i * kBK, m0, &xfull[xs]);
       }
     }
-    if (kt + 1 < n_k) store(cur ^ 1);
-    __syncthreads();
+    if (tid < 32) return;
+    // ---- conversion, warps 1-3
+    const int pt = tid - 32;
+    for (int j = 0; j < n_k; ++j) {
+      const int s = j % kQStages, c = j % kConv;
+      mbar_spin(&qfull[s], (j / kQStages) & 1);
+      if (j >= kConv) mbar_spin(&freed[c], (j / kConv - 1) & 1);
+      convert<kTrans>(sb, kOffQ + s * kQBytes, kOffConv + c * kCBytes, pt);
+      fence_proxy_async();        // the converted codes, to wgmma
+      mbar_arrive(&ready[c]);
+      mbar_arrive(&qempty[s]);    // this thread's codes of step j are read
+    }
+    return;
   }
 
-  // epilogue: each warp parks one 16 x 16 f32 tile at a time in its own
-  // scratch (the stages are free after the last barrier), scales it per
-  // column, rounds to bf16 and writes 8 columns per lane
-  float* scr = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane / 2, c = (lane % 2) * 8;
+  // ---- consumers: 128 token rows each, two 64-row blocks
+  const int cw = wg - 1, ct = tid - 128;
+  const int warp = (ct % 128) / 32, lane = ct % 32;
+  const bool in0 = m0 + cw * 128 < T, in1 = m0 + cw * 128 + 64 < T;
+  float acc0[64], acc1[64];
 #pragma unroll
-  for (int i = 0; i < C::kFm; ++i)
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.0f;
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j % kXStages, c = j % kConv;
+    mbar_spin(&xfull[s], (j / kXStages) & 1);   // the x tile
+    mbar_spin(&ready[c], (j / kConv) & 1);      // the converted codes
+    if (in0) {
+      const uint32_t xs = base + s * kXBytes + cw * 128 * 128;
+      const uint32_t conv = base + kOffConv + c * kCBytes;
+      fence_regs(acc0);
+      fence_regs(acc1);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < C::kFn; ++j) {
-      wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm * WM + i * 16 + r;
-      const int col = n0 + wn * WN + j * 16 + c;
-      if (row < T && col < N) {
-        uint32_t packed[4];
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          float a = scr[r * 16 + c + e], b = scr[r * 16 + c + e + 1];
-          if (scale != nullptr) {
-            a *= scale[col + e];
-            b *= scale[col + e + 1];
-          }
-          __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-          packed[e / 2] = *reinterpret_cast<uint32_t*>(&p);
-        }
-        *reinterpret_cast<uint4*>(out + static_cast<long>(row) * N + col) =
-            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t bd = b_desc<kTrans>(conv, kk);
+        wgmma_ss<kTrans ? 0 : 1>(acc0, desc<128>(xs + kk * 32, 1024), bd, 1);
+        if (in1)
+          wgmma_ss<kTrans ? 0 : 1>(
+              acc1, desc<128>(xs + 64 * 128 + kk * 32, 1024), bd, 1);
       }
-      __syncwarp();
+      wgmma_commit();
+      wgmma_wait<1>();            // step j - 1's products are done
+      fence_regs(acc0);
+      fence_regs(acc1);
     }
+    if (j > 0) {
+      mbar_arrive(&xempty[(j - 1) % kXStages]);
+      mbar_arrive(&freed[(j - 1) % kConv]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  // both consumers' products are done: the rings take the output tile
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+  // ---- scale, round once, stage the tile, leave as 16-byte rows
+  const int cq = 2 * (lane % 4);
+  auto stage_rows = [&](const float (&acc)[64], int h) {
+    const int ra = cw * 128 + h * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int col = n0 + 8 * i + cq;
+      float s0 = 1.0f, s1 = 1.0f;
+      if (scale != nullptr && col < N) {
+        s0 = scale[col];
+        s1 = scale[col + 1];
+      }
+      unsigned char* at = sb + (ra * kLdo + 8 * i + cq) * 2;
+      *reinterpret_cast<uint32_t*>(at) =
+          pack_bf16(acc[4 * i] * s0, acc[4 * i + 1] * s1);
+      *reinterpret_cast<uint32_t*>(at + 8 * kLdo * 2) =
+          pack_bf16(acc[4 * i + 2] * s0, acc[4 * i + 3] * s1);
+    }
+  };
+  stage_rows(acc0, 0);
+  stage_rows(acc1, 1);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int c = ct; c < kBM * (kBN / 8); c += 256) {
+    const int r = c / (kBN / 8), j = c % (kBN / 8);
+    if (m0 + r >= T || n0 + j * 8 >= N) continue;
+    *reinterpret_cast<uint4*>(out + static_cast<long>(m0 + r) * N + n0 +
+                              j * 8) =
+        *reinterpret_cast<const uint4*>(sb + (r * kLdo + j * 8) * 2);
+  }
 }
 
-template <int BM, int BN, int WM, int WN, bool kTrans>
-void launch(const __nv_bfloat16* x, const int8_t* q, const float* scale,
-            __nv_bfloat16* out, int T, int K, int N, long ldq,
-            cudaStream_t st) {
-  using C = Cfg<BM, BN, WM, WN, kTrans>;
-  dim3 grid((T + BM - 1) / BM, (N + BN - 1) / BN);
-  dequant_mm_kernel<BM, BN, WM, WN, kTrans><<<grid, C::kThreads, 0, st>>>(
-      x, q, scale, out, T, K, N, ldq);
+// cuTensorMapEncodeTiled, looked up in libcuda once
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 2-D map of a row-major (rows, cols) matrix with a row stride of
+// ``ld_bytes``, read in (box_rows, box_cols) boxes; out-of-range elements
+// arrive as zeros
+bool make_map(CUtensorMap* tm, CUtensorMapDataType type, const void* p,
+              long rows, long cols, long ld_bytes, int box_rows,
+              int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return enc(tm, type, 2, const_cast<void*>(p), dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kTrans>
+cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_q,
+                   const float* scale, __nv_bfloat16* out, int T, int K,
+                   int N, dim3 grid, cudaStream_t st) {
+  constexpr int bytes = kSmem + 1024;        // + room to align to 1 KB
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dequant_mm_kernel<kTrans>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return attr;
+  dequant_mm_kernel<kTrans><<<grid, kThreads, bytes, st>>>(tm_x, tm_q, scale,
+                                                          out, T, K, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // out (T, N) bf16 = bf16((x (T, K) · q) * scale).  trans_q = 0: q element
 // (k, n) at q[k * ldq + n]; trans_q = 1: at q[n * ldq + k].  scale may be
-// null (unit scales: the backward's dx).  small = 1 takes the 64 x 64
-// tile (the wrapper picks it when 128 x 128 tiles would not give every SM
-// a CTA).
+// null (unit scales: the backward's dx).  One kBM x kBN tile shape for
+// every T, the grid one CTA per output tile; a CUDA library without
+// tensor maps is refused.
 extern "C" int dequant_matmul_launch(const void* x, const void* q,
                                      const void* scale, void* out, int T,
                                      int K, int N, long ldq, int trans_q,
-                                     int small, void* stream) {
-  auto xp = static_cast<const __nv_bfloat16*>(x);
-  auto qp = static_cast<const int8_t*>(q);
-  auto sp = static_cast<const float*>(scale);
-  auto op = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (small) {
-    if (trans_q)
-      launch<64, 64, 32, 32, true>(xp, qp, sp, op, T, K, N, ldq, st);
-    else
-      launch<64, 64, 32, 32, false>(xp, qp, sp, op, T, K, N, ldq, st);
-  } else {
-    if (trans_q)
-      launch<128, 128, 32, 64, true>(xp, qp, sp, op, T, K, N, ldq, st);
-    else
-      launch<128, 128, 32, 64, false>(xp, qp, sp, op, T, K, N, ldq, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                     void* stream) {
+  CUtensorMap tm_x, tm_q;
+  bool ok = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, K,
+                     static_cast<long>(K) * 2, kBM, kBK,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  ok = ok && (trans_q ? make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N,
+                                 K, ldq, kBN, kBK,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE)
+                      : make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K,
+                                 N, ldq, kBK, kBN,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + kBN - 1) / kBN, (T + kBM - 1) / kBM);
+  const auto sp = static_cast<const float*>(scale);
+  const auto op = static_cast<__nv_bfloat16*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      trans_q ? launch<true>(tm_x, tm_q, sp, op, T, K, N, grid, st)
+              : launch<false>(tm_x, tm_q, sp, op, T, K, N, grid, st);
+  return static_cast<int>(err);
 }

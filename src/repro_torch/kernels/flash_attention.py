@@ -43,17 +43,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, torch.logsumexp(s, dim=-1)
 
 
-KERNEL_HEAD_DIM = 64     # the model's head width, one wgmma tile wide
+# the head dims the kernel is instantiated at: 64-byte rows (hd 32),
+# 128-byte rows (hd 64), two 128-byte column parts (hd 128)
+KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> None:
     """What the Hopper kernel takes, checked before any build: q, k, v
-    contiguous bf16 on one CUDA device, head dim 64, at least one query
-    and one key row (raises ValueError otherwise)."""
-    build.require(q.shape[-1] == KERNEL_HEAD_DIM,
+    contiguous bf16 on one CUDA device, head dim 32, 64 or 128, at least
+    one query and one key row (raises ValueError otherwise)."""
+    build.require(q.shape[-1] in KERNEL_HEAD_DIMS,
                   f"head dim {q.shape[-1]}: the kernel takes "
-                  f"{KERNEL_HEAD_DIM} only")
+                  f"{', '.join(map(str, KERNEL_HEAD_DIMS))}")
     build.require(q.shape[1] >= 1 and k.shape[1] >= 1,
                   f"empty attention: Sq={q.shape[1]}, Skv={k.shape[1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -145,6 +145,31 @@ def _layout(W: torch.Tensor) -> tuple:
     return True, W.stride(-1)
 
 
+# The grouped product's launch geometry (csrc/grouped.cu): the token rows
+# a CTA takes, the largest of these that divides block_t (a CTA's rows
+# must share an adapter) and, for the narrow output, still gives 90% of
+# the SMs a CTA (on an H100: 64 rows at T 8192, 32 at an N = 2 slice's
+# 4096, 16 at an N = 4 slice's 2048; chip_smoke.py times the three on the
+# N = 2 slice).  It changes no result: every element is summed in one
+# fixed order whatever the tiling, which chip_smoke.py checks bit for bit.
+GROUPED_ROWS = (64, 32, 16)
+
+
+def grouped_geometry(T: int, d_out: int, block_t: int,
+                     sms: int) -> Tuple[bool, int]:
+    """(narrow, rows per CTA) of a grouped product on a card with *sms*
+    multiprocessors."""
+    narrow = d_out <= 256
+    fits = [r for r in GROUPED_ROWS if block_t % r == 0]
+    build.require(bool(fits), f"block_t={block_t}: need a multiple of 16 "
+                  "(one CTA's rows must share an adapter)")
+    rows = fits[0]
+    if narrow:
+        rows = next((r for r in fits if 10 * (T // r) >= 9 * sms),
+                    fits[-1])
+    return narrow, rows
+
+
 def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
                         tile_map: torch.Tensor, *,
                         block_t: int = 128) -> torch.Tensor:
@@ -175,18 +200,18 @@ def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
                   f"tile_map must be contiguous int32 on {x.device}")
     build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
                   "of 16 (one CTA's rows must share an adapter)")
-    narrow = d_out <= 256
-    build.require(narrow or d_in <= 256, f"d_in={d_in}, d_out={d_out}: the "
-                  "kernel needs one of them at most 256")
+    build.require(d_out <= 256 or d_in <= 256, f"d_in={d_in}, d_out={d_out}: "
+                  "the kernel needs one of them at most 256")
     trans, ld = _layout(W)
     build.require_vectors((x, W), d_in, d_out, W.stride(0), ld)
+    narrow, rows = grouped_geometry(T, d_out, block_t,
+                                    build.sm_count(x.device))
     out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     lib = _grouped_lib()
-    groups = build.col_groups(T // 16, d_out, 128, x.device)
     err = lib.grouped_matmul_launch(
         build.ptr(x), build.ptr(W), build.ptr(tile_map), build.ptr(out), T,
         d_in, d_out, W.stride(0), ld, int(trans), int(narrow), block_t,
-        groups, build.stream_ptr(x.device))
+        rows, build.stream_ptr(x.device))
     build.check(lib, err, "grouped_matmul_cuda")
     grouped_matmul_cuda.launches += 1
     return out
@@ -324,8 +349,10 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
     rounded once.
 
     q may be a transposed view of the stored (d_in, d_out) codes (the
-    backward's q^T), read in place.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    backward's q^T), read in place.  The kernel's output tile is one
+    shape at every T (csrc/dequant.cu's kBM x kBN), so a row's output
+    does not depend on T.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
     build.require(x.ndim == 2 and q.ndim == 2 and x.shape[1] == q.shape[0],
                   f"x {tuple(x.shape)} and q {tuple(q.shape)} do not chain")
     T, K = x.shape
@@ -353,12 +380,10 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
                   f"q that is a multiple of 16 (got {ld})")
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     lib = _dequant_lib()
-    small = int(((T + 127) // 128) * ((N + 127) // 128)
-                < build.sm_count(x.device))
     err = lib.dequant_matmul_launch(
         build.ptr(x), build.ptr(q),
         build.ptr(scale) if scale is not None else None, build.ptr(out), T,
-        K, N, ld, int(trans), small, build.stream_ptr(x.device))
+        K, N, ld, int(trans), build.stream_ptr(x.device))
     build.check(lib, err, "dequant_matmul_cuda")
     dequant_matmul_cuda.launches += 1
     return out
@@ -369,8 +394,7 @@ def _dequant_lib() -> ctypes.CDLL:
     fn = lib.dequant_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_long] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

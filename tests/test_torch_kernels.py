@@ -129,6 +129,29 @@ def test_flash_plain_matches_pallas(causal, Sq, Skv):
     _close(got, want, TOL["float32"])
 
 
+@pytest.mark.parametrize("hd,causal", [(32, True), (128, True),
+                                       (32, False), (128, False)])
+def test_flash_plain_matches_pallas_at_kernel_head_dims(hd, causal):
+    """The plain version at head dims 32 and 128 (the kernel's other
+    instantiations) against the reference's Pallas kernel in interpret
+    mode, with a GQA ratio of 2 (the reduced configs' heads) and
+    ragged 40-row sequences; f32, the algorithm under test."""
+    rng = np.random.default_rng(hd + causal)
+    S, groups = 40, 2
+    q = rng.standard_normal((4, S, hd)).astype(np.float32)
+    k = rng.standard_normal((2, S, hd)).astype(np.float32)
+    v = rng.standard_normal((2, S, hd)).astype(np.float32)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), groups, axis=0)
+    want = ref_flash.flash_attention_fwd(
+        jnp.asarray(q), rep(k), rep(v), causal=causal, block_q=8,
+        block_k=8, interpret=True)
+    got, lse = flash_attention.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, kv_groups=groups)
+    assert got.shape == (4, S, hd) and lse.shape == (4, S)
+    _close(got, want, TOL["float32"])
+
+
 @pytest.mark.parametrize("groups", [2, 4])
 def test_flash_kv_groups_matches_repeated_heads(groups):
     """Reading kv head bh // groups equals the reference's repeated kv."""
@@ -367,14 +390,28 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize("hd,dtype,match", [
-    (32, torch.bfloat16, "head dim"), (128, torch.bfloat16, "head dim"),
+    (80, torch.bfloat16, "head dim"), (96, torch.bfloat16, "head dim"),
     (64, torch.float32, "bf16"), (64, torch.bfloat16, "device")])
 def test_flash_kernel_refuses_what_it_does_not_take(hd, dtype, match):
-    """The Hopper flash kernel takes head dim 64 in bf16 on a CUDA device:
-    the check the wrapper makes before any build refuses the rest."""
+    """The Hopper flash kernel takes head dims 32, 64 and 128 in bf16 on a
+    CUDA device: the check the wrapper makes before any build refuses the
+    rest."""
     q = torch.zeros((8, 16, hd), dtype=dtype)
     kv = torch.zeros((2, 16, hd), dtype=dtype)
     with pytest.raises(ValueError, match=match):
+        flash_attention.check_kernel_operands(q, kv, kv)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 80, 96, 192, 256])
+def test_flash_kernel_head_dims(hd):
+    """Head dims 32, 64 and 128 in bf16 pass every check but the device
+    (a CPU tensor here); 80, 96, 192 and 256 are refused for their head
+    dim, before any build."""
+    q = torch.zeros((8, 16, hd), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 16, hd), dtype=torch.bfloat16)
+    taken = hd in flash_attention.KERNEL_HEAD_DIMS
+    assert taken == (hd in (32, 64, 128))
+    with pytest.raises(ValueError, match="device" if taken else "head dim"):
         flash_attention.check_kernel_operands(q, kv, kv)
 
 

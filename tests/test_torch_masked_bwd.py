@@ -249,3 +249,28 @@ def test_grouped_wrappers_refuse_bad_input_before_any_build():
         fused_lora.grouped_wgrad_cuda(torch.zeros((16, 8)),
                                       torch.zeros((8, 16)), tm, 1,
                                       block_t=8)
+
+
+@pytest.mark.parametrize("T,d_out,block_t,sms,want", [
+    # main path: 8192 tokens, tiles of 128, an H100's 132 SMs
+    (8192, 16, 128, 132, (True, 64)),        # xa, r_pad 16
+    (8192, 64, 128, 132, (True, 64)),        # dxa, r_pad 64
+    (4096, 64, 128, 132, (True, 32)),        # half a step
+    (2048, 64, 128, 132, (True, 16)),        # a nano slice
+    (8192, 2048, 128, 132, (False, 64)),     # dx = dxa . A^T
+    (512, 256, 32, 8, (True, 32)),           # block_t 32: <= 32
+    (512, 256, 16, 8, (True, 16)),           # d_out 256: narrow
+    (512, 2048, 48, 8, (False, 16))])        # 48 = 3 x 16
+def test_grouped_geometry(T, d_out, block_t, sms, want):
+    """The grouped product's launch geometry: narrow when d_out <= 256,
+    rows per CTA dividing block_t (a CTA's rows share one adapter), the
+    largest that still gives 90% of the SMs a CTA on the narrow
+    output."""
+    got = fused_lora.grouped_geometry(T, d_out, block_t, sms)
+    assert got == want
+    assert block_t % got[1] == 0 and T % got[1] == 0
+
+
+def test_grouped_geometry_refuses_partial_tiles():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_lora.grouped_geometry(64, 16, 8, 132)

@@ -28,6 +28,8 @@ version on CPU tensors.  Tolerances:
     tests/test_torch_elastic.py's 1e-5 relative and 1e-6 absolute.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -208,6 +210,20 @@ def test_dequant_matmul_matches_reference(T, dtype):
                 assert (np.abs(g - w) <= ulp).all()
                 assert np.mean(g == w) > 0.9, np.mean(g == w)
     assert fl.dequant_matmul_cuda.launches == 0     # CPU: no kernel
+
+
+def test_dequant_token_tile_does_not_depend_on_rows():
+    """B10's launch grid covers (T, N) in one tile shape whatever the row
+    count: a row's output must be the same bits in a 16-row decode step
+    and an 8192-row training step.  The tile is a constant of the CUDA
+    source, and its launcher derives the grid from T and N alone."""
+    src = (Path(fl.__file__).parent / "csrc" / "dequant.cu").read_text()
+    tile = {k: int(v) for k, v in
+            re.findall(r"constexpr int (kB[MN]) = (\d+);", src)}
+    assert tile == {"kBM": 256, "kBN": 128}
+    launcher = src[src.index('extern "C" int dequant_matmul_launch'):]
+    assert re.findall(r"const dim3 grid\((.*)\);", launcher) == [
+        "(N + kBN - 1) / kBN, (T + kBM - 1) / kBM"]
 
 
 @pytest.mark.parametrize("impl", ["cuda", "torch"])
