@@ -24,8 +24,16 @@ each on standard output:
             against B8 on one uniform layout (dB and dA), B7 against B3,
             B4 and B2 on one uniform layout (xa, dxa, dx), B7 at each
             row count a CTA can take (64, 32, 16) on one N = 2 slice,
-            and B10's rows 0-15 at T = 16, 64 and 8192 (forward and
-            transposed); B10's host time per call;
+            B10's rows 0-15 at T = 16, 64 and 8192 (forward and
+            transposed), B6 against the B7 pair (narrow x·A[k], the rank
+            mask, wide xa·B[k]) on the uniform train shape and the N = 4
+            slice, bf16(B1) against B6 on one uniform layout (train and
+            decode), B1 against lora_tile.cuh's lora_rows (B2 fed x, B^T
+            and A^T), and rows 0-15 of B1 and B6 at T = 16, 64 and 8192
+            at every row count a CTA can take there; B10's host time per
+            call; B6's lines carry the B7 pair's time (``pair_ms``), and
+            B1 and B6 on 2048-token slices are timed at 64, 32 and 16
+            rows a CTA (``ms_rows_*``);
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -368,6 +376,7 @@ def train_kernel_cases(g, dev):
     heads of 512 tokens, 8 query heads per kv head."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import fused_lora as fl
     from repro_torch.kernels import ragged as rg
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_ref)
@@ -409,6 +418,29 @@ def train_kernel_cases(g, dev):
                           functools.partial(fn, *args, meta, block_t=bt),
                           functools.partial(plain, *args, meta, block_t=bt),
                           None, nbytes, flops))
+        if d_out == 2048:
+            # B1 on 2048 tokens (tiles 4-19: inside job 0 to job 1), timed
+            # at each row count a CTA can take
+            jobs = tile_jobs[4:20]
+            sm = rg.RaggedMeta.build(jobs, lay)
+            Ts = len(jobs) * bt
+            xs = x[:Ts].contiguous()
+            rts = sum(jobs.count(k) * bt * r
+                      for k, r in enumerate(TRAIN_RANKS))
+            run = functools.partial(rg.ragged_lora_fwd, xs, A, B, sm,
+                                    block_t=bt)
+            cases.append((
+                "ragged_lora_fwd", "train",
+                dict(shape, T=Ts, slice="tiles 4-19"), run,
+                functools.partial(rg.ragged_lora_fwd_plain, xs, A, B, sm,
+                                  block_t=bt),
+                None,
+                Ts * d_in * 2 + Ts * d_out * 4 + sum(
+                    (d_in + d_out) * r * 2
+                    for k, r in enumerate(TRAIN_RANKS) if k in jobs),
+                2 * rts * (d_in + d_out),
+                {f"ms_rows_{r}": fwd_rows(run, r)
+                 for r in fl.LORA_FWD_ROWS}))
         # wgrad: dB = wgrad(xa, dy_s) (d = d_out), dA^T = wgrad(dxa, x)
         for operand, u, v in (("dB", xa, dy), ("dA", dxa, x)):
             d = v.shape[1]
@@ -524,21 +556,26 @@ def masked_kernel_cases(g, dev):
             grouped_library(x, y, tm, K, wgrad=True),
             nbytes, 2 * T_ * d_x * d_g))
 
-    def add_fwd(what, x, A, B, tm, rp, ranks):
+    def add_fwd(what, x, A, B, tm, rp, ranks, rows=()):
         T_, d_out = x.shape[0], B.shape[-1]
         rk = torch.tensor(ranks, dtype=torch.int32, device=dev)
         present = sorted(set(tm.tolist()))
         toks = [int((tm == k).sum()) * bt for k in range(K)]
+        run = lambda: fl.fused_lora_cuda(x, A, B, tm, rk, block_t=bt)
         cases.append((
             "fused_lora_cuda", "train",
             dict(op=what, T=T_, d_in=d_in, d_out=d_out, r_pad=rp,
-                 tiles=len(tm), strided=not A.is_contiguous()),
-            lambda: fl.fused_lora_cuda(x, A, B, tm, rk, block_t=bt),
+                 tiles=len(tm), strided=not A.is_contiguous(),
+                 geometry=fl.lora_fwd_geometry(T_, d_out, bt,
+                                               build.sm_count(x.device))),
+            run,
             lambda: fl.fused_lora_plain(x, A, B, tm, rk, block_t=bt),
             None,
             T_ * (d_in + d_out) * 2 + sum((d_in + d_out) * rp * 2
                                           for _ in present),
-            sum(2 * toks[k] * ranks[k] * (d_in + d_out) for k in range(K))))
+            sum(2 * toks[k] * ranks[k] * (d_in + d_out) for k in range(K)),
+            {"pair_ms": b7_pair(x, A, B, tm, rk, bt),
+             **{f"ms_rows_{r}": fwd_rows(run, r) for r in rows}}))
 
     for rp in (16, 64):
         x = (rnd(T, d_in)).to(bf)
@@ -565,7 +602,8 @@ def masked_kernel_cases(g, dev):
                 if rp == 64:    # one nano slice: mid-adapter, two absent
                     Ts = len(sl) * bt
                     add_fwd("y = mask(x . A) . B (slice)",
-                            x[:Ts].contiguous(), A_st, B_st, sl, rp, ranks)
+                            x[:Ts].contiguous(), A_st, B_st, sl, rp, ranks,
+                            fl.LORA_FWD_ROWS)
                     add_mm("xa = x . A (slice)", x[:Ts].contiguous(), A_st,
                            sl, rp)
                     add_wg("dA = x^T . dxa (slice)", x[:Ts].contiguous(),
@@ -581,19 +619,43 @@ def masked_kernel_cases(g, dev):
     return cases
 
 
-def grouped_rows(fn, rows: int):
-    """*fn* (a grouped product) with B7's token rows per CTA forced to
-    *rows*: for timing the row counts against each other and for the
-    bit-equality check across them."""
+def grouped_rows(fn, rows: int, knob: str = "GROUPED_ROWS"):
+    """*fn* with the token rows per CTA forced to *rows*: B7's
+    (``GROUPED_ROWS``) or the LoRA forward's, B1 and B6
+    (``LORA_FWD_ROWS``), for timing the row counts against each other and
+    for the bit-equality checks across them."""
     from repro_torch.kernels import fused_lora as fl
 
     def run():
-        keep = fl.GROUPED_ROWS
-        fl.GROUPED_ROWS = (rows,)
+        keep = getattr(fl, knob)
+        setattr(fl, knob, (rows,))
         try:
             return fn()
         finally:
-            fl.GROUPED_ROWS = keep
+            setattr(fl, knob, keep)
+    return run
+
+
+def fwd_rows(fn, rows: int):
+    """*fn* (B1 or B6) at *rows* token rows a CTA."""
+    return grouped_rows(fn, rows, "LORA_FWD_ROWS")
+
+
+def b7_pair(x, A, B, tile_map, ranks, block_t: int):
+    """B6's function in two launches of B7 and a mask: xa = B7 narrow
+    x·A[k], lanes >= rank[k] zeroed (the mask precomputed), y = B7 wide
+    xa·B[k]: the same summation orders, so bit-equal to B6; B6's
+    yardstick (``pair_ms``)."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    r_pad = A.shape[-1]
+    drop = (torch.arange(r_pad, device=x.device)[None]
+            >= ranks[tile_map.long()][:, None]).repeat_interleave(block_t, 0)
+
+    def run():
+        xa = fl.grouped_matmul_cuda(x, A, tile_map, block_t=block_t)
+        return fl.grouped_matmul_cuda(xa.masked_fill_(drop, 0.0), B,
+                                      tile_map, block_t=block_t)
     return run
 
 
@@ -719,7 +781,9 @@ def kernels_phase(rows, S, dev):
                         for k, r in enumerate(UNIFORM))
             cases.append(("fused_lora_cuda", phase,
                           dict(T=T, d_in=d_in, d_out=d_out), run, plain,
-                          None, nbytes, flops))
+                          None, nbytes, flops,
+                          {"pair_ms": b7_pair(x, A_st, B_st, ids, ranks,
+                                              BLOCK_T)}))
     # ---- kernel 3: flash, causal prefill over the first S positions
     H, KV, hd = 32, 4, 64
     BH = n_rows * H
@@ -753,8 +817,8 @@ def kernels_phase(rows, S, dev):
                    plain_ms=device_ms(plain, iters=5),
                    library_ms=device_ms(lib) if lib else None,
                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
-        for key, v in (more[0] if more else {}).items():
-            res[key] = device_ms(v) if callable(v) else v
+        for key, val in (more[0] if more else {}).items():
+            res[key] = device_ms(val) if callable(val) else val
         if name == "dequant_matmul_cuda":   # tensor maps encoded per call
             res["host_us_per_call"] = host_us(run)
         emit({"phase": "kernels", **res})
@@ -768,7 +832,11 @@ def kernels_phase(rows, S, dev):
               "wgrad_b5_b8": wgrad_families_bit_equal(dev),
               "grouped_b7_vs_ragged": grouped_families_bit_equal(dev),
               "grouped_b7_rows": grouped_rows_bit_equal(dev),
-              "b10_rows_16_64_8192": dequant_rows_bit_equal(dev)}
+              "b10_rows_16_64_8192": dequant_rows_bit_equal(dev),
+              "fwd_b6_b7_pair": fwd_b6_b7_pair(dev),
+              "fwd_b1_b6": fwd_b1_b6(dev),
+              "fwd_b1_lora_rows": fwd_b1_lora_rows(dev),
+              "fwd_rows_16_64_8192": fwd_rows_bit_equal(dev)}
     emit({"phase": "kernels", "bit_equal_checks": checks,
           "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
     failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
@@ -916,6 +984,136 @@ def grouped_rows_bit_equal(dev) -> dict:
         out[f"{name}_rows_" + "_".join(map(str, fl.GROUPED_ROWS))] = all(
             torch.equal(ys[0], y) for y in ys[1:])
     return out
+
+
+def fwd_b6_b7_pair(dev) -> dict:
+    """B6 against the B7 pair (narrow x·A[k], the rank mask, wide
+    xa·B[k]), bit for bit: on the uniform train shape (ranks {16, 8, 4,
+    2}, r_pad 16, the packed pair's strided stacked views, T 8192) and on
+    the N = 4 slice (r_pad 64, contiguous stacks, tiles of adapters 1 and
+    2 only, T 2048), d 2048."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    g = torch.Generator(device=dev).manual_seed(8)
+    K, bt, d = 4, TRAIN_BLOCK_T, 2048
+    rnd = lambda *s_: torch.randn(s_, generator=g, device=dev).to(
+        torch.bfloat16)
+    full = torch.repeat_interleave(torch.arange(K, device=dev), 16)
+    sl = torch.tensor([1] * 4 + [2] * 12, device=dev)
+    A = rnd(d, K * 16) / d ** 0.5
+    B = rnd(K * 16, d) / 4
+    cases = {"uniform_r16": (A.reshape(d, K, 16).movedim(-2, -3),
+                             B.reshape(K, 16, d), full, UNIFORM_RANKS),
+             "slice_r64": (rnd(K, d, 64) / d ** 0.5, rnd(K, 64, d) / 8, sl,
+                           TRAIN_RANKS)}
+    out = {}
+    for name, (A_st, B_st, tm, ranks) in cases.items():
+        tm = tm.to(torch.int32).contiguous()
+        rk = torch.tensor(ranks, dtype=torch.int32, device=dev)
+        x = rnd(len(tm) * bt, d)
+        y6 = fl.fused_lora_cuda(x, A_st, B_st, tm, rk, block_t=bt)
+        y7 = b7_pair(x, A_st, B_st, tm, rk, bt)()
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(y6, y7))
+    return out
+
+
+def fwd_b1_b6(dev) -> dict:
+    """B1 against B6 on one uniform layout (ranks {16, 8, 4, 2}, all
+    padded to 16; B6 on the packed pair's strided stacked views), bit for
+    bit: bf16(B1's f32 y) == B6's y, at the train shape (T 8192, block_t
+    128) and at decode (T 64, block_t 16), d 2048."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.ops import _tile_jobs_static
+    g = torch.Generator(device=dev).manual_seed(9)
+    lay = RankLayout(UNIFORM_RANKS, MULTIPLE)
+    K, rp, d = lay.num_jobs, lay.r_pads[0], 2048
+    rk = torch.tensor(UNIFORM_RANKS, dtype=torch.int32, device=dev)
+    out = {}
+    for name, rows, seq, bt in (("train", (TRAIN_BATCH,) * K, TRAIN_SEQ,
+                                 TRAIN_BLOCK_T),
+                                ("decode", (BLOCK_T,) * K, 1, BLOCK_T)):
+        _, x, A, B = lora_operands(UNIFORM_RANKS, d, d, sum(rows) * seq, g,
+                                   dev)
+        tile_jobs = _tile_jobs_static(rows, seq, bt)
+        tm = torch.tensor(tile_jobs, dtype=torch.int32, device=dev)
+        y1 = rg.ragged_lora_fwd(x, A, B, rg.RaggedMeta.build(tile_jobs, lay),
+                                block_t=bt)
+        y6 = fl.fused_lora_cuda(x, A.reshape(d, K, rp).movedim(-2, -3),
+                                B.reshape(K, rp, d), tm, rk, block_t=bt)
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(y1.to(torch.bfloat16), y6))
+    return out
+
+
+def fwd_b1_lora_rows(dev) -> dict:
+    """B1's f32 y against lora_tile.cuh's lora_rows, the routine whose
+    order B1 keeps and B2 (ragged_lora_dgrad) still runs, bit for bit:
+    B2 fed x for dy_s, B^T for A and A^T for B (contiguous copies)
+    computes mask(x·A_seg)·B_seg in lora_rows' order.  The train layout
+    (ranks {8, 16, 32, 64}, T 8192) at 2048 -> 2048 and 2048 -> 256, and
+    the decode one (T 64, block_t 16)."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.ops import _tile_jobs_static
+    g = torch.Generator(device=dev).manual_seed(10)
+    lay = RankLayout(TRAIN_RANKS, MULTIPLE)
+    K = lay.num_jobs
+    out = {}
+    for name, rows, seq, bt, d_out in (
+            ("train_2048", (TRAIN_BATCH,) * K, TRAIN_SEQ, TRAIN_BLOCK_T,
+             2048),
+            ("train_256", (TRAIN_BATCH,) * K, TRAIN_SEQ, TRAIN_BLOCK_T, 256),
+            ("decode_2048", (BLOCK_T,) * K, 1, BLOCK_T, 2048)):
+        _, x, A, B = lora_operands(TRAIN_RANKS, 2048, d_out, sum(rows) * seq,
+                                   g, dev)
+        meta = rg.RaggedMeta.build(_tile_jobs_static(rows, seq, bt), lay)
+        y1 = rg.ragged_lora_fwd(x, A, B, meta, block_t=bt)
+        y2 = rg.ragged_lora_dgrad(x, B.T.contiguous(), A.T.contiguous(),
+                                  meta, block_t=bt)
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(y1, y2))
+    return out
+
+
+def fwd_rows_bit_equal(dev) -> dict:
+    """B1 and B6 row invariance, bit for bit: rows 0-15 of a T = 16
+    (block_t 16), a T = 64 (block_t 64) and a T = 8192 (block_t 128)
+    call, at every row count a CTA can take there (16; 64, 32, 16; 64,
+    32, 16), so with and without column splits: a row's output must not
+    depend on how many rows share the call (fused vs solo serving, decode
+    vs training).  Ranks {8, 16, 32, 64}: B6 on contiguous stacks at
+    r_pad 64, B1 on the packed ragged pair; d 2048."""
+    import torch
+    from repro_torch.core.lora import RankLayout
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    g = torch.Generator(device=dev).manual_seed(11)
+    d, K, rp = 2048, len(TRAIN_RANKS), 64
+    rnd = lambda *s_: torch.randn(s_, generator=g, device=dev).to(
+        torch.bfloat16)
+    lay, x, A, B = lora_operands(TRAIN_RANKS, d, d, 8192, g, dev)
+    A_st, B_st = rnd(K, d, rp) / d ** 0.5, rnd(K, rp, d) / 8
+    rk = torch.tensor(TRAIN_RANKS, dtype=torch.int32, device=dev)
+    b1, b6 = [], []
+    for T, bt in ((16, 16), (64, 64), (8192, TRAIN_BLOCK_T)):
+        jobs = [t * K * bt // T for t in range(T // bt)]   # job 0 first
+        meta = rg.RaggedMeta.build(jobs, lay)
+        tm = torch.tensor(jobs, dtype=torch.int32, device=dev)
+        xs = x[:T].contiguous()
+        for r in (r for r in fl.LORA_FWD_ROWS if bt % r == 0):
+            b1.append(fwd_rows(lambda: rg.ragged_lora_fwd(
+                xs, A, B, meta, block_t=bt), r)()[:16])
+            b6.append(fwd_rows(lambda: fl.fused_lora_cuda(
+                xs, A_st, B_st, tm, rk, block_t=bt), r)()[:16])
+    torch.cuda.synchronize()
+    return {f"{name}_rows_0_15_of_T_16_64_8192": all(
+                torch.equal(ys[0], y) for y in ys[1:])
+            for name, ys in (("b1", b1), ("b6", b6))}
 
 
 def dequant_rows_bit_equal(dev) -> dict:
@@ -1111,13 +1309,16 @@ def profile_run(fn) -> dict:
 
 def _family(kernel_name: str) -> str:
     """The port's kernels by name (``wgrad_*``: the two passes B5 and B8
-    share); f32 GEMMs (the plain attention backward's einsums run in
+    share; B1 and B6 by the segment type of their one template); f32 GEMMs (the plain attention backward's einsums run in
     f32), the other library GEMMs, and everything else."""
     for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
                  "wgrad_partials", "wgrad_reduce", "fused_lora_fwd",
                  "grouped_mm", "flash_fwd", "dequant_mm"):
         if port in kernel_name:
             return port
+    if "lora_fwd_kernel" in kernel_name:    # B1 and B6: one routine
+        return ("ragged_lora_fwd" if "RaggedSeg" in kernel_name
+                else "fused_lora_fwd")
     if "f32f32" in kernel_name:
         return "gemm_f32"
     if any(t in kernel_name for t in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -1988,8 +2189,9 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "library_ms",
                     "max_abs_err")}
                 for r in mine if r["step"] == "train"}
-        if "cublas_bf16_ms" in head:
-            summary[-1]["cublas_bf16_ms"] = head["cublas_bf16_ms"]
+        for key in ("cublas_bf16_ms", "pair_ms"):
+            if key in head:
+                summary[-1][key] = head[key]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -58,9 +58,6 @@
 // stored; no split of K, no atomics.  A row's output depends on its x
 // row, q, the scale, K and N only, so a 16-row call and an 8192-row call
 // give its row the same bits (what keeps fused and solo serving equal).
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -90,22 +87,6 @@ constexpr int kSmem = kOffBar + kBars * 8;
 constexpr int kLdo = kBN + 8;            // epilogue row (bf16): 272 B
 static_assert(kBM * kLdo * 2 <= kOffConv, "epilogue tile in the rings");
 static_assert(kSmem + 1024 <= 232448, "shared memory");
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// a 2-D TMA load of the box at (c0 innermost, c1) into shared dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1),
-         "r"(smem_u32(bar))
-      : "memory");
-}
 
 // 4 int8 codes -> 4 bf16 (two packed pairs), exactly
 __device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
@@ -220,16 +201,16 @@ dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
       for (int i = 0; i < n_k; ++i) {
         const int qs = i % kQStages, xs = i % kXStages;
         if (i >= kQStages) mbar_spin(&qempty[qs], (i / kQStages - 1) & 1);
-        mbar_expect(&qfull[qs], kQBytes);
+        mbar_expect_tx(&qfull[qs], kQBytes);
         if constexpr (kTrans)
-          tma_load(base + kOffQ + qs * kQBytes, &tm_q, i * kBK, n0,
+          tma_load2(base + kOffQ + qs * kQBytes, &tm_q, i * kBK, n0,
                    &qfull[qs]);
         else
-          tma_load(base + kOffQ + qs * kQBytes, &tm_q, n0, i * kBK,
+          tma_load2(base + kOffQ + qs * kQBytes, &tm_q, n0, i * kBK,
                    &qfull[qs]);
         if (i >= kXStages) mbar_spin(&xempty[xs], (i / kXStages - 1) & 1);
-        mbar_expect(&xfull[xs], kXBytes);
-        tma_load(base + xs * kXBytes, &tm_x, i * kBK, m0, &xfull[xs]);
+        mbar_expect_tx(&xfull[xs], kXBytes);
+        tma_load2(base + xs * kXBytes, &tm_x, i * kBK, m0, &xfull[xs]);
       }
     }
     if (tid < 32) return;
@@ -319,41 +300,14 @@ dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda once
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a 2-D map of a row-major (rows, cols) matrix with a row stride of
-// ``ld_bytes``, read in (box_rows, box_cols) boxes; out-of-range elements
-// arrive as zeros
-bool make_map(CUtensorMap* tm, CUtensorMapDataType type, const void* p,
-              long rows, long cols, long ld_bytes, int box_rows,
-              int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return enc(tm, type, 2, const_cast<void*>(p), dims, strides, box,
-             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// ``ld`` elements, read in (box_rows, box_cols) boxes
+bool make_map2(CUtensorMap* tm, CUtensorMapDataType type, const void* p,
+               long rows, long cols, long ld, int elem, int box_rows,
+               int box_cols, CUtensorMapSwizzle swizzle) {
+  const long dims[2] = {cols, rows}, strides[1] = {ld};
+  const int box[2] = {box_cols, box_rows};
+  return make_map(tm, type, p, 2, dims, strides, elem, box, swizzle);
 }
 
 template <bool kTrans>
@@ -382,15 +336,14 @@ extern "C" int dequant_matmul_launch(const void* x, const void* q,
                                      int K, int N, long ldq, int trans_q,
                                      void* stream) {
   CUtensorMap tm_x, tm_q;
-  bool ok = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, K,
-                     static_cast<long>(K) * 2, kBM, kBK,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
-  ok = ok && (trans_q ? make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N,
-                                 K, ldq, kBN, kBK,
-                                 CU_TENSOR_MAP_SWIZZLE_NONE)
-                      : make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K,
-                                 N, ldq, kBK, kBN,
-                                 CU_TENSOR_MAP_SWIZZLE_NONE));
+  bool ok = make_map2(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, K, K, 2,
+                      kBM, kBK, CU_TENSOR_MAP_SWIZZLE_128B);
+  ok = ok && (trans_q ? make_map2(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N,
+                                  K, ldq, 1, kBN, kBK,
+                                  CU_TENSOR_MAP_SWIZZLE_NONE)
+                      : make_map2(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K,
+                                  N, ldq, 1, kBK, kBN,
+                                  CU_TENSOR_MAP_SWIZZLE_NONE));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kBN - 1) / kBN, (T + kBM - 1) / kBM);
   const auto sp = static_cast<const float*>(scale);

@@ -1,14 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (flash_attention.cu, dequant.cu): mbarriers (arrivals from cp.async
-// copies or threads, suspending and polling waits), 16-byte cp.async
-// copies, wgmma shared-memory descriptors for the 128- and 64-byte
-// swizzles, and the warpgroup products themselves.
+// (flash_attention.cu, dequant.cu) and the LoRA forward (lora_fwd.cuh):
+// mbarriers (arrivals from cp.async copies, threads or TMA copies,
+// suspending and polling waits), 16-byte cp.async copies, TMA loads and
+// stores of tensor-map boxes with the maps' encoder, wgmma shared-memory
+// descriptors for the 128- and 64-byte swizzles, and the warpgroup
+// products themselves.
 //
 // The accumulator layout of every m64nNk16 f32 product here: thread
 // t = 32 w + l of the warpgroup holds rows 16 w + l / 4 (elements 4 i,
 // 4 i + 1) and that + 8 (elements 4 i + 2, 4 i + 3), columns
 // 8 i + 2 (l % 4) and + 1, for i < N / 8.
 #pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include <cstdint>
 
@@ -80,6 +85,103 @@ __device__ __forceinline__ void mbar_spin(uint64_t* bar, int parity) {
 // proxy
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the TMA: boxes of tensor maps in and out of shared memory
+// arrive on *bar, expecting ``bytes`` of TMA copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// the box at (c0 innermost, c1[, c2]) into shared dst, its bytes counted
+// on *bar
+__device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* tm,
+                                          int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* tm,
+                                          int c0, int c1, int c2,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared src to the box at (c0, c1), in this thread's current bulk group
+__device__ __forceinline__ void tma_store2(const CUtensorMap* tm, int c0,
+                                           int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n"
+      :: "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's bulk groups still read their shared source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// at most N of this thread's bulk groups still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda once (no driver library
+// is linked)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of a tensor of ``rank`` (2 or 3) dims, innermost first, with the
+// element strides of the outer dims and elements of ``elem`` bytes, read
+// or written in ``box``es; elements out of range arrive as zeros and are
+// not stored.
+inline bool make_map(CUtensorMap* tm, CUtensorMapDataType type, const void* p,
+                     int rank, const long* dims, const long* strides,
+                     int elem, const int* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || rank < 2 || rank > 3) return false;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    if (i) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * elem;
+  }
+  return enc(tm, type, rank, const_cast<void*>(p), d, s, b, e,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A bf16 tile of 64-element (or 32-element) rows in wgmma's 128-byte (or

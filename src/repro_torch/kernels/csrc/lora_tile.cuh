@@ -1,8 +1,11 @@
-// The CTA routines shared by the ragged and masked LoRA kernels
-// (ragged_lora.cu, fused_lora.cu, ragged_bwd.cu, grouped.cu): 16 token
-// rows that belong to ONE adapter, times a range of output columns; and,
-// at the end, the two-pass weight gradient that B5 (ragged_wgrad) and B8
-// (grouped_wgrad) both run, so that they sum in one order.
+// The CTA routines of the ragged backward: 16 token rows that belong to
+// ONE adapter, times a range of output columns (lora_rows: the dgrad, B2,
+// ragged_bwd.cu; its phase 1 alone, xa_rows, is B3 and B4); and, at
+// the end, the two-pass weight gradient that B5 (ragged_wgrad) and B8
+// (grouped_wgrad) both run, so that they sum in one order.  The forward
+// kernels B1 and B6 run lora_fwd.cuh, which keeps lora_rows' summation
+// order exactly (checked bit for bit on the card), and grouped.cu's B7
+// keeps it too.
 //
 //   xa  = mask_{lane < rank}(x_rows · A_seg)    f32, then rounded to bf16
 //   out = xa · B_seg                           f32 accumulation
@@ -20,6 +23,10 @@
 // tiles with f32 accumulators.  All operands are staged through shared
 // memory with 16-byte loads and bounds checks, so d_in, d_out and the
 // segment width need be multiples of 8 elements only, not of any tile.
+// The order: x·A one accumulator per class of 16-deep k-steps (kk mod 4,
+// one warp each), fed in ascending k, the classes added in order from
+// 0.0f, the mask, one rounding; xa·B one accumulator per 16 x 16 output
+// tile over the 16-lane chunks in ascending order.
 //
 // The weight gradient (end of file) replaces the TPU kernels' revisited
 // output block (src/repro/kernels/ragged.py _wgrad_kernel,

@@ -1,8 +1,8 @@
-// Ragged multi-LoRA forward for Hopper (sm_90a).
+// Ragged multi-LoRA forward (B1) for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/ragged.py, ragged_lora_fwd / _fwd_kernel,
-// the Pallas TPU kernel whose flat grid visits only the ACTIVE (token
-// tile, rank tile) pairs of the packed ragged layout.
+// Replaces: src/repro/kernels/ragged.py:152, ragged_lora_fwd /
+// _fwd_kernel, the Pallas TPU kernel whose flat grid visits only the
+// ACTIVE (token tile, rank tile) pairs of the packed ragged layout.
 //
 //   y[t] = Σ_{rank tiles of adapter(t)} mask(x_t · A[:, rt]) · B[rt, :]
 //
@@ -11,62 +11,73 @@
 // adapter's (first packed column, padded width, true rank): the TPU
 // kernel's scalar-prefetched (tile, rtile, first, lanes) vectors folded
 // per tile, read by each CTA itself from a device array the wrapper
-// caches per RaggedMeta.
+// caches per RaggedMeta.  A CTA works on its adapter's own segment only,
+// so no padding to the group's widest rank ever runs.
 //
-// Bound on the H100: bytes.  At decode T is the number of requests, so
-// the work is T·R·(d_in + d_out) multiply-adds against reading A and B
-// once: far under the 295 flop/byte ridge.  At prefill it stays memory
-// bound until T·(true rank)/(d_in+d_out) nears the ridge.  Design: one
-// CTA per 16 token rows x a range of output columns; the CTA computes
-// its rows' xa once (only the adapter's own rank lanes, so padding waste
-// to the group max never runs) and reuses it across its columns from
-// shared memory.  Rows of one adapter share a launch with every other
-// adapter's rows.  Known cost: CTAs that share rows but not columns each
-// recompute xa (col_groups in build.py keeps that small); a later
-// version computes xa once per row group and streams B with TMA.
-#include "lora_tile.cuh"
+// Bound on the H100: bytes.  Each token row costs 2 (true rank) (d_in +
+// d_out) flops against 2 d_in bytes of x and 4 d_out bytes of f32 y: far
+// under the 295 flop/byte ridge at LoRA ranks (0.030 ms at the training
+// step, T 8192, d 2048); at decode (T = the requests) the time is latency.
+//
+// Design: the CTA routine of lora_fwd.cuh, shared with the masked forward
+// (B6): 64, 32 or 16 rows of one adapter a CTA, its masked xa computed
+// once for the whole segment from x and A boxes that the TMA brings
+// through a ring (A's box at the segment's first packed column), kept in
+// shared memory, then B's segment streamed in 128-column boxes through a
+// second ring whose first blocks load during x·A, y stored as f32 boxes;
+// output columns split over CTAs only where the row CTAs leave the card
+// under-filled.
+//
+// Summation order: lora_tile.cuh's lora_rows, exactly, so y equals the
+// dgrad routine (B2) fed x, B^T and A^T bit for bit, and bf16(y) equals
+// B6 on one uniform layout.
+#include "lora_fwd.cuh"
 
 namespace {
 
 using namespace repro;
 
-__global__ void __launch_bounds__(lora::kThreads)
-ragged_lora_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ a,
-                       const __nv_bfloat16* __restrict__ b,
-                       const int* __restrict__ tiles,
-                       float* __restrict__ out, int T, int d_in, int d_out,
-                       int R, int block_t, int cols_per_cta) {
-  __shared__ lora::Smem s;
-  const int row0 = blockIdx.x * lora::kRows;
-  const int tile = row0 / block_t;     // block_t % 16 == 0: one adapter
-  const int col0 = tiles[3 * tile];
-  const int width = tiles[3 * tile + 1];
-  const int rank = tiles[3 * tile + 2];
-  const int col_begin = blockIdx.y * cols_per_cta;
-  lora::lora_rows<float>(
-      x + static_cast<long>(row0) * d_in, d_in, a + col0, R,
-      b + static_cast<long>(col0) * d_out, d_out, width, rank, d_in, d_out,
-      min(lora::kRows, T - row0), col_begin,
-      lora::col_end_of(col_begin, cols_per_cta, d_out),
-      out + static_cast<long>(row0) * d_out, d_out, s);
-}
+// The tile's adapter: its packed segment's first column (of A) and row
+// (of B), padded width and true rank, from the per-tile table.
+struct RaggedSeg {
+  const int* tiles;
+
+  __device__ lora_fwd::Seg at(int tile) const {
+    const int col0 = tiles[3 * tile];
+    return {col0, 0, col0, 0, tiles[3 * tile + 1], tiles[3 * tile + 2]};
+  }
+};
 
 }  // namespace
 
+// max_width: the widest segment of the layout; rows: token rows a CTA
+// (64, 32 or 16, dividing block_t); col_splits: CTAs that share one row
+// block's output columns.  The wrapper picks (fused_lora.
+// lora_fwd_geometry) and checks.
 extern "C" int ragged_lora_fwd_launch(const void* x, const void* a,
                                       const void* b, const void* tiles,
                                       void* out, int T, int d_in, int d_out,
-                                      int R, int block_t, int col_groups,
+                                      int R, int max_width, int block_t,
+                                      int rows, int col_splits,
                                       void* stream) {
-  const int per = repro::lora::cols_per_cta(d_out, col_groups);
-  dim3 grid((T + repro::lora::kRows - 1) / repro::lora::kRows,
-            (d_out + per - 1) / per);
-  ragged_lora_fwd_kernel<<<grid, repro::lora::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<const int*>(tiles),
-      static_cast<float*>(out), T, d_in, d_out, R, block_t, per);
-  return static_cast<int>(cudaGetLastError());
+  repro::lora_fwd::Operands o{};
+  o.x = static_cast<const __nv_bfloat16*>(x);
+  o.a = static_cast<const __nv_bfloat16*>(a);
+  o.a_cols = R;
+  o.a_row = R;
+  o.a_k = static_cast<long>(R) * d_in;
+  o.a_n = 1;
+  o.b = static_cast<const __nv_bfloat16*>(b);
+  o.b_rows = R;
+  o.b_row = d_out;
+  o.b_k = static_cast<long>(R) * d_out;
+  o.b_n = 1;
+  o.out = out;
+  o.T = T;
+  o.d_in = d_in;
+  o.d_out = d_out;
+  return repro::lora_fwd::launch<float>(
+      o, RaggedSeg{static_cast<const int*>(tiles)},
+      (max_width + 15) / 16 * 16, block_t, rows, col_splits,
+      static_cast<cudaStream_t>(stream));
 }

@@ -62,11 +62,72 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_lora")
     fn = lib.fused_lora_fwd_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_long] * 4 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_long] * 4 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+# The LoRA forward's launch geometry (B1 and B6, csrc/lora_fwd.cuh): the
+# token rows a CTA takes, picked as the grouped product's (the largest of
+# these that divides block_t and still gives 90% of the SMs a CTA: 64 at
+# T 8192, 16 at an N = 4 slice's 2048 and at decode), and how many CTAs
+# share one row block's output columns, more than one only where the row
+# CTAs alone leave 10% of the SMs idle.  Column blocks are
+# LORA_FWD_COL_BLOCK wide.  It changes no result: each element is summed
+# in one order whatever the tiling (chip_smoke.py checks it bit for bit).
+LORA_FWD_ROWS = (64, 32, 16)
+LORA_FWD_COL_BLOCK = 128
+
+
+def _cta_rows(T: int, block_t: int, sms: int, choices) -> int:
+    """The largest of *choices* dividing block_t whose row CTAs give 90%
+    of the SMs one, else the smallest that divides block_t."""
+    fits = [r for r in choices if block_t % r == 0]
+    build.require(bool(fits), f"block_t={block_t}: need a multiple of 16 "
+                  "(one CTA's rows must share an adapter)")
+    return next((r for r in fits if 10 * (T // r) >= 9 * sms), fits[-1])
+
+
+def lora_fwd_geometry(T: int, d_out: int, block_t: int,
+                      sms: int) -> Tuple[int, int]:
+    """(rows per CTA, column splits) of a LoRA forward on a card with
+    *sms* multiprocessors."""
+    rows = _cta_rows(T, block_t, sms, LORA_FWD_ROWS)
+    row_ctas = T // rows
+    if 10 * row_ctas >= 9 * sms:
+        return rows, 1
+    blocks = -(-d_out // LORA_FWD_COL_BLOCK)
+    return rows, max(1, min(blocks, -(-sms // row_ctas)))
+
+
+def check_fused_lora_operands(x: torch.Tensor, A: torch.Tensor,
+                              B: torch.Tensor, tile_map: torch.Tensor,
+                              ranks: torch.Tensor, block_t: int) -> None:
+    """What the Hopper kernel takes, checked before any build (raises
+    ValueError otherwise): bf16 x contiguous, A and B with their last dim
+    contiguous, int32 tile map and ranks, block_t a multiple of 16, r_pad
+    at most 256, 16-byte vectors (dims and strides multiples of 8), all
+    on one CUDA device."""
+    d_in, d_out, r_pad = x.shape[1], B.shape[-1], A.shape[-1]
+    build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+                  "x must be a contiguous bf16 tensor")
+    for name, t in (("A", A), ("B", B)):
+        build.require(t.dtype == torch.bfloat16 and t.stride(-1) == 1,
+                      f"{name} must be bf16 with its last dim contiguous")
+    for name, t in (("tile_map", tile_map), ("ranks", ranks)):
+        build.require(t.dtype == torch.int32 and t.is_contiguous(),
+                      f"{name} must be contiguous int32")
+    build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
+                  "of 16 (one CTA's rows must share an adapter)")
+    build.require(r_pad <= 256, "r_pad > 256 is not supported by the kernel")
+    build.require_vectors((x, A, B), d_in, d_out, r_pad, *A.stride()[:2],
+                          *B.stride()[:2])
+    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
+    build.require(all(t.device == x.device
+                      for t in (A, B, tile_map, ranks)),
+                  f"every operand must be on {x.device}")
 
 
 def fused_lora_cuda(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -88,30 +149,16 @@ def fused_lora_cuda(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                   f"A {tuple(A.shape)} / B {tuple(B.shape)} do not match")
     if x.device.type == "cpu":
         return fused_lora_plain(x, A, B, tile_map, ranks, block_t=block_t)
-    build.require(x.device.type == "cuda", f"unsupported device {x.device}")
-    build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-                  "x must be a contiguous bf16 tensor")
-    for name, t in (("A", A), ("B", B)):
-        build.require(t.device == x.device and t.dtype == torch.bfloat16
-                      and t.stride(-1) == 1,
-                      f"{name} must be bf16 on {x.device}, last dim contiguous")
-    for name, t in (("tile_map", tile_map), ("ranks", ranks)):
-        build.require(t.device == x.device and t.dtype == torch.int32
-                      and t.is_contiguous(),
-                      f"{name} must be contiguous int32 on {x.device}")
-    build.require(block_t % 16 == 0, f"block_t={block_t}: need a multiple "
-                  "of 16 (one CTA's rows must share an adapter)")
-    build.require(r_pad <= 256, "r_pad > 256 is not supported by the kernel")
-    build.require_vectors((x, A, B), d_in, d_out, r_pad, *A.stride()[:2],
-                          *B.stride()[:2])
+    check_fused_lora_operands(x, A, B, tile_map, ranks, block_t)
+    rows, splits = lora_fwd_geometry(T, d_out, block_t,
+                                     build.sm_count(x.device))
     out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     lib = _lib()
-    groups = build.col_groups(T // 16, d_out, 128, x.device)
     err = lib.fused_lora_fwd_launch(
         build.ptr(x), build.ptr(A), build.ptr(B), build.ptr(tile_map),
-        build.ptr(ranks), build.ptr(out), T, d_in, d_out, r_pad,
-        A.stride(0), A.stride(1), B.stride(0), B.stride(1), block_t, groups,
-        build.stream_ptr(x.device))
+        build.ptr(ranks), build.ptr(out), T, d_in, d_out, r_pad, K,
+        A.stride(0), A.stride(1), B.stride(0), B.stride(1), block_t, rows,
+        splits, build.stream_ptr(x.device))
     build.check(lib, err, "fused_lora_cuda")
     fused_lora_cuda.launches += 1
     return out
@@ -159,15 +206,8 @@ def grouped_geometry(T: int, d_out: int, block_t: int,
                      sms: int) -> Tuple[bool, int]:
     """(narrow, rows per CTA) of a grouped product on a card with *sms*
     multiprocessors."""
-    narrow = d_out <= 256
-    fits = [r for r in GROUPED_ROWS if block_t % r == 0]
-    build.require(bool(fits), f"block_t={block_t}: need a multiple of 16 "
-                  "(one CTA's rows must share an adapter)")
-    rows = fits[0]
-    if narrow:
-        rows = next((r for r in fits if 10 * (T // r) >= 9 * sms),
-                    fits[-1])
-    return narrow, rows
+    narrow = d_out <= 256      # the wide output takes the most rows
+    return narrow, _cta_rows(T, block_t, sms if narrow else 0, GROUPED_ROWS)
 
 
 def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.core.lora import RankLayout
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_lora import (WGRAD_CHUNK_TILES, wgrad_partial,
+from repro_torch.kernels.fused_lora import (WGRAD_CHUNK_TILES,
+                                            lora_fwd_geometry, wgrad_partial,
                                             wgrad_pieces)
 
 
@@ -224,7 +225,7 @@ def ragged_wgrad_plain(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta,
 _ARGTYPES = {
     # (library, entry point): (pointer args, int args); a stream pointer
     # follows them all
-    ("ragged_lora", "ragged_lora_fwd_launch"): (5, 6),
+    ("ragged_lora", "ragged_lora_fwd_launch"): (5, 8),
     ("ragged_bwd", "ragged_dgrad_launch"): (5, 6),
     ("ragged_bwd", "ragged_packed_launch"): (4, 5),
     ("ragged_bwd", "ragged_wgrad_launch"): (6, 7),
@@ -254,23 +255,25 @@ def _check_common(what: str, T: int, block_t: int, meta: RaggedMeta,
                   f"d_in={d_in}, R={meta.total_r}")
 
 
-def _check_cuda(what: str, tensors, block_t: int, meta: RaggedMeta,
-                extents) -> None:
-    """What the CUDA kernels take: contiguous bf16 on one device, one
-    adapter per 16-row CTA, segments of at most 256 lanes, 16-byte
-    staging."""
-    dev = tensors[0][1].device
-    build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
+def check_kernel_operands(what: str, tensors, block_t: int,
+                          meta: RaggedMeta, extents) -> None:
+    """What the CUDA kernels take, checked before any build (raises
+    ValueError otherwise): contiguous bf16 tensors, one adapter per CTA's
+    rows (block_t a multiple of 16), segments of at most 256 lanes,
+    16-byte staging (dims and the rank tile multiples of 8), all on one
+    CUDA device."""
     for name, t in tensors:
-        build.require(t.device == dev and t.dtype == torch.bfloat16
-                      and t.is_contiguous(),
-                      f"{what}: {name} must be a contiguous bf16 tensor "
-                      f"on {dev}")
+        build.require(t.dtype == torch.bfloat16 and t.is_contiguous(),
+                      f"{what}: {name} must be a contiguous bf16 tensor")
     build.require(block_t % 16 == 0, f"{what}: block_t={block_t}: need a "
                   "multiple of 16 (one CTA's rows must share an adapter)")
     build.require(max(meta.r_pads) <= 256, f"{what}: rank segments wider "
                   "than 256 lanes are not supported by the CUDA kernel")
     build.require_vectors([t for _, t in tensors], *extents, meta.r_blk)
+    dev = tensors[0][1].device
+    build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
+    build.require(all(t.device == dev for _, t in tensors),
+                  f"{what}: every operand must be on {dev}")
 
 
 def ragged_lora_fwd(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -285,15 +288,16 @@ def ragged_lora_fwd(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                   d_in)
     if x.device.type == "cpu":
         return ragged_lora_fwd_plain(x, A, B, meta, block_t=block_t)
-    _check_cuda("ragged_lora_fwd", (("x", x), ("A", A), ("B", B)), block_t,
-                meta, (d_in, d_out))
+    check_kernel_operands("ragged_lora_fwd", (("x", x), ("A", A), ("B", B)),
+                          block_t, meta, (d_in, d_out))
+    rows, splits = lora_fwd_geometry(T, d_out, block_t,
+                                     build.sm_count(x.device))
     out = torch.empty((T, d_out), dtype=torch.float32, device=x.device)
     lib, fn = _entry("ragged_lora", "ragged_lora_fwd_launch")
-    groups = build.col_groups(T // 16, d_out, 128, x.device)
     err = fn(build.ptr(x), build.ptr(A), build.ptr(B),
              build.ptr(_device_table(meta, x.device)), build.ptr(out), T,
-             d_in, d_out, meta.total_r, block_t, groups,
-             build.stream_ptr(x.device))
+             d_in, d_out, meta.total_r, max(meta.r_pads), block_t, rows,
+             splits, build.stream_ptr(x.device))
     build.check(lib, err, "ragged_lora_fwd")
     ragged_lora_fwd.launches += 1
     return out
@@ -312,8 +316,9 @@ def ragged_lora_dgrad(dy_s: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                   f"{tuple(dy_s.shape)}")
     if dy_s.device.type == "cpu":
         return ragged_lora_dgrad_plain(dy_s, A, B, meta, block_t=block_t)
-    _check_cuda("ragged_lora_dgrad", (("dy_s", dy_s), ("A", A), ("B", B)),
-                block_t, meta, (d_in, d_out))
+    check_kernel_operands("ragged_lora_dgrad",
+                          (("dy_s", dy_s), ("A", A), ("B", B)), block_t,
+                          meta, (d_in, d_out))
     dx = torch.empty((T, d_in), dtype=torch.float32, device=dy_s.device)
     lib, fn = _entry("ragged_bwd", "ragged_dgrad_launch")
     groups = build.col_groups(T // 16, d_in, 128, dy_s.device)
@@ -329,7 +334,7 @@ def ragged_lora_dgrad(dy_s: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 def _packed(what: str, x: torch.Tensor, w: torch.Tensor, meta: RaggedMeta,
             block_t: int, transposed: bool) -> torch.Tensor:
     T, d = x.shape
-    _check_cuda(what, (("x", x), ("w", w)), block_t, meta, (d,))
+    check_kernel_operands(what, (("x", x), ("w", w)), block_t, meta, (d,))
     out = torch.empty((T, meta.total_r), dtype=x.dtype, device=x.device)
     lib, fn = _entry("ragged_bwd", "ragged_packed_launch")
     err = fn(build.ptr(x), build.ptr(w),
@@ -382,7 +387,8 @@ def ragged_wgrad(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta, *,
                   f"{tuple(v.shape)}")
     if u.device.type == "cpu":
         return ragged_wgrad_plain(u, v, meta, block_t=block_t)
-    _check_cuda("ragged_wgrad", (("u", u), ("v", v)), block_t, meta, (d,))
+    check_kernel_operands("ragged_wgrad", (("u", u), ("v", v)), block_t,
+                          meta, (d,))
     build.require(meta.r_blk % 16 == 0, f"ragged_wgrad: rank tiles of "
                   f"{meta.r_blk} lanes; the CUDA kernel needs multiples of "
                   "16")
