@@ -28,12 +28,14 @@ each on standard output:
             transposed), B6 against the B7 pair (narrow x·A[k], the rank
             mask, wide xa·B[k]) on the uniform train shape and the N = 4
             slice, bf16(B1) against B6 on one uniform layout (train and
-            decode), B1 against lora_tile.cuh's lora_rows (B2 fed x, B^T
-            and A^T), and rows 0-15 of B1 and B6 at T = 16, 64 and 8192
-            at every row count a CTA can take there; B10's host time per
-            call; B6's lines carry the B7 pair's time (``pair_ms``), and
-            B1 and B6 on 2048-token slices are timed at 64, 32 and 16
-            rows a CTA (``ms_rows_*``);
+            decode), B1 against B2 fed x, B^T and A^T (one order, two
+            orientations of the LoRA routine), and rows 0-15 of B1 and
+            B6, and of B2, B3 and B4, at T = 16, 64 and 8192 at every row
+            count a CTA can take there; B10's host time per call; B6's
+            lines carry the B7 pair's time (``pair_ms``), B1 and B6 on
+            2048-token slices, and B2, B3 and B4 at the train shapes and
+            on a 2048-token slice, are timed at 64, 32 and 16 rows a CTA
+            (``ms_rows_*``);
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -85,9 +87,16 @@ Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
 without the rest of the repository beside it, it exits 2 and prints no
 result.
+
+    python3 chip_smoke.py --times ragged_lora_dgrad,ragged_xa [--src DIR]
+
+builds and runs only the named wrappers' training cases (each against its
+plain version, with its times), from ``DIR/repro_torch`` when given: the
+same cases timed on two trees in one run of the card, for comparisons.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import os
@@ -369,6 +378,24 @@ def flash_cost(BH, S, hd, groups):
     return nbytes, 4 * BH * hd * S * (S + 1) // 2
 
 
+def lora_cases(T, d_in, d_out, R, rt, ranks, x, A, B, dy):
+    """(wrapper, operands, bytes, flops) of B1-B4 on T tokens whose token x
+    true-rank products sum to *rt*, the adapters present of true *ranks*:
+    each input read once (the segments' live lanes), each output written
+    once."""
+    ab = (d_in + d_out) * sum(ranks) * 2          # A and B segments, once
+    return (("ragged_lora_fwd", (x, A, B), T * d_in * 2 + ab + T * d_out * 4,
+             2 * rt * (d_in + d_out)),
+            ("ragged_lora_dgrad", (dy, A, B),
+             T * d_out * 2 + ab + T * d_in * 4, 2 * rt * (d_in + d_out)),
+            ("ragged_xa", (x, A),
+             T * d_in * 2 + d_in * sum(ranks) * 2 + T * R * 2,
+             2 * rt * d_in),
+            ("ragged_dxa", (dy, B),
+             T * d_out * 2 + d_out * sum(ranks) * 2 + T * R * 2,
+             2 * rt * d_out))
+
+
 def train_kernel_cases(g, dev):
     """The training step's kernels at its shapes: T = 8192 tokens (4 jobs
     x 4 x 512), ranks {8, 16, 32, 64}, block_t 128; the q/o projections
@@ -386,7 +413,6 @@ def train_kernel_cases(g, dev):
     tile_jobs = _tile_jobs_static(rows, TRAIN_SEQ, TRAIN_BLOCK_T)
     toks = [tile_jobs.count(k) * TRAIN_BLOCK_T for k in range(len(rows))]
     rt = sum(t * r for t, r in zip(toks, TRAIN_RANKS))   # token x true rank
-    r_sum = sum(TRAIN_RANKS)
     bt = TRAIN_BLOCK_T
     d_in = 2048
     cases = []
@@ -399,48 +425,38 @@ def train_kernel_cases(g, dev):
         xa = rg.ragged_xa_plain(x, A, meta, block_t=bt)
         dxa = rg.ragged_dxa_plain(dy, B, meta, block_t=bt)
         shape = dict(T=T, d_in=d_in, d_out=d_out)
-        ab = (d_in + d_out) * r_sum * 2           # A and B segments, once
-        for name, args, nbytes, flops in (
-                ("ragged_lora_fwd", (x, A, B),
-                 T * d_in * 2 + ab + T * d_out * 4,
-                 2 * rt * (d_in + d_out)),
-                ("ragged_lora_dgrad", (dy, A, B),
-                 T * d_out * 2 + ab + T * d_in * 4,
-                 2 * rt * (d_in + d_out)),
-                ("ragged_xa", (x, A),
-                 T * d_in * 2 + d_in * r_sum * 2 + T * R * 2,
-                 2 * rt * d_in),
-                ("ragged_dxa", (dy, B),
-                 T * d_out * 2 + d_out * r_sum * 2 + T * R * 2,
-                 2 * rt * d_out)):
-            fn, plain = getattr(rg, name), getattr(rg, name + "_plain")
-            cases.append((name, "train", shape,
-                          functools.partial(fn, *args, meta, block_t=bt),
-                          functools.partial(plain, *args, meta, block_t=bt),
-                          None, nbytes, flops))
+        for name, args, nbytes, flops in lora_cases(
+                T, d_in, d_out, R, rt, TRAIN_RANKS, x, A, B, dy):
+            run = functools.partial(getattr(rg, name), *args, meta,
+                                    block_t=bt)
+            cases.append((name, "train", shape, run,
+                          functools.partial(getattr(rg, name + "_plain"),
+                                            *args, meta, block_t=bt),
+                          None, nbytes, flops,
+                          {} if name == "ragged_lora_fwd" else
+                          {f"ms_rows_{r}": fwd_rows(run, r)
+                           for r in fl.LORA_FWD_ROWS}))
         if d_out == 2048:
-            # B1 on 2048 tokens (tiles 4-19: inside job 0 to job 1), timed
-            # at each row count a CTA can take
+            # B1-B4 on 2048 tokens (tiles 4-19: inside job 0 to job 1),
+            # timed at each row count a CTA can take
             jobs = tile_jobs[4:20]
             sm = rg.RaggedMeta.build(jobs, lay)
             Ts = len(jobs) * bt
-            xs = x[:Ts].contiguous()
             rts = sum(jobs.count(k) * bt * r
                       for k, r in enumerate(TRAIN_RANKS))
-            run = functools.partial(rg.ragged_lora_fwd, xs, A, B, sm,
-                                    block_t=bt)
-            cases.append((
-                "ragged_lora_fwd", "train",
-                dict(shape, T=Ts, slice="tiles 4-19"), run,
-                functools.partial(rg.ragged_lora_fwd_plain, xs, A, B, sm,
-                                  block_t=bt),
-                None,
-                Ts * d_in * 2 + Ts * d_out * 4 + sum(
-                    (d_in + d_out) * r * 2
-                    for k, r in enumerate(TRAIN_RANKS) if k in jobs),
-                2 * rts * (d_in + d_out),
-                {f"ms_rows_{r}": fwd_rows(run, r)
-                 for r in fl.LORA_FWD_ROWS}))
+            for name, args, nbytes, flops in lora_cases(
+                    Ts, d_in, d_out, R, rts,
+                    [r for k, r in enumerate(TRAIN_RANKS) if k in jobs],
+                    x[:Ts].contiguous(), A, B, dy[:Ts].contiguous()):
+                run = functools.partial(getattr(rg, name), *args, sm,
+                                        block_t=bt)
+                cases.append((
+                    name, "train", dict(shape, T=Ts, slice="tiles 4-19"),
+                    run, functools.partial(getattr(rg, name + "_plain"),
+                                           *args, sm, block_t=bt),
+                    None, nbytes, flops,
+                    {f"ms_rows_{r}": fwd_rows(run, r)
+                     for r in fl.LORA_FWD_ROWS}))
         # wgrad: dB = wgrad(xa, dy_s) (d = d_out), dA^T = wgrad(dxa, x)
         for operand, u, v in (("dB", xa, dy), ("dA", dxa, x)):
             d = v.shape[1]
@@ -803,10 +819,35 @@ def kernels_phase(rows, S, dev):
     cases += train_kernel_cases(g, dev)
     cases += masked_kernel_cases(g, dev)
     cases += dequant_kernel_cases(g, dev)
+    results = time_cases(cases)
+    checks = {"flash_row_invariance": flash_invariance(dev),
+              "flash_row_invariance_hd32": flash_invariance(dev, hd=32),
+              "flash_row_invariance_hd128": flash_invariance(dev, hd=128),
+              "wgrad_b5_b8": wgrad_families_bit_equal(dev),
+              "grouped_b7_vs_ragged": grouped_families_bit_equal(dev),
+              "grouped_b7_rows": grouped_rows_bit_equal(dev),
+              "b10_rows_16_64_8192": dequant_rows_bit_equal(dev),
+              "fwd_b6_b7_pair": fwd_b6_b7_pair(dev),
+              "fwd_b1_b6": fwd_b1_b6(dev),
+              "fwd_b1_lora_rows": fwd_b1_lora_rows(dev),
+              "fwd_rows_16_64_8192": fwd_rows_bit_equal(dev),
+              "bwd_rows_16_64_8192": bwd_rows_bit_equal(dev)}
+    emit({"phase": "kernels", "bit_equal_checks": checks,
+          "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
+    failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
+              if not ok]
+    if failed:
+        raise AssertionError(f"bit-equality checks failed: {failed}")
+    return results
 
+
+def time_cases(cases) -> list:
+    """Each case against its plain version (raises where they disagree),
+    with its times and bound, one ``kernels`` line each.  A case may end
+    with a dict of further fields: a callable is timed like the library
+    call (the key names it), any other value is copied."""
+    import torch
     results = []
-    # a case may end with a dict of further fields: a callable is timed
-    # like the library call (the key names it), any other value is copied
     for name, step, shape, run, plain, lib, nbytes, flops, *more in cases:
         got = run()
         torch.cuda.synchronize()         # surfaces a fault in the kernel
@@ -826,23 +867,6 @@ def kernels_phase(rows, S, dev):
             raise AssertionError(f"{name} ({step}, {shape}) disagrees with "
                                  f"its plain version: {res}")
         results.append(res)
-    checks = {"flash_row_invariance": flash_invariance(dev),
-              "flash_row_invariance_hd32": flash_invariance(dev, hd=32),
-              "flash_row_invariance_hd128": flash_invariance(dev, hd=128),
-              "wgrad_b5_b8": wgrad_families_bit_equal(dev),
-              "grouped_b7_vs_ragged": grouped_families_bit_equal(dev),
-              "grouped_b7_rows": grouped_rows_bit_equal(dev),
-              "b10_rows_16_64_8192": dequant_rows_bit_equal(dev),
-              "fwd_b6_b7_pair": fwd_b6_b7_pair(dev),
-              "fwd_b1_b6": fwd_b1_b6(dev),
-              "fwd_b1_lora_rows": fwd_b1_lora_rows(dev),
-              "fwd_rows_16_64_8192": fwd_rows_bit_equal(dev)}
-    emit({"phase": "kernels", "bit_equal_checks": checks,
-          "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
-    failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
-              if not ok]
-    if failed:
-        raise AssertionError(f"bit-equality checks failed: {failed}")
     return results
 
 
@@ -920,8 +944,8 @@ def grouped_families_bit_equal(dev) -> dict:
     layout (4 adapters, every rank = r_pad 16, T 8192, d 2048, block_t
     128), bit for bit: B3's segment columns against B7 narrow's xa = x·A,
     B4's against B7 narrow's dxa = dy_s·B^T, and bf16(B2's f32 dx)
-    against B7 wide(B7 narrow(dy_s, B^T), A^T) -- the orders of
-    lora_tile.cuh's xa_rows and xa_times_b."""
+    against B7 wide(B7 narrow(dy_s, B^T), A^T) -- the orders of the LoRA
+    routine's x·W1 and xa·W2 (csrc/lora_fwd.cuh)."""
     import torch
     from repro_torch.core.lora import RankLayout
     from repro_torch.kernels import fused_lora as fl
@@ -1050,12 +1074,13 @@ def fwd_b1_b6(dev) -> dict:
 
 
 def fwd_b1_lora_rows(dev) -> dict:
-    """B1's f32 y against lora_tile.cuh's lora_rows, the routine whose
-    order B1 keeps and B2 (ragged_lora_dgrad) still runs, bit for bit:
-    B2 fed x for dy_s, B^T for A and A^T for B (contiguous copies)
-    computes mask(x·A_seg)·B_seg in lora_rows' order.  The train layout
-    (ranks {8, 16, 32, 64}, T 8192) at 2048 -> 2048 and 2048 -> 256, and
-    the decode one (T 64, block_t 16)."""
+    """B1's f32 y against B2 (ragged_lora_dgrad) fed x for dy_s, B^T for
+    A and A^T for B (contiguous copies), bit for bit: both compute
+    mask(x·A_seg)·B_seg in the LoRA routine's one summation order (the
+    order of the retired lora_rows, which the key still names), B1 in the
+    routine's Forward orientation and B2 in its Backward one.  The train
+    layout (ranks {8, 16, 32, 64}, T 8192) at 2048 -> 2048 and 2048 ->
+    256, and the decode one (T 64, block_t 16)."""
     import torch
     from repro_torch.core.lora import RankLayout
     from repro_torch.kernels import ragged as rg
@@ -1114,6 +1139,38 @@ def fwd_rows_bit_equal(dev) -> dict:
     return {f"{name}_rows_0_15_of_T_16_64_8192": all(
                 torch.equal(ys[0], y) for y in ys[1:])
             for name, ys in (("b1", b1), ("b6", b6))}
+
+
+def bwd_rows_bit_equal(dev) -> dict:
+    """B2, B3 and B4 row invariance, bit for bit: rows 0-15 of a T = 16
+    (block_t 16), a T = 64 (block_t 64) and a T = 8192 (block_t 128)
+    call, at every row count a CTA can take there (16; 64, 32, 16; 64,
+    32, 16), so with and without B2's column splits: a row's gradient
+    must not depend on how many rows share the call.  Ranks {8, 16, 32,
+    64} on the packed ragged pair, 2048 -> 2048."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    g = torch.Generator(device=dev).manual_seed(12)
+    d, K = 2048, len(TRAIN_RANKS)
+    lay, x, A, B = lora_operands(TRAIN_RANKS, d, d, 8192, g, dev)
+    dy = torch.randn((8192, d), generator=g, device=dev).to(torch.bfloat16)
+    outs = {"b2": [], "b3": [], "b4": []}
+    for T, bt in ((16, 16), (64, 64), (8192, TRAIN_BLOCK_T)):
+        jobs = [t * K * bt // T for t in range(T // bt)]   # job 0 first
+        meta = rg.RaggedMeta.build(jobs, lay)
+        xs, dys = x[:T].contiguous(), dy[:T].contiguous()
+        for r in (r for r in fl.LORA_FWD_ROWS if bt % r == 0):
+            outs["b2"].append(fwd_rows(lambda: rg.ragged_lora_dgrad(
+                dys, A, B, meta, block_t=bt), r)()[:16])
+            outs["b3"].append(fwd_rows(lambda: rg.ragged_xa(
+                xs, A, meta, block_t=bt), r)()[:16])
+            outs["b4"].append(fwd_rows(lambda: rg.ragged_dxa(
+                dys, B, meta, block_t=bt), r)()[:16])
+    torch.cuda.synchronize()
+    return {f"{name}_rows_0_15_of_T_16_64_8192": all(
+                torch.equal(ys[0], y) for y in ys[1:])
+            for name, ys in outs.items()}
 
 
 def dequant_rows_bit_equal(dev) -> dict:
@@ -1309,14 +1366,20 @@ def profile_run(fn) -> dict:
 
 def _family(kernel_name: str) -> str:
     """The port's kernels by name (``wgrad_*``: the two passes B5 and B8
-    share; B1 and B6 by the segment type of their one template); f32 GEMMs (the plain attention backward's einsums run in
-    f32), the other library GEMMs, and everything else."""
+    share; B1, B6 and B2 by the orientation and segment type of their one
+    template, B3 and B4 by the packed kernel's name); f32 GEMMs (the plain
+    attention backward's einsums run in f32), the other library GEMMs,
+    and everything else."""
     for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
                  "wgrad_partials", "wgrad_reduce", "fused_lora_fwd",
                  "grouped_mm", "flash_fwd", "dequant_mm"):
         if port in kernel_name:
             return port
-    if "lora_fwd_kernel" in kernel_name:    # B1 and B6: one routine
+    if "lora_packed_kernel" in kernel_name:    # B3 and B4
+        return "ragged_packed"
+    if "lora_kernel" in kernel_name:           # B1, B6 and B2
+        if "Backward" in kernel_name:
+            return "ragged_dgrad"
         return ("ragged_lora_fwd" if "RaggedSeg" in kernel_name
                 else "fused_lora_fwd")
     if "f32f32" in kernel_name:
@@ -2065,7 +2128,15 @@ def elastic_phase(cfg, params, dev, tmp):
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--times", help="comma-separated kernel wrappers: only "
+                    "their training cases, each against its plain version "
+                    "with its times")
+    ap.add_argument("--src", default=SRC, help="the directory holding the "
+                    "repro_torch package to build and run (default: this "
+                    "checkout's src)")
+    args = ap.parse_args()
+    if not os.path.isdir(os.path.join(args.src, "repro_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
@@ -2073,7 +2144,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -2084,11 +2155,16 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_seconds": per_source})
+          "per_source_seconds": per_source, "src": args.src})
     for name in build.SOURCES:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():
             print(f"--- {name}\n{log.read_text()}", file=sys.stderr)
+    if args.times:
+        names = set(args.times.split(","))
+        g = torch.Generator(device=dev).manual_seed(1)
+        time_cases([c for c in train_kernel_cases(g, dev) if c[0] in names])
+        return 0
 
     cfg = get_config("tinyllama-1.1b")
     sets = []

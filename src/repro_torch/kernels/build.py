@@ -134,17 +134,6 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
-def col_groups(row_ctas: int, d_out: int, col_block: int,
-               device: torch.device) -> int:
-    """How many CTAs share one row group's output columns: enough CTAs
-    in total to give every SM two, never more than there are column
-    blocks.  Each CTA recomputes its rows' x·A, so fewer groups means
-    less recomputation when the rows alone fill the card."""
-    blocks = -(-d_out // col_block)
-    want = -(-2 * sm_count(device) // max(row_ctas, 1))
-    return max(1, min(blocks, want))
-
-
 def require_vectors(tensors, *extents: int) -> None:
     """The LoRA kernels stage operands with 16-byte loads: every base
     pointer 16-byte aligned, every stride, width and extent a multiple of

@@ -25,11 +25,10 @@
 // view (lanes of the K adapters interleaved in A's rows) is one 2-D map
 // with A[k] from column k * r_pad; contiguous stacks are a 3-D map.
 //
-// Summation order: lora_tile.cuh's lora_rows (x·A by k-step class, the
-// classes added in order, the mask, one rounding; xa·B one accumulator
-// per tile over ascending 16-lane chunks), so B6 equals B1 on one uniform
-// layout and the B7 pair (narrow x·A[k], the mask, wide xa·B[k]) bit for
-// bit.
+// Summation order: the routine's (x·A by k-step class, the classes added
+// in order, the mask, one rounding; xa·B one accumulator per tile over
+// ascending 16-lane chunks), so B6 equals B1 on one uniform layout and
+// the B7 pair (narrow x·A[k], the mask, wide xa·B[k]) bit for bit.
 #include "lora_fwd.cuh"
 
 namespace {
@@ -68,24 +67,17 @@ extern "C" int fused_lora_fwd_launch(const void* x, const void* a,
   const bool stacked = a_k >= a_row;
   repro::lora_fwd::Operands o{};
   o.x = static_cast<const __nv_bfloat16*>(x);
-  o.a = static_cast<const __nv_bfloat16*>(a);
-  o.a_cols = stacked ? r_pad : a_row;
-  o.a_row = a_row;
-  o.a_k = stacked ? a_k : a_row * d_in;
-  o.a_n = stacked ? K : 1;
-  o.b = static_cast<const __nv_bfloat16*>(b);
-  o.b_rows = r_pad;
-  o.b_row = b_row;
-  o.b_k = b_k;
-  o.b_n = K;
+  o.w1 = {static_cast<const __nv_bfloat16*>(a), stacked ? r_pad : a_row, d_in,
+          a_row, stacked ? a_k : a_row * d_in, stacked ? K : 1};
+  o.w2 = {static_cast<const __nv_bfloat16*>(b), d_out, r_pad, b_row, b_k, K};
   o.out = out;
   o.T = T;
-  o.d_in = d_in;
-  o.d_out = d_out;
+  o.d_k = d_in;
+  o.d_n = d_out;
   const MaskedSeg seg{static_cast<const int*>(tile_map),
                       static_cast<const int*>(ranks), r_pad,
                       stacked ? 0 : static_cast<int>(a_k), stacked ? 1 : 0};
-  return repro::lora_fwd::launch<__nv_bfloat16>(
+  return repro::lora_fwd::launch<__nv_bfloat16, repro::lora_fwd::Forward>(
       o, seg, (r_pad + 15) / 16 * 16, block_t, rows, col_splits,
       static_cast<cudaStream_t>(stream));
 }

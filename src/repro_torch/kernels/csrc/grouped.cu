@@ -28,18 +28,19 @@
 //     three-stage cp.async ring of 128-deep contraction steps, A's chunk
 //     staged once per step for every lane; 8 warps, each owning one
 //     class of 16-deep k-steps (kk mod 4) for half of the CTA's 16 x 16
-//     output tiles.  The summation order is exactly lora_tile.cuh's
-//     xa_rows (B3, B4, and phase 1 of B1, B2, B6): one WMMA accumulator
-//     per class fed in ascending k by the same mma_sync 16x16x16, the
-//     four classes added in order 0..3 from 0.0f, then one rounding -- so
-//     B7 narrow and B3/B4 agree bit for bit on one layout;
+//     output tiles.  The summation order is exactly phase 1 of
+//     lora_fwd.cuh's LoRA routine (B3, B4, and x·W1 of B1, B2, B6): one
+//     WMMA accumulator per class fed in ascending k by the same tensor-
+//     core instruction, the four classes added in order 0..3 from 0.0f,
+//     then one rounding -- so B7 narrow and B3/B4 agree bit for bit on
+//     one layout;
 //   wide output, shallow contraction (d_in <= 256: dx = dxa·A^T).  A CTA
 //     takes ``rows`` rows and 256 output columns; the rows (all of
 //     d_in) are staged once, then 128-column blocks of W come through two
 //     stages, the next block's copies in flight while the current one
 //     multiplies.  Each 16 x 16 output tile is one accumulator over the
-//     16-lane chunks in ascending order (xa_times_b's order: phase 2 of
-//     B2, so that B7 wide over B7 narrow equals B2 bit for bit); the
+//     16-lane chunks in ascending order (the routine's xa·W2 order: phase
+//     2 of B2, so that B7 wide over B7 narrow equals B2 bit for bit); the
 //     epilogue rounds through a per-warp scratch tile and leaves as
 //     16-byte rows.
 // The contraction is never split over CTAs, no atomics: a result does not
@@ -58,6 +59,7 @@
 // It reads the wide operand once for all the lanes it holds and keeps a
 // four-stage cp.async ring in flight over hundreds of CTAs.
 #include <cstdint>
+#include <type_traits>
 
 #include "lora_tile.cuh"
 
@@ -83,7 +85,10 @@ constexpr int kWCta = 2 * kWCol;      // wide: output columns per CTA
 constexpr int kWLdS = kWCol + 8;      // wide: stored W row (bf16)
 
 template <bool kTrans>
-using FragW = lora::FragB<kTrans>;
+using FragW = wmma::fragment<
+    wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+    typename std::conditional<kTrans, wmma::col_major,
+                              wmma::row_major>::type>;
 using FragX = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                              wmma::row_major>;
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -232,7 +237,8 @@ grouped_mm_narrow_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
   __syncthreads();
-  // the classes added in order from 0.0f (xa_rows' order), one rounding,
+  // the classes added in order from 0.0f (the routine's x·W1 order), one
+  // rounding,
   // 8 lanes (16 bytes) a thread
   const int V = n_lanes / 8;
   for (int i = threadIdx.x; i < BM * V; i += kGThreads) {

@@ -1,11 +1,22 @@
-// The LoRA forward's CTA routine for Hopper (sm_90a), shared by the
-// ragged forward (B1, ragged_lora.cu) and the masked forward (B6,
-// fused_lora.cu): BM token rows that belong to ONE adapter, times a range
-// of output columns.
+// The LoRA CTA routine for Hopper (sm_90a), shared by five kernels: BM
+// token rows that belong to ONE adapter, times a range of output columns.
 //
-//   xa  = bf16(mask_{lane < rank}(x_rows · A_seg))   once per CTA
-//   out = xa · B_seg                                f32 accumulation,
-//                                                   stored f32 or bf16
+//   xa  = bf16(mask_{lane < rank}(x_rows · W1_seg))  once per CTA
+//   out = xa · W2_seg                                f32 accumulation,
+//                                                    stored f32 or bf16
+//
+// in one of two orientations of the adapter's pair, both read in place
+// from the packed pair or the stacks, never copied:
+//   Forward   W1 = A_seg (d_in x lanes), W2 = B_seg (lanes x d_out): the
+//             ragged forward B1 (ragged_lora.cu), the masked forward B6
+//             (fused_lora.cu), and phase 1 alone, B3's xa = x·A_seg
+//             (ragged_bwd.cu);
+//   Backward  x = dy_s, W1 = B_seg^T, W2 = A_seg^T: the ragged dgrad B2,
+//             dx = mask(dy_s·B_seg^T)·A_seg^T, and phase 1 alone, B4's
+//             dxa = dy_s·B_seg^T (ragged_bwd.cu).
+// Phase 1 alone (lora_packed_kernel) writes the masked, rounded xa into
+// the packed (T, R) layout: the segment's lanes, zeros in every other
+// column.
 //
 // Bound on the H100: bytes.  Each token row costs 2 (true rank) (d_in +
 // d_out) flops against its 2 d_in bytes of x and its 2 or 4 d_out bytes
@@ -16,42 +27,46 @@
 //     by the wrapper (fused_lora.lora_fwd_geometry) to fill the card with
 //     row CTAs alone where T allows; the output columns are split over
 //     CTAs only where it does not (decode, nano slices), and each such
-//     CTA recomputes its rows' xa;
-//   * every operand moves through the TMA in boxes of tensor maps (x, A,
-//     B in; the output out), one request a box, completing on mbarriers
+//     CTA recomputes its rows' xa; phase 1 alone takes the rows only;
+//   * every operand moves through the TMA in boxes of tensor maps (x, W1,
+//     W2 in; the output out), one request a box, completing on mbarriers
 //     (loads) and bulk groups (stores).  On the H100 one CTA a SM moves
 //     only 6-20 GB/s an SM through 16-byte cp.async copies and st.global
 //     stores, whatever the ring depth, and about as little through
 //     row-by-row 1D bulk copies (~26 ns a request), against the ~25 GB/s
 //     an SM's share of device memory (PERF.md);
-//   * x·A, once per CTA for all lanes of the segment (64 lanes a pass):
-//     a ring of 128-deep stages (two 64-column x boxes, one A box), two
-//     16-deep k-steps of each class a stage, 8 warps each owning one
-//     class (kk mod 4) for half of the CTA's 16 x 16 tiles (grouped.cu's
-//     narrow kernel); the masked, rounded xa stays in shared memory;
-//   * xa·B: 128-column blocks of B_seg (two 64-column boxes) through a
-//     second ring whose first blocks load during x·A when shared memory
+//   * x·W1, once per CTA for all lanes of the segment (64 lanes a pass):
+//     a ring of 128-deep stages (two 64-column x boxes; one W1 box of 128
+//     k rows (Forward) or two of 64 k columns (Backward)), two 16-deep
+//     k-steps of each class a stage, 8 warps each owning one class (kk
+//     mod 4) for half of the CTA's 16 x 16 tiles (grouped.cu's narrow
+//     kernel); the masked, rounded xa stays in shared memory;
+//   * xa·W2: 128-column blocks of W2 (two 64-column boxes of lane rows
+//     (Forward), or lane boxes of 128 column rows (Backward)) through a
+//     second ring whose first blocks load during x·W1 when shared memory
 //     holds both rings, each warp owning 16 x 16 output tiles; a warp
 //     stages its tiles of a block (two buffers) and stores them as boxes;
 //   * the rings' depths are set per launch (make_layout) from the CTAs
 //     each SM must hold: deep where one CTA a SM covers the grid
 //     (training, decode), shallower where the grid is several waves;
 //   * boxes land in the TMA's 32/64/128-byte swizzles, which keep the
-//     fragment loads (ldmatrix) free of bank conflicts; products are
-//     mma.sync m16n8k16, the HMMA.16816.F32.BF16 that WMMA's 16x16x16
-//     issues twice (WMMA's load_matrix_sync compiles here to generic
-//     loads and register transposes).
+//     fragment loads (ldmatrix) free of bank conflicts: transposing where
+//     a weight's lanes (Forward W1) or output columns (Forward W2) are
+//     contiguous, as stored where its contraction is (both Backward
+//     weights); products are mma.sync m16n8k16, the HMMA.16816.F32.BF16
+//     that WMMA's 16x16x16 issues twice (WMMA's load_matrix_sync compiles
+//     here to generic loads and register transposes).
 //
-// The summation orders are those of lora_tile.cuh's lora_rows (B2 still
-// runs it; B3 / B4 run its xa_rows), exactly, so B1 and B6 agree with
-// each other on one layout, with the B7 pair (narrow x·A, mask, wide
-// xa·B), and with lora_rows, bit for bit:
-//   x·A  one accumulator per 16 x 16 tile per class of k-steps, fed in
-//        ascending k by the same tensor-core instruction; the four classes
-//        added in order 0..3 from 0.0f; the rank mask on the f32 value;
-//        one rounding to bf16 (round to nearest even);
-//   xa·B one accumulator per 16 x 16 output tile over the 16-lane chunks
-//        of the segment in ascending order, from 0.0f.
+// The summation orders, the same in both orientations and in grouped.cu's
+// B7, so that B1 and B6 agree with each other on one layout and with the
+// B7 pair (narrow x·A, mask, wide xa·B), B1 with B2 fed x, B^T and A^T,
+// and B2, B3 and B4 with B7, bit for bit:
+//   x·W1  one accumulator per 16 x 16 tile per class of k-steps, fed in
+//         ascending k by the same tensor-core instruction; the four
+//         classes added in order 0..3 from 0.0f; the rank mask on the f32
+//         value; one rounding to bf16 (round to nearest even);
+//   xa·W2 one accumulator per 16 x 16 output tile over the 16-lane chunks
+//         of the segment in ascending order, from 0.0f.
 // The contraction is never split over CTAs and nothing is atomic: an
 // element's value does not depend on the rows per CTA, the column split,
 // the ring depths or which other rows share the launch (fused == solo
@@ -76,62 +91,91 @@ using sm90::tma_store2;
 
 constexpr int kThreads = 256;         // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kK = 128;               // d_in per x·A stage: 8 k-steps
-constexpr int kLanes = 64;            // xa lanes per x·A pass
-constexpr int kCols = 128;            // output columns per xa·B block
+constexpr int kK = 128;               // contraction per x·W1 stage: 8 k-steps
+constexpr int kLanes = 64;            // xa lanes per x·W1 pass
+constexpr int kCols = 128;            // output columns per xa·W2 block
 constexpr int kMaxWidth = 256;        // widest segment (lanes)
 constexpr int kMaxStages = 4;         // of either ring
 constexpr int kSmemCta = 232448;      // an H100 CTA's shared memory
 constexpr int kSmemPerSm = 233472;    // an SM's, 1 KB of it per CTA
 //                                       reserved by the runtime
 
-// A CTA's adapter: the coordinates of its A and B boxes (lane column and
-// stacked index of A_seg, first row and stacked index of B_seg), the
-// padded width and the true rank.
+// The orientation of the two weights (a type, so that a kernel's symbol
+// names it).  Forward: W1's rows are the contraction (d_in) with its
+// lanes contiguous, W2's rows are lanes with the output columns
+// contiguous.  Backward: W1's rows are lanes with the contraction (d_out)
+// contiguous, W2's rows are the output columns (d_in) with the lanes
+// contiguous.
+struct Forward {
+  static constexpr bool kBwd = false;
+};
+struct Backward {
+  static constexpr bool kBwd = true;
+};
+
+// A CTA's adapter: the lane coordinate and stacked index of its W1 and
+// W2 boxes (A_seg's first column or B_seg's first row, by orientation),
+// the padded width and the true rank.
 struct Seg {
-  int a_col, a_idx, b_row, b_idx, width, rank;
+  int lane1, stack1, lane2, stack2, width, rank;
+};
+
+// The ragged kernels' adapter of a token tile (B1-B4): its packed
+// segment's first column of A, which is its first row of B, its padded
+// width and its true rank, from the per-tile table.
+struct RaggedSeg {
+  const int* tiles;
+
+  __device__ Seg at(int tile) const {
+    const int col0 = tiles[3 * tile];
+    return {col0, 0, col0, 0, tiles[3 * tile + 1], tiles[3 * tile + 2]};
+  }
 };
 
 // The dynamic shared memory of one launch (byte offsets from a 1024-byte
-// aligned base) and the ring depths: s1 stages of x·A (stage bytes; lw
-// lanes a pass in an A box), sb of B (bst bytes).  The f32 class
-// partials (row rld floats) reuse the x·A ring, and so does the output
-// staging when early: the B ring has room of its own, its first blocks
-// loading during x·A; else the B ring and the staging reuse the x·A ring
-// after it.
+// aligned base) and the ring depths: s1 stages of x·W1 (stage bytes; lw
+// lanes a pass in a W1 box), sb of W2 (bst bytes; Backward: nbx boxes of
+// lw lanes).  The f32 class partials (row rld floats) reuse the x·W1
+// ring, and so does the output staging when early: the W2 ring has room
+// of its own, its first blocks loading during x·W1; else the W2 ring and
+// the staging reuse the x·W1 ring after it.  Phase 1 alone (packed) has
+// no W2 ring; its staging reuses the x·W1 ring.
 struct Layout {
-  int s1, sb, lw, stage, bst, rld, bring, stg, xa, total, early;
+  int s1, sb, lw, nbx, stage, bst, rld, bring, stg, xa, total, early;
 };
 
-template <int BM, typename OutT>
-inline Layout make_layout(int wr, int budget) {
+template <int BM, typename OutT, typename Dir>
+inline Layout make_layout(int wr, int budget, bool packed) {
   Layout L{};
   L.lw = wr <= 16 ? 16 : (wr <= 32 ? 32 : kLanes);
+  L.nbx = (wr + L.lw - 1) / L.lw;
   L.rld = L.lw + 4;
   L.stage = 2 * BM * 128 + kK * L.lw * 2;
-  L.bst = 2 * wr * 128;
+  L.bst = Dir::kBwd ? L.nbx * kCols * L.lw * 2 : 2 * wr * 128;
   const int red = 4 * BM * L.rld * 4;
-  const int stg = kWarps * 2 * 16 * BM * static_cast<int>(sizeof(OutT));
+  const int out = static_cast<int>(sizeof(OutT));
+  const int stg = packed ? 2 * BM * 128 : kWarps * 2 * 16 * BM * out;
   const int xa = (BM * (wr + 8) * 2 + 1023) / 1024 * 1024;
   static const int depth[][2] = {{4, 4}, {4, 3}, {3, 3}, {3, 2}, {2, 2}};
-  for (int early = 1; early >= 0; --early)
+  for (int early = packed ? 0 : 1; early >= 0; --early)
     for (const auto& d : depth) {
+      const int sb = packed ? 0 : d[1];
       int r0 = d[0] * L.stage;
       r0 = ((r0 > red ? r0 : red) + 1023) / 1024 * 1024;  // 1 KB apart
       if (early) {
         r0 = r0 > stg ? r0 : stg;
         L.bring = r0;
         L.stg = 0;
-        L.xa = r0 + d[1] * L.bst;
+        L.xa = r0 + sb * L.bst;
       } else {
         L.bring = 0;
-        L.stg = d[1] * L.bst;
+        L.stg = sb * L.bst;
         L.xa = r0 > L.stg + stg ? r0 : L.stg + stg;
       }
       L.total = L.xa + xa + 1024;    // + room to align the base to 1 KB
       if (L.total <= budget) {
         L.s1 = d[0];
-        L.sb = d[1];
+        L.sb = sb;
         L.early = early;
         return L;
       }
@@ -187,7 +231,20 @@ __device__ __forceinline__ int frag_col() {
   return ((threadIdx.x % 32) >> 4) * 8;
 }
 
-// ------------------------------------------------------------- x·A
+// The same for a B operand stored with its columns as rows and k
+// contiguous (the Backward weights), read as stored: a lane's column
+// (the row it addresses) and 8-deep k offset; registers 0, 1 again hold
+// columns 0..7, 2, 3 columns 8..15.
+__device__ __forceinline__ int wfrag_row() {
+  const int lane = threadIdx.x % 32;
+  return (lane & 7) + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ int wfrag_col() {
+  return (((threadIdx.x % 32) >> 3) & 1) * 8;
+}
+
+// ------------------------------------------------------------- x·W1
 template <int BM>
 struct Tiling {      // warp w: class w & 3, half w >> 2 of the tiles
   static constexpr int RT = BM / 16;                // row tiles
@@ -197,12 +254,13 @@ struct Tiling {      // warp w: class w & 3, half w >> 2 of the tiles
 };
 
 // xa[:, lane0:lane0 + n_lanes) of the CTA's rows, masked and rounded.
-// g1: x·A stages issued so far in the launch (names each buffer's phase).
-// A stage: x box 0 (BM rows of k0..k0 + 63), x box 1 (k0 + 64..), the A
-// box (kK k rows of L.lw lanes), each in its swizzle.
-template <int BM>
+// g1: x·W1 stages issued so far in the launch (names each buffer's
+// phase).  A stage: x box 0 (BM rows of k0..k0 + 63), x box 1 (k0 +
+// 64..), then W1: Forward one box (kK k rows of L.lw lanes), Backward two
+// (L.lw lane rows of k0.. and of k0 + 64..), each in its swizzle.
+template <int BM, typename Dir>
 __device__ __forceinline__ void xa_pass(
-    const CUtensorMap* tm_x, const CUtensorMap* tm_a, int row0, int d_in,
+    const CUtensorMap* tm_x, const CUtensorMap* tm_w, int row0, int d_k,
     const Seg& sg, int lane0, int n_lanes, const Layout& L,
     unsigned char* ring, uint64_t* bars, int& g1, __nv_bfloat16* xa,
     int xa_ld) {
@@ -221,7 +279,7 @@ __device__ __forceinline__ void xa_pass(
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][s][e] = 0.0f;
 
-  const int n_st = (d_in + kK - 1) / kK;
+  const int n_st = (d_k + kK - 1) / kK;
   const int g0 = g1;
   auto issue = [&](int i) {          // one thread
     const int b = (g0 + i) % L.s1;
@@ -230,8 +288,13 @@ __device__ __forceinline__ void xa_pass(
     mbar_expect_tx(bars + b, L.stage);
     tma_load2(st, tm_x, i * kK, row0, bars + b);
     tma_load2(st + BM * 128, tm_x, i * kK + 64, row0, bars + b);
-    tma_load3(st + 2 * BM * 128, tm_a, sg.a_col + lane0, i * kK, sg.a_idx,
-              bars + b);
+    if constexpr (Dir::kBwd)
+      for (int hb = 0; hb < 2; ++hb)
+        tma_load3(st + 2 * BM * 128 + hb * L.lw * 128, tm_w,
+                  i * kK + 64 * hb, sg.lane1 + lane0, sg.stack1, bars + b);
+    else
+      tma_load3(st + 2 * BM * 128, tm_w, sg.lane1 + lane0, i * kK,
+                sg.stack1, bars + b);
   };
   if (threadIdx.x == 0)
     for (int i = 0; i < L.s1 - 1 && i < n_st; ++i) issue(i);
@@ -259,12 +322,18 @@ __device__ __forceinline__ void xa_pass(
                 fx[r]);
       }
       const int kr = kk * 16 + frag_row(true);
+      const int kw = kk * 16 + wfrag_col();
 #pragma unroll
       for (int j = 0; j < G::LW; ++j) {
         const int lt = G::kSplitRows ? j : h + 2 * j;
         if (lt < LT) {
           unsigned fa[4];
-          ldsm_x4_t(as + swz(aspan, kr, (lt * 16 + frag_col()) >> 3), fa);
+          if constexpr (Dir::kBwd)
+            ldsm_x4(as + (kw >> 6) * L.lw * 128 +
+                        swz(128, lt * 16 + wfrag_row(), (kw & 63) >> 3),
+                    fa);
+          else
+            ldsm_x4_t(as + swz(aspan, kr, (lt * 16 + frag_col()) >> 3), fa);
 #pragma unroll
           for (int r = 0; r < G::RW; ++r) {
             mma16816(acc[r][j][0], fx[r], fa[0], fa[1]);
@@ -324,21 +393,21 @@ __device__ __forceinline__ void xa_pass(
   __syncthreads();                   // xa is written; the ring is free
 }
 
-// ------------------------------------------------------ the kernel
+// ------------------------------------------------------ the kernels
 // Seg_::at(tile) names the adapter of a token tile (ragged: the per-tile
-// table; masked: the tile map and ranks).  The maps: x (d_in, T), A
-// (lanes, d_in, stacked), B (d_out, rows, stacked), out (d_out, T), their
-// boxes as launch_rows encodes them.  wr: the widest segment of the
-// launch, rounded up to 16 lanes.
-template <int BM, typename OutT, typename Seg_>
+// table; masked: the tile map and ranks).  The maps: x (d_k, T), W1 and
+// W2 (inner, outer, stacked) in the orientation's roles, out (d_n, T),
+// their boxes as launch_rows encodes them.  wr: the widest segment of
+// the launch, rounded up to 16 lanes.
+template <int BM, typename OutT, typename Seg_, typename Dir>
 __global__ void __launch_bounds__(kThreads, BM == 64 ? 1 : 2)
-lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
-                const __grid_constant__ CUtensorMap tm_a,
-                const __grid_constant__ CUtensorMap tm_b,
-                const __grid_constant__ CUtensorMap tm_o, Seg_ seg, int d_in,
-                int d_out, int wr, int block_t, int cols_per_cta, Layout L) {
+lora_kernel(const __grid_constant__ CUtensorMap tm_x,
+            const __grid_constant__ CUtensorMap tm_w1,
+            const __grid_constant__ CUtensorMap tm_w2,
+            const __grid_constant__ CUtensorMap tm_o, Seg_ seg, int d_k,
+            int d_n, int wr, int block_t, int cols_per_cta, Layout L) {
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t bars[2 * kMaxStages];   // x·A ring, then B ring
+  __shared__ uint64_t bars[2 * kMaxStages];   // x·W1 ring, then W2 ring
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* ring = smem;
@@ -352,7 +421,7 @@ lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
   const Seg sg = seg.at(row0 / block_t);
   const int wpad = (sg.width + 15) / 16 * 16;
   const int col_begin = blockIdx.y * cols_per_cta;
-  const int col_end = min(d_out, col_begin + cols_per_cta);
+  const int col_end = min(d_n, col_begin + cols_per_cta);
   const int n_blk = (col_end - col_begin + kCols - 1) / kCols;
 
   if (threadIdx.x == 0) {
@@ -360,23 +429,32 @@ lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // B block blk of the segment: two 64-column boxes of wr rows
+  // block blk of W2, the segment's lanes for kCols output columns:
+  // Forward two 64-column boxes of wr lane rows, Backward nbx boxes of
+  // L.lw lanes for kCols column rows
   auto b_issue = [&](int blk) {      // one thread
     const int b = blk % L.sb;
     const uint32_t bs = smem_u32(bring + b * L.bst);
+    const int col = col_begin + blk * kCols;
     fence_proxy_async();
     mbar_expect_tx(bbars + b, L.bst);
-    for (int hb = 0; hb < 2; ++hb)
-      tma_load3(bs + hb * wr * 128, &tm_b, col_begin + blk * kCols + 64 * hb,
-                sg.b_row, sg.b_idx, bbars + b);
+    if constexpr (Dir::kBwd)
+      for (int bx = 0; bx < L.nbx; ++bx)
+        tma_load3(bs + bx * kCols * L.lw * 2, &tm_w2, sg.lane2 + bx * L.lw,
+                  col, sg.stack2, bbars + b);
+    else
+      for (int hb = 0; hb < 2; ++hb)
+        tma_load3(bs + hb * wr * 128, &tm_w2, col + 64 * hb, sg.lane2,
+                  sg.stack2, bbars + b);
   };
-  if (L.early && threadIdx.x == 0)   // B's first blocks fly during x·A
+  if (L.early && threadIdx.x == 0)   // W2's first blocks fly during x·W1
     for (int i = 0; i < L.sb - 1 && i < n_blk; ++i) b_issue(i);
   int g1 = 0;
 #pragma unroll 1
   for (int lane0 = 0; lane0 < wpad; lane0 += kLanes)
-    xa_pass<BM>(&tm_x, &tm_a, row0, d_in, sg, lane0,
-                min(kLanes, wpad - lane0), L, ring, bars, g1, xa, xa_ld);
+    xa_pass<BM, Dir>(&tm_x, &tm_w1, row0, d_k, sg, lane0,
+                     min(kLanes, wpad - lane0), L, ring, bars, g1, xa,
+                     xa_ld);
   if (!L.early && threadIdx.x == 0)
     for (int i = 0; i < L.sb - 1 && i < n_blk; ++i) b_issue(i);
 
@@ -399,13 +477,23 @@ lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
     const int b = blk % L.sb;
     sm90::mbar_wait(bbars + b, (blk / L.sb) & 1);
     const uint32_t bs = smem_u32(bring + b * L.bst);
-    if (sg.width < wpad) {           // rows past the width: zeros, as
-      __syncthreads();               // lora_rows reads them
-      for (int i = threadIdx.x; i < (wpad - sg.width) * 16; i += kThreads)
-        *reinterpret_cast<uint4*>(bring + b * L.bst +
-                                  ((i >> 3) & 1) * wr * 128 +
-                                  (sg.width + (i >> 4)) * 128 +
-                                  (i & 7) * 16) = make_uint4(0, 0, 0, 0);
+    if (sg.width < wpad) {           // lanes past the width (the next
+      __syncthreads();               // adapter's): zeros, as in a
+      unsigned char* w = bring + b * L.bst;     // zero-padded chunk
+      if constexpr (Dir::kBwd)       // 8-lane chunks of every column row
+        for (int i = threadIdx.x; i < kCols * ((wpad - sg.width) / 8);
+             i += kThreads) {
+          const int l = sg.width + (i / kCols) * 8;
+          *reinterpret_cast<uint4*>(
+              w + (l / L.lw) * kCols * L.lw * 2 +
+              swz(L.lw * 2, i % kCols, (l % L.lw) >> 3)) =
+              make_uint4(0, 0, 0, 0);
+        }
+      else                           // whole lane rows of both boxes
+        for (int i = threadIdx.x; i < (wpad - sg.width) * 16; i += kThreads)
+          *reinterpret_cast<uint4*>(w + ((i >> 3) & 1) * wr * 128 +
+                                    (sg.width + (i >> 4)) * 128 +
+                                    (i & 7) * 16) = make_uint4(0, 0, 0, 0);
       __syncthreads();
     }
     float acc[CW][2][4];
@@ -421,12 +509,19 @@ lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
       ldsm_x4(xa_s + ((rt * 16 + frag_row(false)) * xa_ld + rc * 16 +
                       frag_col()) * 2, fx);
       const int kr = rc * 16 + frag_row(true);
+      const int kl = rc * 16 + wfrag_col();
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
-        const int col = (ct0 + j) * 16 + frag_col();  // 0..127
+        const int col = (ct0 + j) * 16;               // 0..112
         unsigned fb[4];
-        ldsm_x4_t(bs + (col >> 6) * wr * 128 + swz(128, kr, (col & 63) >> 3),
+        if constexpr (Dir::kBwd)
+          ldsm_x4(bs + (kl / L.lw) * kCols * L.lw * 2 +
+                      swz(L.lw * 2, col + wfrag_row(), (kl % L.lw) >> 3),
                   fb);
+        else
+          ldsm_x4_t(bs + ((col + frag_col()) >> 6) * wr * 128 +
+                        swz(128, kr, ((col + frag_col()) & 63) >> 3),
+                    fb);
         mma16816(acc[j][0], fx, fb[0], fb[1]);
         mma16816(acc[j][1], fx, fb[2], fb[3]);
       }
@@ -466,6 +561,59 @@ lora_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
   if (lane == 0) sm90::bulk_wait<0>();      // no store outlives the CTA
 }
 
+// Phase 1 alone into the packed layout (B3, B4): out (T, R) bf16, each
+// row's lanes lane1.. lane1 + width from xa, zeros in every other column,
+// as 64-lane boxes of BM rows staged in two buffers (the x·W1 ring, free
+// after the last pass).
+template <int BM, typename Seg_, typename Dir>
+__global__ void __launch_bounds__(kThreads, BM == 64 ? 1 : 2)
+lora_packed_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_o, Seg_ seg,
+                   int d_k, int R, int wr, int block_t, Layout L) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[kMaxStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* xa = reinterpret_cast<__nv_bfloat16*>(smem + L.xa);
+  const int xa_ld = wr + 8;
+  const int row0 = blockIdx.x * BM;          // block_t % BM == 0
+  const Seg sg = seg.at(row0 / block_t);
+  const int wpad = (sg.width + 15) / 16 * 16;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kMaxStages; ++i) sm90::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int g1 = 0;
+#pragma unroll 1
+  for (int lane0 = 0; lane0 < wpad; lane0 += kLanes)
+    xa_pass<BM, Dir>(&tm_x, &tm_w, row0, d_k, sg, lane0,
+                     min(kLanes, wpad - lane0), L, smem, bars, g1, xa,
+                     xa_ld);
+#pragma unroll 1
+  for (int c = 0; c < (R + 63) / 64; ++c) {
+    unsigned char* buf = smem + (c & 1) * BM * 128;
+    if (threadIdx.x == 0) sm90::bulk_wait_read<1>();  // box c - 2 is read
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * 8; i += kThreads) {
+      const int l = c * 64 + (i & 7) * 8 - sg.lane1;  // the segment's lane
+      *reinterpret_cast<uint4*>(buf + i * 16) =
+          l >= 0 && l < sg.width
+              ? *reinterpret_cast<const uint4*>(xa + (i >> 3) * xa_ld + l)
+              : make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma_store2(&tm_o, c * 64, row0, smem_u32(buf));
+      sm90::bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) sm90::bulk_wait<0>();  // no store outlives the CTA
+}
+
 // ------------------------------------------------------ the launch
 // The swizzle of boxes whose rows are ``span`` bytes (32, 64 or 128).
 inline CUtensorMapSwizzle swizzle_of(int span) {
@@ -484,106 +632,192 @@ inline int sm_count() {
   return n;
 }
 
-// The operands of a launch: x (T, d_in) contiguous; A a_n stacked
-// (d_in, a_cols) matrices, element (k, lane) of matrix i at a + i * a_k +
-// k * a_row + lane; B likewise b_n stacked (b_rows, d_out) ones (b_k,
-// b_row); out (T, d_out) contiguous.
-struct Operands {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* a;
-  long a_cols, a_row, a_k, a_n;
-  const __nv_bfloat16* b;
-  long b_rows, b_row, b_k, b_n;
-  void* out;
-  int T, d_in, d_out;
+// A weight: n stacked matrices of ``outer`` rows of ``inner`` contiguous
+// bf16, rows ``ld`` and matrices ``stack_ld`` elements apart.
+struct Mat {
+  const __nv_bfloat16* p;
+  long inner, outer, ld, stack_ld, n;
 };
 
-// Launch on ``st``: grid (T / BM, column CTAs), ``col_splits`` CTAs
-// sharing a row block's columns, each a whole number of kCols blocks; the
-// rings as deep as the CTAs an SM must hold allow (up to 4 a SM, as many
-// as the grid needs and the registers allow).
-template <int BM, typename OutT, typename Seg_>
-cudaError_t launch_rows(const Operands& o, const Seg_& seg, int wr,
-                        int block_t, int col_splits, cudaStream_t st) {
-  // once: the kernel's static shared memory (its mbarriers) and
-  // registers, the dynamic shared memory left to it, the CTAs an SM's
-  // registers hold
-  struct Fit { cudaError_t err; int stat, dyn, by_regs; };
-  static const Fit fit = [] {
-    cudaFuncAttributes fa{};
-    Fit f{cudaFuncGetAttributes(&fa, lora_fwd_kernel<BM, OutT, Seg_>), 0, 0,
-          1};
-    if (f.err != cudaSuccess) return f;
-    f.stat = static_cast<int>(fa.sharedSizeBytes);
-    f.dyn = kSmemCta - f.stat;
-    f.err = cudaFuncSetAttribute(lora_fwd_kernel<BM, OutT, Seg_>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 f.dyn);
-    const int regs = fa.numRegs > 0 ? (fa.numRegs + 7) / 8 * 8 : 256;
-    f.by_regs = 65536 / (regs * kThreads);
-    return f;
-  }();
-  if (fit.err != cudaSuccess) return fit.err;
-  if (wr % 16 || wr > kMaxWidth || o.T % BM || block_t % BM)
-    return cudaErrorInvalidValue;
-  const int blocks = (o.d_out + kCols - 1) / kCols;
-  const int per = (blocks + col_splits - 1) / col_splits * kCols;
-  const dim3 grid(o.T / BM, (o.d_out + per - 1) / per);
-  const int ctas = static_cast<int>(grid.x * grid.y);
+// The packed ragged pair, both orientations' weights: A (d_in, R), lanes
+// contiguous; B (R, d), output columns contiguous.
+inline Mat packed_a(const void* a, int d_in, int R) {
+  return {static_cast<const __nv_bfloat16*>(a), R, d_in, R,
+          static_cast<long>(R) * d_in, 1};
+}
+
+inline Mat packed_b(const void* b, int R, int d) {
+  return {static_cast<const __nv_bfloat16*>(b), d, R, d,
+          static_cast<long>(R) * d, 1};
+}
+
+// The operands of a launch: x (T, d_k) contiguous; the weights in the
+// orientation's roles (Forward: w1 (d_k rows, lanes), w2 (lane rows, d_n);
+// Backward: w1 (lane rows, d_k), w2 (d_n rows, lanes)); out (T, d_n)
+// contiguous (phase 1 alone: (T, R) with d_n = R).
+struct Operands {
+  const __nv_bfloat16* x;
+  Mat w1, w2;
+  void* out;
+  int T, d_k, d_n;
+};
+
+// A kernel's static shared memory (its mbarriers) and registers, the
+// dynamic shared memory left to it, the CTAs an SM's registers hold.
+struct Fit {
+  cudaError_t err;
+  int stat, dyn, by_regs;
+};
+
+template <typename Kernel>
+Fit fit_of(Kernel kernel) {
+  cudaFuncAttributes fa{};
+  Fit f{cudaFuncGetAttributes(&fa, kernel), 0, 0, 1};
+  if (f.err != cudaSuccess) return f;
+  f.stat = static_cast<int>(fa.sharedSizeBytes);
+  f.dyn = kSmemCta - f.stat;
+  f.err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f.dyn);
+  const int regs = fa.numRegs > 0 ? (fa.numRegs + 7) / 8 * 8 : 256;
+  f.by_regs = 65536 / (regs * kThreads);
+  return f;
+}
+
+// The rings as deep as the CTAs an SM must hold allow (up to 4 a SM, as
+// many as ``ctas`` needs and the registers allow); total 0: nothing fits.
+template <int BM, typename OutT, typename Dir>
+Layout fit_layout(const Fit& fit, int ctas, int wr, bool packed) {
   int per_sm = (ctas + sm_count() - 1) / sm_count();
   per_sm = per_sm < fit.by_regs ? per_sm : fit.by_regs;
   per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
   Layout L{};
   for (; per_sm >= 1 && L.total == 0; --per_sm) {
     const int budget = kSmemPerSm / per_sm - 1024 - fit.stat;
-    L = make_layout<BM, OutT>(wr, budget < fit.dyn ? budget : fit.dyn);
+    L = make_layout<BM, OutT, Dir>(wr, budget < fit.dyn ? budget : fit.dyn,
+                                   packed);
   }
+  return L;
+}
+
+// The maps both kernels read: x in 64-column boxes of BM rows, W1 in the
+// orientation's boxes (Forward L.lw lanes x kK k rows, Backward 64 k x
+// L.lw lane rows), each in the swizzle of its row bytes.
+inline bool map_weight(CUtensorMap* tm, const Mat& m, int box_inner,
+                       int box_outer) {
+  const long dims[3] = {m.inner, m.outer, m.n}, str[2] = {m.ld, m.stack_ld};
+  const int box[3] = {box_inner, box_outer, 1};
+  return make_map(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, m.p, 3, dims, str, 2,
+                  box, swizzle_of(box_inner * 2));
+}
+
+template <int BM, typename Dir>
+bool map_phase1(CUtensorMap* tm_x, CUtensorMap* tm_w1, const Operands& o,
+                const Layout& L) {
+  const long x_dims[2] = {o.d_k, o.T}, x_str[1] = {o.d_k};
+  const int x_box[2] = {64, BM};
+  return make_map(tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, o.x, 2, x_dims,
+                  x_str, 2, x_box, swizzle_of(128)) &&
+         (Dir::kBwd ? map_weight(tm_w1, o.w1, 64, L.lw)
+                    : map_weight(tm_w1, o.w1, L.lw, kK));
+}
+
+// Launch on ``st``: grid (T / BM, column CTAs), ``col_splits`` CTAs
+// sharing a row block's columns, each a whole number of kCols blocks.
+template <int BM, typename OutT, typename Dir, typename Seg_>
+cudaError_t launch_rows(const Operands& o, const Seg_& seg, int wr,
+                        int block_t, int col_splits, cudaStream_t st) {
+  static const Fit fit = fit_of(lora_kernel<BM, OutT, Seg_, Dir>);
+  if (fit.err != cudaSuccess) return fit.err;
+  if (wr % 16 || wr > kMaxWidth || o.T % BM || block_t % BM)
+    return cudaErrorInvalidValue;
+  const int blocks = (o.d_n + kCols - 1) / kCols;
+  const int per = (blocks + col_splits - 1) / col_splits * kCols;
+  const dim3 grid(o.T / BM, (o.d_n + per - 1) / per);
+  const Layout L = fit_layout<BM, OutT, Dir>(
+      fit, static_cast<int>(grid.x * grid.y), wr, false);
   if (L.total == 0) return cudaErrorInvalidValue;
 
   constexpr int kOut = static_cast<int>(sizeof(OutT));
   constexpr int bc = BM * kOut <= 128 ? BM : 128 / kOut;
-  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap tm_x, tm_a, tm_b, tm_o;
-  const long x_dims[2] = {o.d_in, o.T}, x_str[1] = {o.d_in};
-  const int x_box[2] = {64, BM};
-  const long a_dims[3] = {o.a_cols, o.d_in, o.a_n};
-  const long a_str[2] = {o.a_row, o.a_k};
-  const int a_box[3] = {L.lw, kK, 1};
-  const long b_dims[3] = {o.d_out, o.b_rows, o.b_n};
-  const long b_str[2] = {o.b_row, o.b_k};
-  const int b_box[3] = {64, wr, 1};
-  const long o_dims[2] = {o.d_out, o.T}, o_str[1] = {o.d_out};
+  CUtensorMap tm_x, tm_w1, tm_w2, tm_o;
+  const long o_dims[2] = {o.d_n, o.T}, o_str[1] = {o.d_n};
   const int o_box[2] = {bc, 16};
   const bool ok =
-      make_map(&tm_x, bf, o.x, 2, x_dims, x_str, 2, x_box,
-               swizzle_of(128)) &&
-      make_map(&tm_a, bf, o.a, 3, a_dims, a_str, 2, a_box,
-               swizzle_of(L.lw * 2)) &&
-      make_map(&tm_b, bf, o.b, 3, b_dims, b_str, 2, b_box,
-               swizzle_of(128)) &&
-      make_map(&tm_o, kOut == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : bf,
+      map_phase1<BM, Dir>(&tm_x, &tm_w1, o, L) &&
+      (Dir::kBwd ? map_weight(&tm_w2, o.w2, L.lw, kCols)
+                 : map_weight(&tm_w2, o.w2, 64, wr)) &&
+      make_map(&tm_o,
+               kOut == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                o.out, 2, o_dims, o_str, kOut, o_box, swizzle_of(bc * kOut));
   if (!ok) return cudaErrorInvalidValue;
-  lora_fwd_kernel<BM, OutT, Seg_><<<grid, kThreads, L.total, st>>>(
-      tm_x, tm_a, tm_b, tm_o, seg, o.d_in, o.d_out, wr, block_t, per, L);
+  lora_kernel<BM, OutT, Seg_, Dir><<<grid, kThreads, L.total, st>>>(
+      tm_x, tm_w1, tm_w2, tm_o, seg, o.d_k, o.d_n, wr, block_t, per, L);
+  return cudaGetLastError();
+}
+
+// Phase 1 alone on ``st``: grid (T / BM), out (T, R) bf16 in unswizzled
+// 64-lane boxes of BM rows.
+template <int BM, typename Dir, typename Seg_>
+cudaError_t launch_packed_rows(const Operands& o, const Seg_& seg, int wr,
+                               int block_t, cudaStream_t st) {
+  static const Fit fit = fit_of(lora_packed_kernel<BM, Seg_, Dir>);
+  if (fit.err != cudaSuccess) return fit.err;
+  if (wr % 16 || wr > kMaxWidth || o.T % BM || block_t % BM)
+    return cudaErrorInvalidValue;
+  const dim3 grid(o.T / BM);
+  const Layout L = fit_layout<BM, __nv_bfloat16, Dir>(
+      fit, static_cast<int>(grid.x), wr, true);
+  if (L.total == 0) return cudaErrorInvalidValue;
+
+  CUtensorMap tm_x, tm_w1, tm_o;
+  const long o_dims[2] = {o.d_n, o.T}, o_str[1] = {o.d_n};
+  const int o_box[2] = {64, BM};
+  const bool ok =
+      map_phase1<BM, Dir>(&tm_x, &tm_w1, o, L) &&
+      make_map(&tm_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, o.out, 2, o_dims,
+               o_str, 2, o_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return cudaErrorInvalidValue;
+  lora_packed_kernel<BM, Seg_, Dir><<<grid, kThreads, L.total, st>>>(
+      tm_x, tm_w1, tm_o, seg, o.d_k, o.d_n, wr, block_t, L);
   return cudaGetLastError();
 }
 
 // ``rows``: 64, 32 or 16 token rows a CTA (the wrapper's geometry).
-template <typename OutT, typename Seg_>
+template <typename OutT, typename Dir, typename Seg_>
 int launch(const Operands& o, const Seg_& seg, int wr, int block_t, int rows,
            int col_splits, cudaStream_t st) {
   if (col_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (rows) {
     case 64:
-      err = launch_rows<64, OutT>(o, seg, wr, block_t, col_splits, st);
+      err = launch_rows<64, OutT, Dir>(o, seg, wr, block_t, col_splits, st);
       break;
     case 32:
-      err = launch_rows<32, OutT>(o, seg, wr, block_t, col_splits, st);
+      err = launch_rows<32, OutT, Dir>(o, seg, wr, block_t, col_splits, st);
       break;
     case 16:
-      err = launch_rows<16, OutT>(o, seg, wr, block_t, col_splits, st);
+      err = launch_rows<16, OutT, Dir>(o, seg, wr, block_t, col_splits, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <typename Dir, typename Seg_>
+int launch_packed(const Operands& o, const Seg_& seg, int wr, int block_t,
+                  int rows, cudaStream_t st) {
+  cudaError_t err;
+  switch (rows) {
+    case 64:
+      err = launch_packed_rows<64, Dir>(o, seg, wr, block_t, st);
+      break;
+    case 32:
+      err = launch_packed_rows<32, Dir>(o, seg, wr, block_t, st);
+      break;
+    case 16:
+      err = launch_packed_rows<16, Dir>(o, seg, wr, block_t, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -13,11 +13,13 @@
 //
 // dgrad, xa and dxa read the per-token-tile table of the forward kernel
 // ((first packed column, padded width, true rank) of the tile's adapter,
-// RaggedMeta.tile_table) and run the CTA routines of lora_tile.cuh: the
-// dgrad is the forward routine with dy_s for x and both operands read
-// transposed in place; xa and dxa are its phase 1 alone.  Every entry of
-// xa and dxa outside the token's own segment is written as zero (Pallas
-// leaves those blocks unwritten; the reference never reads them).
+// RaggedMeta.tile_table) and run the LoRA routine of lora_fwd.cuh, the
+// forward's (B1): the dgrad in its Backward orientation (dy_s for x, B's
+// segment rows as W1 = B_seg^T, A's segment columns as W2 = A_seg^T, both
+// read in place); dxa is its phase 1 alone in that orientation, xa phase
+// 1 alone in the Forward one.  Every entry of xa and dxa outside the
+// token's own segment is written as zero (Pallas leaves those blocks
+// unwritten; the reference never reads them).
 //
 // wgrad runs the two-pass routine of lora_tile.cuh, the grouped wgrad's
 // (grouped.cu): the adapter of each token tile and each adapter's packed
@@ -33,111 +35,63 @@
 // Bound on the H100: bytes, as for the forward (ragged_lora.cu): each
 // token's work is (true rank) x (d_in + d_out) multiply-adds against the
 // 2 (d_in + d_out) bytes of its activation rows, far under the 295
-// flop/byte ridge at LoRA ranks.  What the design does about it: every
-// operand is staged once per CTA with 16-byte loads, and the wgrad reads
-// v once for up to 64 lanes of a segment; dgrad CTAs that split columns
-// still recompute their rows' dxa.
+// flop/byte ridge at LoRA ranks (dgrad at the training step, T 8192,
+// 2048 -> 2048: 0.030 ms; xa, dxa 0.011 ms).  What the design does about
+// it: dy_s or x is read from device memory once, in TMA boxes, by CTAs of
+// 64, 32 or 16 rows, and the output leaves as boxes (the routine's
+// notes); the wgrad reads v once for up to 64 lanes of a segment.
+#include "lora_fwd.cuh"
 #include "lora_tile.cuh"
 
-namespace {
-
-using namespace repro;
-using namespace nvcuda;
-
-// ----------------------------------------------------------------- dgrad
-__global__ void __launch_bounds__(lora::kThreads)
-ragged_dgrad_kernel(const __nv_bfloat16* __restrict__ dy,
-                    const __nv_bfloat16* __restrict__ a,
-                    const __nv_bfloat16* __restrict__ b,
-                    const int* __restrict__ tiles, float* __restrict__ dx,
-                    int T, int d_in, int d_out, int R, int block_t,
-                    int cols_per_cta) {
-  __shared__ lora::Smem s;
-  const int row0 = blockIdx.x * lora::kRows;
-  const int tile = row0 / block_t;     // block_t % 16 == 0: one adapter
-  const int col0 = tiles[3 * tile];
-  const int width = tiles[3 * tile + 1];
-  const int rank = tiles[3 * tile + 2];
-  const int col_begin = blockIdx.y * cols_per_cta;
-  // phase 1 reads B_seg^T (d_out x width): B rows col0.. hold it with
-  // stride d_out; phase 2 reads A_seg^T (width x d_in): A columns col0..
-  // with stride R
-  lora::lora_rows<float, true>(
-      dy + static_cast<long>(row0) * d_out, d_out,
-      b + static_cast<long>(col0) * d_out, d_out, a + col0, R, width, rank,
-      d_out, d_in, min(lora::kRows, T - row0), col_begin,
-      lora::col_end_of(col_begin, cols_per_cta, d_in),
-      dx + static_cast<long>(row0) * d_in, d_in, s);
-}
-
-// -------------------------------------------------------------- xa / dxa
-// kTrans = false: xa  = x    · A_seg    (A columns col0.., stride R)
-// kTrans = true:  dxa = dy_s · B_seg^T  (B rows col0.., stride d)
-template <bool kTrans>
-__global__ void __launch_bounds__(lora::kThreads)
-ragged_packed_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ w,
-                     const int* __restrict__ tiles,
-                     __nv_bfloat16* __restrict__ out, int T, int d, int R,
-                     int block_t) {
-  __shared__ lora::Smem s;
-  const int row0 = blockIdx.x * lora::kRows;
-  const int tile = row0 / block_t;
-  const int col0 = tiles[3 * tile];
-  const int width = tiles[3 * tile + 1];
-  const int rank = tiles[3 * tile + 2];
-  const int n_rows = min(lora::kRows, T - row0);
-  const __nv_bfloat16* seg =
-      kTrans ? w + static_cast<long>(col0) * d : w + col0;
-  lora::xa_rows<kTrans>(x + static_cast<long>(row0) * d, d, seg,
-                        kTrans ? d : R, width, rank, d, n_rows, s);
-  // the token's own segment from s.xa, every other packed column zero
-  for (int i = threadIdx.x; i < lora::kRows * R; i += lora::kThreads) {
-    const int r = i / R, c = i % R;
-    if (r >= n_rows) continue;
-    const int lane = c - col0;
-    out[static_cast<long>(row0 + r) * R + c] =
-        (lane >= 0 && lane < width) ? s.xa[r][lane] : bf16_zero();
-  }
-}
-
-}  // namespace
-
+// dx (T, d_in) f32 = Σ mask(dy_s · B_seg^T) · A_seg^T.  max_width: the
+// widest segment; rows: token rows a CTA (64, 32 or 16, dividing
+// block_t); col_splits: CTAs sharing one row block's d_in columns.  The
+// wrapper picks both (fused_lora.lora_fwd_geometry over d_in) and checks
+// the operands.
 extern "C" int ragged_dgrad_launch(const void* dy, const void* a,
                                    const void* b, const void* tiles,
                                    void* dx, int T, int d_in, int d_out,
-                                   int R, int block_t, int col_groups,
-                                   void* stream) {
-  const int per = repro::lora::cols_per_cta(d_in, col_groups);
-  dim3 grid((T + repro::lora::kRows - 1) / repro::lora::kRows,
-            (d_in + per - 1) / per);
-  ragged_dgrad_kernel<<<grid, repro::lora::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<const int*>(tiles),
-      static_cast<float*>(dx), T, d_in, d_out, R, block_t, per);
-  return static_cast<int>(cudaGetLastError());
+                                   int R, int max_width, int block_t,
+                                   int rows, int col_splits, void* stream) {
+  using namespace repro;
+  lora_fwd::Operands o{};
+  o.x = static_cast<const __nv_bfloat16*>(dy);
+  o.w1 = lora_fwd::packed_b(b, R, d_out);
+  o.w2 = lora_fwd::packed_a(a, d_in, R);
+  o.out = dx;
+  o.T = T;
+  o.d_k = d_out;
+  o.d_n = d_in;
+  return lora_fwd::launch<float, lora_fwd::Backward>(
+      o, lora_fwd::RaggedSeg{static_cast<const int*>(tiles)},
+      (max_width + 15) / 16 * 16, block_t, rows, col_splits,
+      static_cast<cudaStream_t>(stream));
 }
 
-// transposed = 0: xa (x, A); transposed = 1: dxa (dy_s, B)
+// The packed (T, R) bf16 phase 1: transposed = 0, xa = x · A_seg (x (T,
+// d), w = A (d, R)); transposed = 1, dxa = dy_s · B_seg^T (dy_s (T, d), w
+// = B (R, d)).  rows: token rows a CTA (fused_lora.lora_packed_rows).
 extern "C" int ragged_packed_launch(const void* x, const void* w,
                                     const void* tiles, void* out, int T,
-                                    int d, int R, int block_t,
-                                    int transposed, void* stream) {
-  dim3 grid((T + repro::lora::kRows - 1) / repro::lora::kRows);
+                                    int d, int R, int max_width, int block_t,
+                                    int rows, int transposed, void* stream) {
+  using namespace repro;
+  lora_fwd::Operands o{};
+  o.x = static_cast<const __nv_bfloat16*>(x);
+  o.w1 = transposed ? lora_fwd::packed_b(w, R, d)
+                    : lora_fwd::packed_a(w, d, R);
+  o.out = out;
+  o.T = T;
+  o.d_k = d;
+  o.d_n = R;
+  const lora_fwd::RaggedSeg seg{static_cast<const int*>(tiles)};
+  const int wr = (max_width + 15) / 16 * 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const __nv_bfloat16*>(x);
-  auto wp = static_cast<const __nv_bfloat16*>(w);
-  auto tp = static_cast<const int*>(tiles);
-  auto op = static_cast<__nv_bfloat16*>(out);
-  if (transposed)
-    ragged_packed_kernel<true><<<grid, repro::lora::kThreads, 0, st>>>(
-        xp, wp, tp, op, T, d, R, block_t);
-  else
-    ragged_packed_kernel<false><<<grid, repro::lora::kThreads, 0, st>>>(
-        xp, wp, tp, op, T, d, R, block_t);
-  return static_cast<int>(cudaGetLastError());
+  return transposed
+             ? lora_fwd::launch_packed<lora_fwd::Backward>(o, seg, wr,
+                                                           block_t, rows, st)
+             : lora_fwd::launch_packed<lora_fwd::Forward>(o, seg, wr,
+                                                          block_t, rows, st);
 }
 
 // The ragged wgrad through the shared two-pass routine of lora_tile.cuh:

@@ -28,27 +28,11 @@
 // output columns split over CTAs only where the row CTAs leave the card
 // under-filled.
 //
-// Summation order: lora_tile.cuh's lora_rows, exactly, so y equals the
-// dgrad routine (B2) fed x, B^T and A^T bit for bit, and bf16(y) equals
-// B6 on one uniform layout.
+// Summation order: the routine's (lora_fwd.cuh), in its Forward
+// orientation, so y equals the dgrad (B2, the Backward orientation) fed
+// x, B^T and A^T bit for bit, and bf16(y) equals B6 on one uniform
+// layout.
 #include "lora_fwd.cuh"
-
-namespace {
-
-using namespace repro;
-
-// The tile's adapter: its packed segment's first column (of A) and row
-// (of B), padded width and true rank, from the per-tile table.
-struct RaggedSeg {
-  const int* tiles;
-
-  __device__ lora_fwd::Seg at(int tile) const {
-    const int col0 = tiles[3 * tile];
-    return {col0, 0, col0, 0, tiles[3 * tile + 1], tiles[3 * tile + 2]};
-  }
-};
-
-}  // namespace
 
 // max_width: the widest segment of the layout; rows: token rows a CTA
 // (64, 32 or 16, dividing block_t); col_splits: CTAs that share one row
@@ -60,24 +44,17 @@ extern "C" int ragged_lora_fwd_launch(const void* x, const void* a,
                                       int R, int max_width, int block_t,
                                       int rows, int col_splits,
                                       void* stream) {
-  repro::lora_fwd::Operands o{};
+  using namespace repro;
+  lora_fwd::Operands o{};
   o.x = static_cast<const __nv_bfloat16*>(x);
-  o.a = static_cast<const __nv_bfloat16*>(a);
-  o.a_cols = R;
-  o.a_row = R;
-  o.a_k = static_cast<long>(R) * d_in;
-  o.a_n = 1;
-  o.b = static_cast<const __nv_bfloat16*>(b);
-  o.b_rows = R;
-  o.b_row = d_out;
-  o.b_k = static_cast<long>(R) * d_out;
-  o.b_n = 1;
+  o.w1 = lora_fwd::packed_a(a, d_in, R);
+  o.w2 = lora_fwd::packed_b(b, R, d_out);
   o.out = out;
   o.T = T;
-  o.d_in = d_in;
-  o.d_out = d_out;
-  return repro::lora_fwd::launch<float>(
-      o, RaggedSeg{static_cast<const int*>(tiles)},
+  o.d_k = d_in;
+  o.d_n = d_out;
+  return lora_fwd::launch<float, lora_fwd::Forward>(
+      o, lora_fwd::RaggedSeg{static_cast<const int*>(tiles)},
       (max_width + 15) / 16 * 16, block_t, rows, col_splits,
       static_cast<cudaStream_t>(stream));
 }

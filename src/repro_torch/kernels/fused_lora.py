@@ -69,14 +69,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# The LoRA forward's launch geometry (B1 and B6, csrc/lora_fwd.cuh): the
-# token rows a CTA takes, picked as the grouped product's (the largest of
-# these that divides block_t and still gives 90% of the SMs a CTA: 64 at
-# T 8192, 16 at an N = 4 slice's 2048 and at decode), and how many CTAs
-# share one row block's output columns, more than one only where the row
-# CTAs alone leave 10% of the SMs idle.  Column blocks are
-# LORA_FWD_COL_BLOCK wide.  It changes no result: each element is summed
-# in one order whatever the tiling (chip_smoke.py checks it bit for bit).
+# The launch geometry of the LoRA routine (csrc/lora_fwd.cuh: B1, B6, and
+# B2 over dx's d_in columns): the token rows a CTA takes, picked as the
+# grouped product's (the largest of these that divides block_t and still
+# gives 90% of the SMs a CTA: 64 at T 8192, 16 at an N = 4 slice's 2048
+# and at decode), and how many CTAs share one row block's output columns,
+# more than one only where the row CTAs alone leave 10% of the SMs idle.
+# Column blocks are LORA_FWD_COL_BLOCK wide.  Phase 1 alone (B3, B4)
+# takes the same rows and no column split: each CTA writes whole packed
+# rows.  It changes no result: each element is summed in one order
+# whatever the tiling (chip_smoke.py checks it bit for bit).
 LORA_FWD_ROWS = (64, 32, 16)
 LORA_FWD_COL_BLOCK = 128
 
@@ -100,6 +102,12 @@ def lora_fwd_geometry(T: int, d_out: int, block_t: int,
         return rows, 1
     blocks = -(-d_out // LORA_FWD_COL_BLOCK)
     return rows, max(1, min(blocks, -(-sms // row_ctas)))
+
+
+def lora_packed_rows(T: int, block_t: int, sms: int) -> int:
+    """Rows per CTA of the routine's phase 1 alone (B3 ``ragged_xa``, B4
+    ``ragged_dxa``) on a card with *sms* multiprocessors."""
+    return _cta_rows(T, block_t, sms, LORA_FWD_ROWS)
 
 
 def check_fused_lora_operands(x: torch.Tensor, A: torch.Tensor,

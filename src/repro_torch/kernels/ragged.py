@@ -18,8 +18,9 @@ The masked intermediate is rounded to the input dtype before a second
 product, as the TPU kernels do; xa and dxa are zero outside seg(t), and
 wgrad rows of adapters that own no token tile are zero.  On a CUDA
 tensor each wrapper launches its Hopper kernel (``csrc/ragged_lora.cu``
-for the forward, ``csrc/ragged_bwd.cu`` for the other four) and counts
-the launch; on a CPU tensor it runs its ``*_plain`` version, the same
+for the forward, ``csrc/ragged_bwd.cu`` for the other four; the first
+four through the LoRA routine of ``csrc/lora_fwd.cuh``) and counts the
+launch; on a CPU tensor it runs its ``*_plain`` version, the same
 function in plain PyTorch.
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 from repro_torch.core.lora import RankLayout
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_lora import (WGRAD_CHUNK_TILES,
-                                            lora_fwd_geometry, wgrad_partial,
+                                            lora_fwd_geometry,
+                                            lora_packed_rows, wgrad_partial,
                                             wgrad_pieces)
 
 
@@ -226,8 +228,8 @@ _ARGTYPES = {
     # (library, entry point): (pointer args, int args); a stream pointer
     # follows them all
     ("ragged_lora", "ragged_lora_fwd_launch"): (5, 8),
-    ("ragged_bwd", "ragged_dgrad_launch"): (5, 6),
-    ("ragged_bwd", "ragged_packed_launch"): (4, 5),
+    ("ragged_bwd", "ragged_dgrad_launch"): (5, 8),
+    ("ragged_bwd", "ragged_packed_launch"): (4, 7),
     ("ragged_bwd", "ragged_wgrad_launch"): (6, 7),
 }
 
@@ -260,8 +262,9 @@ def check_kernel_operands(what: str, tensors, block_t: int,
     """What the CUDA kernels take, checked before any build (raises
     ValueError otherwise): contiguous bf16 tensors, one adapter per CTA's
     rows (block_t a multiple of 16), segments of at most 256 lanes,
-    16-byte staging (dims and the rank tile multiples of 8), all on one
-    CUDA device."""
+    packed rows of whole 16-byte units (R * 2 bytes, the tensor maps'
+    row stride of A and of xa / dxa), 16-byte vectors (dims and the rank
+    tile multiples of 8), all on one CUDA device."""
     for name, t in tensors:
         build.require(t.dtype == torch.bfloat16 and t.is_contiguous(),
                       f"{what}: {name} must be a contiguous bf16 tensor")
@@ -269,6 +272,8 @@ def check_kernel_operands(what: str, tensors, block_t: int,
                   "multiple of 16 (one CTA's rows must share an adapter)")
     build.require(max(meta.r_pads) <= 256, f"{what}: rank segments wider "
                   "than 256 lanes are not supported by the CUDA kernel")
+    build.require(meta.total_r * 2 % 16 == 0, f"{what}: R={meta.total_r}: "
+                  "packed rows of R * 2 bytes must be whole 16-byte units")
     build.require_vectors([t for _, t in tensors], *extents, meta.r_blk)
     dev = tensors[0][1].device
     build.require(dev.type == "cuda", f"{what}: unsupported device {dev}")
@@ -319,13 +324,14 @@ def ragged_lora_dgrad(dy_s: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     check_kernel_operands("ragged_lora_dgrad",
                           (("dy_s", dy_s), ("A", A), ("B", B)), block_t,
                           meta, (d_in, d_out))
+    rows, splits = lora_fwd_geometry(T, d_in, block_t,
+                                     build.sm_count(dy_s.device))
     dx = torch.empty((T, d_in), dtype=torch.float32, device=dy_s.device)
     lib, fn = _entry("ragged_bwd", "ragged_dgrad_launch")
-    groups = build.col_groups(T // 16, d_in, 128, dy_s.device)
     err = fn(build.ptr(dy_s), build.ptr(A), build.ptr(B),
              build.ptr(_device_table(meta, dy_s.device)), build.ptr(dx), T,
-             d_in, d_out, meta.total_r, block_t, groups,
-             build.stream_ptr(dy_s.device))
+             d_in, d_out, meta.total_r, max(meta.r_pads), block_t, rows,
+             splits, build.stream_ptr(dy_s.device))
     build.check(lib, err, "ragged_lora_dgrad")
     ragged_lora_dgrad.launches += 1
     return dx
@@ -335,11 +341,12 @@ def _packed(what: str, x: torch.Tensor, w: torch.Tensor, meta: RaggedMeta,
             block_t: int, transposed: bool) -> torch.Tensor:
     T, d = x.shape
     check_kernel_operands(what, (("x", x), ("w", w)), block_t, meta, (d,))
+    rows = lora_packed_rows(T, block_t, build.sm_count(x.device))
     out = torch.empty((T, meta.total_r), dtype=x.dtype, device=x.device)
     lib, fn = _entry("ragged_bwd", "ragged_packed_launch")
     err = fn(build.ptr(x), build.ptr(w),
              build.ptr(_device_table(meta, x.device)), build.ptr(out), T, d,
-             meta.total_r, block_t, int(transposed),
+             meta.total_r, max(meta.r_pads), block_t, rows, int(transposed),
              build.stream_ptr(x.device))
     build.check(lib, err, what)
     return out

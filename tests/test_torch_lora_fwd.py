@@ -79,9 +79,9 @@ def test_lora_fwd_source_never_splits_the_contraction():
         text = re.sub(r"//[^\n]*", "", (CSRC / name).read_text())
         assert "atomic" not in text.lower(), name
     assert re.findall(r"const dim3 grid\((.*)\);", code) == [
-        "o.T / BM, (o.d_out + per - 1) / per"]
+        "o.T / BM, (o.d_n + per - 1) / per", "o.T / BM"]
     assert "blockIdx.z" not in code
-    assert "const int n_st = (d_in + kK - 1) / kK;" in code
+    assert "const int n_st = (d_k + kK - 1) / kK;" in code
     assert "for (int i = 0; i < n_st; ++i)" in code
     assert "for (int lane0 = 0; lane0 < wpad; lane0 += kLanes)" in code
     assert "for (int rc = 0; rc < n_rc; ++rc)" in code
