@@ -35,7 +35,10 @@ each on standard output:
             lines carry the B7 pair's time (``pair_ms``), B1 and B6 on
             2048-token slices, and B2, B3 and B4 at the train shapes and
             on a 2048-token slice, are timed at 64, 32 and 16 rows a CTA
-            (``ms_rows_*``);
+            (``ms_rows_*``); then the "torch" route (``_RaggedTorch``,
+            ``_MaskedTorch``) against the kernels' Functions on the same
+            inputs (``torch_route`` lines: forward and backward at the
+            training shapes, forward at decode, each timed alone);
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -53,15 +56,30 @@ each on standard output:
             pair per adapter) and against the other kernel family (the
             densified masked route of a nano slice), one job's fused loss
             against its solo loss, and one profiled step;
-  train_uniform — the same for ranks {16, 8, 4, 2}, which all pad to 16:
-            the masked kernels and their backward (grouped product and
-            grouped wgrad), held against the ragged kernels on the same
-            layout (the loop impl's gradients reported);
+  train_torch — the train cell through impl="torch" (the same adapters
+            and batches): per-job losses within 0.02 of the "cuda" run,
+            one step's adapter gradients within 0.05 of "cuda"'s, no LoRA
+            kernel launched and the flash forward 44 times a step, the
+            steady step beside the "cuda" one, peak device memory;
+  train_uniform — the same as train for ranks {16, 8, 4, 2}, which all
+            pad to 16: the masked kernels and their backward (grouped
+            product and grouped wgrad), held against the ragged kernels
+            on the same layout (the loop impl's gradients reported);
+  train_uniform_torch — train_uniform through impl="torch" (the masked
+            torch path), as train_torch;
   nano    — the mixed group at nano_batches 1 (ragged kernels) and 4
             (contiguous slices, densified, masked kernels) on the same
             batches, per-step per-job losses held together, exact launch
             counts at N = 4, the cost of densifying, one profiled N = 4
             step; then ``train_group`` with AIMD on, its N trajectory;
+  pipeline — the mixed group twice from one state and one data seed,
+            12 steps in chunks of 4: chunk after chunk (``dispatch_chunk``
+            without a prefetch, then ``collect_chunk``) and ``run`` (the
+            next chunk staged behind the running one); adapters, Adam
+            moments and losses equal bit for bit, asserted; the
+            synchronizing calls of one dispatch (and where they are
+            made); each run's wall and steady step, two profiled chunks
+            of each (device busy and idle share);
   elastic — a uniform group trains and checkpoints every member; two of
             its jobs move into a mixed group beside a fresh rank-64 job,
             then one of them trains alone; its losses against a control
@@ -81,9 +99,21 @@ each on standard output:
             vocab 256000) cut to 2 layers: ``train_group`` over the train
             group's ranks, exact launches per step (flash 2 a layer),
             finite per-job losses, peak device memory, one step's adapter
-            gradients against the "loop" impl.
+            gradients against the "loop" impl;
+  calibrate — ``OnlineCalibrator(H100)`` fed the steady steps of train,
+            train_uniform, nano (N = 1 and 4) and quant: the fitted
+            constants (mfu_cap, launch and step overheads) and each
+            phase's predicted against measured step;
+  engine  — an ``ElasticEngine`` priced with that calibrated spec: jobs of
+            ranks 8, 16 and 64 arrive and are scheduled, train 4 steps; a
+            rank-32 job arrives and the scheduler regroups; one move is
+            forced; every job trains to its budget of 12 steps
+            (asserted), a moved job against itself alone (losses within
+            0.02, asserted); the regroup stalls and the calibrated
+            regroup cost before and after.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
+beside their Function's) and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
 without the rest of the repository beside it, it exits 2 and prints no
 result.
@@ -330,6 +360,15 @@ def compare(got, want) -> dict:
                       (err / w.abs().clamp_min(1e-3)).max().item())
     return {"max_abs_err": abs_err, "max_rel_err": rel_err,
             "within_tol": ok}
+
+
+def compare_scaled(got, want) -> dict:
+    """``compare`` with each pair divided by the largest |value| of its
+    plain side first: a tolerance relative to the tensor, for sums over
+    thousands of tokens whose terms the two sides round differently."""
+    scale = [b.float().abs().max().clamp_min(1e-30) for b in want]
+    return compare(tuple(a.float() / c for a, c in zip(got, scale)),
+                   tuple(b.float() / c for b, c in zip(want, scale)))
 
 
 def make_requests(seed: int, names, vocab: int):
@@ -1599,9 +1638,10 @@ def adapter_grads(cfg, params, specs, impl, adapters, batch,
 
 
 def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
-                expect=TRAIN_LAUNCHES, loop_rtol=GRAD_RTOL):
+                expect=TRAIN_LAUNCHES, loop_rtol=GRAD_RTOL, measured=None):
     """``loop_rtol`` bounds the cuda-vs-loop gradient error where it is
-    asserted (None: reported only; see the uniform phase in main)."""
+    asserted (None: reported only; see the uniform phase in main).  The
+    steady step goes into ``measured`` (the calibrate phase's input)."""
     import numpy as np
     import torch
     from repro_torch.core.lora import rank_axis_is_last
@@ -1721,6 +1761,9 @@ def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
                              f"gradients differ: {grad_check}")
     if fused_vs_solo["abs_diff"] > LOSS_ATOL:
         raise AssertionError(f"{phase}: fused vs solo loss: {fused_vs_solo}")
+    if measured is not None:
+        measured[phase] = dict(ranks=ranks, nano=1, dtype="bf16",
+                               step_s=steady)
     return launches, losses, steady
 
 
@@ -1811,7 +1854,8 @@ def tree_bytes(tree) -> int:
                          else (leaf,)))
 
 
-def quant_phase(cfg, params, sets, bf16_losses, bf16_step, dev):
+def quant_phase(cfg, params, sets, bf16_losses, bf16_step, dev,
+                measured=None):
     """The int8 backbone: quantize once; train the ``train`` group on the
     same batches (launches per step, losses against the bf16 run, the
     steady step against the bf16 run's ``bf16_step`` of this call, one
@@ -1858,6 +1902,9 @@ def quant_phase(cfg, params, sets, bf16_losses, bf16_step, dev):
         raise AssertionError("quant: the backbone must be int8 and the "
                              "adapters not")
     steady = float(np.mean(rep.step_times[TRAIN_CHUNK:]))
+    if measured is not None:
+        measured["quant"] = dict(ranks=TRAIN_RANKS, nano=1, dtype="int8",
+                                 step_s=steady)
     padded = TRAIN_STEPS * len(specs) * TRAIN_BATCH * TRAIN_SEQ
 
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -1985,8 +2032,9 @@ def unpack_dense_cost(cfg, layout, dev):
             "ms_per_step": per_layer * cfg.num_layers * 2 * NANO_N}
 
 
-def nano_phase(cfg, params, dev):
-    """The mixed group at N = 1 and N = 4 on the same batches, then AIMD."""
+def nano_phase(cfg, params, dev, measured=None):
+    """The mixed group at N = 1 and N = 4 on the same batches, then AIMD;
+    the steady steps at N = 1 and 4 go into ``measured``."""
     import numpy as np
     import torch
     from repro_torch.core.ssm import SharedSuperModel
@@ -2012,6 +2060,10 @@ def nano_phase(cfg, params, dev):
     steady = {n: float(np.mean(runs[n]["report"].step_times[TRAIN_CHUNK:]))
               for n in runs}
     prof = profile_run(functools.partial(runs[NANO_N]["runtime"].run, 1))
+    for n in runs:
+        if measured is not None:
+            measured[f"nano_n{n}"] = dict(ranks=TRAIN_RANKS, nano=n,
+                                          dtype="bf16", step_s=steady[n])
 
     # AIMD: train_group's default, fed each chunk's mean step time
     aimd_steps = AIMD_CHUNKS * TRAIN_CHUNK
@@ -2127,6 +2179,488 @@ def elastic_phase(cfg, params, dev, tmp):
     return launches
 
 
+# ------------------------------------------------ the "torch" route
+class _Ctx:
+    """A stand-in for autograd's context: a Function's forward and
+    backward called directly, so that each is timed alone."""
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+
+def torch_route_cases(rows, dev) -> list:
+    """The "torch" route (``_RaggedTorch``, ``_MaskedTorch``: the
+    reference's "xla" path in plain PyTorch) against the kernels'
+    Functions (``_RaggedLoRA``: B1 forward, B2-B5 backward;
+    ``_MaskedLoRA``: B6 forward, B7 and B8 backward) on the same inputs:
+    the training shapes (T 8192, 2048 -> 2048 and 2048 -> 256; the train
+    and train_uniform groups, equal segments) and the serving decode
+    (forward only, the one-hot fallback: a serving context has no segment
+    rows).  Outputs compared at the kernel tolerance, y and dx, dA, dB
+    each divided by its largest |value| first (``compare_scaled``): the
+    routes round at other points, as the reference's "pallas" and "xla"
+    do (the masked kernel rounds the unscaled product to bf16 and scales
+    it after, the torch route scales in f32; the kernels round dy_s and
+    dxa to bf16, the torch route keeps them f32), and with alpha / r up
+    to 8, or a wgrad summing 8192 tokens, one ulp of an intermediate is
+    many of a small output element; y's elementwise comparison is
+    recorded beside (``fwd_elementwise``).  Each forward and backward
+    timed alone, device ms from torch.profiler."""
+    import torch
+    from repro_torch.kernels.ops import (_MaskedLoRA, _MaskedTorch,
+                                         _RaggedLoRA, _RaggedTorch,
+                                         _tile_jobs_static)
+    from repro_torch.kernels.ragged import RaggedMeta
+    g = torch.Generator(device=dev).manual_seed(2)
+    d_in = 2048
+    shapes = [("train", (TRAIN_BATCH,) * len(TRAIN_RANKS), TRAIN_SEQ,
+               TRAIN_BLOCK_T, d_out) for d_out in (2048, 256)]
+    shapes.append(("decode", rows, 1, BLOCK_T, 2048))
+    results = []
+    for step, rws, seq, bt, d_out in shapes:
+        T = sum(rws) * seq
+        tile_jobs = _tile_jobs_static(rws, seq, bt)
+        ids = torch.tensor(tile_jobs, dtype=torch.int32,
+                           device=dev).repeat_interleave(bt)
+        # the serving context carries no segment rows: decode takes the
+        # one-hot fallback, as a serve through impl="torch" would
+        equal = step == "train" and len(set(rws)) == 1
+        for route, ranks in (
+                ("ragged", TRAIN_RANKS if step == "train" else MIXED),
+                ("masked", UNIFORM_RANKS if step == "train" else UNIFORM)):
+            lay, x, A, B = lora_operands(ranks, d_in, d_out, T, g, dev)
+            scal = torch.tensor([16.0 / r for r in ranks], device=dev)
+            dy = torch.randn((T, d_out), generator=g,
+                             device=dev).to(torch.bfloat16)
+            if route == "ragged":
+                meta = RaggedMeta.build(tile_jobs, lay)
+                fns = (_RaggedLoRA, (x, A, B, ids, scal, meta, bt),
+                       _RaggedTorch, (x, A, B, ids, scal, lay, equal))
+            else:
+                K, rp = lay.num_jobs, lay.r_pads[0]
+                A_st = A.reshape(d_in, K, rp).movedim(-2, -3)
+                B_st = B.reshape(K, rp, d_out)
+                rk = torch.tensor(ranks, dtype=torch.int32, device=dev)
+                fns = (_MaskedLoRA, (x, A_st, B_st, ids, rk, scal, bt),
+                       _MaskedTorch, (x, A_st, B_st, ids, rk, scal, equal))
+            kfn, kargs, tfn, targs = fns
+            kctx, tctx = _Ctx(), _Ctx()
+            y_k = kfn.forward(kctx, *kargs)
+            y_t = tfn.forward(tctx, *targs)
+            torch.cuda.synchronize()
+            res = {"name": "torch_route", "route": route, "step": step,
+                   "shape": dict(T=T, d_in=d_in, d_out=d_out,
+                                 equal_segments=equal),
+                   "fwd": compare_scaled((y_t,), (y_k,)),
+                   "fwd_elementwise": compare(y_t, y_k),
+                   "fwd_ms": device_ms(lambda: kfn.forward(_Ctx(), *kargs)),
+                   "torch_fwd_ms": device_ms(
+                       lambda: tfn.forward(_Ctx(), *targs))}
+            if step == "train":
+                g_k = kfn.backward(kctx, dy)[:3]
+                g_t = tfn.backward(tctx, dy)[:3]
+                torch.cuda.synchronize()
+                res.update(bwd=compare_scaled(g_t, g_k),
+                           bwd_ms=device_ms(lambda: kfn.backward(kctx, dy)),
+                           torch_bwd_ms=device_ms(
+                               lambda: tfn.backward(tctx, dy)))
+            emit({"phase": "kernels", **res})
+            for part in ("fwd", "bwd"):
+                if part in res and not res[part]["within_tol"]:
+                    raise AssertionError(
+                        f"torch route ({route}, {step}, d_out {d_out}) "
+                        f"{part} disagrees with the kernels: {res}")
+            results.append(res)
+    return results
+
+
+# Launches per step through impl="torch": no LoRA kernel, the flash
+# forward as in every training step
+TORCH_LAUNCHES = {k: (v if k == "flash_attention_fwd" else 0)
+                  for k, v in TRAIN_LAUNCHES.items()}
+
+
+def torch_phase(cfg, params, dev, *, phase, ranks, cuda_losses, cuda_step,
+                measured, held_steps=TRAIN_STEPS):
+    """The ``phase`` cell (train or train_uniform: the same job ids, so the
+    same data streams, and the same adapters) through impl="torch": per-job
+    losses against the "cuda" run of this call (the first ``held_steps``
+    steps asserted within LOSS_ATOL, every step reported), one step's
+    adapter gradients "torch" against "cuda", no LoRA kernel launched, the
+    flash forward 44 times a step; the steady step beside the "cuda"
+    one."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.train.train_loop import train_group
+
+    name = phase + "_torch"
+    specs = train_specs(ranks, prefix=phase)
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    adapters = train_adapters(cfg, ranks, layout, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: train_group(
+        cfg, specs, steps=TRAIN_STEPS, lr=TRAIN_LR, seed=0, impl="torch",
+        block_t=TRAIN_BLOCK_T, chunk_size=TRAIN_CHUNK, remat=True,
+        adaptive_nano=False, params=params, adapters=adapters, device=dev))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    per_step = check_launches(name, launches, TRAIN_STEPS, TORCH_LAUNCHES)
+    rep = out["report"]
+    losses = np.stack(rep.per_job_losses)
+    per_step_diff = np.abs(losses - cuda_losses).max(axis=1)
+    diff = float(per_step_diff[:held_steps].max())
+    steady = float(np.mean(rep.step_times[TRAIN_CHUNK:]))
+    measured[name] = dict(ranks=ranks, nano=1, dtype="bf16", step_s=steady)
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=1).next_batch().items()}
+    g_torch = adapter_grads(cfg, params, specs, "torch", out["adapters"],
+                            batch)
+    g_cuda = adapter_grads(cfg, params, specs, "cuda", out["adapters"],
+                           batch)
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(g_torch, g_cuda)]
+    prof = profile_run(functools.partial(out["runtime"].run, 1))
+    emit({"phase": name, "model": cfg.name, "layers": cfg.num_layers,
+          "route": "masked" if layout.is_uniform else "ragged",
+          "jobs": [{"id": sp.job_id, "rank": sp.rank, "r_pad": rp_}
+                   for sp, rp_ in zip(specs, layout.r_pads)],
+          "steps": TRAIN_STEPS, "chunk_size": TRAIN_CHUNK,
+          "per_step_per_job_loss": losses.tolist(),
+          "max_abs_loss_diff_vs_cuda": diff, "atol": LOSS_ATOL,
+          "held_steps": held_steps,
+          "max_abs_loss_diff_vs_cuda_per_step": per_step_diff.tolist(),
+          "step_times_s": rep.step_times, "wall_s": wall,
+          "step_s_steady": steady, "step_s_steady_cuda": cuda_step,
+          "step_ratio_torch_vs_cuda": steady / cuda_step,
+          "peak_device_memory_bytes": peak,
+          "launches": launches, "launches_per_step": per_step,
+          "grad_check_torch_vs_cuda": {
+              "leaves": len(rel), "max_rel_fro_err": max(rel),
+              "mean_rel_fro_err": float(np.mean(rel)), "rtol": GRAD_RTOL},
+          "profile_one_step": prof, "card": card_line()})
+    if diff > LOSS_ATOL:
+        raise AssertionError(f"{name}: torch vs cuda per-job losses differ "
+                             f"by {diff}")
+    if max(rel) > GRAD_RTOL:
+        raise AssertionError(f"{name}: torch vs cuda adapter gradients "
+                             f"differ by {max(rel)}")
+    return launches
+
+
+# The kernels' Function each wrapper runs in, and the part of it
+TORCH_ROUTE_OF = {"ragged_lora_fwd": ("ragged", "fwd"),
+                  "ragged_lora_dgrad": ("ragged", "bwd"),
+                  "ragged_xa": ("ragged", "bwd"),
+                  "ragged_dxa": ("ragged", "bwd"),
+                  "ragged_wgrad": ("ragged", "bwd"),
+                  "fused_lora_cuda": ("masked", "fwd"),
+                  "grouped_matmul_cuda": ("masked", "bwd"),
+                  "grouped_wgrad_cuda": ("masked", "bwd")}
+
+
+# ---------------------------------------------------------- pipeline
+PIPE_STEPS = 12                   # steps of each run of the pipeline phase
+
+
+def _same_state(a, b) -> dict:
+    """Bit-equality of two runtimes' adapters, Adam moments, Adam steps
+    and per-job losses."""
+    import numpy as np
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    same = lambda x, y: all(torch.equal(p, q) for p, q in
+                            zip(tree_leaves(x), tree_leaves(y)))
+    return {"adapters": same(a.adapters, b.adapters),
+            "adam_mu": same(a.opt_state.mu, b.opt_state.mu),
+            "adam_nu": same(a.opt_state.nu, b.opt_state.nu),
+            "adam_step": torch.equal(a.opt_state.step, b.opt_state.step),
+            "per_job_loss": bool(np.array_equal(
+                np.stack(a.report.per_job_losses),
+                np.stack(b.report.per_job_losses)))}
+
+
+def sync_calls(fn):
+    """(fn's result, the synchronizing CUDA calls it made): each warning
+    of ``torch.cuda.set_sync_debug_mode("warn")``, named by the Python
+    stack that made the call (its innermost frames, "file:line func").
+    The mode switch's own warning is the instrument's, not fn's: counted,
+    it names ``set_sync_debug_mode`` itself as its site."""
+    import traceback
+    import warnings
+    import torch
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            if stack[-1].name == "set_sync_debug_mode":
+                return
+            sites.append(" <- ".join(
+                f"{os.path.relpath(f.filename, ROOT) if f.filename.startswith(ROOT) else os.path.basename(f.filename)}"
+                f":{f.lineno} {f.name}" for f in reversed(stack[-6:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sites
+
+
+def pipeline_phase(cfg, params, dev):
+    """The mixed group from one initial state and one data seed, PIPE_STEPS
+    steps in chunks of TRAIN_CHUNK, twice: sequential (each chunk
+    dispatched without a prefetch, then collected) and pipelined
+    (``run``: each chunk dispatched with the next one staged behind it).
+    Adapters, Adam moments and per-job losses must be equal bit for bit;
+    the synchronizing calls inside one dispatch are counted; each run's
+    wall and steady step, and two profiled chunks of each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+
+    specs = train_specs(TRAIN_RANKS, prefix="pipe")
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+    kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T,
+              chunk_size=TRAIN_CHUNK, remat=True, seed=0, device=dev)
+    seq = GroupRuntime.from_specs(cfg, specs, params=params,
+                                  adapters=adapters, **kw)
+    piped = GroupRuntime.from_specs(cfg, specs, params=params,
+                                    adapters=adapters, **kw)
+    warm_s = {"sequential": seq.warm([TRAIN_CHUNK]),
+              "pipelined": piped.warm([TRAIN_CHUNK])}
+
+    def sequential():
+        for _ in range(PIPE_STEPS // TRAIN_CHUNK):
+            seq.collect_chunk(seq.dispatch_chunk(TRAIN_CHUNK, prefetch=0))
+
+    walls = {}
+    t0 = time.perf_counter()
+    _, launches_seq = counted(sequential)
+    walls["sequential"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, launches_piped = counted(lambda: piped.run(PIPE_STEPS))
+    walls["pipelined"] = time.perf_counter() - t0
+    equal = _same_state(seq, piped)
+    steady = {k: float(np.mean(rt.report.step_times[TRAIN_CHUNK:]))
+              for k, rt in (("sequential", seq), ("pipelined", piped))}
+
+    # the synchronizing calls of one dispatch (with its prefetch)
+    pending, syncs = sync_calls(
+        lambda: seq.dispatch_chunk(TRAIN_CHUNK, prefetch=TRAIN_CHUNK))
+    seq.collect_chunk(pending)
+    seq.discard_staged()
+    prof = {"sequential": profile_run(lambda: [
+                seq.collect_chunk(seq.dispatch_chunk(TRAIN_CHUNK))
+                for _ in range(2)]),
+            "pipelined": profile_run(lambda: piped.run(2 * TRAIN_CHUNK))}
+    emit({"phase": "pipeline", "model": cfg.name,
+          "jobs": [{"id": sp.job_id, "rank": sp.rank} for sp in specs],
+          "steps": PIPE_STEPS, "chunk_size": TRAIN_CHUNK,
+          "bit_equal_sequential_vs_pipelined": equal,
+          "warm_s": warm_s, "wall_s": walls,
+          "wall_per_step_s": {k: v / PIPE_STEPS for k, v in walls.items()},
+          "step_s_steady": steady,
+          "sync_calls_in_one_dispatch": len(syncs),
+          "sync_call_sites": sorted(set(syncs)),
+          "profile_two_chunks": {
+              k: {f: p.get(f) for f in ("wall_s", "device_busy_s",
+                                        "device_idle_share",
+                                        "device_kernels")}
+              for k, p in prof.items()},
+          "launches": {"sequential": launches_seq,
+                       "pipelined": launches_piped},
+          "card": card_line()})
+    if not all(equal.values()):
+        raise AssertionError(f"pipeline: sequential and pipelined runs "
+                             f"differ: {equal}")
+    for name, lc in (("sequential", launches_seq),
+                     ("pipelined", launches_piped)):
+        check_launches(f"pipeline {name}", lc, PIPE_STEPS, TRAIN_LAUNCHES)
+    return {k: launches_seq[k] + launches_piped[k] for k in launches_seq}
+
+
+# --------------------------------------------------------- calibrate
+def calibrate_phase(cfg, measured):
+    """``OnlineCalibrator(H100)`` fed the steady step times this run
+    measured (train, train_uniform, nano at N = 1 and 4, quant): the
+    fitted constants per bucket (K = 4 jobs, bf16 or int8 backbone) and
+    each phase's predicted against measured step.  ``min_obs`` = 1: the
+    int8 bucket has one measurement (the ratio fit through it)."""
+    from repro_torch.core import throughput as tp
+    from repro_torch.core.jobs import LoRAJobSpec
+
+    def jobs(ranks):
+        return [LoRAJobSpec(f"cal{i}", rank=r, batch_size=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ) for i, r in enumerate(ranks)]
+
+    fed = {k: v for k, v in measured.items()
+           if k in ("train", "train_uniform", "nano_n1", "nano_n4", "quant")}
+    cal = tp.OnlineCalibrator(tp.H100, min_obs=1)
+    before = {k: tp.group_step_cost(cfg, jobs(m["ranks"]), 1, hw=tp.H100,
+                                    nano_batches=m["nano"]).total
+              for k, m in fed.items()}
+    for m in fed.values():
+        cal.observe(cfg, jobs(m["ranks"]), 1, m["step_s"],
+                    backbone_dtype=m["dtype"], nano_batches=m["nano"])
+    fits = {}
+    for dtype in ("bf16", "int8"):
+        hw = cal.hw_for(cfg.name, 1, 4, dtype)
+        fits[dtype] = {"alpha_beta": cal.fit(cfg.name, 1, 4, dtype),
+                       "mfu_cap": hw.mfu_cap, "hbm_bw": hw.hbm_bw,
+                       "launch_overhead": hw.launch_overhead,
+                       "step_overhead": hw.step_overhead}
+    rows = {k: {"measured_s": m["step_s"], "predicted_h100_s": before[k],
+                "predicted_calibrated_s": cal.predict(
+                    cfg, jobs(m["ranks"]), 1, backbone_dtype=m["dtype"],
+                    nano_batches=m["nano"]),
+                "nano_batches": m["nano"], "backbone": m["dtype"]}
+            for k, m in fed.items()}
+    emit({"phase": "calibrate", "model": cfg.name, "base": "H100",
+          "fits": fits, "steps": rows, "summary": cal.summary(),
+          "card": card_line()})
+    if len(fed) < 5 or cal.fit(cfg.name, 1, 4, "bf16") is None:
+        raise AssertionError(f"calibrate: no fit from {sorted(fed)}")
+    return cal.hw_for(cfg.name, 1, 4, "bf16")
+
+
+# ------------------------------------------------------------ engine
+ENGINE_RANKS, ENGINE_LATE = (8, 16, 64), 32    # the three, then the fourth
+ENGINE_BUDGET = 12                             # steps a job trains
+
+
+def engine_phase(cfg, params, dev, hw):
+    """An ``ElasticEngine`` priced with the calibrated H100 spec: three
+    jobs arrive and are scheduled, train TRAIN_CHUNK steps; a fourth
+    arrives and the scheduler regroups (its stall and the jobs it moved
+    recorded); one move forced with ``set_grouping``, so that migration
+    runs on the card whatever the scheduler chose (its stall recorded;
+    both fed to ``observe_regroup``); then every job trains until it
+    retires at its budget.  A job that moved is held to the same job
+    trained alone for as many steps."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core import throughput as tp
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.scheduler import AdapterScheduler, SchedulerConfig
+    from repro_torch.elastic import ElasticEngine
+    from repro_torch.elastic.runtime import GroupRuntime
+
+    cal = tp.OnlineCalibrator(hw)
+    eng = ElasticEngine(cfg, params=params, scheduler=AdapterScheduler(
+        cfg, SchedulerConfig(hw=hw), calibrator=cal), impl="cuda",
+        block_t=TRAIN_BLOCK_T, lr=TRAIN_LR, chunk_size=TRAIN_CHUNK,
+        remat=True, seed=0, device=dev)
+
+    def spec(i, r):
+        return LoRAJobSpec(f"eng{i}-r{r}", rank=r, batch_size=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, steps_budget=ENGINE_BUDGET,
+                           max_slowdown=2.0)
+
+    fresh, losses = {}, {}
+
+    def add(s):
+        fresh[s.job_id] = copy.deepcopy(eng.add_job(s))
+        losses[s.job_id] = []
+
+    def run(steps):
+        for gkey, rep in eng.run(steps).items():
+            for i, jid in enumerate(gkey):
+                losses[jid].extend(float(l[i])
+                                   for l in rep.per_job_losses[-steps:])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        for rt in eng._runtimes.values():    # pause-to-resume: ready to run
+            rt.warm()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def homes():
+        return {j: g for g in eng.current_grouping() for j in g}
+
+    cost_before = cal.regroup_cost(cfg.name)
+    counts = {}
+    for i, r in enumerate(ENGINE_RANKS):
+        add(spec(i, r))
+    first = eng.reschedule()
+    _, counts["first"] = counted(lambda: run(TRAIN_CHUNK))
+    late = spec(len(ENGINE_RANKS), ENGINE_LATE)
+    add(late)
+    was = homes()
+    second, stall_sched = timed(eng.reschedule)
+    moved_sched = sorted(j for j, g in homes().items()
+                         if j in was and g != was[j])
+    # force a move: one group of all four, or split it when that is what
+    # the scheduler chose
+    ids = [s for s in fresh]
+    target = ([tuple(ids[:2]), tuple(ids[2:])]
+              if any(len(g) == len(ids) for g in eng.current_grouping())
+              else [tuple(ids)])
+    was = homes()
+    diff, stall_forced = timed(lambda: eng.set_grouping(target))
+    moved_forced = sorted(j for j, g in homes().items() if g != was[j])
+    for s in (stall_sched, stall_forced):
+        cal.observe_regroup(cfg.name, s)
+    rounds = 0
+    while eng.job_ids:
+        _, counts[f"round{rounds}"] = counted(lambda: run(TRAIN_CHUNK))
+        rounds += 1
+        if rounds > ENGINE_BUDGET:
+            raise AssertionError("engine: jobs never retired")
+    done = {j: st.steps_done for j, st in eng.finished.items()}
+    # a moved job against itself alone, from its arrival state
+    job = moved_forced[0]
+    alone = GroupRuntime.from_states(cfg, params, [fresh[job]],
+                                     impl="cuda", block_t=TRAIN_BLOCK_T,
+                                     lr=TRAIN_LR, chunk_size=TRAIN_CHUNK,
+                                     remat=True, seed=0, device=dev)
+    alone.run(ENGINE_BUDGET)
+    want = [float(l[0]) for l in alone.report.per_job_losses]
+    diff_alone = float(np.abs(np.asarray(losses[job])
+                              - np.asarray(want)).max())
+    launches = {k: sum(c[k] for c in counts.values())
+                for k in counts["first"]}
+    emit({"phase": "engine", "model": cfg.name, "hw": "H100, calibrated",
+          "jobs": {j: {"rank": st.spec.rank, "budget": st.spec.steps_budget,
+                       "steps_done": st.steps_done}
+                   for j, st in eng.finished.items()},
+          "grouping_first": first, "grouping_after_arrival": second,
+          "moved_by_scheduler": moved_sched,
+          "regroup_stall_s_scheduler": stall_sched,
+          "forced_grouping": target, "forced_diff": diff,
+          "moved_forced": moved_forced,
+          "regroup_stall_s_forced": stall_forced,
+          "regroup_events": eng.regroup_events,
+          "regroup_cost_s": {"before": cost_before,
+                             "after": cal.regroup_cost(cfg.name)},
+          "moved_job": job, "losses_moved": losses[job],
+          "losses_alone": want, "max_abs_loss_diff_vs_alone": diff_alone,
+          "atol": LOSS_ATOL, "rounds_after_regroup": rounds,
+          "launches": launches, "card": card_line()})
+    if done != {j: ENGINE_BUDGET for j in fresh}:
+        raise AssertionError(f"engine: steps done {done}, budget "
+                             f"{ENGINE_BUDGET}")
+    if diff_alone > LOSS_ATOL:
+        raise AssertionError(f"engine: moved job {job} vs alone: "
+                             f"{diff_alone}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -2179,25 +2713,44 @@ def main() -> int:
     assert rows == rows_u and S == S_u, "both sets share one geometry"
 
     kern = kernels_phase(rows, S, dev)
+    troute = torch_route_cases(rows, dev)
     from repro_torch.models import model as M
     params = M.init_model(cfg, seed=0, device=dev)
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    measured = {}                 # steady steps: the calibrate phase's input
     counts = {"serve": serve_phase(cfg, params, sets, dev)}
-    counts["train"], bf16_losses, bf16_step = train_phase(cfg, params, dev)
+    counts["train"], bf16_losses, bf16_step = train_phase(
+        cfg, params, dev, measured=measured)
+    counts["train_torch"] = torch_phase(
+        cfg, params, dev, phase="train", ranks=TRAIN_RANKS,
+        cuda_losses=bf16_losses, cuda_step=bf16_step, measured=measured)
     # the uniform group's scalings alpha / r reach 8 (rank 2): there the
     # loop impl's unrounded x·A moves the gradients by more than
     # GRAD_RTOL (7.2% after 8 steps, PERF.md), so the phase asserts the
     # masked kernels' gradients against the ragged kernels' (ROUTE_RTOL)
     # and reports the loop's
-    counts["train_uniform"], _, _ = train_phase(
+    counts["train_uniform"], uni_losses, uni_step = train_phase(
         cfg, params, dev, phase="train_uniform", ranks=UNIFORM_RANKS,
-        expect=MASKED_LAUNCHES, loop_rtol=None)
-    counts["nano"] = nano_phase(cfg, params, dev)
+        expect=MASKED_LAUNCHES, loop_rtol=None, measured=measured)
+    # the uniform group's alpha / r reaches 8 (rank 2): the two routes'
+    # one-ulp rounding differences, amplified 8x in the LoRA delta and
+    # through Adam's normalized updates, move its losses apart by 0.028
+    # at step 4 and 0.034 at step 8 (PERF.md §6), against 0.0017 by
+    # step 2; so its first step (the same adapters: the forward alone) is
+    # held to LOSS_ATOL, every step reported, and its gradients asserted
+    counts["train_uniform_torch"] = torch_phase(
+        cfg, params, dev, phase="train_uniform", ranks=UNIFORM_RANKS,
+        cuda_losses=uni_losses, cuda_step=uni_step, measured=measured,
+        held_steps=1)
+    counts["nano"] = nano_phase(cfg, params, dev, measured=measured)
+    counts["pipeline"] = pipeline_phase(cfg, params, dev)
     counts["elastic"] = elastic_phase(cfg, params, dev, ckpt_dir)
     counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, bf16_step,
-                                  dev)
+                                  dev, measured=measured)
     counts["wide"] = wide_phase(dev)
+    hw = calibrate_phase(cfg, measured)
+    counts["engine"] = engine_phase(cfg, params, dev, hw)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))
@@ -2268,6 +2821,16 @@ def main() -> int:
         for key in ("cublas_bf16_ms", "pair_ms"):
             if key in head:
                 summary[-1][key] = head[key]
+        if name in TORCH_ROUTE_OF:
+            # the "torch" route's same-function time beside the kernels'
+            # Function (forward: B1 or B6 alone; backward: B2-B5 or B7 +
+            # B8 together), same inputs, this run
+            route, part = TORCH_ROUTE_OF[name]
+            summary[-1]["torch_route"] = [
+                {"step": t["step"], "d_out": t["shape"]["d_out"],
+                 "part": part, "function_ms": t[part + "_ms"],
+                 "torch_ms": t["torch_" + part + "_ms"]}
+                for t in troute if t["route"] == route and part + "_ms" in t]
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
-"""LoRA job specifications (port of ``repro.core.jobs``; framework-free)."""
+"""LoRA job specifications and the scheduler's view of a running job
+(port of ``repro.core.jobs``; framework-free)."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 DEFAULT_TARGETS = ("q", "k", "v", "o")   # per paper: attention projections
 
@@ -46,3 +47,32 @@ class LoRAJobSpec:
     @property
     def scaling(self) -> float:
         return self.alpha / self.rank
+
+
+@dataclass
+class JobRuntimeState:
+    """Mutable scheduler-side view of a job (urgency, residuals, progress)."""
+    spec: LoRAJobSpec
+    steps_done: int = 0
+    standalone_step_time: float = 0.0      # profiled isolated iteration time
+    current_step_time: float = 0.0         # observed in current group
+    queue_time: float = 0.0
+    start_time: Optional[float] = None
+    finish_time: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.steps_done >= self.spec.steps_budget
+
+    def slowdown(self) -> float:
+        """Δ_j: observed step-time inflation vs standalone execution."""
+        if self.standalone_step_time <= 0 or self.current_step_time <= 0:
+            return 1.0
+        return self.current_step_time / self.standalone_step_time
+
+    def urgency(self) -> float:
+        """u_j: proximity to violating the progress constraint (paper §3.4).
+
+        >1 means the job is already past its bound; higher sorts earlier.
+        """
+        return self.slowdown() / max(self.spec.max_slowdown, 1e-9)

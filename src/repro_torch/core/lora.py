@@ -12,9 +12,11 @@ stored PACKED along the rank axis with per-adapter padding:
 ``y_t = scaling[a] * ((x_t @ A[seg_a]) @ B[seg_a])`` without ever forming
 A B^T.  Implementations: "ref" (gather oracle over a densified stack),
 "loop" (one GEMM pair per adapter), "cuda" (the hand-written Hopper
-kernels via kernels/ops.py; their plain PyTorch versions on CPU tensors).
-The "torch" mirror of the reference's bucket-concatenated "xla" path is
-not ported yet.
+kernels via kernels/ops.py; their plain PyTorch versions on CPU tensors)
+and "torch" (the reference's "xla" path in plain PyTorch: segment-dense
+batched products per rank bucket, or per stacked group for a uniform
+layout, with the reference's hand-written backward; no kernel of this
+repository runs).
 """
 from __future__ import annotations
 
@@ -174,8 +176,10 @@ class MultiLoRA:
     adapter_ids: torch.Tensor         # (B,) int32 per-sequence adapter index
     ranks: torch.Tensor               # (K,) int32
     scalings: torch.Tensor            # (K,) f32   alpha_i / r_i
-    impl: str = "ref"                 # ref | loop | cuda
+    impl: str = "ref"                 # ref | loop | cuda | torch
     block_t: int = 128                # kernel token tile
+    seg_rows: Optional[int] = None    # static max rows per adapter segment
+    equal_segments: bool = False      # every adapter contributes seg_rows
     layout: Optional[RankLayout] = None
     rows_all: Optional[Tuple[int, ...]] = None   # static per-job rows of
     #                                   the full fused batch
@@ -203,6 +207,11 @@ class MultiLoRA:
         bsz, seq, d_in = x.shape
         xf = x.reshape(bsz * seq, d_in)
         ids = self.token_ids(bsz, seq)
+        # the "torch" impl's batched path: this batch is the full fused
+        # batch and every adapter owns seg_rows of its rows
+        eq = (self.equal_segments
+              and self.seg_rows is not None
+              and bsz == self.seg_rows * self.num_adapters)
         if (self.layout is not None and self.layout.is_uniform
                 and self.impl in ("torch", "cuda")):
             # uniform padded widths: the packed (d, K*rp) pair reshapes
@@ -215,15 +224,17 @@ class MultiLoRA:
             B_st = B.reshape(K, rp, B.shape[-1])
             out = ops.fused_lora(xf, A_st, B_st, ids, self.ranks,
                                  self.scalings, impl=self.impl,
-                                 block_t=self.block_t)
+                                 block_t=self.block_t, equal_segments=eq)
         elif self.layout is not None:
             out = ops.fused_lora_ragged(
                 xf, A, B, ids, self.scalings, self.layout, impl=self.impl,
-                block_t=self.block_t, slice_rows=self._slice_rows(bsz),
-                seq_len=seq, ranks=self.ranks)
+                block_t=self.block_t, equal_segments=eq,
+                slice_rows=self._slice_rows(bsz), seq_len=seq,
+                ranks=self.ranks)
         else:
             out = ops.fused_lora(xf, A, B, ids, self.ranks, self.scalings,
-                                 impl=self.impl, block_t=self.block_t)
+                                 impl=self.impl, block_t=self.block_t,
+                                 equal_segments=eq)
         return out.reshape(bsz, seq, -1)
 
 

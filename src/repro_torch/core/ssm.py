@@ -15,7 +15,8 @@ into a single executable model:
     N slices, per-job denominators taken over the full batch).
 
 Not ported yet, and refused where asked for: the sharded and pipeline
-steps (ROADMAP queue A, item 13).
+steps (ROADMAP queue A, multi-GPU); ``pipeline_legal_stages``, the
+scheduler's view of the pipeline depths a config allows, is here.
 """
 from __future__ import annotations
 
@@ -41,12 +42,16 @@ class SharedSuperModel:
     """One fused group: frozen backbone + K packed adapters."""
     cfg: ModelConfig
     jobs: List[LoRAJobSpec]
-    impl: str = "cuda"           # fused-LoRA kernel impl (cuda|ref|loop)
+    impl: str = "cuda"           # fused-LoRA impl (cuda|torch|ref|loop)
     block_t: int = 128           # token tile of the LoRA kernels
 
     ranks: np.ndarray = field(init=False)
     scalings: np.ndarray = field(init=False)
     layout: RankLayout = field(init=False)
+    # (ranks, scalings, packed column -> job) per device, copied once: a
+    # host-to-device copy per step would synchronize every dispatch
+    _consts: Dict[torch.device, Tuple[torch.Tensor, ...]] = field(
+        init=False, default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         assert self.jobs, "SSM needs at least one job"
@@ -76,15 +81,48 @@ class SharedSuperModel:
         return [tile_rows(j.batch_size, j.seq_len, self.block_t)
                 for j in self.jobs]
 
+    def device_consts(self, device) -> Tuple[torch.Tensor, ...]:
+        """(ranks, scalings, packed column -> job) on *device*, copied on
+        first use."""
+        dev = torch.device(device)
+        if dev not in self._consts:
+            self._consts[dev] = (
+                torch.as_tensor(self.ranks, device=dev),
+                torch.as_tensor(self.scalings, device=dev),
+                torch.as_tensor(self.layout.col_jobs, dtype=torch.long,
+                                device=dev))
+        return self._consts[dev]
+
+    def warm(self, device) -> None:
+        """Everything a step reads from the host once, ahead of the first
+        step on *device*: the device constants and, for the "cuda" impl on
+        a CUDA device, the kernel libraries (built if missing) and the
+        ragged kernels' tile tables of the full fused batch."""
+        dev = torch.device(device)
+        self.device_consts(dev)
+        if self.impl != "cuda" or dev.type != "cuda":
+            return
+        from repro_torch.kernels import build
+        from repro_torch.kernels import ragged as rg
+        from repro_torch.kernels.ops import _tile_jobs_static
+        for name in build.SOURCES:
+            build.load(name)
+        tiles = _tile_jobs_static(self.rows_per_job(), self.jobs[0].seq_len,
+                                  self.block_t)
+        if tiles is not None and not self.layout.is_uniform:
+            meta = rg.RaggedMeta.build(tiles, self.layout)
+            rg._device_table(meta, dev)
+            rg._device_wgrad_tables(meta, dev)
+
     def lora_ctx(self, adapter_ids: torch.Tensor) -> MultiLoRA:
         """Apply context of one fused batch (single device)."""
-        dev = adapter_ids.device
-        return MultiLoRA(adapter_ids=adapter_ids,
-                         ranks=torch.as_tensor(self.ranks, device=dev),
-                         scalings=torch.as_tensor(self.scalings, device=dev),
-                         impl=self.impl, block_t=self.block_t,
-                         layout=self.layout,
-                         rows_all=tuple(self.rows_per_job()))
+        rows = self.rows_per_job()
+        ranks, scalings, _ = self.device_consts(adapter_ids.device)
+        return MultiLoRA(adapter_ids=adapter_ids, ranks=ranks,
+                         scalings=scalings, impl=self.impl,
+                         block_t=self.block_t, seg_rows=max(rows),
+                         equal_segments=len(set(rows)) == 1,
+                         layout=self.layout, rows_all=tuple(rows))
 
     # --------------------------------------------------------- train step
     def make_train_step(self, *, lr_fn: Callable, nano_batches: int = 1,
@@ -110,7 +148,6 @@ class SharedSuperModel:
         if mesh is not None or pipeline_stages > 1:
             raise NotImplementedError(NO_MESH)
         cfg, K = self.cfg, self.num_jobs
-        col_jobs = self.layout.col_jobs
 
         def train_step(params, adapters, opt_state, batch):
             denom = _per_job_token_counts(batch, K, causal=cfg.causal)
@@ -143,7 +180,8 @@ class SharedSuperModel:
             lr = lr_fn(opt_state.step)
             new_adapters, new_opt = adamw.update(
                 grads, opt_state, adapters, lr=lr,
-                weight_decay=weight_decay, col_jobs=col_jobs)
+                weight_decay=weight_decay,
+                col_jobs=self.device_consts(denom.device)[2])
             metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
                        "lr": torch.as_tensor(lr)}
             return new_adapters, new_opt, metrics
@@ -237,3 +275,14 @@ def valid_nano_counts(rows: int, max_n: Optional[int] = None, *,
     if stages > 1:
         out = [n for n in out if n >= stages]
     return out
+
+
+def pipeline_legal_stages(cfg: ModelConfig) -> List[int]:
+    """Legal pipeline depths for *cfg*: divisors of the scanned stack's
+    cycle count (each stage must hold a whole number of cycles)."""
+    plan = M.segment_plan(cfg)
+    idx = [i for i, s in enumerate(plan) if s.scanned]
+    if len(idx) != 1:
+        return [1]
+    r = plan[idx[0]].repeats
+    return [p for p in range(1, r + 1) if r % p == 0]

@@ -3,13 +3,24 @@
 
 The runtime owns one SSM's training state — frozen backbone, packed
 adapter tree, per-job AdamW state, fused batcher, AIMD nano-batch
-controller, step cache — and ``run(steps)`` advances the whole group in
-chunks: each chunk stages its batches on the device in one copy, runs its
-steps back to back and reads the metrics back to the host once, at its
-end.  State enters and leaves through ``JobTrainState``
-(``elastic/migrate.py``): ``from_states`` fuses members, ``export``
-takes one out, ``save_checkpoints`` writes every member's per-job file
-and ``publish_to`` hands the adapters to a serving ``AdapterPool``.
+controller, step cache — and advances the whole group in chunks, each
+split in two as in the reference:
+
+  * ``dispatch_chunk`` enqueues every launch of a chunk and returns a
+    ``PendingChunk`` whose metrics are still device tensors; it makes no
+    synchronizing call.  With ``prefetch`` it then builds the next
+    chunk's batches on the host while the device runs this one, and
+    stages them from pinned memory by copies that do not wait;
+  * ``collect_chunk`` makes the chunk's one host read (the metrics), and
+    folds it into the report, feeds AIMD and fires the checkpoint and
+    publish hooks.
+
+``run(steps)`` is the loop over the two.  State enters and leaves through
+``JobTrainState`` (``elastic/migrate.py``): ``from_states`` fuses
+members, ``export`` takes one out, ``refresh_member`` overwrites one with
+a fresher export before the first step (the replay-exact handoff),
+``save_checkpoints`` writes every member's per-job file and
+``publish_to`` hands the adapters to a serving ``AdapterPool``.
 
 ``quantize="int8"`` stores the frozen backbone as int8 codes with f32
 per-channel scales (models/quant), quantized once, before the step is
@@ -18,8 +29,7 @@ built; an already quantized tree (a migrated group reusing its donor's
 state never quantize.
 
 Not ported yet, and refused where asked for: meshes (ROADMAP queue A,
-item 13).  ``refresh_member`` and the elastic engine around the runtime
-are queued (item 9).
+multi-GPU).
 """
 from __future__ import annotations
 
@@ -76,6 +86,21 @@ class TrainReport:
         return float(min(self.step_times[-window:]))
 
 
+@dataclass
+class PendingChunk:
+    """One dispatched, uncollected chunk.  ``metrics`` are device tensors
+    whose computation may still be queued on the device; nothing waits
+    for them until ``collect_chunk`` reads them."""
+    metrics: Dict[str, torch.Tensor]
+    length: int
+    t0: float
+    count_aimd: bool = True
+    # stream rng positions as of this chunk's data (taken before any
+    # prefetch advances the batcher): what the checkpoint hook persists,
+    # so a restore resumes on exactly the next unseen tokens
+    stream_states: Optional[List[str]] = None
+
+
 def _clone(tree):
     return adamw.tree_map(lambda _, t: t.detach().clone(), tree)
 
@@ -95,6 +120,7 @@ class GroupRuntime:
                  chunk_size: int = 4, mesh=None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
+                 publish_pool=None, publish_every: int = 0,
                  seed: int = 0, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(NO_MESH)
@@ -141,6 +167,17 @@ class GroupRuntime:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = int(checkpoint_every)
         self._chunks_collected = 0
+        # steps_done at each member's most recent checkpoint write
+        self.last_checkpoint_step: Dict[str, int] = {}
+        # live serving publish: every N collected chunks the members'
+        # host snapshots go to a serve.AdapterPool at the chunk boundary
+        self.publish_pool = publish_pool
+        self.publish_every = int(publish_every)
+        # the prefetched next chunk, and the stream positions before it,
+        # so that discard_staged can un-consume it
+        self._staged: Optional[Dict[str, torch.Tensor]] = None
+        self._staged_len = 0
+        self._staged_rewind: List[str] = []
         self.report = TrainReport(
             samples_per_step=sum(s.batch_size for s in self.specs))
 
@@ -200,26 +237,83 @@ class GroupRuntime:
         return self._step_cache[key]
 
     def _stage(self, n: int) -> Dict[str, torch.Tensor]:
-        """The next *n* fused batches on the device, one copy per key."""
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.batcher.next_batches(n).items()}
+        """The next *n* fused batches on the device (leading chunk axis).
+        On a CUDA device they go through pinned host memory by copies
+        enqueued on the current stream without waiting: behind a running
+        chunk, the device takes them when it gets there.  The caching
+        host allocator records the copy on the stream and hands the
+        pinned block out again only after the copy has completed."""
+        batches = self.batcher.next_batches(n)
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in batches.items()}
+        return {k: torch.from_numpy(v).pin_memory().to(self.device,
+                                                       non_blocking=True)
+                for k, v in batches.items()}
 
-    def run_chunk(self, length: int,
-                  log: Optional[Callable[[str], None]] = None,
-                  count_aimd: bool = True) -> TrainReport:
-        """Run one chunk of *length* steps and fold its metrics into the
-        report: one host read per chunk.  Also feeds AIMD (unless
-        *count_aimd* is False) and fires the periodic checkpoint hook."""
-        log = log or (lambda s: None)
-        rep = self.report
-        L = int(length)
-        staged = self._stage(L)
+    def dispatch_chunk(self, length: Optional[int] = None, *,
+                       prefetch: int = 0,
+                       count_aimd: Optional[bool] = None) -> PendingChunk:
+        """Enqueue one chunk of *length* steps and return at once.
+
+        Returns when every launch of the chunk is enqueued; the metrics
+        stay device tensors until ``collect_chunk``.  A batch staged by
+        an earlier ``prefetch`` is consumed when its length matches;
+        *prefetch* > 0 builds and stages the NEXT chunk's batches right
+        after the launches, so host data work overlaps device compute.
+
+        Collect every pending chunk before ``export`` or migration: the
+        adapters are already the in-flight result while ``steps_done``
+        lags until collection."""
+        from repro_torch.checkpoint.checkpoint import stream_state
+        L = int(length or self.chunk_size)
+        assert L >= 1
+        if self._staged is not None:
+            # a mismatched prefetch would orphan stream data the batcher
+            # already consumed (the lossless contract's data half): a
+            # caller bug, so it fails loudly
+            assert self._staged_len == L, (self._staged_len, L)
+            staged, self._staged = self._staged, None
+        else:
+            staged = self._stage(L)
         step_fn = self._get_step(self.n, L)
         t0 = time.perf_counter()
         self.adapters, self.opt_state, metrics = step_fn(
             self.params, self.adapters, self.opt_state, staged)
-        host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
-        dt = (time.perf_counter() - t0) / L
+        # stream positions BEFORE the prefetch: the checkpoint hook fires
+        # at collect time, after the prefetch has moved the live streams
+        # past data this chunk never trained on
+        streams = ([stream_state(s) for s in self.batcher.streams]
+                   if self.checkpoint_every else None)
+        if prefetch > 0:
+            self._staged_rewind = [stream_state(s)
+                                   for s in self.batcher.streams]
+            self._staged = self._stage(prefetch)
+            self._staged_len = prefetch
+        return PendingChunk(metrics=metrics, length=L, t0=t0,
+                            count_aimd=L > 1 if count_aimd is None
+                            else count_aimd,
+                            stream_states=streams)
+
+    def collect_chunk(self, pending: PendingChunk,
+                      log: Optional[Callable[[str], None]] = None
+                      ) -> TrainReport:
+        """Read *pending*'s metrics to the host (the chunk's one host
+        read) and fold them into the report; also advances the per-job
+        step accounting, feeds AIMD (unless the chunk said not to) and
+        fires the periodic checkpoint and publish hooks."""
+        log = log or (lambda s: None)
+        rep = self.report
+        L = pending.length
+        keys = list(pending.metrics)
+        flat = torch.cat([pending.metrics[k].detach().float().reshape(-1)
+                          .to(self.device) for k in keys]).cpu().numpy()
+        host, at = {}, 0
+        for k in keys:
+            n = pending.metrics[k].numel()
+            host[k] = flat[at:at + n].reshape(pending.metrics[k].shape)
+            at += n
+        dt = (time.perf_counter() - pending.t0) / L
         losses = np.atleast_1d(np.asarray(host["loss"], np.float64))
         rep.last_metrics = host
         rep.steps += L
@@ -230,46 +324,128 @@ class GroupRuntime:
         for jid in self.job_ids:
             self.steps_done[jid] += L
         # AIMD (Eq. 2) fed the chunk's mean step time
-        if self.aimd is not None and count_aimd:
+        if self.aimd is not None and pending.count_aimd:
             self.n = self.aimd.update(dt)
         log(f"steps {rep.steps - L:4d}..{rep.steps - 1:4d} "
             f"loss {losses[-1]:.4f} nano {self.n} dt {dt*1e3:.1f}ms/step")
         self._chunks_collected += 1
-        # no batch is staged ahead, so the live stream positions are the
-        # ones this chunk's state was trained to
         if self.checkpoint_every and \
                 self._chunks_collected % self.checkpoint_every == 0:
-            self.save_checkpoints()
+            self.save_checkpoints(stream_states=pending.stream_states)
+        if self.publish_pool is not None and self.publish_every and \
+                self._chunks_collected % self.publish_every == 0:
+            self.publish_to(self.publish_pool)
         return rep
 
     def run(self, steps: int, log: Optional[Callable[[str], None]] = None,
             chunk_size: Optional[int] = None) -> TrainReport:
         """Advance the whole group by *steps* fused iterations, in chunks
-        of ``chunk_size``.  A remainder shorter than a chunk runs one step
-        at a time; a call with steps < chunk runs as one chunk of its own
-        length (the reference's chunk schedule).  Single-step tails
-        inside a longer run do not feed AIMD: their un-amortized dispatch
-        would read as a slowdown; with ``chunk_size=1`` every step
-        counts."""
+        of ``chunk_size``, each dispatched with the next one prefetched
+        and then collected.  A remainder shorter than a chunk runs one
+        step at a time; a call with steps < chunk runs as one chunk of
+        its own length (the reference's chunk schedule).  Single-step
+        tails inside a longer run do not feed AIMD: their un-amortized
+        dispatch would read as a slowdown; with ``chunk_size=1`` every
+        step counts."""
+        if steps <= 0:
+            return self.report
         chunk = max(1, chunk_size or self.chunk_size)
+
+        def next_len(remaining: int) -> int:
+            return chunk if remaining >= chunk else min(1, remaining)
+
         L = min(chunk, steps)
         done = 0
         while done < steps:
-            self.run_chunk(L, log=log, count_aimd=L > 1 or chunk == 1)
+            nxt = next_len(steps - done - L)
+            pending = self.dispatch_chunk(L, prefetch=nxt,
+                                          count_aimd=L > 1 or chunk == 1)
+            self.collect_chunk(pending, log=log)
             done += L
-            remaining = steps - done
-            L = chunk if remaining >= chunk else min(1, remaining)
+            L = nxt if nxt > 0 else L
         return self.report
 
+    def discard_staged(self):
+        """Drop a prefetched, undispatched batch and rewind the data
+        streams to where they stood before it was staged (a regroup
+        fence landing between chunks: the export must not skip data the
+        job never trained on)."""
+        if self._staged is None:
+            return
+        from repro_torch.checkpoint.checkpoint import restore_stream_state
+        for s, mark in zip(self.batcher.streams, self._staged_rewind):
+            restore_stream_state(s, mark)
+        self._staged = None
+        self._staged_len = 0
+
+    def warm(self, lengths: Optional[Sequence[int]] = None) -> float:
+        """Prepare what the chunks of *lengths* will need before the first
+        of them runs: the step closures, the pinned staging path, the
+        device constants and the kernels' libraries and geometry tables
+        (``SharedSuperModel.warm``).  No compile step exists here.  A
+        probe batch is staged and the streams rewound, so warming
+        consumes no data.  Returns the wall seconds spent."""
+        from repro_torch.checkpoint.checkpoint import (restore_stream_state,
+                                                       stream_state)
+        lengths = [self.chunk_size] if lengths is None else list(lengths)
+        t0 = time.perf_counter()
+        for L in lengths:
+            L = max(1, int(L))
+            if (self.n, L) in self._step_cache:
+                continue
+            marks = [stream_state(s) for s in self.batcher.streams]
+            self._stage(L)
+            for s, mark in zip(self.batcher.streams, marks):
+                restore_stream_state(s, mark)
+            self._get_step(self.n, L)
+        self.ssm.warm(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def refresh_member(self, state: JobTrainState):
+        """Replay-exact handoff of an overlapped migration: overwrite one
+        member's packed slices (adapter, Adam moments, per-job Adam step),
+        its stream and its step count with a FRESHER export of the same
+        job.  A destination built from a stale snapshot (layout and step
+        depend only on the specs) becomes, by pure copy, the group a
+        stop-the-world rebuild at the fence would have built.  Only legal
+        before this runtime's first step and before any staging."""
+        assert self.report.steps == 0, \
+            "refresh_member after stepping would discard trained state"
+        assert self._staged is None, \
+            "refresh_member after staging would train on stale data"
+        from repro_torch.checkpoint.checkpoint import insert_job
+        idx = self.index_of(state.spec.job_id)
+        off, r_cap = self.ssm.layout.slice_of(idx)
+        r = state.spec.rank
+        adapters = insert_job(self.adapters, off, r, state.adapter, r_cap)
+        mu = insert_job(self.opt_state.mu, off, r, state.mu, r_cap)
+        nu = insert_job(self.opt_state.nu, off, r, state.nu, r_cap)
+        step = self.opt_state.step.clone()
+        step[idx] = int(state.opt_step)
+        self.adapters = adapters
+        self.opt_state = adamw.AdamWState(step, mu, nu)
+        self.steps_done[state.spec.job_id] = state.steps_done
+        if state.stream is not None:
+            self.batcher.streams[idx] = copy.deepcopy(state.stream)
+
     # -------------------------------------------------------- checkpoints
-    def save_checkpoints(self, directory: Optional[str] = None) -> List[str]:
+    def save_checkpoints(self, directory: Optional[str] = None, *,
+                         stream_states: Optional[List[str]] = None
+                         ) -> List[str]:
         """Write every member's per-job checkpoint (adapter, Adam moments,
         per-job Adam step, data-stream rng position, steps done) to
         ``<dir>/<job_id>.npz``, the portable format a job restores from
-        into any group, in this package or the reference."""
+        into any group, in this package or the reference.
+        ``stream_states`` overrides the live rng positions: the periodic
+        hook passes the chunk's pre-prefetch positions, the ones its
+        adapter state was trained to."""
         from repro_torch.checkpoint.checkpoint import save_job, stream_state
         directory = directory or self.checkpoint_dir
         assert directory, "no checkpoint_dir configured"
+        if stream_states is None:
+            stream_states = [stream_state(s) for s in self.batcher.streams]
         step_vec = np.atleast_1d(self.opt_state.step.detach().cpu().numpy())
         paths = []
         for idx, spec in enumerate(self.specs):
@@ -279,7 +455,9 @@ class GroupRuntime:
                      self.opt_state,
                      step=int(step_vec[idx % step_vec.size]),
                      meta={"steps_done": self.steps_done[spec.job_id],
-                           "stream": stream_state(self.batcher.streams[idx])})
+                           "stream": stream_states[idx]})
+            self.last_checkpoint_step[spec.job_id] = \
+                self.steps_done[spec.job_id]
             paths.append(path)
         return paths
 

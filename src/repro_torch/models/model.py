@@ -185,6 +185,37 @@ def _adapter_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
             "v": (cfg.d_model, cfg.kv_dim), "o": (cfg.q_dim, cfg.d_model)}
 
 
+def _lora_dims(cfg: ModelConfig, spec: LayerSpec
+               ) -> Dict[str, Tuple[int, int]]:
+    """(d_in, d_out) of every LoRA target of a *spec* layer, every mixer
+    family included (the reference's ``_block_adapter_init`` table)."""
+    dims = dict(_adapter_dims(cfg),
+                ssd_in=(cfg.d_model, 2 * cfg.ssm_d_inner
+                        + 2 * 8 * cfg.ssm_state + cfg.ssm_nheads),
+                ssd_out=(cfg.ssm_d_inner, cfg.d_model),
+                rg_in=(cfg.d_model, cfg.lru_width),
+                rg_gate=(cfg.d_model, cfg.lru_width),
+                rg_out=(cfg.lru_width, cfg.d_model))
+    if spec.mixer == "mla":
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        dims.update(q=(cfg.d_model, cfg.num_heads * qk),
+                    kv_a=(cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                    o=(cfg.num_heads * cfg.v_head_dim, cfg.d_model))
+    return {t: dims[t] for t in spec.lora_targets}
+
+
+def adapter_param_count(cfg: ModelConfig, ranks: Sequence[int]) -> int:
+    """Exact trainable-parameter count (un-padded ranks), for every
+    family the configs name: the pricing needs no ported layers."""
+    total = 0
+    for seg in segment_plan(cfg):
+        for spec in seg.specs:
+            for d_in, d_out in _lora_dims(cfg, spec).values():
+                total += seg.repeats * sum(int(r) * (d_in + d_out)
+                                           for r in ranks)
+    return total
+
+
 def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
                   r_pad: Optional[int] = None,
                   layout: Optional[RankLayout] = None,

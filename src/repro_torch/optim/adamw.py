@@ -84,14 +84,19 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
            ) -> Tuple[Any, AdamWState]:
     step = state.step + 1
     s = step.float()
-    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=s.device)
+    # a scalar lr stays on the host: a CPU scalar multiplies a device
+    # tensor without a host-to-device copy (which would synchronize)
+    lr_t = torch.as_tensor(lr, dtype=torch.float32)
+    if lr_t.ndim:
+        lr_t = lr_t.to(s.device)
     per_job = s.ndim >= 1
     ragged = per_job and col_jobs is not None
     if per_job and not ragged:                 # stacked per-job leaves
         s = s.reshape(s.shape + (1, 1))
         if lr_t.ndim >= 1:
             lr_t = lr_t.reshape(lr_t.shape + (1, 1))
-    cj = (torch.as_tensor(np.asarray(col_jobs), dtype=torch.long,
+    cj = (torch.as_tensor(col_jobs if isinstance(col_jobs, torch.Tensor)
+                          else np.asarray(col_jobs), dtype=torch.long,
                           device=s.device) if ragged else None)
 
     def upd(path, g, m, v, p):
