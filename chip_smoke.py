@@ -104,13 +104,30 @@ each on standard output:
             train_uniform, nano (N = 1 and 4) and quant: the fitted
             constants (mfu_cap, launch and step overheads) and each
             phase's predicted against measured step;
+  simulate — the cluster simulator priced on the H100 spec (host
+            arithmetic, a simulation): the reference launcher's default
+            replay (five systems, 128 chips, 120 jobs, seed 0), each
+            system's summary and its comparison against mLoRA, every job
+            completed and a second run equal (asserted); then a month of
+            tinyllama-1.1b jobs priced through that calibrator, with the
+            count of fitted and base-spec lookups;
   engine  — an ``ElasticEngine`` priced with that calibrated spec: jobs of
             ranks 8, 16 and 64 arrive and are scheduled, train 4 steps; a
             rank-32 job arrives and the scheduler regroups; one move is
             forced; every job trains to its budget of 12 steps
             (asserted), a moved job against itself alone (losses within
             0.02, asserted); the regroup stalls and the calibrated
-            regroup cost before and after.
+            regroup cost before and after;
+  launch  — the launcher's entry points (``repro_torch.launch.train``):
+            ``serve`` (8 requests, 16 new tokens: B6 and B9 launched, B1
+            not, the ids equal ``ServeEngine.serve``'s on the same
+            weights), the SSM's serve steps on a mixed layout (prefill 7
+            tokens, decode the 8th: B1 and B9, the logits against the
+            teacher-forced forward within 0.25), and ``train --impl
+            torch --no-aimd`` for 4 steps at the launcher's defaults
+            (finite losses, no LoRA kernel, 44 flash launches a step, the
+            steady step beside train_uniform_torch's), exact launch
+            counts asserted.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's) and, last, ``{"ok": true, "device":
@@ -2497,7 +2514,8 @@ def calibrate_phase(cfg, measured):
     measured (train, train_uniform, nano at N = 1 and 4, quant): the
     fitted constants per bucket (K = 4 jobs, bf16 or int8 backbone) and
     each phase's predicted against measured step.  ``min_obs`` = 1: the
-    int8 bucket has one measurement (the ratio fit through it)."""
+    int8 bucket has one measurement (the ratio fit through it).  Returns
+    the bf16 K = 4 spec and the calibrator."""
     from repro_torch.core import throughput as tp
     from repro_torch.core.jobs import LoRAJobSpec
 
@@ -2532,7 +2550,7 @@ def calibrate_phase(cfg, measured):
           "card": card_line()})
     if len(fed) < 5 or cal.fit(cfg.name, 1, 4, "bf16") is None:
         raise AssertionError(f"calibrate: no fit from {sorted(fed)}")
-    return cal.hw_for(cfg.name, 1, 4, "bf16")
+    return cal.hw_for(cfg.name, 1, 4, "bf16"), cal
 
 
 # ------------------------------------------------------------ engine
@@ -2661,6 +2679,256 @@ def engine_phase(cfg, params, dev, hw):
     return launches
 
 
+# ------------------------------------------------------------ launch
+LAUNCH_SERVE_REQUESTS, LAUNCH_SERVE_TOKENS = 8, 16
+STEPS_ROWS, STEPS_PROMPT = 16, 7   # rows a job (one 16-token tile at
+#                                    decode), prompt tokens before decode
+LAUNCH_TRAIN_STEPS, LAUNCH_TRAIN_CHUNK = 4, 2
+
+
+def launch_phase(cfg, params, dev, measured):
+    """The launcher's entry points (``repro_torch.launch.train.main`` and
+    the functions it calls) on full-width tinyllama-1.1b:
+
+      (a) ``serve`` (8 requests, 16 new tokens; ranks 16/8/4/2, which
+          all pad to 16: the masked forward): a prefill and 15 decode
+          steps, B6 88 times each, B9 22 times at prefill, B1 never;
+          the ids against ``ServeEngine.serve`` over the same seeded
+          weights, pool and requests, asserted equal;
+      (b) the serve steps on a mixed layout {8, 16, 32, 64} (the ragged
+          forward), 16 rows a job: ``make_prefill_step`` over 7 tokens,
+          ``make_serve_step`` for the 8th; both held to the teacher-forced
+          ``forward`` within LOGIT_ATOL; B1 88 times a pass, B9 22 times
+          at prefill;
+      (c) ``train --impl torch --no-aimd`` at the launcher's defaults (4
+          jobs, 4 x 512 tokens, ranks 16/8/4/2) for 4 steps in chunks of
+          2: finite losses, no LoRA kernel, 44 flash launches a step; the
+          steady step beside ``train_uniform_torch``'s (the same layout
+          and batches through ``train_group``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model as M
+    from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
+
+    zero = {w.__name__: 0 for w in lora_wrappers()}
+    counts = {}
+    # (a) serve, then the same requests through the engine
+    t0 = time.perf_counter()
+    rows, counts["serve"] = counted(lambda: launcher.main(
+        ["serve", "--requests", str(LAUNCH_SERVE_REQUESTS), "--tokens",
+         str(LAUNCH_SERVE_TOKENS)]))
+    serve_wall = time.perf_counter() - t0
+    jobs, reqs = launcher.serve_workload(cfg, cfg.name, LAUNCH_SERVE_REQUESTS,
+                                         LAUNCH_SERVE_TOKENS)
+    ssm = SharedSuperModel(cfg, jobs, impl="cuda", block_t=BLOCK_T)
+    p_serve, a_serve = ssm.init(seed=0, device=dev)
+    pool = AdapterPool(cfg, capacity=len(jobs), multiple=ssm.layout.multiple,
+                       device=dev)
+    pool.publish_group(jobs, a_serve, ssm.layout)
+    engine = ServeEngine(cfg, p_serve, pool, impl="cuda", block_t=BLOCK_T)
+    sreqs = [ServeRequest(prompt=r.prompt, adapter=jobs[r.adapter_id].job_id,
+                          max_new_tokens=r.max_new_tokens) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.serve(sreqs)
+    engine_s = time.perf_counter() - t0
+    same = [a.tolist() == b.tokens.tolist() for a, b in zip(rows, res)]
+    del p_serve, a_serve, pool, engine
+    per_pass = 4 * cfg.num_layers          # LoRA on q, k, v, o
+    want_serve = dict(zero, fused_lora_cuda=per_pass * LAUNCH_SERVE_TOKENS,
+                      flash_attention_fwd=cfg.num_layers)
+
+    # (b) the serve steps on a mixed layout
+    specs = [LoRAJobSpec(f"steps{i}-r{r}", rank=r, batch_size=STEPS_ROWS,
+                         seq_len=BLOCK_T) for i, r in enumerate(MIXED)]
+    ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=BLOCK_T)
+    adapters = train_adapters(cfg, MIXED, ssm.layout, dev)
+    B = STEPS_ROWS * len(specs)
+    g = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(1, cfg.vocab_size, (B, STEPS_PROMPT + 1),
+                         generator=g, device=dev, dtype=torch.int32)
+    ids = torch.arange(len(specs), device=dev,
+                       dtype=torch.int32).repeat_interleave(STEPS_ROWS)
+    shape = InputShape("launch", 2 * BLOCK_T, B, "decode")
+    prefill = ssm.make_prefill_step(shape)
+    step = ssm.make_serve_step()
+
+    def steps():
+        lp, caches = prefill(params, adapters, {
+            "tokens": toks[:, :STEPS_PROMPT], "adapter_ids": ids})
+        ld, _ = step(params, adapters, caches, {
+            "tokens": toks[:, STEPS_PROMPT:], "adapter_ids": ids},
+            STEPS_PROMPT)
+        return lp[:, 0].float(), ld[:, 0].float()
+
+    (lp, ld), counts["serve_steps"] = counted(steps)
+    with torch.no_grad():
+        tf = M.forward(cfg, params, adapters, ssm.lora_ctx(ids),
+                       {"tokens": toks}).float()
+    d_prefill = (lp - tf[:, STEPS_PROMPT - 1]).abs().max().item()
+    d_decode = (ld - tf[:, STEPS_PROMPT]).abs().max().item()
+    finite = bool(torch.isfinite(ld).all() and torch.isfinite(lp).all())
+    want_steps = dict(zero, ragged_lora_fwd=2 * per_pass,
+                      flash_attention_fwd=cfg.num_layers)
+    del adapters, tf
+
+    # (c) train --impl torch at the launcher's defaults
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, counts["train_torch"] = counted(lambda: launcher.main(
+        ["train", "--impl", "torch", "--steps", str(LAUNCH_TRAIN_STEPS),
+         "--chunk-size", str(LAUNCH_TRAIN_CHUNK), "--no-aimd"]))
+    train_wall = time.perf_counter() - t0
+    rep = out["report"]
+    per_step = {k: n / LAUNCH_TRAIN_STEPS
+                for k, n in counts["train_torch"].items()}
+    losses = np.stack(rep.per_job_losses)
+    steady = float(np.mean(rep.step_times[LAUNCH_TRAIN_CHUNK:]))
+    ref_step = measured.get("train_uniform_torch", {}).get("step_s")
+    train_jobs = [{"id": sp.job_id, "rank": sp.rank, "batch": sp.batch_size,
+                   "seq_len": sp.seq_len} for sp in out["ssm"].jobs]
+    peak = torch.cuda.max_memory_allocated()
+    del out
+
+    emit({"phase": "launch", "model": cfg.name, "layers": cfg.num_layers,
+          "serve": {"argv": ["serve", "--requests",
+                             str(LAUNCH_SERVE_REQUESTS), "--tokens",
+                             str(LAUNCH_SERVE_TOKENS)],
+                    "rows": [r.tolist() for r in rows],
+                    "main_wall_s": serve_wall, "engine_serve_s": engine_s,
+                    "tokens_per_s": sum(len(r) for r in rows) / engine_s,
+                    "ids_equal_engine": sum(same), "requests": len(same),
+                    "launches": counts["serve"],
+                    "launches_expected": want_serve},
+          "serve_steps": {"ranks": list(MIXED),
+                          "r_pads": list(ssm.layout.r_pads),
+                          "rows": B, "prompt": STEPS_PROMPT,
+                          "prefill_max_abs_diff_vs_forward": d_prefill,
+                          "decode_max_abs_diff_vs_forward": d_decode,
+                          "logit_atol": LOGIT_ATOL, "finite": finite,
+                          "launches": counts["serve_steps"],
+                          "launches_expected": want_steps},
+          "train_torch": {"argv_extra": ["--impl", "torch", "--steps",
+                                         str(LAUNCH_TRAIN_STEPS),
+                                         "--chunk-size",
+                                         str(LAUNCH_TRAIN_CHUNK),
+                                         "--no-aimd"],
+                          "jobs": train_jobs,
+                          "per_step_per_job_loss": losses.tolist(),
+                          "step_times_s": rep.step_times,
+                          "step_s_steady": steady,
+                          "step_s_steady_train_uniform_torch": ref_step,
+                          "wall_s": train_wall,
+                          "peak_device_memory_bytes": peak,
+                          "launches_per_step": per_step},
+          "card": card_line()})
+    if counts["serve"] != want_serve:
+        raise AssertionError(f"launch serve: launches {counts['serve']}, "
+                             f"expected {want_serve}")
+    if not all(same) or len(same) != LAUNCH_SERVE_REQUESTS:
+        raise AssertionError(f"launch serve: serve_batch and "
+                             f"ServeEngine.serve part: {same}")
+    if counts["serve_steps"] != want_steps:
+        raise AssertionError(f"launch serve steps: launches "
+                             f"{counts['serve_steps']}, expected "
+                             f"{want_steps}")
+    if not finite or max(d_prefill, d_decode) > LOGIT_ATOL:
+        raise AssertionError(f"launch serve steps vs forward: prefill "
+                             f"{d_prefill}, decode {d_decode}")
+    check_launches("launch train_torch", counts["train_torch"],
+                   LAUNCH_TRAIN_STEPS, TORCH_LAUNCHES)
+    if not np.isfinite(losses).all():
+        raise AssertionError("launch train_torch: non-finite losses")
+    return {k: sum(c[k] for c in counts.values()) for k in zero}
+
+
+# ---------------------------------------------------------- simulate
+def simulate_phase(cfg, cal):
+    """The cluster simulator on the H100 spec, host arithmetic only:
+
+      (a) the reference launcher's default replay (all five systems, 128
+          chips, a 120-job month, seed 0) under ``ClusterConfig(hw=H100)``:
+          each system's summary and its comparison against mLoRA, run
+          twice; every job completes and the two runs agree, asserted;
+      (b) a 120-job month of ``tinyllama-1.1b`` jobs alone, priced through
+          the calibrator the calibrate phase fitted (its ``hw`` is H100,
+          so the simulator's frame check admits it): the same lines, and
+          how many ``hw_for`` lookups returned a fitted spec and how many
+          the base spec (groups of K != 4 have no fit); beside it the
+          same trace on the H100 spec alone.
+
+    Every number is a simulation priced by the throughput model, not a
+    measurement."""
+    from repro_torch.cluster.baselines import SYSTEMS, make_simulator
+    from repro_torch.cluster.metrics import compare, summarize
+    from repro_torch.cluster.simulator import ClusterConfig
+    from repro_torch.cluster.trace import TraceConfig, generate
+    from repro_torch.core import throughput as tp
+
+    def replay(trace, calibrator=None):
+        t0 = time.perf_counter()
+        res = {}
+        for s in SYSTEMS:
+            sim = make_simulator(s, ClusterConfig(total_chips=128,
+                                                  hw=tp.H100))
+            if calibrator is not None:
+                sim.calibrator = calibrator
+            res[s] = sim.run(trace)
+        wall = time.perf_counter() - t0
+        vs = {n: {k: d[k] for k in ("throughput_x", "jct_speedup_x",
+                                    "utilization_delta")}
+              for n, d in compare(res).items()}
+        return {s: summarize(r) for s, r in res.items()}, vs, wall
+
+    trace = generate(TraceConfig(months=1, jobs_per_month=120, seed=0))
+    summ, vs, wall = replay(trace)
+    summ2, vs2, _ = replay(trace)
+    models = sorted({j.base_model for j in trace})
+
+    looked = {"fitted": 0, "base": 0}
+    hw_for = cal.hw_for
+    base = tp.with_backbone_dtype(cal.hw, "bf16")
+
+    def counting(*a, **k):
+        hw = hw_for(*a, **k)
+        looked["base" if hw == base else "fitted"] += 1
+        return hw
+
+    tiny = generate(TraceConfig(months=1, jobs_per_month=120, seed=0,
+                                base_models=(cfg.name,)))
+    summ_u, vs_u, _ = replay(tiny)
+    cal.hw_for = counting
+    try:
+        summ_t, vs_t, wall_t = replay(tiny, calibrator=cal)
+    finally:
+        del cal.hw_for
+    emit({"phase": "simulate", "hw": "H100 (simulated, not measured)",
+          "default": {"jobs": len(trace), "chips": 128, "seed": 0,
+                      "models": models, "summaries": summ, "vs_mlora": vs,
+                      "rerun_equal": summ2 == summ and vs2 == vs,
+                      "wall_s": wall},
+          "tinyllama_calibrated": {
+              "jobs": len(tiny), "chips": 128, "seed": 0,
+              "fit_bf16_k4": cal.fit(cfg.name, 1, 4, "bf16"),
+              "summaries": summ_t, "vs_mlora": vs_t,
+              "hw_for_lookups": looked, "wall_s": wall_t,
+              "uncalibrated": {"summaries": summ_u, "vs_mlora": vs_u}},
+          "card": card_line()})
+    for name, s in (("default", summ), ("tinyllama", summ_t)):
+        short = {k: v["completion_rate"] for k, v in s.items()
+                 if v["completion_rate"] != 1.0}
+        if short:
+            raise AssertionError(f"simulate {name}: jobs left undone {short}")
+    if summ2 != summ or vs2 != vs:
+        raise AssertionError("simulate: two runs of one replay differ")
+    if not looked["fitted"]:
+        raise AssertionError(f"simulate: no calibrated price {looked}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -2749,8 +3017,10 @@ def main() -> int:
     counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, bf16_step,
                                   dev, measured=measured)
     counts["wide"] = wide_phase(dev)
-    hw = calibrate_phase(cfg, measured)
+    hw, cal = calibrate_phase(cfg, measured)
+    simulate_phase(cfg, cal)
     counts["engine"] = engine_phase(cfg, params, dev, hw)
+    counts["launch"] = launch_phase(cfg, params, dev, measured)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

@@ -98,13 +98,14 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
 
 
 # Where each mixer/FFN family that the port does not run yet is queued.
+OTHER_FAMILIES = "ROADMAP queue A: the other model families"
 _NOT_PORTED = {
-    "local_attn": "sliding-window ring caches (ROADMAP queue A, item 11)",
-    "mla": "models/mla.py (ROADMAP queue A, item 11)",
-    "ssd": "models/ssd.py (ROADMAP queue A, item 11)",
-    "rglru": "models/rglru.py (ROADMAP queue A, item 11)",
-    "moe": "models/moe.py (ROADMAP queue A, item 11)",
-    "none": "mixer-only blocks (ROADMAP queue A, item 11)",
+    "local_attn": f"sliding-window ring caches ({OTHER_FAMILIES})",
+    "mla": f"models/mla.py ({OTHER_FAMILIES})",
+    "ssd": f"models/ssd.py ({OTHER_FAMILIES})",
+    "rglru": f"models/rglru.py ({OTHER_FAMILIES})",
+    "moe": f"models/moe.py ({OTHER_FAMILIES})",
+    "none": f"mixer-only blocks ({OTHER_FAMILIES})",
 }
 
 
@@ -118,8 +119,7 @@ def _check_ported(spec: LayerSpec) -> None:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family in ("audio", "vlm") or cfg.frontend_dim:
         raise NotImplementedError(
-            "modality front ends are not in the port yet (ROADMAP queue A, "
-            "item 11)")
+            f"modality front ends are not in the port yet ({OTHER_FAMILIES})")
     for spec in layer_specs(cfg):
         _check_ported(spec)
 

@@ -385,7 +385,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.elastic.runtime, "
             "repro_torch.checkpoint.checkpoint, repro_torch.models.quant, "
             "repro_torch.core.throughput, repro_torch.core.scheduler, "
-            "repro_torch.launch.mesh, repro_torch.elastic.engine\n"
+            "repro_torch.launch.mesh, repro_torch.elastic.engine, "
+            "repro_torch.cluster, repro_torch.cluster.trace, "
+            "repro_torch.cluster.simulator, repro_torch.cluster.baselines, "
+            "repro_torch.cluster.metrics, repro_torch.train.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
