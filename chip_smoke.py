@@ -38,7 +38,10 @@ each on standard output:
             (``ms_rows_*``); then the "torch" route (``_RaggedTorch``,
             ``_MaskedTorch``) against the kernels' Functions on the same
             inputs (``torch_route`` lines: forward and backward at the
-            training shapes, forward at decode, each timed alone);
+            training shapes, forward at decode, each timed alone); and
+            B1-B8 at the recurrent families' LoRA widths (2560 -> 12368
+            and 5120 -> 2560 of mamba2-2.7b, 4096 -> 4096 and 4096 -> 256
+            of recurrentgemma-9b) at the train shape;
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -100,6 +103,19 @@ each on standard output:
             group's ranks, exact launches per step (flash 2 a layer),
             finite per-job losses, peak device memory, one step's adapter
             gradients against the "loop" impl;
+  recurrent — mamba2-2.7b at full width and depth (64 SSD layers) and
+            recurrentgemma-9b at full width cut to 6 layers (RG-LRU,
+            RG-LRU, local attention, twice): ``train_group`` over the
+            train group's ranks for 4 steps, exact LoRA launches a step
+            from the layer pattern (flash 0), finite losses, steady step
+            beside the H100 spec's price, peak memory, one profiled step;
+            then one step's gradients against "loop", fused against solo
+            loss, and the serve steps (prefill 16 tokens into SSD and
+            RG-LRU state and rings, decode 8) against the teacher-forced
+            forward, each within the larger of its bar and twice what a
+            2^-9 nudge of the adapters moves it (its floor, measured in
+            the run); the same checks on mamba2-2.7b cut to 2 layers,
+            where the bars are the larger;
   calibrate — ``OnlineCalibrator(H100)`` fed the steady steps of train,
             train_uniform, nano (N = 1 and 4) and quant: the fitted
             constants (mfu_cap, launch and step overheads) and each
@@ -130,7 +146,8 @@ each on standard output:
             counts asserted.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
-beside their Function's) and, last, ``{"ok": true, "device":
+beside their Function's and their times at the recurrent widths; the
+run's seconds) and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero; without a CUDA device, or
 without the rest of the repository beside it, it exits 2 and prints no
 result.
@@ -140,6 +157,14 @@ result.
 builds and runs only the named wrappers' training cases (each against its
 plain version, with its times), from ``DIR/repro_torch`` when given: the
 same cases timed on two trees in one run of the card, for comparisons.
+
+    python3 chip_smoke.py --floors
+
+runs only ``floors_sweep``: by depth (mamba2-2.7b at 1 to 64 layers,
+recurrentgemma-9b at 3 and 6, tinyllama-1.1b at 22), how far a 2^-9
+nudge of the adapters moves the logits and the "loop" gradients, beside
+"cuda" and "torch" against "loop": the floors the recurrent phase's
+checks are held to.
 """
 from __future__ import annotations
 
@@ -552,6 +577,115 @@ def train_kernel_cases(g, dev):
     return cases
 
 
+# The recurrent families' LoRA widths: (d_in, d_out, model, targets)
+REC_WIDTHS = ((2560, 12368, "mamba2-2.7b", "ssd_in"),
+              (5120, 2560, "mamba2-2.7b", "ssd_out"),
+              (4096, 4096, "recurrentgemma-9b", "rg_in, rg_gate, rg_out, q, o"),
+              (4096, 256, "recurrentgemma-9b", "k, v"))
+
+
+def recurrent_kernel_cases(g, dev):
+    """B1-B8 at the recurrent families' LoRA widths (REC_WIDTHS), the
+    train shape: T = 8192 tokens (4 jobs x 4 x 512), block_t 128.  B1-B5
+    on the train group's ranks {8, 16, 32, 64} (the ragged route); B6,
+    B7 (xa, dxa, dx) and B8 (dA, dB) at r_pad 16 over the uniform route's
+    strided stacked views, ranks {16, 8, 4, 2}.  ssd_in's 12368 output
+    columns end in a partial 128-column box of the LoRA routine."""
+    import torch
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    from repro_torch.kernels.ops import _tile_jobs_static
+    rows = (TRAIN_BATCH,) * len(TRAIN_RANKS)
+    K, bt, bf = len(TRAIN_RANKS), TRAIN_BLOCK_T, torch.bfloat16
+    T = sum(rows) * TRAIN_SEQ
+    tile_jobs = _tile_jobs_static(rows, TRAIN_SEQ, bt)
+    toks = [tile_jobs.count(k) * bt for k in range(K)]
+    rt = sum(t * r for t, r in zip(toks, TRAIN_RANKS))
+    full = torch.tensor(tile_jobs, dtype=torch.int32, device=dev)
+    rk = torch.tensor(UNIFORM_RANKS, dtype=torch.int32, device=dev)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    cases = []
+    for d_in, d_out, model, targets in REC_WIDTHS:
+        shape = dict(T=T, d_in=d_in, d_out=d_out, model=model,
+                     targets=targets)
+        lay, x, A, B = lora_operands(TRAIN_RANKS, d_in, d_out, T, g, dev)
+        meta = rg.RaggedMeta.build(tile_jobs, lay)
+        R = lay.total
+        # dy_s·Bᵀ, the backward's bf16 intermediate, sums d_out products:
+        # dy's std sqrt(2048 / d_out) gives it the magnitude it has at the
+        # train cell's 2048-wide projections, where the tolerance was
+        # set.  With unit dy, at 12368 columns it is 2.5x larger, and a
+        # one-ulp flip of its rounding (the two sides sum in other
+        # orders) moved B2's dx by up to 0.066 on an H100 where |dx| was
+        # small (PERF.md); partial_box_bit_equal shows the kernels exact
+        # on the partial box.
+        dy = (rnd(T, d_out) * (2048 / d_out) ** 0.5).to(bf)
+        for name, args, nbytes, flops in lora_cases(
+                T, d_in, d_out, R, rt, TRAIN_RANKS, x, A, B, dy):
+            cases.append((name, "train", shape,
+                          functools.partial(getattr(rg, name), *args, meta,
+                                            block_t=bt),
+                          functools.partial(getattr(rg, name + "_plain"),
+                                            *args, meta, block_t=bt),
+                          None, nbytes, flops))
+        xa = rg.ragged_xa_plain(x, A, meta, block_t=bt)
+        dxa = rg.ragged_dxa_plain(dy, B, meta, block_t=bt)
+        for operand, u, v in (("dB", xa, dy), ("dA", dxa, x)):
+            d = v.shape[1]
+            cases.append(("ragged_wgrad", "train",
+                          dict(shape, operand=operand, d=d),
+                          functools.partial(rg.ragged_wgrad, u, v, meta,
+                                            block_t=bt),
+                          functools.partial(rg.ragged_wgrad_plain, u, v,
+                                            meta, block_t=bt),
+                          None, rt * 2 + T * d * 2 + R * d * 4, 2 * rt * d))
+        del xa, dxa
+        # the masked family at r_pad 16
+        rp = 16
+        Au = (rnd(d_in, K * rp) / d_in ** 0.5).to(bf)
+        Bu = (rnd(K * rp, d_out) / rp ** 0.5).to(bf)
+        A_st = Au.reshape(d_in, K, rp).movedim(-2, -3)
+        B_st = Bu.reshape(K, rp, d_out)
+        xa_u = rnd(T, rp).to(bf)
+        flops_b6 = sum(2 * t * r * (d_in + d_out)
+                       for t, r in zip(toks, UNIFORM_RANKS))
+        cases.append((
+            "fused_lora_cuda", "train", dict(shape, op="y = mask(x . A) . B",
+                                             r_pad=rp),
+            functools.partial(fl.fused_lora_cuda, x, A_st, B_st, full, rk,
+                              block_t=bt),
+            functools.partial(fl.fused_lora_plain, x, A_st, B_st, full, rk,
+                              block_t=bt),
+            None, T * (d_in + d_out) * 2 + K * (d_in + d_out) * rp * 2,
+            flops_b6))
+        for op, a, W in (("xa = x . A", x, A_st),
+                         ("dxa = dy_s . B^T", dy, B_st.transpose(1, 2)),
+                         ("dx = dxa . A^T", xa_u, A_st.transpose(1, 2))):
+            d, n = a.shape[1], W.shape[-1]
+            cases.append((
+                "grouped_matmul_cuda", "train",
+                dict(shape, op=op, r_pad=rp, d=d, n=n),
+                functools.partial(fl.grouped_matmul_cuda, a, W, full,
+                                  block_t=bt),
+                functools.partial(fl.grouped_matmul_plain, a, W, full,
+                                  block_t=bt),
+                grouped_library(a, W, full, K, wgrad=False),
+                (T * d + K * d * n + T * n) * 2, 2 * T * d * n))
+        for op, u, v in (("dA = x^T . dxa", x, xa_u),
+                         ("dB = xa^T . dy_s", xa_u, dy)):
+            d_x, d_g = u.shape[1], v.shape[1]
+            cases.append((
+                "grouped_wgrad_cuda", "train",
+                dict(shape, op=op, r_pad=rp, d_x=d_x, d_g=d_g),
+                functools.partial(fl.grouped_wgrad_cuda, u, v, full, K,
+                                  block_t=bt),
+                functools.partial(fl.grouped_wgrad_plain, u, v, full, K,
+                                  block_t=bt),
+                grouped_library(u, v, full, K, wgrad=True),
+                T * (d_x + d_g) * 2 + K * d_x * d_g * 4, 2 * T * d_x * d_g))
+    return cases
+
+
 def grouped_library(x, W, tile_map, K, wgrad: bool):
     """One ``torch._grouped_mm`` call computing the same grouped product
     (per-adapter row groups from the sorted tile map) or grouped wgrad
@@ -875,6 +1009,7 @@ def kernels_phase(rows, S, dev):
     cases += train_kernel_cases(g, dev)
     cases += masked_kernel_cases(g, dev)
     cases += dequant_kernel_cases(g, dev)
+    cases += recurrent_kernel_cases(g, dev)
     results = time_cases(cases)
     checks = {"flash_row_invariance": flash_invariance(dev),
               "flash_row_invariance_hd32": flash_invariance(dev, hd=32),
@@ -887,7 +1022,8 @@ def kernels_phase(rows, S, dev):
               "fwd_b1_b6": fwd_b1_b6(dev),
               "fwd_b1_lora_rows": fwd_b1_lora_rows(dev),
               "fwd_rows_16_64_8192": fwd_rows_bit_equal(dev),
-              "bwd_rows_16_64_8192": bwd_rows_bit_equal(dev)}
+              "bwd_rows_16_64_8192": bwd_rows_bit_equal(dev),
+              "partial_box_12368": partial_box_bit_equal(dev)}
     emit({"phase": "kernels", "bit_equal_checks": checks,
           "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
     failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
@@ -1195,6 +1331,58 @@ def fwd_rows_bit_equal(dev) -> dict:
     return {f"{name}_rows_0_15_of_T_16_64_8192": all(
                 torch.equal(ys[0], y) for y in ys[1:])
             for name, ys in (("b1", b1), ("b6", b6))}
+
+
+def partial_box_bit_equal(dev) -> dict:
+    """ssd_in's 12368 output columns (mamba2-2.7b) end in a partial
+    128-column box of the LoRA routine and in partial column blocks of
+    the grouped product and the wgrads: each kernel at 12368 against the
+    same kernel on its 12368-wide operands zero-padded to 12416 (97 whole
+    boxes), bit for bit on the first 12368 columns (the padded columns
+    add exact zeros at the same points).  B1 and B6 (output columns), B2,
+    B4 and B7's dxa (contraction over the columns), B5 and B8's dB
+    (output columns); 2048 tokens of the train group (block_t 128)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_lora as fl
+    from repro_torch.kernels import ragged as rg
+    g = torch.Generator(device=dev).manual_seed(13)
+    d_in, d, bt, K, rp = 2560, 12368, TRAIN_BLOCK_T, len(TRAIN_RANKS), 16
+    T = 4 * K * bt
+    jobs = [t // 4 for t in range(T // bt)]
+    lay, x, A, B = lora_operands(TRAIN_RANKS, d_in, d, T, g, dev)
+    meta = rg.RaggedMeta.build(jobs, lay)
+    tm = torch.tensor(jobs, dtype=torch.int32, device=dev)
+    rk = torch.tensor(UNIFORM_RANKS, dtype=torch.int32, device=dev)
+    rnd = lambda *s_: torch.randn(s_, generator=g, device=dev)
+    pad = lambda t: F.pad(t, (0, 12416 - d)).contiguous()
+    dy = (rnd(T, d) * (2048 / d) ** 0.5).to(torch.bfloat16)
+    xa = rg.ragged_xa_plain(x, A, meta, block_t=bt)
+    A_st = (rnd(K, d_in, rp) / d_in ** 0.5).to(torch.bfloat16)
+    B_st = (rnd(K, rp, d) / rp ** 0.5).to(torch.bfloat16)
+    xa_u = rnd(T, rp).to(torch.bfloat16)
+    pairs = {
+        "b1": (lambda b: rg.ragged_lora_fwd(x, A, b, meta, block_t=bt),
+               (B,)),
+        "b2": (lambda y, b: rg.ragged_lora_dgrad(y, A, b, meta, block_t=bt),
+               (dy, B)),
+        "b4": (lambda y, b: rg.ragged_dxa(y, b, meta, block_t=bt), (dy, B)),
+        "b5_dB": (lambda y: rg.ragged_wgrad(xa, y, meta, block_t=bt), (dy,)),
+        "b6": (lambda b: fl.fused_lora_cuda(x, A_st, b, tm, rk, block_t=bt),
+               (B_st,)),
+        "b7_dxa": (lambda y, b: fl.grouped_matmul_cuda(
+            y, b.transpose(1, 2), tm, block_t=bt), (dy, B_st)),
+        "b8_dB": (lambda y: fl.grouped_wgrad_cuda(xa_u, y, tm, K,
+                                                  block_t=bt), (dy,))}
+    out = {}
+    for name, (fn, args) in pairs.items():
+        got = fn(*args)
+        padded = fn(*(pad(a) for a in args))
+        if padded.shape[-1] != got.shape[-1]:
+            padded = padded[..., :d]
+        out[f"{name}_12368_eq_padded_12416"] = torch.equal(got, padded)
+    torch.cuda.synchronize()
+    return out
 
 
 def bwd_rows_bit_equal(dev) -> dict:
@@ -1654,6 +1842,39 @@ def adapter_grads(cfg, params, specs, impl, adapters, batch,
     return torch.autograd.grad(total, list(tree_leaves(ad)))
 
 
+def fused_vs_solo_loss(cfg, params, specs, layout, adapters, batch,
+                       k=0) -> dict:
+    """Job *k*'s loss in the fused group against the job alone (its
+    adapter segment and its rows), remat off."""
+    import torch
+    from repro_torch.core.lora import rank_axis_is_last
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+    with torch.no_grad():
+        fused = SharedSuperModel(cfg, specs, impl="cuda",
+                                 block_t=TRAIN_BLOCK_T)
+        _, aux = M.loss_fn(cfg, params, adapters,
+                           fused.lora_ctx(batch["adapter_ids"]), batch,
+                           remat=False)
+        solo = SharedSuperModel(cfg, [specs[k]], impl="cuda",
+                                block_t=TRAIN_BLOCK_T)
+        off, rp = layout.slice_of(k)
+        solo_ad = tree_map(lambda p, t: t[..., off:off + rp]
+                           if rank_axis_is_last(p[-1])
+                           else t[..., off:off + rp, :], adapters)
+        rows = batch["adapter_ids"] == k
+        solo_b = {key: v[rows] for key, v in batch.items()}
+        solo_b["adapter_ids"] = torch.zeros_like(solo_b["adapter_ids"])
+        _, solo_aux = M.loss_fn(cfg, params, solo_ad,
+                                solo.lora_ctx(solo_b["adapter_ids"]),
+                                solo_b, remat=False)
+    out = {"job": specs[k].job_id, "fused_loss": aux["per_job"][k].item(),
+           "solo_loss": solo_aux["per_job"][0].item(), "atol": LOSS_ATOL}
+    out["abs_diff"] = abs(out["fused_loss"] - out["solo_loss"])
+    return out
+
+
 def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
                 expect=TRAIN_LAUNCHES, loop_rtol=GRAD_RTOL, measured=None):
     """``loop_rtol`` bounds the cuda-vs-loop gradient error where it is
@@ -1661,11 +1882,8 @@ def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
     steady step goes into ``measured`` (the calibrate phase's input)."""
     import numpy as np
     import torch
-    from repro_torch.core.lora import rank_axis_is_last
     from repro_torch.core.ssm import SharedSuperModel
     from repro_torch.data.pipeline import FusedBatcher
-    from repro_torch.models import model as M
-    from repro_torch.optim.adamw import tree_map
     from repro_torch.train.train_loop import train_group
 
     specs = train_specs(ranks, prefix=phase)
@@ -1722,32 +1940,8 @@ def train_phase(cfg, params, dev, *, phase="train", ranks=TRAIN_RANKS,
                                      for a, b in zip(g_cuda, g_loop)),
                   "max_abs_grad": max(b.abs().max().item() for b in g_loop)}
 
-    # one job's loss in the fused group against the job alone
-    k = 0
-    with torch.no_grad():
-        fused = SharedSuperModel(cfg, specs, impl="cuda",
-                                 block_t=TRAIN_BLOCK_T)
-        _, aux = M.loss_fn(cfg, params, out["adapters"],
-                           fused.lora_ctx(batch["adapter_ids"]), batch,
-                           remat=False)
-        solo = SharedSuperModel(cfg, [specs[k]], impl="cuda",
-                                block_t=TRAIN_BLOCK_T)
-        off, rp = layout.slice_of(k)
-        solo_ad = tree_map(lambda p, t: t[..., off:off + rp]
-                           if rank_axis_is_last(p[-1])
-                           else t[..., off:off + rp, :], out["adapters"])
-        rows = batch["adapter_ids"] == k
-        solo_b = {key: v[rows] for key, v in batch.items()}
-        solo_b["adapter_ids"] = torch.zeros_like(solo_b["adapter_ids"])
-        _, solo_aux = M.loss_fn(cfg, params, solo_ad,
-                                solo.lora_ctx(solo_b["adapter_ids"]),
-                                solo_b, remat=False)
-    fused_vs_solo = {"job": specs[k].job_id,
-                     "fused_loss": aux["per_job"][k].item(),
-                     "solo_loss": solo_aux["per_job"][0].item(),
-                     "atol": LOSS_ATOL}
-    fused_vs_solo["abs_diff"] = abs(fused_vs_solo["fused_loss"]
-                                    - fused_vs_solo["solo_loss"])
+    fused_vs_solo = fused_vs_solo_loss(cfg, params, specs, layout,
+                                       out["adapters"], batch)
 
     prof = profile_run(functools.partial(out["runtime"].run, 1))
     emit({"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
@@ -1859,6 +2053,428 @@ def wide_phase(dev):
     del params, adapters, trained
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ recurrent
+# The recurrent families at full width: mamba2-2.7b (SSD, all 64 layers)
+# and recurrentgemma-9b (RG-LRU + local attention, cut from 38 layers to
+# 6: two whole cycles of its pattern, so that a local-attention layer is
+# not the last one), the train cell's group and batches through
+# ``train_group``, then the serve steps; and mamba2-2.7b cut to 2 layers,
+# where the checks' own bars resolve what its 64 layers cannot (below).
+# (arch, layers (None: all), train_group, the launcher's ``train --arch``)
+REC_RUNS = (("mamba2-2.7b", None, True, True), ("mamba2-2.7b", 2, False,
+                                                 False),
+            ("recurrentgemma-9b", 6, True, False))
+REC_LAUNCH_STEPS = 2
+REC_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
+REC_STEPS, REC_CHUNK = 4, 2
+REC_PROMPT, REC_DECODE = 16, 8
+# What a check can resolve at depth.  Nudging every adapter entry by a
+# relative 2^-9 (one bf16 rounding of the LoRA path: what the kernels
+# round where the "loop" impl does not) moves a bf16 model's outputs
+# more the deeper it is: on an H100, mamba2-2.7b's adapter gradients by
+# 0.009 at 1 layer, 0.017 at 2, 0.06 at 8, 0.20 at 32 and 0.36 at 64,
+# its logits by up to 0.05, 0.09, 0.32, 0.72 and 1.88 (``--floors``,
+# PERF.md).
+# So each check below is measured against the same quantity with the
+# adapters nudged (its floor, in the same run) and asserted within the
+# larger of its own bar and twice that floor; at 2 layers the own bar
+# is the larger.
+REC_NUDGE = 2.0 ** -9
+
+
+def recurrent_launches(cfg, masked: bool = False) -> dict:
+    """LoRA launches per training step, from the layer pattern: every
+    LoRA target of every layer is one projection; remat runs a scanned
+    segment's forward twice.  The ragged route (mixed ranks): B1 a
+    forward, B2, B3 and B4 once and B5 twice (dA, dB) a backward; the
+    masked route (uniform widths): B6 a forward, B7 three times and B8
+    twice a backward.  No flash: the local layers are windowed (B9 has no
+    window, as the TPU kernel has none), and no layer attends
+    globally."""
+    from repro_torch.models import model as M
+    fwd = bwd = 0
+    for seg in M.segment_plan(cfg):
+        n = seg.repeats * sum(len(s.lora_targets) for s in seg.specs)
+        fwd += n * (2 if seg.scanned else 1)
+        bwd += n
+    zero = {w.__name__: 0 for w in lora_wrappers()}
+    if masked:
+        return dict(zero, fused_lora_cuda=fwd, grouped_matmul_cuda=3 * bwd,
+                    grouped_wgrad_cuda=2 * bwd)
+    return dict(zero, ragged_lora_fwd=fwd, ragged_lora_dgrad=bwd,
+                ragged_xa=bwd, ragged_dxa=bwd, ragged_wgrad=2 * bwd)
+
+
+def nudged(adapters, dev, seed=5):
+    """*adapters* with every entry scaled by 1 + REC_NUDGE * N(0, 1)."""
+    import torch
+    from repro_torch.optim.adamw import tree_map
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda _, t: t * (1 + REC_NUDGE * torch.randn(
+        t.shape, generator=g, device=dev)), adapters)
+
+
+def against_floor(value, floor, bar) -> dict:
+    limit = max(bar, 2 * floor)
+    return {"value": value, "floor": floor, "bar": bar, "limit": limit,
+            "ok": bool(value <= limit)}
+
+
+def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
+    """One step's adapter gradients, "cuda" against "loop" (GRAD_RTOL);
+    job 0's fused against its solo loss (LOSS_ATOL); the serve steps on
+    ranks {8, 16, 32, 64}, STEPS_ROWS rows a job (prefill REC_PROMPT
+    tokens into the caches: SSD and RG-LRU state, the local layers'
+    rings; decode REC_DECODE) against the teacher-forced forward
+    (LOGIT_ATOL), with B1 launched once a projection a pass; each
+    against its floor (``against_floor``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.models import model as M
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                          seed=1).next_batch().items()}
+    nudge = nudged(adapters, dev)
+
+    def rel(a, b):
+        return [((x.float() - y.float()).norm() / y.float().norm()).item()
+                for x, y in zip(a, b)]
+
+    g_loop = adapter_grads(cfg, params, specs, "loop", adapters, batch)
+    err = rel(adapter_grads(cfg, params, specs, "cuda", adapters, batch),
+              g_loop)
+    floor = rel(adapter_grads(cfg, params, specs, "loop", nudge, batch),
+                g_loop)
+    del g_loop
+    grads = dict(against_floor(max(err), max(floor), GRAD_RTOL),
+                 leaves=len(err), mean_rel_fro_err=float(np.mean(err)))
+    solo = fused_vs_solo_loss(cfg, params, specs, layout, adapters, batch)
+    moved = fused_vs_solo_loss(cfg, params, specs, layout, nudge, batch)
+    solo.update(against_floor(solo["abs_diff"],
+                              abs(moved["fused_loss"] - solo["fused_loss"]),
+                              LOSS_ATOL))
+    del batch
+
+    sspecs = [LoRAJobSpec(f"steps{i}-r{r}", rank=r, batch_size=STEPS_ROWS,
+                          seq_len=BLOCK_T) for i, r in enumerate(MIXED)]
+    ssm = SharedSuperModel(cfg, sspecs, impl="cuda", block_t=BLOCK_T)
+    sad = train_adapters(cfg, MIXED, ssm.layout, dev)
+    B = STEPS_ROWS * len(sspecs)
+    g = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(1, cfg.vocab_size, (B, REC_PROMPT + REC_DECODE),
+                         generator=g, device=dev, dtype=torch.int32)
+    ids = torch.arange(len(sspecs), device=dev,
+                       dtype=torch.int32).repeat_interleave(STEPS_ROWS)
+    shape = InputShape("recurrent", REC_PROMPT + REC_DECODE, B, "decode")
+    prefill, step = ssm.make_prefill_step(shape), ssm.make_serve_step()
+
+    def serve():
+        lp, caches = prefill(params, sad, {"tokens": toks[:, :REC_PROMPT],
+                                           "adapter_ids": ids})
+        outs = [lp[:, 0].float()]
+        for pos in range(REC_PROMPT, REC_PROMPT + REC_DECODE):
+            ld, _ = step(params, sad, caches, {
+                "tokens": toks[:, pos:pos + 1], "adapter_ids": ids}, pos)
+            outs.append(ld[:, 0].float())
+        return torch.stack(outs, dim=1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, launches = counted(serve)
+    serve_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ctx = ssm.lora_ctx(ids)
+        tf = M.forward(cfg, params, sad, ctx,
+                       {"tokens": toks})[:, REC_PROMPT - 1:].float()
+        d_pos = (got - tf).abs().amax(dim=(0, 2))
+        moved = (M.forward(cfg, params, nudged(sad, dev), ctx,
+                           {"tokens": toks})[:, REC_PROMPT - 1:].float()
+                 - tf).abs()
+        finite = bool(torch.isfinite(got).all())
+        serve_chk = dict(
+            against_floor(d_pos.max().item(), moved.amax().item(),
+                          LOGIT_ATOL),
+            max_abs_diff_vs_forward_by_pos=d_pos.tolist(),
+            mean_abs_diff_vs_forward=(got - tf).abs().mean().item(),
+            floor_mean=moved.mean().item(), finite=finite)
+    del tf, got, moved, sad
+    n_proj = sum(len(s.lora_targets) for s in M.layer_specs(cfg))
+    want = dict({w.__name__: 0 for w in lora_wrappers()},
+                ragged_lora_fwd=n_proj * (1 + REC_DECODE))
+    serve_chk.update(rows=B, ranks=list(MIXED), prompt=REC_PROMPT,
+                     decode=REC_DECODE, wall_s=serve_s, launches=launches,
+                     launches_expected=want)
+    return {"grads_cuda_vs_loop": grads, "fused_vs_solo_loss": solo,
+            "serve_steps": serve_chk}
+
+
+def mixer_costs(cfg, params, dev, iters: int = 5) -> dict:
+    """What the recurrent mixers cost a training step: device time per
+    call (``device_ms``) of one layer's scan alone (``ssd_scan`` over
+    chunks of ``cfg.ssm_chunk``, or ``_lru_scan``) and of its whole block
+    without LoRA (``ssd_block``, ``rglru_block``), forward and forward +
+    backward, at the train shape (TRAIN_BATCH x 4 sequences of TRAIN_SEQ
+    tokens), on layer 0's weights; and the step's share of each,
+    layers x (2 forwards (remat) + 1 forward-and-backward) against the
+    steady step (the caller's)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import rglru as G
+    from repro_torch.models import ssd as S
+    Bsz = TRAIN_BATCH * len(TRAIN_RANKS)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    bf = torch.bfloat16
+    kinds = [s.mixer for s in M.layer_specs(cfg)]
+    seg = params["segments"][0]
+    out = {}
+    x = (rnd(Bsz, TRAIN_SEQ, cfg.d_model)).to(bf)
+    for j, spec in enumerate(M.segment_plan(cfg)[0].specs):
+        if spec.mixer not in ("ssd", "rglru") or spec.mixer in out:
+            continue
+        p = M._tree_map(lambda v: v[0], seg[str(j)])
+        if spec.mixer == "ssd":
+            H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+            ins = [rnd(Bsz, TRAIN_SEQ, H, P).to(bf),
+                   torch.nn.functional.softplus(rnd(Bsz, TRAIN_SEQ, H)),
+                   -torch.ones(H, device=dev),
+                   rnd(Bsz, TRAIN_SEQ, H, N).to(bf),
+                   rnd(Bsz, TRAIN_SEQ, H, N).to(bf)]
+            scan = lambda *a: S.ssd_scan(*a, cfg.ssm_chunk)[0]
+            block = lambda xx: S.ssd_block(cfg, p["ssd"], xx)[0]
+        else:
+            W = cfg.lru_width
+            ins = [torch.rand(Bsz, TRAIN_SEQ, W, generator=g, device=dev),
+                   rnd(Bsz, TRAIN_SEQ, W)]
+            scan = G._lru_scan
+            block = lambda xx: G.rglru_block(cfg, p["rg"], xx)[0]
+
+        def fwd_bwd(fn, args):
+            args = [a.detach().requires_grad_(a.is_floating_point())
+                    for a in args]
+            y = fn(*args)
+            torch.autograd.grad(y.float().sum(), [a for a in args
+                                                  if a.requires_grad])
+
+        with torch.no_grad():
+            f_scan = device_ms(lambda: scan(*ins), iters)
+            f_block = device_ms(lambda: block(x), iters)
+        n = kinds.count(spec.mixer)
+        fb_scan = device_ms(lambda: fwd_bwd(scan, ins), iters)
+        fb_block = device_ms(lambda: fwd_bwd(block, [x]), iters)
+        out[spec.mixer] = {
+            "layers": n, "scan_fwd_ms": f_scan, "scan_fwd_bwd_ms": fb_scan,
+            "block_fwd_ms": f_block, "block_fwd_bwd_ms": fb_block,
+            "scan_ms_a_step": n * (f_scan + fb_scan),
+            "block_ms_a_step": n * (f_block + fb_block)}
+    return out
+
+
+# (arch, layers) of the depth sweep (``--floors``)
+FLOOR_SWEEP = tuple(("mamba2-2.7b", n) for n in (1, 2, 4, 8, 16, 32, 64)) \
+    + (("recurrentgemma-9b", 3), ("recurrentgemma-9b", 6),
+       ("tinyllama-1.1b", 22))
+
+
+def floors_sweep(dev) -> None:
+    """How far a REC_NUDGE of every adapter entry moves a bf16 model, by
+    depth, at full width, one line each: the teacher-forced logits (max
+    and mean |change|), the "loop" impl's adapter gradients (relative
+    Frobenius change, the largest leaf), and beside it "cuda" and "torch"
+    against "loop" and "cuda" against "torch", with the cuda-vs-loop
+    error's smallest and largest layer; the train group and batch of
+    ``recurrent_checks``, fresh adapters."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.models import model as M
+
+    def rel(a, b):
+        return max(((x.float() - y.float()).norm()
+                    / y.float().norm()).item() for x, y in zip(a, b))
+
+    def by_layer(a, b):
+        errs = [((x.float() - y.float()).flatten(1).norm(dim=1)
+                 / y.float().flatten(1).norm(dim=1))
+                for x, y in zip(a, b) if x.ndim == 3 and x.shape[0] > 1]
+        if not errs:
+            return None
+        e = torch.stack(errs)
+        return [e.min().item(), e.max().item()]
+
+    for arch, layers in FLOOR_SWEEP:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        params = M.init_model(cfg, seed=0, device=dev)
+        specs = train_specs(TRAIN_RANKS, prefix="floor")
+        ssm = SharedSuperModel(cfg, specs, impl="cuda",
+                               block_t=TRAIN_BLOCK_T)
+        adapters = train_adapters(cfg, TRAIN_RANKS, ssm.layout, dev)
+        nudge = nudged(adapters, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                              seed=1).next_batch().items()}
+        with torch.no_grad():
+            ctx = ssm.lora_ctx(batch["adapter_ids"])
+            tok = {"tokens": batch["tokens"]}
+            moved = (M.forward(cfg, params, nudge, ctx, tok).float()
+                     - M.forward(cfg, params, adapters, ctx, tok).float()
+                     ).abs()
+            logits = {"max": moved.max().item(), "mean": moved.mean().item()}
+            del moved
+        g = {impl: adapter_grads(cfg, params, specs, impl, adapters, batch)
+             for impl in ("loop", "cuda", "torch")}
+        g_n = adapter_grads(cfg, params, specs, "loop", nudge, batch)
+        emit({"floors": {"model": cfg.name, "layers": layers,
+                         "logits_moved_by_nudge": logits,
+                         "grads_moved_by_nudge": rel(g_n, g["loop"]),
+                         "cuda_vs_loop": rel(g["cuda"], g["loop"]),
+                         "torch_vs_loop": rel(g["torch"], g["loop"]),
+                         "cuda_vs_torch": rel(g["cuda"], g["torch"]),
+                         "cuda_vs_loop_layer_range": by_layer(g["cuda"],
+                                                              g["loop"])},
+              "card": card_line()})
+        del params, adapters, nudge, g, g_n
+        torch.cuda.empty_cache()
+
+
+def recurrent_phase(dev):
+    """Each of REC_RUNS at full width: ``train_group`` over the train
+    cell's ranks {8, 16, 32, 64} and batches (4 x 512 tokens a job,
+    block_t 128, remat) for REC_STEPS steps in chunks of REC_CHUNK, exact
+    launches a step (``recurrent_launches``), finite per-job losses,
+    steady step, tokens/s, peak memory, one profiled step and what its
+    recurrent mixers cost of it (``mixer_costs``); the H100 spec's price
+    of the same step (``core/throughput.group_step_cost``, reported
+    only); then ``recurrent_checks`` on the trained adapters (on fresh
+    ones where the run does not train); for mamba2-2.7b, the launcher's
+    ``train --arch mamba2-2.7b --no-aimd`` at its defaults (ranks {16, 8,
+    4, 2}, which all pad to 16: the masked kernels B6-B8) for
+    REC_LAUNCH_STEPS steps, exact launches a step, finite losses."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import throughput as tp
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import train_group
+    total = {w.__name__: 0 for w in lora_wrappers()}
+    from repro_torch.launch import train as launcher
+    for arch, layers, train, launch in REC_RUNS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        specs = train_specs(TRAIN_RANKS, prefix=arch.split("-")[0])
+        layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+        adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+        line = {"phase": "recurrent", "model": cfg.name,
+                "family": cfg.family, "layers": cfg.num_layers,
+                "layers_cut_from": full.num_layers, "d_model": cfg.d_model,
+                "vocab": cfg.vocab_size,
+                "pattern": [s.mixer for s in M.layer_specs(cfg)[:3]],
+                "init_seconds": init_s,
+                "jobs": [{"id": sp.job_id, "rank": sp.rank, "r_pad": rp}
+                         for sp, rp in zip(specs, layout.r_pads)]}
+        launches = {k: 0 for k in total}
+        if train:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, launches = counted(lambda: train_group(
+                cfg, specs, steps=REC_STEPS, lr=TRAIN_LR, seed=0,
+                impl="cuda", block_t=TRAIN_BLOCK_T, chunk_size=REC_CHUNK,
+                remat=True, adaptive_nano=False, params=params,
+                adapters=adapters, device=dev))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            expect = recurrent_launches(cfg)
+            per_step = check_launches(arch, launches, REC_STEPS, expect)
+            rep, adapters = out["report"], out["adapters"]
+            losses = np.stack(rep.per_job_losses)
+            steady = float(np.mean(rep.step_times[REC_CHUNK:]))
+            replay = FusedBatcher(specs, cfg.vocab_size,
+                                  block_t=TRAIN_BLOCK_T, seed=0)
+            masks = [replay.next_batch()["loss_mask"]
+                     for _ in range(REC_STEPS)]
+            real = sum(int(m.sum()) for m in masks) / REC_STEPS
+            price = tp.group_step_cost(cfg, specs, 1, hw=tp.H100,
+                                       nano_batches=1).total
+            line.update(
+                batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                block_t=TRAIN_BLOCK_T, steps=REC_STEPS,
+                chunk_size=REC_CHUNK, remat=True,
+                per_step_per_job_loss=losses.tolist(),
+                step_times_s=rep.step_times, wall_s=wall,
+                step_s_steady=steady, h100_spec_step_s=price,
+                measured_over_h100_spec=steady / price,
+                tokens_per_s_real_steady=real / steady,
+                tokens_per_s_padded_steady=masks[0].size / steady,
+                peak_device_memory_bytes=peak, launches=launches,
+                launches_per_step=per_step,
+                profile_one_step=profile_run(
+                    functools.partial(out["runtime"].run, 1)))
+            del out
+            costs = mixer_costs(cfg, params, dev)
+            for c in costs.values():
+                c["scan_share_of_step"] = c["scan_ms_a_step"] / 1e3 / steady
+                c["block_share_of_step"] = (c["block_ms_a_step"] / 1e3
+                                            / steady)
+            line["mixer_costs"] = costs
+            if losses.shape != (REC_STEPS, len(specs)) or \
+                    not np.isfinite(losses).all():
+                raise AssertionError(f"recurrent {cfg.name}: per-job "
+                                     f"losses not finite: {losses}")
+        checks = recurrent_checks(cfg, params, specs, layout, adapters, dev)
+        line.update(checks, card=card_line())
+        if launch:
+            del params, adapters
+            torch.cuda.empty_cache()
+            argv = ["train", "--arch", arch, "--steps", str(REC_LAUNCH_STEPS),
+                    "--chunk-size", str(REC_LAUNCH_STEPS), "--no-aimd"]
+            lout, l_launches = counted(lambda: launcher.main(argv))
+            l_losses = np.stack(lout["report"].per_job_losses)
+            l_expect = recurrent_launches(cfg, masked=True)
+            line["launcher_train"] = {
+                "argv": argv, "ranks": [j.rank for j in lout["ssm"].jobs],
+                "r_pads": list(lout["ssm"].layout.r_pads),
+                "per_step_per_job_loss": l_losses.tolist(),
+                "step_times_s": lout["report"].step_times,
+                "launches_per_step": check_launches(
+                    f"recurrent {arch} launcher", l_launches,
+                    REC_LAUNCH_STEPS, l_expect)}
+            params = adapters = lout = None
+            if not np.isfinite(l_losses).all():
+                raise AssertionError(f"recurrent {arch} launcher: losses "
+                                     f"{l_losses}")
+            for k in total:
+                total[k] += l_launches[k]
+        emit(line)
+        serve = checks["serve_steps"]
+        failed = [k for k, v in checks.items() if not v["ok"]]
+        if failed:
+            raise AssertionError(f"recurrent {cfg.name}: {failed}: "
+                                 f"{checks}")
+        if serve["launches"] != serve["launches_expected"] or \
+                not serve["finite"]:
+            raise AssertionError(f"recurrent {cfg.name} serve steps: "
+                                 f"{serve}")
+        for k in total:
+            total[k] += launches[k] + serve["launches"][k]
+        del params, adapters
+        torch.cuda.empty_cache()
+    return total
 
 
 def tree_bytes(tree) -> int:
@@ -2934,6 +3550,9 @@ def main() -> int:
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
                     "their training cases, each against its plain version "
                     "with its times")
+    ap.add_argument("--floors", action="store_true", help="only the "
+                    "depth sweep of what a 2^-9 nudge of the adapters moves "
+                    "(floors_sweep)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -2966,6 +3585,9 @@ def main() -> int:
         names = set(args.times.split(","))
         g = torch.Generator(device=dev).manual_seed(1)
         time_cases([c for c in train_kernel_cases(g, dev) if c[0] in names])
+        return 0
+    if args.floors:
+        floors_sweep(dev)
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -3017,6 +3639,7 @@ def main() -> int:
     counts["quant"] = quant_phase(cfg, params, sets, bf16_losses, bf16_step,
                                   dev, measured=measured)
     counts["wide"] = wide_phase(dev)
+    counts["recurrent"] = recurrent_phase(dev)
     hw, cal = calibrate_phase(cfg, measured)
     simulate_phase(cfg, cal)
     counts["engine"] = engine_phase(cfg, params, dev, hw)
@@ -3091,6 +3714,17 @@ def main() -> int:
         for key in ("cublas_bf16_ms", "pair_ms"):
             if key in head:
                 summary[-1][key] = head[key]
+        rec = [r for r in mine if "model" in r["shape"]
+               and r["shape"]["model"] in REC_ARCHS]
+        if rec:                      # the recurrent families' widths
+            summary[-1]["recurrent_widths"] = [
+                {**{k: r["shape"][k] for k in ("d_in", "d_out", "model")
+                    if k in r["shape"]},
+                 **{k: r["shape"][k] for k in ("op", "operand")
+                    if k in r["shape"]},
+                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "max_abs_err")}}
+                for r in rec]
         if name in TORCH_ROUTE_OF:
             # the "torch" route's same-function time beside the kernels'
             # Function (forward: B1 or B6 alone; backward: B2-B5 or B7 +
@@ -3101,7 +3735,7 @@ def main() -> int:
                  "part": part, "function_ms": t[part + "_ms"],
                  "torch_ms": t["torch_" + part + "_ms"]}
                 for t in troute if t["route"] == route and part + "_ms" in t]
-    emit({"kernels": summary})
+    emit({"kernels": summary, "run_seconds": time.perf_counter() - START})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,12 +14,13 @@ into a single executable model:
     under nano-batch grad accumulation (the batch split contiguously into
     N slices, per-job denominators taken over the full batch);
   * the serve steps (``make_prefill_step``, ``make_serve_step``) run the
-    same fused batch through prefill and decode over full KV caches.
+    same fused batch through prefill and decode over full KV caches, ring
+    caches (local attention, the sliding-window variant) and recurrent
+    state.
 
 Not ported yet, and refused where asked for: the sharded and pipeline
-steps (ROADMAP queue A, multi-GPU) and ring caches (the other model
-families); ``pipeline_legal_stages``, the scheduler's view of the
-pipeline depths a config allows, is here.
+steps (ROADMAP queue A, multi-GPU); ``pipeline_legal_stages``, the
+scheduler's view of the pipeline depths a config allows, is here.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ from repro_torch.optim import adamw
 
 NO_MESH = ("sharded and pipeline group execution are not ported yet "
            "(ROADMAP queue A: multi-GPU)")
-NO_RING = ("ring caches (sliding-window serving) are not ported yet: they "
-           f"come with the local-attention layers ({M.OTHER_FAMILIES})")
 
 
 @dataclass
@@ -214,25 +213,27 @@ class SharedSuperModel:
         """Prefill of a (B, S) prompt batch at position 0, every row the
         same width: ``prefill_step(params, adapters, batch)`` returns the
         last column's logits (B, 1, V) and, with ``with_cache``, the
-        filled caches (``shape.seq_len`` keys, allocated on the batch's
-        device and rounded up to whole decode chunks), else None.  The
-        attention over the prompt is the flash path (the kernel on the
-        card); the LoRA delta takes the impl's kernels through
-        ``lora_ctx``.  Ring caches are refused."""
-        if ring or shape.sliding_window_variant:
-            raise NotImplementedError(NO_RING)
+        filled caches (allocated on the batch's device: full KV caches of
+        ``shape.seq_len`` keys rounded up to whole decode chunks, rings of
+        ``min(shape.seq_len, sliding_window)`` slots for local attention
+        or, with ``ring``, for every attention layer, recurrent state),
+        else None.  The attention over the prompt is the flash path (the
+        kernel on the card) where it has no window; the LoRA delta takes
+        the impl's kernels through ``lora_ctx``.  As in the reference,
+        ``ring`` and not ``shape.sliding_window_variant`` picks the
+        caches."""
         cfg = self.cfg
 
         @torch.no_grad()
         def prefill_step(params, adapters, batch):
             tokens = batch["tokens"]
             caches = (M.init_caches(cfg, tokens.shape[0], shape.seq_len,
-                                    device=tokens.device)
+                                    ring, device=tokens.device)
                       if with_cache else None)
             logits = M.forward(cfg, params, adapters,
                                self.lora_ctx(batch["adapter_ids"]),
                                {"tokens": tokens}, caches=caches,
-                               cache_pos=0)
+                               cache_pos=0, ring=ring)
             return logits[:, -1:], caches
 
         return prefill_step
@@ -244,36 +245,38 @@ class SharedSuperModel:
         (B, S, V), caches).  The caches are written IN PLACE and the
         returned list is the one passed in (the reference returns new
         arrays): a caller that wants to decode a second sequence from the
-        same prefix copies them first.  Ring caches are refused."""
-        if ring:
-            raise NotImplementedError(NO_RING)
+        same prefix copies them first.  ``ring``: every attention cache is
+        a ring (local attention's are regardless); a ring takes an int
+        position."""
 
         @torch.no_grad()
         def serve_step(params, adapters, caches, batch, pos):
             lora = self.lora_ctx(batch["adapter_ids"])
             return M.decode_step(self.cfg, params, adapters, lora,
-                                 batch["tokens"], pos, caches)
+                                 batch["tokens"], pos, caches, ring=ring)
 
         return serve_step
 
     def decode_buf(self, shape: InputShape) -> int:
         """KV buffer width of *shape*'s decode (the reference's value;
-        ``init_decode_caches`` rounds it up to whole decode chunks)."""
+        ``init_decode_caches`` rounds a full cache up to whole decode
+        chunks)."""
         return (min(shape.seq_len, self.cfg.sliding_window)
                 if shape.sliding_window_variant else shape.seq_len)
 
     def init_decode_caches(self, shape: InputShape,
                            batch: Optional[int] = None, *,
                            device="cuda") -> list:
-        """Zeroed full KV caches for *batch* rows (default: the shape's
-        global batch) on *device*, ``decode_buf`` keys rounded up to whole
-        ``DECODE_CHUNK``-key chunks (``KVCache.init``), so wider than
-        ``decode_buf``.  Ring caches are refused."""
-        if shape.sliding_window_variant:
-            raise NotImplementedError(NO_RING)
+        """Zeroed caches for *batch* rows (default: the shape's global
+        batch) on *device*: full KV caches of ``decode_buf`` keys rounded
+        up to whole ``DECODE_CHUNK``-key chunks (``KVCache.init``), so
+        wider than ``decode_buf``; rings of exactly ``min(decode_buf,
+        sliding_window)`` slots for local attention and, for a
+        ``sliding_window_variant`` shape, for every attention layer;
+        recurrent state for the recurrent mixers."""
         B = batch or shape.global_batch
         return M.init_caches(self.cfg, B, self.decode_buf(shape),
-                             device=device)
+                             shape.sliding_window_variant, device=device)
 
 
 def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,

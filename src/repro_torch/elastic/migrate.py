@@ -108,17 +108,16 @@ def zeros_like_fused(cfg: ModelConfig, layout: RankLayout,
                      device="cpu") -> dict:
     """All-zero adapter tree with the destination group's ragged shapes
     (``models.model.init_adapters``'s tree, without drawing it)."""
-    dims = M._adapter_dims(cfg)
     R = layout.total
     segs = []
     for seg in M.segment_plan(cfg):
         tree = {}
         for j, spec in enumerate(seg.specs):
-            blk = {t: {"A": torch.zeros((seg.repeats, dims[t][0], R),
+            blk = {t: {"A": torch.zeros((seg.repeats, d_in, R),
                                         device=device),
-                       "B": torch.zeros((seg.repeats, R, dims[t][1]),
+                       "B": torch.zeros((seg.repeats, R, d_out),
                                         device=device)}
-                   for t in spec.lora_targets}
+                   for t, (d_in, d_out) in M._lora_dims(cfg, spec).items()}
             tree[str(j)] = blk if seg.scanned else M._unstack(blk)
         segs.append(tree)
     return {"segments": segs}

@@ -2,19 +2,33 @@
 
   * train / prefill — q at position 0 over its own S keys: ``_Flash``,
                the counterpart of the reference's flash custom VJP
-               (``_make_flash``).  Its forward is the flash kernel
-               (kernels/flash_attention.py) on a CUDA tensor and the
-               chunked online-softmax scan on a CPU tensor; its backward
-               re-walks the key chunks in plain PyTorch, recomputing p
-               from the saved lse, as the reference does outside any
-               Pallas kernel.  Prefill reads the first S cache columns,
-               which is the reference's scan over the whole ``buf``-wide
-               cache with ``kv_len = S``, the same function;
+               (``_make_flash``).  Without a window its forward is the
+               flash kernel (kernels/flash_attention.py) on a CUDA tensor
+               and the chunked online-softmax scan on a CPU tensor; with
+               a sliding window (local attention) it is the chunk scan on
+               every device, as the reference routes windowed attention
+               around its Pallas kernel.  Its backward re-walks the key
+               chunks in plain PyTorch, recomputing p from the saved lse
+               under the same masks, as the reference does outside any
+               Pallas kernel.  Prefill into a full cache reads the first
+               S cache columns, which is the reference's scan over the
+               whole ``buf``-wide cache with ``kv_len = S``, the same
+               function;
   * decode   — q (S=1..n) over the cache with per-row positions: the
                online-softmax chunk scan in plain PyTorch (the reference
                runs it outside any Pallas kernel too), over key chunks of
                a fixed width (``DECODE_CHUNK``), so that a row's sums do
-               not depend on the cache width of the batch it decodes in.
+               not depend on the cache width of the batch it decodes in;
+  * ring     — a sliding-window cache of ``min(buf, window)`` slots
+               indexed modulo its width (``ring_attention``): one token
+               writes its slot, then attends over every filled slot,
+               count-masked, as in the reference; a prompt of S > 1
+               tokens attends causally with the ring's window over the
+               keys still in the ring and its own, as the cacheless
+               forward does, and leaves its last ``min(S, slots)`` keys
+               in the ring.  (The reference attends a prompt with its
+               single-token rule, so every prompt token sees the ones
+               after it: ROADMAP C6.)
 
 KV caches are updated IN PLACE (the reference returns new arrays): one
 buffer per segment for the whole request batch, no copy per step.
@@ -52,14 +66,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offset: absolute position of q[0] — an int or a per-row (B,) tensor.
     kv_len:   number of valid kv entries (<= Skv), int or per-row (B,).
 
+    window:   if set, keys with qpos - kpos >= window are masked out.
+
     Static geometry with q at position 0 over exactly Sq keys (training,
     prefill) goes through ``_Flash``; everything else takes the chunk
     scan (decode, never differentiated), its chunk products on
     *row_block* rows at a time when given (``_rows_einsum``).
     """
-    if (window is None and isinstance(q_offset, int) and q_offset == 0
+    if (isinstance(q_offset, int) and q_offset == 0
             and isinstance(kv_len, int) and kv_len == q.shape[1]):
-        return _Flash.apply(q, k[:, :kv_len], v[:, :kv_len], causal, chunk)
+        return _Flash.apply(q, k[:, :kv_len], v[:, :kv_len], causal, chunk,
+                            window)
     out, _ = _chunked_attention_fwd(q, k, v, q_offset=q_offset,
                                     kv_len=kv_len, causal=causal,
                                     window=window, chunk=chunk,
@@ -84,24 +101,27 @@ def _flash_kernel(q, k, v, causal: bool):
 
 class _Flash(torch.autograd.Function):
     """Flash attention with a hand-written backward, static geometry
-    (q at position 0, kv_len = Skv, no window): the reference's
-    ``_make_flash``.  Forward saves (q, k, v, out, lse), never the
-    (Sq x Skv) scores.  Backward re-walks the key chunks, recomputing
-    p = exp(s - lse), with the reference's rounding points: p rounded to
-    q.dtype for dv, ds rounded to q.dtype for dq and dk, every product of
-    those storage-dtype values accumulated in f32, and the GQA head
-    broadcast folded back by a sum over the groups."""
+    (q at position 0, kv_len = Skv), with or without a sliding window:
+    the reference's ``_make_flash``.  Forward: the flash kernel on a CUDA
+    tensor without a window, else the chunk scan; it saves (q, k, v,
+    out, lse), never the (Sq x Skv) scores.  Backward re-walks the key
+    chunks, recomputing p = exp(s - lse) under the forward's masks, with
+    the reference's rounding points: p rounded to q.dtype for dv, ds
+    rounded to q.dtype for dq and dk, every product of those
+    storage-dtype values accumulated in f32, and the GQA head broadcast
+    folded back by a sum over the groups."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, chunk: int):
-        if q.is_cuda:
+    def forward(ctx, q, k, v, causal: bool, chunk: int,
+                window: Optional[int] = None):
+        if q.is_cuda and window is None:
             out, lse = _flash_kernel(q, k, v, causal)
         else:
             out, lse = _chunked_attention_fwd(
                 q, k, v, q_offset=0, kv_len=k.shape[1], causal=causal,
-                window=None, chunk=chunk)
+                window=window, chunk=chunk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.chunk = causal, chunk
+        ctx.causal, ctx.chunk, ctx.window = causal, chunk, window
         return out
 
     @staticmethod
@@ -136,6 +156,8 @@ class _Flash(torch.autograd.Function):
             valid = kpos[None, :] < Skv
             if ctx.causal:
                 valid = valid & (kpos[None, :] <= qpos[:, None])
+            if ctx.window is not None:
+                valid = valid & (kpos[None, :] > qpos[:, None] - ctx.window)
             s = torch.where(valid[None, None], s, NEG_BIG)
             p = torch.exp(s - lse[..., None])                   # (B,H,Sq,c)
             pb = p.to(q.dtype).float()
@@ -148,7 +170,8 @@ class _Flash(torch.autograd.Function):
             dvs.append(dvH.reshape(B, ck, KV, G, vd).sum(dim=3))
         dk = torch.cat(dks, dim=1)[:, :Skv]
         dv = torch.cat(dvs, dim=1)[:, :Skv]
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
 
 
 def _rows_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
@@ -239,17 +262,20 @@ def _chunked_attention_fwd(q, k, v, *, q_offset, kv_len, causal: bool,
 
 # ----------------------------------------------------------------- caches
 class KVCache(NamedTuple):
-    """Full KV cache for one attention segment.
+    """Full or ring KV cache for one attention segment.
 
-    k/v: (L?, B, buf, KV, hd) — leading layer axis when stacked; ``init``
-    rounds buf up to whole ``DECODE_CHUNK``-key chunks."""
+    k/v: (L?, B, buf, KV, hd) — leading layer axis when stacked.  A full
+    cache's ``init`` rounds buf up to whole ``DECODE_CHUNK``-key chunks;
+    a ring holds exactly its ``buf`` slots (a key's slot is its position
+    modulo buf), so the rounding never changes which keys it holds."""
     k: torch.Tensor
     v: torch.Tensor
 
     @staticmethod
     def init(batch, buf, kv_heads, hd, dtype, layers: Optional[int] = None,
-             device="cuda"):
-        buf = -(-buf // DECODE_CHUNK) * DECODE_CHUNK
+             device="cuda", ring: bool = False):
+        if not ring:
+            buf = -(-buf // DECODE_CHUNK) * DECODE_CHUNK
         shape = (batch, buf, kv_heads, hd)
         if layers is not None:
             shape = (layers,) + shape
@@ -258,13 +284,25 @@ class KVCache(NamedTuple):
 
 
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos) -> KVCache:
+                 pos, ring: bool = False) -> KVCache:
     """Write k/v (B, S, KV, hd) at absolute position *pos*, in place.
 
     ``pos`` may be a per-row ``(B,)`` tensor (batched serving decode:
-    each right-padded request writes at its own head)."""
+    each right-padded request writes at its own head) for a full cache;
+    a ring takes a shared int position and keeps the last ``min(S,
+    slots)`` of the S keys, each in slot position % slots."""
     S = k_new.shape[1]
-    if _is_vec(pos):
+    if ring:
+        if _is_vec(pos):
+            raise ValueError("per-row cache positions need a full "
+                             "(non-ring) buffer")
+        slots = cache.k.shape[1]
+        m = min(S, slots)
+        idx = torch.arange(pos + S - m, pos + S,
+                           device=cache.k.device) % slots
+        cache.k[:, idx] = k_new[:, S - m:].to(cache.k.dtype)
+        cache.v[:, idx] = v_new[:, S - m:].to(cache.v.dtype)
+    elif _is_vec(pos):
         rows = torch.arange(cache.k.shape[0], device=pos.device)[:, None]
         cols = pos.long()[:, None] + torch.arange(S, device=pos.device)
         cache.k[rows, cols] = k_new.to(cache.k.dtype)
@@ -297,6 +335,41 @@ def decode_attention(q: torch.Tensor, cache: KVCache, pos, *,
                              chunk=DECODE_CHUNK, row_block=row_block)
 
 
+def ring_attention(q: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor, cache: KVCache, pos: int, *,
+                   chunk: int = 1024) -> torch.Tensor:
+    """S new tokens at *pos* through a ring of ``slots`` keys: returns
+    their attention output and leaves the ring updated in place.
+
+    S = 1: the reference's ring decode: write the slot, then attend over
+    the ``min(pos + 1, slots)`` filled slots, count-masked (attention
+    does not depend on the keys' order).  S > 1 (a prompt, or several
+    tokens at once): causal attention with window ``slots`` over the
+    ring's keys of positions pos - min(pos, slots) .. pos - 1, in order,
+    then the S new ones; then the last ``min(S, slots)`` new keys go into
+    the ring.  At pos = 0 that is the cacheless forward's attention over
+    the prompt wherever S <= slots or the layer's window is the ring's."""
+    if _is_vec(pos):
+        raise ValueError("per-row cache positions need a full (non-ring) "
+                         "buffer")
+    S, slots = q.shape[1], cache.k.shape[1]
+    if S == 1:
+        cache_update(cache, k_new, v_new, pos, ring=True)
+        kv_len = min(pos + 1, slots)
+        out, _ = _chunked_attention_fwd(
+            q, cache.k, cache.v, q_offset=kv_len - 1, kv_len=kv_len,
+            causal=False, window=None, chunk=DECODE_CHUNK)
+        return out
+    prev = min(pos, slots)
+    idx = torch.arange(pos - prev, pos, device=cache.k.device) % slots
+    k = torch.cat([cache.k[:, idx], k_new.to(cache.k.dtype)], dim=1)
+    v = torch.cat([cache.v[:, idx], v_new.to(cache.v.dtype)], dim=1)
+    out = chunked_attention(q, k, v, q_offset=prev, kv_len=prev + S,
+                            causal=True, window=slots, chunk=chunk)
+    cache_update(cache, k_new, v_new, pos, ring=True)
+    return out
+
+
 # ----------------------------------------------------------------- block
 def attn_init(cfg, dtype, *, generator: torch.Generator, device="cuda",
               layers: int = 1) -> dict:
@@ -318,13 +391,17 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
                lora_ab: Optional[dict] = None,
                cache: Optional[KVCache] = None,
                cache_pos=None,
+               local: bool = False,
+               ring: bool = False,
                chunk: int = 1024,
                row_block: Optional[int] = None
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GQA attention with optional fused multi-LoRA on q/k/v/o.
 
-    x: (B, S, d). Returns (out, cache).  ``row_block``: rows per base
-    product and per decode chunk product (``layers.dense``)."""
+    x: (B, S, d). Returns (out, cache).  ``local``: sliding-window
+    attention (``cfg.sliding_window``); ``ring``: the cache is a ring
+    (``ring_attention``).  ``row_block``: rows per base product and per
+    decode chunk product (``layers.dense``)."""
     B, S, _ = x.shape
     la = lora_ab or {}
     rb = row_block
@@ -338,13 +415,17 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
+    window = cfg.sliding_window if local else None
+    if cache is not None and ring:
+        out = ring_attention(q, k, v, cache, cache_pos, chunk=chunk)
+    elif cache is not None:
         cache = cache_update(cache, k, v, cache_pos)
-        out = decode_attention(q, cache, cache_pos, window=None,
+        out = decode_attention(q, cache, cache_pos, window=window,
                                row_block=rb)
     else:
         out = chunked_attention(q, k, v, q_offset=0, kv_len=S,
-                                causal=cfg.causal, window=None, chunk=chunk)
+                                causal=cfg.causal, window=window,
+                                chunk=chunk)
     out = out.reshape(B, S, cfg.q_dim)
     y = proj(out, params["wo"], None, lora, la.get("o"), rb)
     return y, cache

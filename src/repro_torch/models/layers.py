@@ -1,6 +1,14 @@
-"""Common building blocks (port of ``repro.models.layers`` for the dense
-family).  Params are plain nested dicts of tensors;
-backbone weights live in ``cfg.dtype``, norms accumulate in f32."""
+"""Common building blocks (port of ``repro.models.layers``).  Params are
+plain nested dicts of tensors; backbone weights live in ``cfg.dtype``,
+norms accumulate in f32.
+
+Two activations follow JAX's definitions, not PyTorch's defaults:
+``gelu`` is the tanh form (``jax.nn.gelu``'s default; ``F.gelu``'s
+default is the erf form), and ``softplus`` is the exact log(1 + e^x)
+(``jax.nn.softplus``), where ``F.softplus`` returns x itself above 20.
+In float32 the two softplus forms agree above 20 (log1p(e^-20) < 2.1e-9
+is under half an ulp of 20, and so is the gradient's 1 - sigmoid); below
+it they differ by rounding only."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -97,6 +105,37 @@ def swiglu(params: dict, x: torch.Tensor,
     u = dense(x, params["up"], row_block)
     h = F.silu(g.float()).to(x.dtype) * u
     return dense(h, params["down"], row_block)
+
+
+# ---------------------------------------------------------- activations
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU (``jax.nn.gelu``'s default)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Exact log(1 + e^x) (``jax.nn.softplus``)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+# ------------------------------------------------------------- grad cast
+class _GradCast(torch.autograd.Function):
+    """Identity whose cotangent is cast to the input's dtype (the
+    reference's ``grad_cast`` custom VJP: an f32 cotangent chain must not
+    force f32 backward products or storage)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    return _GradCast.apply(x)
 
 
 # ---------------------------------------------------------------- losses

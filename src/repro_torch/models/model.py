@@ -1,5 +1,7 @@
 """Model assembly, forward, loss and decode (port of
-``repro.models.model`` for the dense "attn" + "swiglu" family).
+``repro.models.model`` for the decoder families whose blocks are "attn"
+or "local_attn" (sliding window, ring caches), "ssd" (Mamba-2) or
+"rglru" (Griffin's recurrence), each with a "swiglu" FFN or none).
 
 A config's ``layer_pattern`` resolves into per-layer ``LayerSpec``s,
 segmented into ``[unrolled head] + [cycles] + [unrolled remainder]``.
@@ -12,6 +14,9 @@ of each cycle) wraps each cycle in ``torch.utils.checkpoint``.  Frozen
 backbone params and the packed ragged adapter tree are separate trees,
 as in the reference.  A backbone tree may hold int8 ``QuantTensor``s
 (models/quant.py); the tree walks slice their codes and scales together.
+Caches (KV, ring, SSD and RG-LRU state) are layer-stacked per segment
+and written IN PLACE through each layer's slice: the blocks return the
+cache they were given, and the segment loop keeps no other copy.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from repro_torch.models.layers import (cross_entropy, dense, dense_init,
                                        dtype_of, embed_init, rms_norm,
                                        swiglu, swiglu_init)
 from repro_torch.models.quant import QuantTensor
+from repro_torch.models.rglru import RGLRUCache, rglru_block, rglru_init
+from repro_torch.models.ssd import SSDCache, ssd_block, ssd_init
 
 
 # ----------------------------------------------------------------- specs
@@ -100,12 +107,8 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
 # Where each mixer/FFN family that the port does not run yet is queued.
 OTHER_FAMILIES = "ROADMAP queue A: the other model families"
 _NOT_PORTED = {
-    "local_attn": f"sliding-window ring caches ({OTHER_FAMILIES})",
     "mla": f"models/mla.py ({OTHER_FAMILIES})",
-    "ssd": f"models/ssd.py ({OTHER_FAMILIES})",
-    "rglru": f"models/rglru.py ({OTHER_FAMILIES})",
     "moe": f"models/moe.py ({OTHER_FAMILIES})",
-    "none": f"mixer-only blocks ({OTHER_FAMILIES})",
 }
 
 
@@ -127,8 +130,8 @@ def _check_family(cfg: ModelConfig) -> None:
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, KVCache):
-        return KVCache(*(fn(t) for t in tree))
+    if isinstance(tree, (KVCache, SSDCache, RGLRUCache)):
+        return type(tree)(*(fn(t) for t in tree))
     if isinstance(tree, QuantTensor):
         # codes and scales share the leading (layer) axes: slice together
         return QuantTensor(fn(tree.q), fn(tree.scale))
@@ -143,10 +146,18 @@ def _block_init(cfg: ModelConfig, spec: LayerSpec, layers: int, *,
     _check_ported(spec)
     dt = dtype_of(cfg)
     kw = dict(generator=generator, device=device, layers=layers)
-    return {"ln1": torch.zeros((layers, cfg.d_model), device=device),
-            "attn": attn_init(cfg, dt, **kw),
-            "ln2": torch.zeros((layers, cfg.d_model), device=device),
-            "ffn": swiglu_init(cfg.d_model, cfg.d_ff, dt, **kw)}
+    p: Dict[str, Any] = {"ln1": torch.zeros((layers, cfg.d_model),
+                                            device=device)}
+    if spec.mixer in ("attn", "local_attn"):
+        p["attn"] = attn_init(cfg, dt, **kw)
+    elif spec.mixer == "ssd":
+        p["ssd"] = ssd_init(cfg, dt, **kw)
+    else:
+        p["rg"] = rglru_init(cfg, dt, **kw)
+    if spec.ffn != "none":        # mixer-only blocks (mamba2) have no ln2
+        p["ln2"] = torch.zeros((layers, cfg.d_model), device=device)
+        p["ffn"] = swiglu_init(cfg.d_model, cfg.d_ff, dt, **kw)
+    return p
 
 
 def _unstack(tree):
@@ -180,16 +191,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
-def _adapter_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    return {"q": (cfg.d_model, cfg.q_dim), "k": (cfg.d_model, cfg.kv_dim),
-            "v": (cfg.d_model, cfg.kv_dim), "o": (cfg.q_dim, cfg.d_model)}
-
-
 def _lora_dims(cfg: ModelConfig, spec: LayerSpec
                ) -> Dict[str, Tuple[int, int]]:
     """(d_in, d_out) of every LoRA target of a *spec* layer, every mixer
     family included (the reference's ``_block_adapter_init`` table)."""
-    dims = dict(_adapter_dims(cfg),
+    dims = dict(q=(cfg.d_model, cfg.q_dim), k=(cfg.d_model, cfg.kv_dim),
+                v=(cfg.d_model, cfg.kv_dim), o=(cfg.q_dim, cfg.d_model),
                 ssd_in=(cfg.d_model, 2 * cfg.ssm_d_inner
                         + 2 * 8 * cfg.ssm_state + cfg.ssm_nheads),
                 ssd_out=(cfg.ssm_d_inner, cfg.d_model),
@@ -228,12 +235,12 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
     if layout is None:
         rk = tuple(int(r) for r in ranks)
         layout = RankLayout.uniform(rk, r_pad) if r_pad else RankLayout(rk)
-    dims = _adapter_dims(cfg)
     segs = []
     for i, seg in enumerate(segment_plan(cfg)):
         seg_tree = {}
         for j, spec in enumerate(seg.specs):
             blk = {}
+            dims = _lora_dims(cfg, spec)
             for t in spec.lora_targets:
                 # one generator per (segment, layer, target), seeded by a
                 # stable crc32 of its path: a leaf's draw does not depend
@@ -249,16 +256,34 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
 
 
 # ----------------------------------------------------------------- caches
-def init_caches(cfg: ModelConfig, batch: int, buf: int, *,
-                device="cuda") -> list:
-    """Per-segment KV cache stacks matching segment_plan structure."""
+def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     buf: int, ring: bool, layers: Optional[int] = None,
+                     device="cuda"):
+    """One layer's (or a stack's) cache: attention keeps a full KV cache
+    of *buf* keys, or a ring of ``min(buf, sliding_window)`` slots for a
+    local-attention layer or when *ring* is asked for; the recurrent
+    mixers keep their state and conv tail."""
+    _check_ported(spec)
+    if spec.mixer in ("attn", "local_attn"):
+        is_ring = ring or spec.mixer == "local_attn"
+        b = min(buf, cfg.sliding_window) if is_ring else buf
+        return KVCache.init(batch, b, cfg.num_kv_heads, cfg.head_dim,
+                            dtype_of(cfg), layers=layers, device=device,
+                            ring=is_ring)
+    if spec.mixer == "ssd":
+        return SSDCache.init(batch, cfg, layers=layers, device=device)
+    return RGLRUCache.init(batch, cfg, layers=layers, device=device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, buf: int, ring: bool = False,
+                *, device="cuda") -> list:
+    """Per-segment cache stacks matching segment_plan structure."""
     caches = []
     for seg in segment_plan(cfg):
         seg_c = {}
         for j, spec in enumerate(seg.specs):
-            _check_ported(spec)
-            seg_c[str(j)] = KVCache.init(
-                batch, buf, cfg.num_kv_heads, cfg.head_dim, dtype_of(cfg),
+            seg_c[str(j)] = init_block_cache(
+                cfg, spec, batch, buf, ring,
                 layers=seg.repeats if seg.scanned else None, device=device)
         caches.append(seg_c)
     return caches
@@ -267,15 +292,31 @@ def init_caches(cfg: ModelConfig, batch: int, buf: int, *,
 # ----------------------------------------------------------------- blocks
 def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                 lora: Optional[MultiLoRA], x: torch.Tensor, positions,
-                cache, cache_pos, row_block: Optional[int] = None):
-    """One pre-norm block. Returns (x, cache).  ``row_block``: rows per
-    dense product (``layers.dense``)."""
+                cache, cache_pos, row_block: Optional[int] = None,
+                ring: bool = False):
+    """One pre-norm block. Returns (x, cache); the cache is updated in
+    place.  A local-attention layer with a cache decodes through a ring
+    whatever *ring* says, as in the reference.  ``row_block``: rows per
+    dense product of the attention and FFN blocks (``layers.dense``; the
+    serving engine's decode, which takes no recurrent mixer)."""
     _check_ported(spec)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, cache = attn_block(cfg, p["attn"], h, positions=positions,
-                            lora=lora, lora_ab=ad, cache=cache,
-                            cache_pos=cache_pos, row_block=row_block)
+    if spec.mixer in ("attn", "local_attn"):
+        local = spec.mixer == "local_attn"
+        out, cache = attn_block(cfg, p["attn"], h, positions=positions,
+                                lora=lora, lora_ab=ad, cache=cache,
+                                cache_pos=cache_pos, local=local,
+                                ring=ring or (local and cache is not None),
+                                row_block=row_block)
+    elif spec.mixer == "ssd":
+        out, cache = ssd_block(cfg, p["ssd"], h, lora=lora, lora_ab=ad,
+                               cache=cache)
+    else:
+        out, cache = rglru_block(cfg, p["rg"], h, lora=lora, lora_ab=ad,
+                                 cache=cache)
     x = x + out
+    if spec.ffn == "none":
+        return x, cache
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p["ffn"], h2, row_block), cache
 
@@ -283,7 +324,7 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
 def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
                    lora: Optional[MultiLoRA], x, positions, caches,
                    cache_pos, remat: bool = False,
-                   row_block: Optional[int] = None):
+                   row_block: Optional[int] = None, ring: bool = False):
     """Apply one segment; caches are updated in place.  ``remat``
     recomputes each cycle of a scanned segment in the backward instead of
     keeping its activations (the reference's ``jax.checkpoint``)."""
@@ -292,7 +333,7 @@ def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
             c = layer_c.get(str(j)) if layer_c else None
             x, _ = apply_block(cfg, spec, layer_p[str(j)],
                                layer_ad.get(str(j), {}), lora, x, positions,
-                               c, cache_pos, row_block=row_block)
+                               c, cache_pos, row_block=row_block, ring=ring)
         return x
 
     if not seg.scanned:
@@ -316,15 +357,17 @@ def _logits(cfg, params, x, row_block: Optional[int] = None):
 def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
             caches: Optional[list] = None, cache_pos=None,
-            remat: bool = False,
-            row_block: Optional[int] = None) -> torch.Tensor:
+            remat: bool = False, row_block: Optional[int] = None,
+            ring: bool = False) -> torch.Tensor:
     """Token-input model forward.  Returns logits (B, S, vocab).
 
     ``cache_pos``: None (no caches), an int, or a per-row (B,) tensor
     (batched serving decode: every request at its own depth).  ``remat``
     (training, no caches) recomputes each layer cycle in the backward.
     ``row_block``: rows per dense product and per decode-attention chunk
-    product (``layers.dense``; the serving decode path on the card)."""
+    product (``layers.dense``; the serving decode path on the card).
+    ``ring``: every attention cache is a ring (the sliding-window
+    serving variant); local-attention caches are rings regardless."""
     assert not (remat and caches is not None), "remat is for training"
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -342,7 +385,7 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
         c = caches[i] if caches is not None else None
         x = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i], lora,
                            x, positions, c, cache_pos, remat=remat,
-                           row_block=row_block)
+                           row_block=row_block, ring=ring)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(cfg, params, x, row_block)
 
@@ -370,7 +413,7 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
     seq_count = (torch.full(seq_loss.shape, float(labels.shape[-1]),
                             device=seq_loss.device)
                  if mask is None else mask.float().sum(-1))
-    aux = torch.zeros((), device=seq_loss.device)    # dense FFNs: no aux
+    aux = torch.zeros((), device=seq_loss.device)    # no MoE: no aux
     if lora is not None:
         onehot = F.one_hot(lora.adapter_ids.long(),
                            lora.num_adapters).float()              # (B, K)
@@ -385,10 +428,13 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
 
 def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],
                 lora: Optional[MultiLoRA], token: torch.Tensor, pos,
-                caches: list, row_block: Optional[int] = None):
+                caches: list, row_block: Optional[int] = None,
+                ring: bool = False):
     """One decode step. token: (B, 1..S) int; pos: int position or a
-    per-row (B,) tensor.  Returns (logits (B, S, V), caches).
-    ``row_block``: rows per dense and chunk product (``forward``)."""
+    per-row (B,) tensor (full caches only).  Returns (logits (B, S, V),
+    caches).  ``row_block``: rows per dense and chunk product; ``ring``:
+    as ``forward``."""
     logits = forward(cfg, params, adapters, lora, {"tokens": token},
-                     caches=caches, cache_pos=pos, row_block=row_block)
+                     caches=caches, cache_pos=pos, row_block=row_block,
+                     ring=ring)
     return logits, caches

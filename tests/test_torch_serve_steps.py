@@ -186,7 +186,10 @@ def test_decode_buf_and_cache_width(variant):
     want = RefSSM(ref_cfg, _jobs(RefSpec, RANKS, ROWS),
                   block_t=BT).decode_buf(RefShape(**kw))
     assert ssm.decode_buf(InputShape(**kw)) == want
-    if variant:
+    if variant:      # rings: exactly min(seq_len, window) slots
+        caches = ssm.init_decode_caches(InputShape(**kw), batch=2,
+                                        device="cpu")
+        assert caches[0]["0"].k.shape[:3] == (cfg.num_layers, 2, want)
         return
     caches = ssm.init_decode_caches(InputShape(**kw), batch=2, device="cpu")
     width = caches[0]["0"].k.shape[2]
@@ -197,17 +200,22 @@ def test_decode_buf_and_cache_width(variant):
 
 
 def test_ring_caches_are_refused():
+    """Ring caches are served now (tests/test_torch_serve_recurrent.py);
+    what a ring still refuses is a per-row position, as the reference's
+    ring decode asserts: a ring slot is shared by the batch's rows."""
     _, cfg = _cfgs()
     ssm = SharedSuperModel(cfg, _jobs(LoRAJobSpec, RANKS, ROWS), block_t=BT)
     ring = InputShape(**dict(SHAPE, sliding_window_variant=True))
-    for make in (lambda: ssm.make_serve_step(ring=True),
-                 lambda: ssm.make_prefill_step(InputShape(**SHAPE),
-                                               ring=True),
-                 lambda: ssm.make_prefill_step(ring),
-                 lambda: ssm.init_decode_caches(ring, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="the other model families"):
-            make()
+    caches = ssm.init_decode_caches(ring, device="cpu")
+    assert caches[0]["0"].k.shape[2] == min(ring.seq_len,
+                                            cfg.sliding_window)
+    p, a = ssm.init(seed=0, device="cpu")
+    B = SHAPE["global_batch"]
+    batch = {"tokens": torch.ones((B, 1), dtype=torch.int32),
+             "adapter_ids": torch.arange(B, dtype=torch.int32) // ROWS}
+    with pytest.raises(ValueError, match="per-row"):
+        ssm.make_serve_step(ring=True)(p, a, caches, batch,
+                                       torch.zeros(B, dtype=torch.int32))
 
 
 # ------------------------------------------------------- train/serve.py

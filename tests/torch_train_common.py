@@ -3,10 +3,13 @@
 tinyllama-1.1b configs of both packages, the job specs, the reference's
 weights with a nonzero B (numpy trees), flattened trees, and
 tests/test_lossless.py's bound for adapters after Adam steps.  The
-tolerances are stated in each test file's docstring."""
+tolerances are stated in each test file's docstring.  ``one_torch_thread``
+is a module fixture for the recurrent families' test files."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -80,3 +83,15 @@ def _adam_close(got: dict, want: dict):
         np.testing.assert_allclose(g, w, atol=2.5 * LR, rtol=0,
                                    err_msg=str(p))
         assert np.mean(np.abs(w - g) < 1e-5) > 0.97, p
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module's small CPU products, then
+    the count it found: the test workers share the host's cores, and a
+    thread a core in every worker oversubscribes them (a reduced train
+    step that takes 0.1 s alone took 20-50 s beside five busy workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
