@@ -41,7 +41,9 @@ each on standard output:
             training shapes, forward at decode, each timed alone); and
             B1-B8 at the recurrent families' LoRA widths (2560 -> 12368
             and 5120 -> 2560 of mamba2-2.7b, 4096 -> 4096 and 4096 -> 256
-            of recurrentgemma-9b) at the train shape;
+            of recurrentgemma-9b) and the other families' (2048 -> 3072
+            and 576 of MLA, 1280 -> 1280 of hubert) at the train shape,
+            flash at (192, 128) causal and 80 non-causal beside SDPA;
   serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
             random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
@@ -116,6 +118,19 @@ each on standard output:
             2^-9 nudge of the adapters moves it (its floor, measured in
             the run); the same checks on mamba2-2.7b cut to 2 layers,
             where the bars are the larger;
+  families — deepseek-v2-lite-16b (MLA + MoE) at full width and depth,
+            qwen3-moe-30b-a3b cut to 8 layers, hubert-xlarge (audio
+            encoder) at full depth, internvl2-26b (VLM) cut to 4
+            layers: ``train_group`` over the train group for 4 steps
+            (frames and patches drawn from the seed), exact launches a
+            step from the layer pattern (B9 at (192, 128), 128 and 80),
+            finite losses, the MoE aux, steady step, the H100 spec's
+            price, one profiled step; gradients vs "loop", fused vs solo
+            cross entropy and the decoders' serve steps (deepseek's MLA
+            ring too), each within max(bar, 2 x floor); ``ServeEngine``
+            on deepseek (prefill logits fused vs solo asserted, whole
+            sequences compared and reported, ``c1_probe`` where they
+            part) and its launcher ``train --no-aimd`` (masked);
   calibrate — ``OnlineCalibrator(H100)`` fed the steady steps of train,
             train_uniform, nano (N = 1 and 4) and quant: the fitted
             constants (mfu_cap, launch and step overheads) and each
@@ -157,6 +172,10 @@ result.
 builds and runs only the named wrappers' training cases (each against its
 plain version, with its times), from ``DIR/repro_torch`` when given: the
 same cases timed on two trees in one run of the card, for comparisons.
+
+    python3 chip_smoke.py --families
+
+runs only the ``families`` phase.
 
     python3 chip_smoke.py --floors
 
@@ -452,11 +471,37 @@ def lora_operands(ranks, d_in, d_out, T, g, dev):
     return lay, x.to(bf), A.to(bf), B.to(bf)
 
 
-def flash_cost(BH, S, hd, groups):
-    """(bytes, flops) of causal flash attention: q, k, v read once, out
-    and lse written once; the causal triangle of q·k and p·v."""
-    nbytes = (2 * BH * S * hd + 2 * (BH // groups) * S * hd) * 2 + BH * S * 4
-    return nbytes, 4 * BH * hd * S * (S + 1) // 2
+def flash_cost(BH, S, hd, groups, vd=None, causal=True):
+    """(bytes, flops) of flash attention over S keys: q, k, v read once,
+    out and lse written once; q·k and p·v over the causal triangle (or
+    every pair), v and out *vd* wide (default hd)."""
+    vd = vd or hd
+    nbytes = ((BH * S * (hd + vd) + (BH // groups) * S * (hd + vd)) * 2
+              + BH * S * 4)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return nbytes, 2 * BH * (hd + vd) * pairs
+
+
+def sdpa_library(q, k, v, causal):
+    """One ``scaled_dot_product_attention`` call on (BH, S, d) q, k, v
+    (batch 1, BH heads), pinned to the first backend that takes the
+    shapes, flash first: (callable, backend name), or (None, None)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fn(be=be):
+            with sdpa_kernel([be]):
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, be.name
+    return None, None
 
 
 def lora_cases(T, d_in, d_out, R, rt, ranks, x, A, B, dy):
@@ -574,6 +619,24 @@ def train_kernel_cases(g, dev):
             functools.partial(F.scaled_dot_product_attention, q[None], kr,
                               vr, is_causal=True),
             *flash_cost(BH, S, hd, G)))
+    # the other families' widths over the step's 16 sequences:
+    # deepseek-v2-lite-16b's MLA (16 heads, q/k 192, v 128, causal) and
+    # hubert-xlarge's encoder (16 heads of 80, MHA, not causal)
+    for name, hd, vd, causal in (("deepseek-v2-lite-16b", 192, 128, True),
+                                 ("hubert-xlarge", 80, 80, False)):
+        BH, S = TRAIN_BATCH * len(TRAIN_RANKS) * 16, TRAIN_SEQ
+        q, k = (torch.randn((BH, S, hd), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((BH, S, vd), generator=g,
+                        device=dev).to(torch.bfloat16)
+        lib, backend = sdpa_library(q, k, v, causal)
+        cases.append((
+            "flash_attention_fwd", "train",
+            dict(BH=BH, S=S, hd=hd, vd=vd, causal=causal, kv_groups=1,
+                 model=name, sdpa_backend=backend),
+            functools.partial(flash_attention_fwd, q, k, v, causal=causal),
+            functools.partial(flash_attention_ref, q, k, v, causal=causal),
+            lib, *flash_cost(BH, S, hd, 1, vd=vd, causal=causal)))
     return cases
 
 
@@ -582,11 +645,16 @@ REC_WIDTHS = ((2560, 12368, "mamba2-2.7b", "ssd_in"),
               (5120, 2560, "mamba2-2.7b", "ssd_out"),
               (4096, 4096, "recurrentgemma-9b", "rg_in, rg_gate, rg_out, q, o"),
               (4096, 256, "recurrentgemma-9b", "k, v"))
+# ... and the other families' (kv_a's 576 columns end in half a box)
+FAM_WIDTHS = ((2048, 3072, "deepseek-v2-lite-16b", "q"),
+              (2048, 576, "deepseek-v2-lite-16b", "kv_a"),
+              (1280, 1280, "hubert-xlarge", "q, k, v, o"))
 
 
-def recurrent_kernel_cases(g, dev):
-    """B1-B8 at the recurrent families' LoRA widths (REC_WIDTHS), the
-    train shape: T = 8192 tokens (4 jobs x 4 x 512), block_t 128.  B1-B5
+def width_kernel_cases(g, dev, widths=REC_WIDTHS):
+    """B1-B8 at the LoRA widths of *widths* (the recurrent families' by
+    default), the train shape: T = 8192 tokens (4 jobs x 4 x 512),
+    block_t 128.  B1-B5
     on the train group's ranks {8, 16, 32, 64} (the ragged route); B6,
     B7 (xa, dxa, dx) and B8 (dA, dB) at r_pad 16 over the uniform route's
     strided stacked views, ranks {16, 8, 4, 2}.  ssd_in's 12368 output
@@ -605,7 +673,7 @@ def recurrent_kernel_cases(g, dev):
     rk = torch.tensor(UNIFORM_RANKS, dtype=torch.int32, device=dev)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
     cases = []
-    for d_in, d_out, model, targets in REC_WIDTHS:
+    for d_in, d_out, model, targets in widths:
         shape = dict(T=T, d_in=d_in, d_out=d_out, model=model,
                      targets=targets)
         lay, x, A, B = lora_operands(TRAIN_RANKS, d_in, d_out, T, g, dev)
@@ -1009,11 +1077,16 @@ def kernels_phase(rows, S, dev):
     cases += train_kernel_cases(g, dev)
     cases += masked_kernel_cases(g, dev)
     cases += dequant_kernel_cases(g, dev)
-    cases += recurrent_kernel_cases(g, dev)
+    cases += width_kernel_cases(g, dev)
+    cases += width_kernel_cases(g, dev, FAM_WIDTHS)
     results = time_cases(cases)
     checks = {"flash_row_invariance": flash_invariance(dev),
               "flash_row_invariance_hd32": flash_invariance(dev, hd=32),
               "flash_row_invariance_hd128": flash_invariance(dev, hd=128),
+              "flash_row_invariance_192_128": flash_invariance(
+                  dev, hd=192, vd=128, G=1),
+              "flash_row_invariance_hd80_noncausal": flash_invariance(
+                  dev, hd=80, G=1, causal=False),
               "wgrad_b5_b8": wgrad_families_bit_equal(dev),
               "grouped_b7_vs_ragged": grouped_families_bit_equal(dev),
               "grouped_b7_rows": grouped_rows_bit_equal(dev),
@@ -1023,7 +1096,9 @@ def kernels_phase(rows, S, dev):
               "fwd_b1_lora_rows": fwd_b1_lora_rows(dev),
               "fwd_rows_16_64_8192": fwd_rows_bit_equal(dev),
               "bwd_rows_16_64_8192": bwd_rows_bit_equal(dev),
-              "partial_box_12368": partial_box_bit_equal(dev)}
+              "partial_box_12368": partial_box_bit_equal(dev),
+              "partial_box_576": partial_box_bit_equal(dev, 2048, 576, 640),
+              "box_1280": partial_box_bit_equal(dev, 1280, 1280, 1408)}
     emit({"phase": "kernels", "bit_equal_checks": checks,
           "b10_tensor_map_encode_us": tensor_map_encode_us(dev)})
     failed = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
@@ -1063,25 +1138,29 @@ def time_cases(cases) -> list:
 
 
 # --------------------------------------------- invariance and equality
-def flash_invariance(dev, hd: int = 64) -> dict:
+def flash_invariance(dev, hd: int = 64, vd: int = 0, G: int = 8,
+                     causal: bool = True) -> dict:
     """The flash kernel's row invariance, bit for bit: a row's output and
-    lse depend only on its own q and on its keys up to the causal
-    frontier, not on Sq, Skv or BH (what keeps fused and solo prefill
-    logits equal).  The first 48 rows at S = 192 against S = 48, and
-    heads 512..575 of a BH 2048 launch against those 64 heads alone (GQA
-    8, the serving prefill's shapes), at head dim ``hd``."""
+    lse depend only on its own q and on its keys (up to the causal
+    frontier), not on Sq, Skv or BH (what keeps fused and solo prefill
+    logits equal).  Causal: the first 48 rows at S = 192 against S = 48;
+    not causal: the first 48 query rows over all 192 keys against all
+    192 rows.  And heads 512..575 of a BH 2048 launch against those 64
+    heads alone (GQA *G*: 8 is the serving prefill's), at head dim
+    ``hd`` and v width ``vd`` (default hd)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     g = torch.Generator(device=dev).manual_seed(3)
-    G, S, h0 = 8, 192, 512
+    S, h0, vd = 192, 512, vd or hd
     rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(
         torch.bfloat16)
-    q, k, v = rnd(2048, S, hd), rnd(2048 // G, S, hd), rnd(2048 // G, S, hd)
+    q, k, v = rnd(2048, S, hd), rnd(2048 // G, S, hd), rnd(2048 // G, S, vd)
     run = lambda q_, k_, v_: flash_attention_fwd(
-        q_.contiguous(), k_.contiguous(), v_.contiguous(), causal=True,
+        q_.contiguous(), k_.contiguous(), v_.contiguous(), causal=causal,
         kv_groups=G)
     o, lse = run(q, k, v)
-    o48, lse48 = run(q[:64, :48], k[:8, :48], v[:8, :48])
+    kv48 = 48 if causal else S
+    o48, lse48 = run(q[:64, :48], k[:64 // G, :kv48], v[:64 // G, :kv48])
     o64, lse64 = run(q[h0:h0 + 64], k[h0 // G:(h0 + 64) // G],
                      v[h0 // G:(h0 + 64) // G])
     torch.cuda.synchronize()
@@ -1333,21 +1412,24 @@ def fwd_rows_bit_equal(dev) -> dict:
             for name, ys in (("b1", b1), ("b6", b6))}
 
 
-def partial_box_bit_equal(dev) -> dict:
-    """ssd_in's 12368 output columns (mamba2-2.7b) end in a partial
-    128-column box of the LoRA routine and in partial column blocks of
-    the grouped product and the wgrads: each kernel at 12368 against the
-    same kernel on its 12368-wide operands zero-padded to 12416 (97 whole
-    boxes), bit for bit on the first 12368 columns (the padded columns
-    add exact zeros at the same points).  B1 and B6 (output columns), B2,
-    B4 and B7's dxa (contraction over the columns), B5 and B8's dB
-    (output columns); 2048 tokens of the train group (block_t 128)."""
+def partial_box_bit_equal(dev, d_in: int = 2560, d: int = 12368,
+                          d_pad: int = 12416) -> dict:
+    """A width of *d* columns that ends in a partial 128-column box of
+    the LoRA routine and in partial column blocks of the grouped product
+    and the wgrads (ssd_in's 12368 of mamba2-2.7b; MLA's kv_a, 576 of
+    deepseek-v2-lite-16b) or in whole ones (hubert's 1280): each kernel
+    at *d* against the same kernel on its operands zero-padded to
+    *d_pad* (97, 5, 11 whole boxes), bit for bit on the first *d*
+    columns (the padded columns add exact zeros at the same points).
+    B1 and B6 (output columns), B2, B4 and B7's dxa (contraction over
+    the columns), B5 and B8's dB (output columns); 2048 tokens of the
+    train group (block_t 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_lora as fl
     from repro_torch.kernels import ragged as rg
     g = torch.Generator(device=dev).manual_seed(13)
-    d_in, d, bt, K, rp = 2560, 12368, TRAIN_BLOCK_T, len(TRAIN_RANKS), 16
+    bt, K, rp = TRAIN_BLOCK_T, len(TRAIN_RANKS), 16
     T = 4 * K * bt
     jobs = [t // 4 for t in range(T // bt)]
     lay, x, A, B = lora_operands(TRAIN_RANKS, d_in, d, T, g, dev)
@@ -1355,7 +1437,7 @@ def partial_box_bit_equal(dev) -> dict:
     tm = torch.tensor(jobs, dtype=torch.int32, device=dev)
     rk = torch.tensor(UNIFORM_RANKS, dtype=torch.int32, device=dev)
     rnd = lambda *s_: torch.randn(s_, generator=g, device=dev)
-    pad = lambda t: F.pad(t, (0, 12416 - d)).contiguous()
+    pad = lambda t: F.pad(t, (0, d_pad - d)).contiguous()
     dy = (rnd(T, d) * (2048 / d) ** 0.5).to(torch.bfloat16)
     xa = rg.ragged_xa_plain(x, A, meta, block_t=bt)
     A_st = (rnd(K, d_in, rp) / d_in ** 0.5).to(torch.bfloat16)
@@ -1380,7 +1462,7 @@ def partial_box_bit_equal(dev) -> dict:
         padded = fn(*(pad(a) for a in args))
         if padded.shape[-1] != got.shape[-1]:
             padded = padded[..., :d]
-        out[f"{name}_12368_eq_padded_12416"] = torch.equal(got, padded)
+        out[f"{name}_{d}_eq_padded_{d_pad}"] = torch.equal(got, padded)
     torch.cuda.synchronize()
     return out
 
@@ -1443,7 +1525,7 @@ def dequant_rows_bit_equal(dev) -> dict:
 
 
 def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
-             row_blocks: bool = True) -> dict:
+             row_blocks: bool = True, prefill: bool = False) -> dict:
     """Where fused and solo decoding part (ROADMAP C1): the first *steps*
     decode steps of ``reqs[request]``, through the engine's own
     ``_generate``, in the fused batch of ``reqs`` and alone, op by op for
@@ -1458,39 +1540,51 @@ def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
     from the solo one.
     ``row_blocks=False`` decodes without the engine's row blocks
     (``ServeEngine.row_blocks``), to show where the fused and solo paths
-    part without them."""
+    part without them.  ``prefill=True`` walks the prefill instead (its
+    row's first prompt-length positions of each op), and checks the
+    same cuBLAS property at the prefill's rows for the first two layers'
+    products (``prefill_gemms``: 12288 rows against their first 3072)."""
     import torch
     from repro_torch.models import attention as A
+    from repro_torch.models import mla as MLA
     from repro_torch.models import model as M
-    ops, state = [], {"layer": -1, "n": 0, "in_block": False, "step": 0,
+    ops, state = [], {"layer": -1, "n": {}, "in_block": False, "step": 0,
                       "row": 0}
-    names = {"rms_norm": ("ln1", "ln2"), "proj": ("q", "k", "v", "o")}
-    patched = [(M, "rms_norm"), (A, "proj"), (A, "decode_attention"),
-               (M, "swiglu"), (M, "apply_block"), (M, "_logits")]
-    saved = [getattr(mod, name) for mod, name in patched]
+    names = {"rms_norm": ("ln1", "ln2"), "proj": ("q", "k", "v", "o"),
+             "mla_proj": ("q", "kv_a", "o")}
+    # (module, attribute, tag): MLA's projections and the MoE FFN too
+    patched = [(M, "rms_norm", "rms_norm"), (A, "proj", "proj"),
+               (MLA, "proj", "mla_proj"),
+               (A, "decode_attention", "decode_attention"),
+               (M, "swiglu", "swiglu"), (M, "moe_ffn", "moe_ffn"),
+               (M, "apply_block", "apply_block"), (M, "_logits", "_logits")]
+    saved = [getattr(mod, name) for mod, name, _ in patched]
 
     def wrap(name, fn):
         def rec(*args, **kw):
-            decode = name == "apply_block" and args[5].shape[1] == 1
+            decode = name == "apply_block" and \
+                (args[5].shape[1] == 1) != prefill
             if decode:                      # x of apply_block(cfg, spec,
-                state.update(layer=state["layer"] + 1, n=0,   # p, ad,
+                state.update(layer=state["layer"] + 1, n={},  # p, ad,
                              in_block=True)                   # lora, x..)
             out = fn(*args, **kw)
             if decode:
                 state["in_block"] = False
             t = out[0] if isinstance(out, tuple) else out
-            if t.shape[1] != 1:             # the prefill: not recorded
+            if (t.shape[1] == 1) == prefill:    # the other pass
                 return out
             tag = name
-            if name in names:
-                per = names[name]
-                tag = per[state["n"] % len(per)] if state["in_block"] \
-                    else "ln_f"
-                state["n"] += 1
+            if name in names:               # the k-th call of its kind
+                per, k = names[name], state["n"].get(name, 0)
+                tag = per[k % len(per)] if state["in_block"] else "ln_f"
+                state["n"][name] = k + 1
             where = f"step{state['step']}."
+            row = t[state["row"]]
+            if prefill:                     # the prompt's positions
+                row = row[:len(reqs[request].prompt)]
             ops.append((where + (f"L{state['layer']}.{tag}"
                                  if name != "_logits" else "logits"),
-                        t[state["row"]].detach().clone()))
+                        row.detach().clone()))
             if name == "_logits":           # the step's last op
                 state.update(step=state["step"] + 1, layer=-1)
             return out
@@ -1499,20 +1593,20 @@ def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
     def run(rs, i):                         # rs[i] is the probed request
         b = engine._batch(rs)
         ops.clear()
-        state.update(layer=-1, n=0, step=1, row=b.row_req.index(i))
-        engine._generate(b, steps)
+        state.update(layer=-1, n={}, step=1, row=b.row_req.index(i))
+        engine._generate(b, 0 if prefill else steps)
         return list(ops)
 
     try:
-        for (mod, name), fn in zip(patched, saved):
-            setattr(mod, name, wrap(name, fn))
+        for (mod, name, tag), fn in zip(patched, saved):
+            setattr(mod, name, wrap(tag, fn))
         engine.row_blocks = row_blocks
         with torch.inference_mode():
             fused = run(reqs, request)
             solo = run([reqs[request]], 0)
     finally:
         engine.row_blocks = True
-        for (mod, name), fn in zip(patched, saved):
+        for (mod, name, _), fn in zip(patched, saved):
             setattr(mod, name, fn)
     assert [n for n, _ in fused] == [n for n, _ in solo], "op order"
     first, diff = None, 0.0
@@ -1547,7 +1641,40 @@ def c1_probe(engine, reqs, request: int = 0, steps: int = 1,
     eq = "bsngd,bcnd->bngsc"
     cublas["attn_scores"] = torch.equal(torch.einsum(eq, qg, kc)[:16],
                                         torch.einsum(eq, qg[:16], kc[:16]))
-    return {"request": request, "steps": steps, "row_blocks": row_blocks,
+    if cfg.num_experts and len(engine.params["segments"]) > 1:
+        # the expert product: 16 rows of one expert alone against the
+        # same rows at the head of a 64-row group of that expert
+        w = engine.params["segments"][-1]["0"]["ffn"]["w_in"][0]
+        x = torch.randn((64, w.shape[1]), generator=g,
+                        device=engine.device).to(w.dtype)
+        ends = lambda n: torch.full((w.shape[0],), n, dtype=torch.int32,
+                                    device=engine.device)
+        cublas["grouped_mm_16_of_64"] = torch.equal(
+            torch._grouped_mm(x, w, offs=ends(64))[:16],
+            torch._grouped_mm(x[:16].contiguous(), w, offs=ends(16)))
+    prefill_gemms = {}
+    if prefill:
+        def two_d(tree, path=()):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from two_d(v, path + (k,))
+                elif isinstance(v, torch.Tensor) and v.ndim >= 2:
+                    yield "/".join(path + (k,)), v
+        layers = [("L0", engine.params["segments"][0]["0"])]
+        if len(engine.params["segments"]) > 1:
+            layers.append(("L1", M._tree_map(
+                lambda v: v[0], engine.params["segments"][1]["0"])))
+        for lname, tree in layers:
+            for what, w in two_d(tree):
+                if w.ndim != 2:             # expert slabs: _grouped_mm
+                    continue
+                x = torch.randn((12288, w.shape[0]), generator=g,
+                                device=engine.device).to(w.dtype)
+                prefill_gemms[f"{lname}/{what}"] = torch.equal(
+                    (x @ w)[:3072], x[:3072] @ w)
+    return {"request": request, "steps": 0 if prefill else steps,
+            "prefill": prefill, "prefill_gemms": prefill_gemms,
+            "row_blocks": row_blocks,
             "fused_rows": len(engine._batch(reqs).row_req),
             "ops_compared": len(fused), "first_differing_op": first,
             "first_diff_max_abs": diff,
@@ -1611,9 +1738,12 @@ def profile_run(fn) -> dict:
 def _family(kernel_name: str) -> str:
     """The port's kernels by name (``wgrad_*``: the two passes B5 and B8
     share; B1, B6 and B2 by the orientation and segment type of their one
-    template, B3 and B4 by the packed kernel's name); f32 GEMMs (the plain
-    attention backward's einsums run in f32), the other library GEMMs,
-    and everything else."""
+    template, B3 and B4 by the packed kernel's name); the MoE expert
+    products (``torch._grouped_mm``, a CUTLASS grouped GEMM); f32 GEMMs
+    (the plain attention backward's einsums run in f32), the other
+    library GEMMs, and everything else."""
+    if "GroupProblemShape" in kernel_name:      # torch._grouped_mm
+        return "library_grouped_mm"
     for port in ("ragged_lora_fwd", "ragged_dgrad", "ragged_packed",
                  "wgrad_partials", "wgrad_reduce", "fused_lora_fwd",
                  "grouped_mm", "flash_fwd", "dequant_mm"):
@@ -1870,7 +2000,9 @@ def fused_vs_solo_loss(cfg, params, specs, layout, adapters, batch,
                                 solo.lora_ctx(solo_b["adapter_ids"]),
                                 solo_b, remat=False)
     out = {"job": specs[k].job_id, "fused_loss": aux["per_job"][k].item(),
-           "solo_loss": solo_aux["per_job"][0].item(), "atol": LOSS_ATOL}
+           "solo_loss": solo_aux["per_job"][0].item(), "atol": LOSS_ATOL,
+           "fused_moe_aux": aux["aux"].item(),
+           "solo_moe_aux": solo_aux["aux"].item()}
     out["abs_diff"] = abs(out["fused_loss"] - out["solo_loss"])
     return out
 
@@ -2084,22 +2216,27 @@ REC_PROMPT, REC_DECODE = 16, 8
 REC_NUDGE = 2.0 ** -9
 
 
-def recurrent_launches(cfg, masked: bool = False) -> dict:
-    """LoRA launches per training step, from the layer pattern: every
-    LoRA target of every layer is one projection; remat runs a scanned
-    segment's forward twice.  The ragged route (mixed ranks): B1 a
-    forward, B2, B3 and B4 once and B5 twice (dA, dB) a backward; the
-    masked route (uniform widths): B6 a forward, B7 three times and B8
-    twice a backward.  No flash: the local layers are windowed (B9 has no
-    window, as the TPU kernel has none), and no layer attends
-    globally."""
+def pattern_launches(cfg, masked: bool = False) -> dict:
+    """Launches per training step, from the layer pattern: every LoRA
+    target of every layer is one projection; remat runs a scanned
+    segment's forward twice (an unrolled segment, as deepseek's dense
+    head layer, once).  The ragged route (mixed ranks): B1 a forward,
+    B2, B3 and B4 once and B5 twice (dA, dB) a backward; the masked
+    route (uniform widths): B6 a forward, B7 three times and B8 twice a
+    backward.  B9 once a forward for every globally attending layer
+    ("attn", "mla"); windowed local layers never reach it (B9 has no
+    window, as the TPU kernel has none)."""
     from repro_torch.models import model as M
-    fwd = bwd = 0
+    fwd = bwd = flash = 0
     for seg in M.segment_plan(cfg):
+        passes = 2 if seg.scanned else 1
         n = seg.repeats * sum(len(s.lora_targets) for s in seg.specs)
-        fwd += n * (2 if seg.scanned else 1)
+        fwd += n * passes
         bwd += n
-    zero = {w.__name__: 0 for w in lora_wrappers()}
+        flash += seg.repeats * passes * sum(s.mixer in ("attn", "mla")
+                                            for s in seg.specs)
+    zero = dict({w.__name__: 0 for w in lora_wrappers()},
+                flash_attention_fwd=flash)
     if masked:
         return dict(zero, fused_lora_cuda=fwd, grouped_matmul_cuda=3 * bwd,
                     grouped_wgrad_cuda=2 * bwd)
@@ -2122,24 +2259,21 @@ def against_floor(value, floor, bar) -> dict:
             "ok": bool(value <= limit)}
 
 
-def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
+def model_checks(cfg, params, specs, layout, adapters, dev,
+                 rings=(False,)) -> dict:
     """One step's adapter gradients, "cuda" against "loop" (GRAD_RTOL);
-    job 0's fused against its solo loss (LOSS_ATOL); the serve steps on
-    ranks {8, 16, 32, 64}, STEPS_ROWS rows a job (prefill REC_PROMPT
-    tokens into the caches: SSD and RG-LRU state, the local layers'
-    rings; decode REC_DECODE) against the teacher-forced forward
-    (LOGIT_ATOL), with B1 launched once a projection a pass; each
-    against its floor (``against_floor``)."""
+    job 0's fused against its solo loss (LOSS_ATOL; the per-job cross
+    entropy, the MoE aux beside it); and, for a decoder, the serve steps
+    (``serve_steps_check``, once for each of *rings*); each against its
+    floor (``against_floor``).  The batch carries the front-end stub
+    inputs of an audio or VLM config (``frontend_inputs``)."""
     import numpy as np
     import torch
-    from repro_torch.configs.base import InputShape
-    from repro_torch.core.jobs import LoRAJobSpec
-    from repro_torch.core.ssm import SharedSuperModel
-    from repro_torch.data.pipeline import FusedBatcher
-    from repro_torch.models import model as M
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in
-             FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
-                          seed=1).next_batch().items()}
+    from repro_torch.data.pipeline import FusedBatcher, frontend_inputs
+    batch = frontend_inputs(cfg, FusedBatcher(
+        specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T, seed=1).next_batch(),
+        np.random.default_rng(1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     nudge = nudged(adapters, dev)
 
     def rel(a, b):
@@ -2161,6 +2295,27 @@ def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
                               LOSS_ATOL))
     del batch
 
+    out = {"grads_cuda_vs_loop": grads, "fused_vs_solo_loss": solo}
+    if cfg.supports_decode():
+        for ring in rings:
+            out["serve_steps_ring" if ring else "serve_steps"] = \
+                serve_steps_check(cfg, params, dev, ring=ring)
+    return out
+
+
+def serve_steps_check(cfg, params, dev, ring: bool = False) -> dict:
+    """The serve steps on ranks {8, 16, 32, 64}, STEPS_ROWS rows a job:
+    prefill REC_PROMPT tokens into the caches (KV, MLA latent, SSD and
+    RG-LRU state, the local layers' rings; with *ring* every attention
+    cache a ring), decode REC_DECODE, against the teacher-forced forward
+    (LOGIT_ATOL, against its floor: ``against_floor``), with B1 launched
+    once a projection a pass and B9 once a globally attending layer in
+    the prefill."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.models import model as M
     sspecs = [LoRAJobSpec(f"steps{i}-r{r}", rank=r, batch_size=STEPS_ROWS,
                           seq_len=BLOCK_T) for i, r in enumerate(MIXED)]
     ssm = SharedSuperModel(cfg, sspecs, impl="cuda", block_t=BLOCK_T)
@@ -2172,7 +2327,8 @@ def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
     ids = torch.arange(len(sspecs), device=dev,
                        dtype=torch.int32).repeat_interleave(STEPS_ROWS)
     shape = InputShape("recurrent", REC_PROMPT + REC_DECODE, B, "decode")
-    prefill, step = ssm.make_prefill_step(shape), ssm.make_serve_step()
+    prefill = ssm.make_prefill_step(shape, ring=ring)
+    step = ssm.make_serve_step(ring=ring)
 
     def serve():
         lp, caches = prefill(params, sad, {"tokens": toks[:, :REC_PROMPT],
@@ -2191,10 +2347,10 @@ def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
     with torch.no_grad():
         ctx = ssm.lora_ctx(ids)
         tf = M.forward(cfg, params, sad, ctx,
-                       {"tokens": toks})[:, REC_PROMPT - 1:].float()
+                       {"tokens": toks})[0][:, REC_PROMPT - 1:].float()
         d_pos = (got - tf).abs().amax(dim=(0, 2))
         moved = (M.forward(cfg, params, nudged(sad, dev), ctx,
-                           {"tokens": toks})[:, REC_PROMPT - 1:].float()
+                           {"tokens": toks})[0][:, REC_PROMPT - 1:].float()
                  - tf).abs()
         finite = bool(torch.isfinite(got).all())
         serve_chk = dict(
@@ -2206,12 +2362,13 @@ def recurrent_checks(cfg, params, specs, layout, adapters, dev) -> dict:
     del tf, got, moved, sad
     n_proj = sum(len(s.lora_targets) for s in M.layer_specs(cfg))
     want = dict({w.__name__: 0 for w in lora_wrappers()},
-                ragged_lora_fwd=n_proj * (1 + REC_DECODE))
-    serve_chk.update(rows=B, ranks=list(MIXED), prompt=REC_PROMPT,
+                ragged_lora_fwd=n_proj * (1 + REC_DECODE),
+                flash_attention_fwd=sum(s.mixer in ("attn", "mla")
+                                        for s in M.layer_specs(cfg)))
+    serve_chk.update(ring=ring, rows=B, ranks=list(MIXED), prompt=REC_PROMPT,
                      decode=REC_DECODE, wall_s=serve_s, launches=launches,
                      launches_expected=want)
-    return {"grads_cuda_vs_loop": grads, "fused_vs_solo_loss": solo,
-            "serve_steps": serve_chk}
+    return serve_chk
 
 
 def mixer_costs(cfg, params, dev, iters: int = 5) -> dict:
@@ -2289,7 +2446,7 @@ def floors_sweep(dev) -> None:
     Frobenius change, the largest leaf), and beside it "cuda" and "torch"
     against "loop" and "cuda" against "torch", with the cuda-vs-loop
     error's smallest and largest layer; the train group and batch of
-    ``recurrent_checks``, fresh adapters."""
+    ``model_checks``, fresh adapters."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -2324,8 +2481,8 @@ def floors_sweep(dev) -> None:
         with torch.no_grad():
             ctx = ssm.lora_ctx(batch["adapter_ids"])
             tok = {"tokens": batch["tokens"]}
-            moved = (M.forward(cfg, params, nudge, ctx, tok).float()
-                     - M.forward(cfg, params, adapters, ctx, tok).float()
+            moved = (M.forward(cfg, params, nudge, ctx, tok)[0].float()
+                     - M.forward(cfg, params, adapters, ctx, tok)[0].float()
                      ).abs()
             logits = {"max": moved.max().item(), "mean": moved.mean().item()}
             del moved
@@ -2349,11 +2506,11 @@ def recurrent_phase(dev):
     """Each of REC_RUNS at full width: ``train_group`` over the train
     cell's ranks {8, 16, 32, 64} and batches (4 x 512 tokens a job,
     block_t 128, remat) for REC_STEPS steps in chunks of REC_CHUNK, exact
-    launches a step (``recurrent_launches``), finite per-job losses,
+    launches a step (``pattern_launches``), finite per-job losses,
     steady step, tokens/s, peak memory, one profiled step and what its
     recurrent mixers cost of it (``mixer_costs``); the H100 spec's price
     of the same step (``core/throughput.group_step_cost``, reported
-    only); then ``recurrent_checks`` on the trained adapters (on fresh
+    only); then ``model_checks`` on the trained adapters (on fresh
     ones where the run does not train); for mamba2-2.7b, the launcher's
     ``train --arch mamba2-2.7b --no-aimd`` at its defaults (ranks {16, 8,
     4, 2}, which all pad to 16: the masked kernels B6-B8) for
@@ -2399,7 +2556,7 @@ def recurrent_phase(dev):
                 adapters=adapters, device=dev))
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
-            expect = recurrent_launches(cfg)
+            expect = pattern_launches(cfg)
             per_step = check_launches(arch, launches, REC_STEPS, expect)
             rep, adapters = out["report"], out["adapters"]
             losses = np.stack(rep.per_job_losses)
@@ -2436,7 +2593,7 @@ def recurrent_phase(dev):
                     not np.isfinite(losses).all():
                 raise AssertionError(f"recurrent {cfg.name}: per-job "
                                      f"losses not finite: {losses}")
-        checks = recurrent_checks(cfg, params, specs, layout, adapters, dev)
+        checks = model_checks(cfg, params, specs, layout, adapters, dev)
         line.update(checks, card=card_line())
         if launch:
             del params, adapters
@@ -2445,7 +2602,7 @@ def recurrent_phase(dev):
                     "--chunk-size", str(REC_LAUNCH_STEPS), "--no-aimd"]
             lout, l_launches = counted(lambda: launcher.main(argv))
             l_losses = np.stack(lout["report"].per_job_losses)
-            l_expect = recurrent_launches(cfg, masked=True)
+            l_expect = pattern_launches(cfg, masked=True)
             line["launcher_train"] = {
                 "argv": argv, "ranks": [j.rank for j in lout["ssm"].jobs],
                 "r_pads": list(lout["ssm"].layout.r_pads),
@@ -2474,6 +2631,225 @@ def recurrent_phase(dev):
             total[k] += launches[k] + serve["launches"][k]
         del params, adapters
         torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------ families
+# (arch, layers or None for the full depth): deepseek-v2-lite-16b at its
+# full 27 layers (31.4 GB of bf16 weights, 28.8 of them expert slabs);
+# qwen3-moe-30b-a3b cut 48 -> 8 (the full 61 GB and the f32 logits of
+# its 151936 vocab leave no room to train on 80 GB); hubert-xlarge at its
+# full 48; internvl2-26b cut 48 -> 4 (d_model 6144: 4 layers keep the
+# phase short)
+FAM_RUNS = (("deepseek-v2-lite-16b", None), ("qwen3-moe-30b-a3b", 8),
+            ("hubert-xlarge", None), ("internvl2-26b", 4))
+FAM_ARCHS = tuple(a for a, _ in FAM_RUNS)
+FAM_ENGINE = "deepseek-v2-lite-16b"    # ServeEngine and the launcher
+FAM_STEPS, FAM_CHUNK, FAM_LAUNCH_STEPS = 4, 2, 2
+
+
+def family_engine(cfg, params, dev) -> dict:
+    """``ServeEngine.serve`` on *cfg* with 4 adapters of ranks {8, 16, 32,
+    64} and the serve cell's 16 prompts: launches and tokens/s; fused
+    against solo prefill logits (asserted within LOGIT_ATOL); two
+    requests per adapter decoded whole, fused against solo (compared and
+    reported: the MoE expert products group a row with whatever rows
+    routed to its experts, which no row block reaches), and where they
+    part, the first differing decode step and op (``c1_probe``)."""
+    import torch
+    from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
+    names = [f"fam{i}-r{r}" for i, r in enumerate(TRAIN_RANKS)]
+    pool = AdapterPool(cfg, capacity=8, multiple=MULTIPLE, device=dev)
+    publish(pool, cfg, names, TRAIN_RANKS, seed=300, dev=dev)
+    engine = ServeEngine(cfg, params, pool, impl="cuda", block_t=BLOCK_T)
+    reqs = make_requests(0, names, cfg.vocab_size)
+    engine.serve([ServeRequest(reqs[0].prompt[:16], names[0],
+                               max_new_tokens=2)])       # warm-up
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: engine.serve(reqs))
+    secs = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens) for r in res)
+    fused_lg = engine.next_token_logits(reqs, 0).float()
+    solo_lg = torch.cat([engine.next_token_logits([r], 0)
+                         for r in reqs]).float()
+    by_req = (fused_lg - solo_lg).abs().amax(dim=-1)
+    prefill_diff = by_req.max().item()
+    pairs = list(zip(reqs, res))[:2 * len(names)]
+    same = [f.tokens.tolist() == engine.serve([r])[0].tokens.tolist()
+            for r, f in pairs]
+    out = {"adapters": names, "requests": len(reqs),
+           "rows": sum(geometry(reqs)[0]), "prompt_width": geometry(reqs)[1],
+           "generated_tokens": n_tok, "seconds": secs,
+           "tokens_per_s": n_tok / secs, "launches": launches,
+           "prefill_logits_max_abs_diff_fused_vs_solo": prefill_diff,
+           "prefill_logits_diff_by_request": by_req.tolist(),
+           "prefill_argmax_flips": int((fused_lg.argmax(-1)
+                                        != solo_lg.argmax(-1)).sum()),
+           "logit_atol": LOGIT_ATOL,
+           "token_ids_identical_share": sum(same) / len(same),
+           "token_ids_compared": len(same),
+           "finite": bool(torch.isfinite(fused_lg).all())}
+    if prefill_diff > 0:
+        out["c1_probe_prefill"] = c1_probe(
+            engine, reqs, request=int(by_req.argmax()), prefill=True)
+    if not all(same):
+        i = same.index(False)
+        out["c1_probe_first_differing_request"] = c1_probe(
+            engine, reqs, request=i, steps=reqs[i].max_new_tokens - 1)
+    out["ok"] = bool(prefill_diff <= LOGIT_ATOL and out["finite"]
+                     and all(launches[n] for n in ("ragged_lora_fwd",
+                                                   "flash_attention_fwd")))
+    del engine, pool
+    return out
+
+
+def families_phase(dev):
+    """Each of FAM_RUNS at full width: ``train_group`` over the train
+    cell's ranks {8, 16, 32, 64} and batches (4 x 512 tokens a job,
+    block_t 128, remat; hubert's audio frames and internvl2's 256 patches
+    drawn from the seed, ``data.pipeline.frontend_inputs``) for FAM_STEPS
+    steps in chunks of FAM_CHUNK: exact launches a step
+    (``pattern_launches``: B9 at (192, 128) for deepseek's MLA, 128 for
+    qwen3-moe and internvl2, 80 non-causal for hubert), finite per-job
+    losses, the MoE aux, steady step, tokens/s, peak memory, one
+    profiled step, the H100 spec's price; then ``model_checks`` on the
+    trained adapters (gradients against "loop"; fused against solo
+    cross entropy; the decoders' serve steps, deepseek's through the MLA
+    ring too); for FAM_ENGINE, ``family_engine`` and the launcher's
+    ``train --arch ... --no-aimd`` at its defaults (ranks {16, 8, 4, 2}:
+    the masked kernels B6-B8) for FAM_LAUNCH_STEPS steps, exact
+    launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import throughput as tp
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import train_group
+    total = {w.__name__: 0 for w in lora_wrappers()}
+    failed = []                  # checks that failed, raised at the end
+    for arch, layers in FAM_RUNS:
+        t_run = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        specs = train_specs(TRAIN_RANKS, prefix=arch.split("-")[0])
+        layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+        adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: train_group(
+            cfg, specs, steps=FAM_STEPS, lr=TRAIN_LR, seed=0, impl="cuda",
+            block_t=TRAIN_BLOCK_T, chunk_size=FAM_CHUNK, remat=True,
+            adaptive_nano=False, params=params, adapters=adapters,
+            device=dev))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        per_step = check_launches(f"families {arch}", launches, FAM_STEPS,
+                                  pattern_launches(cfg))
+        rep, adapters = out["report"], out["adapters"]
+        losses = np.stack(rep.per_job_losses)
+        steady = float(np.mean(rep.step_times[FAM_CHUNK:]))
+        replay = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                              seed=0)
+        masks = [replay.next_batch()["loss_mask"] for _ in range(FAM_STEPS)]
+        real = sum(int(m.sum()) for m in masks) / FAM_STEPS
+        # the rows the backbone runs: a VLM sequence is its patches and
+        # its text
+        seq = TRAIN_SEQ + (cfg.num_patches if cfg.family == "vlm" else 0)
+        price = tp.group_step_cost(cfg, specs, 1, hw=tp.H100,
+                                   nano_batches=1).total
+        line = {"phase": "families", "model": cfg.name,
+                "family": cfg.family, "layers": cfg.num_layers,
+                "layers_cut_from": full.num_layers, "d_model": cfg.d_model,
+                "vocab": cfg.vocab_size, "causal": cfg.causal,
+                "segments": [[s.mixer + "/" + s.ffn for s in seg.specs]
+                             + [seg.repeats] for seg in M.segment_plan(cfg)],
+                "init_seconds": init_s,
+                "jobs": [{"id": sp.job_id, "rank": sp.rank, "r_pad": rp}
+                         for sp, rp in zip(specs, layout.r_pads)],
+                "batch_size": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                "rows_per_sequence": seq, "block_t": TRAIN_BLOCK_T,
+                "steps": FAM_STEPS, "chunk_size": FAM_CHUNK, "remat": True,
+                "per_step_per_job_loss": losses.tolist(),
+                "moe_aux_last_chunk": rep.last_metrics["aux"].tolist(),
+                "step_times_s": rep.step_times, "wall_s": wall,
+                "step_s_steady": steady, "h100_spec_step_s": price,
+                "measured_over_h100_spec": steady / price,
+                "tokens_per_s_real_steady": real / steady,
+                "tokens_per_s_padded_steady": masks[0].shape[0] * seq
+                / steady,
+                "peak_device_memory_bytes": peak, "launches": launches,
+                "launches_per_step": per_step,
+                "profile_one_step": profile_run(
+                    functools.partial(out["runtime"].run, 1))}
+        del out
+        if losses.shape != (FAM_STEPS, len(specs)) or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f"families {cfg.name}: per-job losses "
+                                 f"not finite: {losses}")
+        rings = (False, True) if cfg.use_mla else (False,)
+        checks = model_checks(cfg, params, specs, layout, adapters, dev,
+                              rings=rings)
+        line.update(checks, card=card_line(),
+                    run_seconds=time.perf_counter() - t_run)
+        emit(line)
+        failed += [f"{cfg.name}.{k}" for k, v in checks.items()
+                   if not v["ok"]]
+        for key in ("serve_steps", "serve_steps_ring"):
+            serve = checks.get(key)
+            if serve is None:
+                continue
+            if serve["launches"] != serve["launches_expected"] or \
+                    not serve["finite"]:
+                failed.append(f"{cfg.name}.{key}.launches")
+            for k in total:
+                total[k] += serve["launches"][k]
+        for k in total:
+            total[k] += launches[k]
+        if arch == FAM_ENGINE:
+            del adapters
+            engine = family_engine(cfg, params, dev)
+            emit({"phase": "families", "model": cfg.name,
+                  "engine": engine, "card": card_line()})
+            if not engine["ok"]:
+                failed.append(f"{cfg.name}.engine")
+            del params
+            params = adapters = None
+            torch.cuda.empty_cache()
+            argv = ["train", "--arch", arch, "--steps", str(FAM_LAUNCH_STEPS),
+                    "--chunk-size", str(FAM_LAUNCH_STEPS), "--no-aimd"]
+            lout, l_launches = counted(lambda: launcher.main(argv))
+            l_losses = np.stack(lout["report"].per_job_losses)
+            emit({"phase": "families", "model": cfg.name,
+                  "launcher_train": {
+                      "argv": argv,
+                      "ranks": [j.rank for j in lout["ssm"].jobs],
+                      "r_pads": list(lout["ssm"].layout.r_pads),
+                      "per_step_per_job_loss": l_losses.tolist(),
+                      "step_times_s": lout["report"].step_times,
+                      "launches_per_step": {k: n / FAM_LAUNCH_STEPS
+                                            for k, n in l_launches.items()}},
+                  "card": card_line()})
+            lout = None
+            check_launches(f"families {arch} launcher", l_launches,
+                           FAM_LAUNCH_STEPS, pattern_launches(cfg, masked=True))
+            if not np.isfinite(l_losses).all():
+                raise AssertionError(f"families {arch} launcher: losses "
+                                     f"{l_losses}")
+            for k in total:
+                total[k] += l_launches[k] + engine["launches"][k]
+        params = adapters = None
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"families: checks failed: {failed}")
     return total
 
 
@@ -3384,7 +3760,7 @@ def launch_phase(cfg, params, dev, measured):
     (lp, ld), counts["serve_steps"] = counted(steps)
     with torch.no_grad():
         tf = M.forward(cfg, params, adapters, ssm.lora_ctx(ids),
-                       {"tokens": toks}).float()
+                       {"tokens": toks})[0].float()
     d_prefill = (lp - tf[:, STEPS_PROMPT - 1]).abs().max().item()
     d_decode = (ld - tf[:, STEPS_PROMPT]).abs().max().item()
     finite = bool(torch.isfinite(ld).all() and torch.isfinite(lp).all())
@@ -3553,6 +3929,8 @@ def main() -> int:
     ap.add_argument("--floors", action="store_true", help="only the "
                     "depth sweep of what a 2^-9 nudge of the adapters moves "
                     "(floors_sweep)")
+    ap.add_argument("--families", action="store_true", help="only the "
+                    "families phase (families_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -3588,6 +3966,9 @@ def main() -> int:
         return 0
     if args.floors:
         floors_sweep(dev)
+        return 0
+    if args.families:
+        families_phase(dev)
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -3640,6 +4021,7 @@ def main() -> int:
                                   dev, measured=measured)
     counts["wide"] = wide_phase(dev)
     counts["recurrent"] = recurrent_phase(dev)
+    counts["families"] = families_phase(dev)
     hw, cal = calibrate_phase(cfg, measured)
     simulate_phase(cfg, cal)
     counts["engine"] = engine_phase(cfg, params, dev, hw)
@@ -3707,24 +4089,28 @@ def main() -> int:
             "at": {"step": head["step"], **head["shape"]}})
         if name == "flash_attention_fwd":
             summary[-1]["head_dims"] = {
-                r["shape"]["hd"]: {k: r[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms",
-                    "max_abs_err")}
+                f'{r["shape"]["hd"]}/{r["shape"].get("vd", r["shape"]["hd"])}'
+                : {**{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms", "max_abs_err")},
+                   **{k: r["shape"][k] for k in ("causal", "sdpa_backend")
+                      if k in r["shape"]}}
                 for r in mine if r["step"] == "train"}
         for key in ("cublas_bf16_ms", "pair_ms"):
             if key in head:
                 summary[-1][key] = head[key]
-        rec = [r for r in mine if "model" in r["shape"]
-               and r["shape"]["model"] in REC_ARCHS]
-        if rec:                      # the recurrent families' widths
-            summary[-1]["recurrent_widths"] = [
-                {**{k: r["shape"][k] for k in ("d_in", "d_out", "model")
-                    if k in r["shape"]},
-                 **{k: r["shape"][k] for k in ("op", "operand")
-                    if k in r["shape"]},
-                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "library_ms", "max_abs_err")}}
-                for r in rec]
+        for key, archs in (("recurrent_widths", REC_ARCHS),
+                           ("family_widths", FAM_ARCHS)):
+            rec = [r for r in mine if "d_in" in r["shape"]
+                   and r["shape"].get("model") in archs]
+            if rec:                  # the LoRA kernels at those widths
+                summary[-1][key] = [
+                    {**{k: r["shape"][k] for k in ("d_in", "d_out", "model")
+                        if k in r["shape"]},
+                     **{k: r["shape"][k] for k in ("op", "operand")
+                        if k in r["shape"]},
+                     **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "max_abs_err")}}
+                    for r in rec]
         if name in TORCH_ROUTE_OF:
             # the "torch" route's same-function time beside the kernels'
             # Function (forward: B1 or B6 alone; backward: B2-B5 or B7 +

@@ -15,8 +15,9 @@ into a single executable model:
     N slices, per-job denominators taken over the full batch);
   * the serve steps (``make_prefill_step``, ``make_serve_step``) run the
     same fused batch through prefill and decode over full KV caches, ring
-    caches (local attention, the sliding-window variant) and recurrent
-    state.
+    caches (local attention, the sliding-window variant), MLA latent
+    caches (full or ring) and recurrent state; an encoder (non-causal)
+    has no decode and is refused there.
 
 Not ported yet, and refused where asked for: the sharded and pipeline
 steps (ROADMAP queue A, multi-GPU); ``pipeline_legal_stages``, the
@@ -166,19 +167,21 @@ class SharedSuperModel:
                                            nb, remat=remat,
                                            per_job_denom=denom)
                     g = torch.autograd.grad(total, leaves)
-                return g, aux["per_job"].detach()
+                return g, aux["per_job"].detach(), aux["aux"].detach()
 
             if nano_batches == 1:
-                g_leaves, per_job = grad_fn(batch)
+                g_leaves, per_job, moe_aux = grad_fn(batch)
             else:
                 g_leaves = [torch.zeros(t.shape, dtype=torch.float32,
                                         device=t.device) for t in leaves]
                 per_job = torch.zeros((K,), dtype=torch.float32,
                                       device=denom.device)
+                moe_aux = torch.zeros((), device=denom.device)
                 for nb in _reshape_nano(batch, nano_batches):
-                    g, pj = grad_fn(nb)
-                    g_leaves = [a + b.float() for a, b in zip(g_leaves, g)]
+                    g, pj, a = grad_fn(nb)
+                    g_leaves = [a_ + b.float() for a_, b in zip(g_leaves, g)]
                     per_job = per_job + pj
+                    moe_aux = moe_aux + a
             it = iter(g_leaves)
             grads = adamw.tree_map(lambda _, t: next(it), ad)
             lr = lr_fn(opt_state.step)
@@ -186,8 +189,11 @@ class SharedSuperModel:
                 grads, opt_state, adapters, lr=lr,
                 weight_decay=weight_decay,
                 col_jobs=self.device_consts(denom.device)[2])
+            # "aux": the MoE load-balance loss the step's total carried
+            # beside the per-job losses (summed over nano slices; 0
+            # without MoE layers)
             metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
-                       "lr": torch.as_tensor(lr)}
+                       "lr": torch.as_tensor(lr), "aux": moe_aux}
             return new_adapters, new_opt, metrics
 
         if steps is None:
@@ -216,24 +222,28 @@ class SharedSuperModel:
         filled caches (allocated on the batch's device: full KV caches of
         ``shape.seq_len`` keys rounded up to whole decode chunks, rings of
         ``min(shape.seq_len, sliding_window)`` slots for local attention
-        or, with ``ring``, for every attention layer, recurrent state),
-        else None.  The attention over the prompt is the flash path (the
-        kernel on the card) where it has no window; the LoRA delta takes
-        the impl's kernels through ``lora_ctx``.  As in the reference,
-        ``ring`` and not ``shape.sliding_window_variant`` picks the
-        caches."""
+        or, with ``ring``, for every attention layer, MLA latent caches
+        of as many slots, recurrent state), else None.  Every model input
+        of the batch (tokens, a VLM batch's patches) reaches the forward,
+        as in the reference.  The attention over the prompt is the flash
+        path (the kernel on the card) where it has no window; the LoRA
+        delta takes the impl's kernels through ``lora_ctx``.  As in the
+        reference, ``ring`` and not ``shape.sliding_window_variant``
+        picks the caches.  An encoder has no decode: refused."""
         cfg = self.cfg
+        _check_decoder(cfg)
 
         @torch.no_grad()
         def prefill_step(params, adapters, batch):
-            tokens = batch["tokens"]
-            caches = (M.init_caches(cfg, tokens.shape[0], shape.seq_len,
-                                    ring, device=tokens.device)
+            model_in = {k: v for k, v in batch.items()
+                        if k not in ("adapter_ids", "labels", "loss_mask")}
+            B = batch["adapter_ids"].shape[0]
+            caches = (M.init_caches(cfg, B, shape.seq_len, ring,
+                                    device=batch["adapter_ids"].device)
                       if with_cache else None)
-            logits = M.forward(cfg, params, adapters,
-                               self.lora_ctx(batch["adapter_ids"]),
-                               {"tokens": tokens}, caches=caches,
-                               cache_pos=0, ring=ring)
+            logits, _, _, _ = M.forward(
+                cfg, params, adapters, self.lora_ctx(batch["adapter_ids"]),
+                model_in, caches=caches, cache_pos=0, ring=ring)
             return logits[:, -1:], caches
 
         return prefill_step
@@ -247,7 +257,8 @@ class SharedSuperModel:
         arrays): a caller that wants to decode a second sequence from the
         same prefix copies them first.  ``ring``: every attention cache is
         a ring (local attention's are regardless); a ring takes an int
-        position."""
+        position.  An encoder has no decode: refused."""
+        _check_decoder(self.cfg)
 
         @torch.no_grad()
         def serve_step(params, adapters, caches, batch, pos):
@@ -277,6 +288,14 @@ class SharedSuperModel:
         B = batch or shape.global_batch
         return M.init_caches(self.cfg, B, self.decode_buf(shape),
                              shape.sliding_window_variant, device=device)
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    """The serve steps decode: a non-causal encoder (hubert-xlarge) has
+    no next token to serve (the reference's tests skip it)."""
+    if not cfg.supports_decode():
+        raise ValueError(f"{cfg.name} is an encoder (causal=False): it has "
+                         "no decode steps")
 
 
 def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,

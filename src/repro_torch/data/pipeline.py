@@ -14,6 +14,10 @@ require: job-major concatenation (tokens of one adapter contiguous) and
 each job's batch padded so its token count is a multiple of the kernel
 tile.  The reference's ``shards`` (per-shard row alignment of the
 sharded runtime) is not ported: the port runs one device.
+
+``frontend_inputs`` gives a batch of an audio or VLM config the stub
+front-end inputs the reference's tests feed (tests/test_archs.py): the
+batcher itself, like the reference's, emits tokens only.
 """
 from __future__ import annotations
 
@@ -125,3 +129,23 @@ class FusedBatcher:
 
     def rows_per_job(self) -> List[int]:
         return [self._rows_for(j) for j in self.jobs]
+
+
+def frontend_inputs(cfg, batch: Dict[str, np.ndarray],
+                    rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """The front-end stub inputs for a batch of *cfg*'s family, drawn
+    from *rng* as tests/test_archs.py draws them (leading axes kept, so a
+    chunk's stacked batches take one draw): audio replaces the tokens by
+    frames (..., S, frontend_dim) f32 ~ N(0, 1); a VLM batch gains
+    patches (..., num_patches, frontend_dim) before its text; any other
+    family's batch is returned as given."""
+    if cfg.family == "audio":
+        out = {k: v for k, v in batch.items() if k != "tokens"}
+        out["frames"] = rng.standard_normal(
+            batch["tokens"].shape + (cfg.frontend_dim,)).astype(np.float32)
+        return out
+    if cfg.family == "vlm":
+        return dict(batch, patches=rng.standard_normal(
+            batch["tokens"].shape[:-1] + (cfg.num_patches, cfg.frontend_dim)
+        ).astype(np.float32))
+    return batch

@@ -46,7 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.nanobatch import AIMDController
 from repro_torch.core.ssm import NO_MESH, SharedSuperModel, valid_nano_counts
-from repro_torch.data.pipeline import FusedBatcher, JobStream
+from repro_torch.data.pipeline import FusedBatcher, JobStream, frontend_inputs
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
 from repro_torch.models import quant
@@ -136,6 +136,12 @@ class GroupRuntime:
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,
                                     block_t=block_t, seed=seed,
                                     streams=streams)
+        # an audio or VLM config's front-end stub inputs (frames,
+        # patches), drawn from *seed* beside the token streams; they are
+        # not part of a job's portable stream state
+        self._frontend_rng = (np.random.default_rng(seed)
+                              if cfg.family in ("audio", "vlm") else None)
+        self._staged_frontend = None
         # own (copy) the trainable state: the caller's trees stay as given
         self.params = params
         self.adapters = _clone(adapters)
@@ -244,6 +250,8 @@ class GroupRuntime:
         host allocator records the copy on the stream and hands the
         pinned block out again only after the copy has completed."""
         batches = self.batcher.next_batches(n)
+        if self._frontend_rng is not None:
+            batches = frontend_inputs(self.cfg, batches, self._frontend_rng)
         if self.device.type != "cuda":
             return {k: torch.from_numpy(v).to(self.device)
                     for k, v in batches.items()}
@@ -288,6 +296,7 @@ class GroupRuntime:
         if prefetch > 0:
             self._staged_rewind = [stream_state(s)
                                    for s in self.batcher.streams]
+            self._staged_frontend = self._frontend_mark()
             self._staged = self._stage(prefetch)
             self._staged_len = prefetch
         return PendingChunk(metrics=metrics, length=L, t0=t0,
@@ -375,8 +384,18 @@ class GroupRuntime:
         from repro_torch.checkpoint.checkpoint import restore_stream_state
         for s, mark in zip(self.batcher.streams, self._staged_rewind):
             restore_stream_state(s, mark)
+        self._frontend_restore(self._staged_frontend)
         self._staged = None
         self._staged_len = 0
+
+    def _frontend_mark(self):
+        """The front-end inputs' generator state (None without one)."""
+        return (copy.deepcopy(self._frontend_rng.bit_generator.state)
+                if self._frontend_rng is not None else None)
+
+    def _frontend_restore(self, mark) -> None:
+        if mark is not None:
+            self._frontend_rng.bit_generator.state = mark
 
     def warm(self, lengths: Optional[Sequence[int]] = None) -> float:
         """Prepare what the chunks of *lengths* will need before the first
@@ -394,9 +413,11 @@ class GroupRuntime:
             if (self.n, L) in self._step_cache:
                 continue
             marks = [stream_state(s) for s in self.batcher.streams]
+            fmark = self._frontend_mark()
             self._stage(L)
             for s, mark in zip(self.batcher.streams, marks):
                 restore_stream_state(s, mark)
+            self._frontend_restore(fmark)
             self._get_step(self.n, L)
         self.ssm.warm(self.device)
         if self.device.type == "cuda":

@@ -1,8 +1,10 @@
 """Flash-attention forward (port of ``repro.kernels.flash_attention``).
 
-Flat (batch*heads) layout: q (BH, Sq, hd), k/v (BH / kv_groups, Skv, hd);
-query head bh reads kv head ``bh // kv_groups`` (GQA without a repeated
-copy; ``kv_groups=1`` is the reference's signature).  Both return the
+Flat (batch*heads) layout: q (BH, Sq, hd), k (BH / kv_groups, Skv, hd),
+v (BH / kv_groups, Skv, vd) with vd the value width (vd != hd for MLA,
+as in the reference); query head bh reads kv head ``bh // kv_groups``
+(GQA without a repeated copy; ``kv_groups=1`` is the reference's
+signature).  Both return the
 output and ``lse`` (BH, Sq) f32, each row's log-sum-exp of its scaled
 scores — what ``_chunked_attention_fwd`` returns beside the output and
 the training backward (``models/attention._Flash``) recomputes p from.
@@ -26,8 +28,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         kv_groups: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch oracle: naive softmax attention in f32.  Returns
-    (out in q.dtype, lse f32)."""
+    """Plain PyTorch oracle: naive softmax attention in f32, v of any
+    width.  Returns (out (BH, Sq, vd) in q.dtype, lse f32)."""
     if kv_groups > 1:
         k = k.repeat_interleave(kv_groups, dim=0)
         v = v.repeat_interleave(kv_groups, dim=0)
@@ -43,18 +45,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, torch.logsumexp(s, dim=-1)
 
 
-# the head dims the kernel is instantiated at: 64-byte rows (hd 32),
-# 128-byte rows (hd 64), two 128-byte column parts (hd 128)
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the (q/k head dim, v width) pairs the kernel is instantiated at:
+# 64-byte rows (32), 128-byte rows (64), two 128-byte column parts (128),
+# three for q/k with two for v (MLA's 192 / 128), and 80 in the 128-wide
+# tile with its last 48 columns zero-filled in shared memory (hubert)
+KERNEL_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128), (80, 80))
 
 
 def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> None:
     """What the Hopper kernel takes, checked before any build: q, k, v
-    contiguous bf16 on one CUDA device, head dim 32, 64 or 128, at least
-    one query and one key row (raises ValueError otherwise)."""
-    build.require(q.shape[-1] in KERNEL_HEAD_DIMS,
-                  f"head dim {q.shape[-1]}: the kernel takes "
+    contiguous bf16 on one CUDA device, k as wide as q, a (head dim, v
+    width) pair of ``KERNEL_HEAD_DIMS``, at least one query and one key
+    row (raises ValueError otherwise)."""
+    pair = (q.shape[-1], v.shape[-1])
+    build.require(k.shape[-1] == q.shape[-1] and pair in KERNEL_HEAD_DIMS,
+                  f"head dim {q.shape[-1]} (k {k.shape[-1]}, v "
+                  f"{v.shape[-1]}): the kernel takes (hd, vd) "
                   f"{', '.join(map(str, KERNEL_HEAD_DIMS))}")
     build.require(q.shape[1] >= 1 and k.shape[1] >= 1,
                   f"empty attention: Sq={q.shape[1]}, Skv={k.shape[1]}")
@@ -71,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -81,26 +88,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         kv_groups: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (BH, Sq, hd); k/v: (BH // kv_groups, Skv, hd).  Returns
-    (out (BH, Sq, hd) in q.dtype, lse (BH, Sq) f32); the scores never
-    reach device memory."""
+    """q: (BH, Sq, hd); k: (BH // kv_groups, Skv, hd); v: (BH //
+    kv_groups, Skv, vd).  Returns (out (BH, Sq, vd) in q.dtype, lse (BH,
+    Sq) f32); the scores never reach device memory."""
     BH, Sq, hd = q.shape
-    Skv = k.shape[1]
-    build.require(k.shape[0] * kv_groups == BH and v.shape == k.shape
-                  and k.shape[-1] == hd,
+    Skv, vd = k.shape[1], v.shape[-1]
+    build.require(k.shape[0] * kv_groups == BH
+                  and v.shape[:2] == k.shape[:2] and k.shape[-1] == hd,
                   f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                   f"{tuple(v.shape)}, kv_groups={kv_groups}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    kv_groups=kv_groups)
     check_kernel_operands(q, k, v)
-    o = torch.empty_like(q)
+    o = torch.empty((BH, Sq, vd), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.flash_attention_fwd_launch(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), BH, Sq, Skv,
-        hd, kv_groups, int(causal), hd ** -0.5, build.stream_ptr(q.device))
+        hd, vd, kv_groups, int(causal), hd ** -0.5,
+        build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return o, lse

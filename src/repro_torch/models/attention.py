@@ -61,7 +61,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset, kv_len, causal: bool,
                       window: Optional[int], chunk: int = 1024,
                       row_block: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd). Returns (B, Sq, H, hd).
+    """q/k: (B, Sq|Skv, H|KV, hd); v: (B, Skv, KV, vd) (vd != hd for
+    MLA). Returns (B, Sq, H, vd).
 
     q_offset: absolute position of q[0] — an int or a per-row (B,) tensor.
     kv_len:   number of valid kv entries (<= Skv), int or per-row (B,).
@@ -85,8 +86,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_kernel(q, k, v, causal: bool):
-    """(B, Sq, H, hd) q over (B, Skv, KV, hd) k/v through the flash
-    kernel's flat layout; returns (out (B, Sq, H, hd), lse (B, H, Sq))."""
+    """(B, Sq, H, hd) q over (B, Skv, KV, hd) k and (B, Skv, KV, vd) v
+    through the flash kernel's flat layout; returns (out (B, Sq, H, vd),
+    lse (B, H, Sq))."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
@@ -175,17 +177,19 @@ class _Flash(torch.autograd.Function):
 
 
 def _rows_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
-                 row_block: Optional[int]) -> torch.Tensor:
-    """``torch.einsum(eq, a, b)`` with a leading row dim on both operands
-    and the output, *row_block* rows at a time (None: all at once):
-    cuBLAS picks a batched product's algorithm, and with it a row's
-    summation order, by the batch count (on the H100, 64 decode rows
-    part from 16 in both chunk products); the elementwise work and the
-    reductions around them do not depend on it and stay whole."""
+                 row_block: Optional[int], shared_b: bool = False
+                 ) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` with a leading row dim on *a*, the
+    output and (unless ``shared_b``: one *b* for every row) *b*,
+    *row_block* rows at a time (None: all at once): cuBLAS picks a
+    batched product's algorithm, and with it a row's summation order, by
+    the batch count (on the H100, 64 decode rows part from 16 in both
+    chunk products); the elementwise work and the reductions around them
+    do not depend on it and stay whole."""
     if row_block is None or a.shape[0] <= row_block:
         return torch.einsum(eq, a, b)
     return torch.cat([torch.einsum(eq, a[i:i + row_block],
-                                   b[i:i + row_block])
+                                   b if shared_b else b[i:i + row_block])
                       for i in range(0, a.shape[0], row_block)])
 
 

@@ -107,6 +107,22 @@ def swiglu(params: dict, x: torch.Tensor,
     return dense(h, params["down"], row_block)
 
 
+def gelu_mlp_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
+                  device="cuda", layers: int = 1) -> dict:
+    kw = dict(generator=generator, device=device, layers=layers)
+    return {"up": dense_init(d, d_ff, dtype, **kw),
+            "down": dense_init(d_ff, d, dtype, **kw)}
+
+
+def gelu_mlp(params: dict, x: torch.Tensor,
+             row_block: Optional[int] = None) -> torch.Tensor:
+    """up -> tanh GELU in f32 -> down (no config of the registry uses it;
+    the reference's module has it)."""
+    h = dense(x, params["up"], row_block)
+    h = gelu(h.float()).to(x.dtype)
+    return dense(h, params["down"], row_block)
+
+
 # ---------------------------------------------------------- activations
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh GELU (``jax.nn.gelu``'s default)."""

@@ -1,7 +1,10 @@
 """Model assembly, forward, loss and decode (port of
-``repro.models.model`` for the decoder families whose blocks are "attn"
-or "local_attn" (sliding window, ring caches), "ssd" (Mamba-2) or
-"rglru" (Griffin's recurrence), each with a "swiglu" FFN or none).
+``repro.models.model``): every family of the registry — blocks of "attn"
+or "local_attn" (sliding window, ring caches), "mla" (latent attention,
+absorbed decode), "ssd" (Mamba-2) or "rglru" (Griffin's recurrence), each
+with a "swiglu" or "moe" FFN or none, and the audio and VLM front ends
+(``embed_inputs``: projected frames plus a sinusoid, or projected
+patches before the text).
 
 A config's ``layer_pattern`` resolves into per-layer ``LayerSpec``s,
 segmented into ``[unrolled head] + [cycles] + [unrolled remainder]``.
@@ -35,6 +38,8 @@ from repro_torch.models.attention import KVCache, attn_block, attn_init
 from repro_torch.models.layers import (cross_entropy, dense, dense_init,
                                        dtype_of, embed_init, rms_norm,
                                        swiglu, swiglu_init)
+from repro_torch.models.mla import MLACache, mla_block, mla_init
+from repro_torch.models.moe import moe_ffn, moe_init
 from repro_torch.models.quant import QuantTensor
 from repro_torch.models.rglru import RGLRUCache, rglru_block, rglru_init
 from repro_torch.models.ssd import SSDCache, ssd_block, ssd_init
@@ -104,33 +109,10 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
     return segs
 
 
-# Where each mixer/FFN family that the port does not run yet is queued.
-OTHER_FAMILIES = "ROADMAP queue A: the other model families"
-_NOT_PORTED = {
-    "mla": f"models/mla.py ({OTHER_FAMILIES})",
-    "moe": f"models/moe.py ({OTHER_FAMILIES})",
-}
-
-
-def _check_ported(spec: LayerSpec) -> None:
-    for part in (spec.mixer, spec.ffn):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{part!r} is not in the port yet: {_NOT_PORTED[part]}")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("audio", "vlm") or cfg.frontend_dim:
-        raise NotImplementedError(
-            f"modality front ends are not in the port yet ({OTHER_FAMILIES})")
-    for spec in layer_specs(cfg):
-        _check_ported(spec)
-
-
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (KVCache, SSDCache, RGLRUCache)):
+    if isinstance(tree, (KVCache, MLACache, SSDCache, RGLRUCache)):
         return type(tree)(*(fn(t) for t in tree))
     if isinstance(tree, QuantTensor):
         # codes and scales share the leading (layer) axes: slice together
@@ -143,20 +125,22 @@ def _tree_map(fn, tree):
 # ----------------------------------------------------------------- init
 def _block_init(cfg: ModelConfig, spec: LayerSpec, layers: int, *,
                 generator: torch.Generator, device) -> dict:
-    _check_ported(spec)
     dt = dtype_of(cfg)
     kw = dict(generator=generator, device=device, layers=layers)
     p: Dict[str, Any] = {"ln1": torch.zeros((layers, cfg.d_model),
                                             device=device)}
     if spec.mixer in ("attn", "local_attn"):
         p["attn"] = attn_init(cfg, dt, **kw)
+    elif spec.mixer == "mla":
+        p["attn"] = mla_init(cfg, dt, **kw)
     elif spec.mixer == "ssd":
         p["ssd"] = ssd_init(cfg, dt, **kw)
     else:
         p["rg"] = rglru_init(cfg, dt, **kw)
     if spec.ffn != "none":        # mixer-only blocks (mamba2) have no ln2
         p["ln2"] = torch.zeros((layers, cfg.d_model), device=device)
-        p["ffn"] = swiglu_init(cfg.d_model, cfg.d_ff, dt, **kw)
+        p["ffn"] = (moe_init(cfg, dt, **kw) if spec.ffn == "moe"
+                    else swiglu_init(cfg.d_model, cfg.d_ff, dt, **kw))
     return p
 
 
@@ -168,8 +152,9 @@ def _unstack(tree):
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> dict:
     """Frozen backbone parameter tree, drawn on *device* from a seeded
-    ``torch.Generator`` (the reference's distributions, not its draws)."""
-    _check_family(cfg)
+    ``torch.Generator`` (the reference's distributions, not its draws).
+    A config with a front end (audio frames, VLM patches) gets its
+    ``frontend`` projection (frontend_dim, d_model)."""
     g = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg)
     p: Dict[str, Any] = {
@@ -188,6 +173,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         p["head"] = dense_init(cfg.d_model, cfg.vocab_size, dt, generator=g,
                                device=device)[0]
+    if cfg.frontend_dim:
+        # modality-frontend stub: project precomputed embeddings to d_model
+        p["frontend"] = dense_init(cfg.frontend_dim, cfg.d_model, dt,
+                                   generator=g, device=device)[0]
     return p
 
 
@@ -231,7 +220,6 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
     — (n_cycles, d, R)/(n_cycles, R, d), R = Σ_k r_pad_k — per *layout*
     (default: per-adapter ``pad_rank``; ``r_pad`` forces a uniform
     width).  A ~ N(0, 1/r_pad_k) with dead lanes zero, B = 0."""
-    _check_family(cfg)
     if layout is None:
         rk = tuple(int(r) for r in ranks)
         layout = RankLayout.uniform(rk, r_pad) if r_pad else RankLayout(rk)
@@ -261,9 +249,14 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      device="cuda"):
     """One layer's (or a stack's) cache: attention keeps a full KV cache
     of *buf* keys, or a ring of ``min(buf, sliding_window)`` slots for a
-    local-attention layer or when *ring* is asked for; the recurrent
-    mixers keep their state and conv tail."""
-    _check_ported(spec)
+    local-attention layer or when *ring* is asked for; MLA keeps its
+    latent and rope key, *buf* wide (whole decode chunks) or a ring of
+    ``min(buf, sliding_window)`` slots; the recurrent mixers keep their
+    state and conv tail."""
+    if spec.mixer == "mla":
+        b = min(buf, cfg.sliding_window) if ring else buf
+        return MLACache.init(batch, b, cfg, dtype_of(cfg), layers=layers,
+                             device=device, ring=ring)
     if spec.mixer in ("attn", "local_attn"):
         is_ring = ring or spec.mixer == "local_attn"
         b = min(buf, cfg.sliding_window) if is_ring else buf
@@ -294,13 +287,14 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                 lora: Optional[MultiLoRA], x: torch.Tensor, positions,
                 cache, cache_pos, row_block: Optional[int] = None,
                 ring: bool = False):
-    """One pre-norm block. Returns (x, cache); the cache is updated in
-    place.  A local-attention layer with a cache decodes through a ring
+    """One pre-norm block. Returns (x, cache, aux); the cache is updated
+    in place, aux is the MoE FFN's load-balance loss (0 for the other
+    FFNs).  A local-attention layer with a cache decodes through a ring
     whatever *ring* says, as in the reference.  ``row_block``: rows per
-    dense product of the attention and FFN blocks (``layers.dense``; the
-    serving engine's decode, which takes no recurrent mixer)."""
-    _check_ported(spec)
+    dense product of the attention, MLA and FFN blocks (``layers.dense``;
+    the serving engine's decode, which takes no recurrent mixer)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    aux = torch.zeros((), device=x.device)
     if spec.mixer in ("attn", "local_attn"):
         local = spec.mixer == "local_attn"
         out, cache = attn_block(cfg, p["attn"], h, positions=positions,
@@ -308,6 +302,11 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                                 cache_pos=cache_pos, local=local,
                                 ring=ring or (local and cache is not None),
                                 row_block=row_block)
+    elif spec.mixer == "mla":
+        out, cache = mla_block(cfg, p["attn"], h, positions=positions,
+                               lora=lora, lora_ab=ad, cache=cache,
+                               cache_pos=cache_pos, ring=ring,
+                               row_block=row_block)
     elif spec.mixer == "ssd":
         out, cache = ssd_block(cfg, p["ssd"], h, lora=lora, lora_ab=ad,
                                cache=cache)
@@ -316,36 +315,78 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                                  cache=cache)
     x = x + out
     if spec.ffn == "none":
-        return x, cache
+        return x, cache, aux
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["ffn"], h2, row_block), cache
+    if spec.ffn == "moe":
+        # the row blocks reach the shared experts; the expert products
+        # group a row with whatever rows routed to the same expert
+        out2, aux = moe_ffn(cfg, p["ffn"], h2, row_block=row_block)
+    else:
+        out2 = swiglu(p["ffn"], h2, row_block)
+    return x + out2, cache, aux
 
 
 def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
                    lora: Optional[MultiLoRA], x, positions, caches,
                    cache_pos, remat: bool = False,
                    row_block: Optional[int] = None, ring: bool = False):
-    """Apply one segment; caches are updated in place.  ``remat``
-    recomputes each cycle of a scanned segment in the backward instead of
-    keeping its activations (the reference's ``jax.checkpoint``)."""
+    """Apply one segment; returns (x, aux summed over its layers); caches
+    are updated in place.  ``remat`` recomputes each cycle of a scanned
+    segment in the backward instead of keeping its activations (the
+    reference's ``jax.checkpoint``)."""
     def cycle(x, layer_p, layer_ad, layer_c):
+        aux = torch.zeros((), device=x.device)
         for j, spec in enumerate(seg.specs):
             c = layer_c.get(str(j)) if layer_c else None
-            x, _ = apply_block(cfg, spec, layer_p[str(j)],
-                               layer_ad.get(str(j), {}), lora, x, positions,
-                               c, cache_pos, row_block=row_block, ring=ring)
-        return x
+            x, _, a = apply_block(cfg, spec, layer_p[str(j)],
+                                  layer_ad.get(str(j), {}), lora, x,
+                                  positions, c, cache_pos,
+                                  row_block=row_block, ring=ring)
+            aux = aux + a
+        return x, aux
 
     if not seg.scanned:
         return cycle(x, p, ad, caches)
+    aux = torch.zeros((), device=x.device)
     for i in range(seg.repeats):
         sl = lambda t: _tree_map(lambda v: v[i], t)
         if remat:
-            x = checkpoint(cycle, x, sl(p), sl(ad), None,
-                           use_reentrant=False)
+            x, a = checkpoint(cycle, x, sl(p), sl(ad), None,
+                              use_reentrant=False)
         else:
-            x = cycle(x, sl(p), sl(ad), sl(caches) if caches else None)
-    return x
+            x, a = cycle(x, sl(p), sl(ad), sl(caches) if caches else None)
+        aux = aux + a
+    return x, aux
+
+
+# ----------------------------------------------------------------- embed
+def _sinusoid(S: int, d: int, offset=0, device=None) -> torch.Tensor:
+    pos = (offset + torch.arange(S, device=device))[:, None].float()
+    dim = torch.arange(0, d, 2, device=device)[None, :].float()
+    ang = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((S, d), device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
+                 pos_offset=0) -> Tuple[torch.Tensor, int]:
+    """Resolve modality inputs to (B, S, d) activations.  Returns (x,
+    text_offset): logits and labels align from text_offset on (the
+    patches' count for a VLM batch with patches, else 0)."""
+    dt = dtype_of(cfg)
+    if cfg.family == "audio":
+        x = dense(batch["frames"].to(dt), params["frontend"])
+        S = x.shape[1]
+        x = x + _sinusoid(S, cfg.d_model, pos_offset,
+                          device=x.device).to(dt)[None]
+        return x, 0
+    if cfg.family == "vlm" and "patches" in batch:
+        pe = dense(batch["patches"].to(dt), params["frontend"])
+        te = params["embed"][batch["tokens"].long()]
+        return torch.cat([pe, te], dim=1), pe.shape[1]
+    return params["embed"][batch["tokens"].long()], 0
 
 
 # ----------------------------------------------------------------- forward
@@ -358,36 +399,46 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
             caches: Optional[list] = None, cache_pos=None,
             remat: bool = False, row_block: Optional[int] = None,
-            ring: bool = False) -> torch.Tensor:
-    """Token-input model forward.  Returns logits (B, S, vocab).
+            ring: bool = False):
+    """Full model.  batch keys: tokens / frames / patches (+ tokens).
+
+    Returns (logits, aux, caches, text_offset), the reference's tuple:
+    logits (B, S, vocab) — for a VLM batch with patches S covers patches
+    + text (slice from text_offset) —, aux the MoE layers' summed
+    load-balance loss, and the caches passed in (updated in place).
 
     ``cache_pos``: None (no caches), an int, or a per-row (B,) tensor
-    (batched serving decode: every request at its own depth).  ``remat``
-    (training, no caches) recomputes each layer cycle in the backward.
-    ``row_block``: rows per dense product and per decode-attention chunk
-    product (``layers.dense``; the serving decode path on the card).
-    ``ring``: every attention cache is a ring (the sliding-window
-    serving variant); local-attention caches are rings regardless."""
+    (batched serving decode: every request at its own depth; token
+    inputs only).  ``remat`` (training, no caches) recomputes each layer
+    cycle in the backward.  ``row_block``: rows per dense product and per
+    decode-attention chunk product (``layers.dense``; the serving decode
+    path on the card).  ``ring``: every attention cache is a ring (the
+    sliding-window serving variant); local-attention caches are rings
+    regardless."""
     assert not (remat and caches is not None), "remat is for training"
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    vec_pos = isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1
+    if vec_pos and cfg.family == "audio":
+        raise ValueError("per-row cache positions need token inputs")
+    x, text_off = embed_inputs(cfg, params, batch,
+                               pos_offset=0 if vec_pos else cache_pos or 0)
     B, S, _ = x.shape
     ar = torch.arange(S, device=x.device)
-    if isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1:
+    if vec_pos:
         positions = cache_pos.long()[:, None] + ar[None, :]
     else:
         positions = ((cache_pos or 0) + ar)[None, :].expand(B, S)
 
     ad_segs = (adapters["segments"] if adapters
                else [{} for _ in segment_plan(cfg)])
+    aux = torch.zeros((), device=x.device)
     for i, seg in enumerate(segment_plan(cfg)):
         c = caches[i] if caches is not None else None
-        x = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i], lora,
-                           x, positions, c, cache_pos, remat=remat,
-                           row_block=row_block, ring=ring)
+        x, a = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i],
+                              lora, x, positions, c, cache_pos, remat=remat,
+                              row_block=row_block, ring=ring)
+        aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(cfg, params, x, row_block)
+    return _logits(cfg, params, x, row_block), aux, caches, text_off
 
 
 def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
@@ -398,10 +449,17 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
 
     Each job's loss is normalized over *its own* token count
     (``per_job_denom``, the full batch's, when given), so the gradient
-    w.r.t. job j's adapter is the one training j alone gives.  Returns
-    (total = Σ_j loss_j, {"per_job", "aux", "per_job_count"})."""
-    logits = forward(cfg, params, adapters, lora, batch, remat=remat)
+    w.r.t. job j's adapter is the one training j alone gives — up to the
+    MoE load-balance aux, which the reference adds over the whole fused
+    batch (ROADMAP §C).  Logits align with the labels from the text
+    offset on (VLM patches carry no labels); an encoder (non-causal)
+    predicts every position.  Returns (total = Σ_j loss_j + aux,
+    {"per_job", "aux", "per_job_count"})."""
+    logits, aux, _, off = forward(cfg, params, adapters, lora, batch,
+                                  remat=remat)
     labels = batch["labels"]
+    if off:
+        logits = logits[:, off:]
     if cfg.causal:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -413,7 +471,6 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
     seq_count = (torch.full(seq_loss.shape, float(labels.shape[-1]),
                             device=seq_loss.device)
                  if mask is None else mask.float().sum(-1))
-    aux = torch.zeros((), device=seq_loss.device)    # no MoE: no aux
     if lora is not None:
         onehot = F.one_hot(lora.adapter_ids.long(),
                            lora.num_adapters).float()              # (B, K)
@@ -434,7 +491,8 @@ def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],
     per-row (B,) tensor (full caches only).  Returns (logits (B, S, V),
     caches).  ``row_block``: rows per dense and chunk product; ``ring``:
     as ``forward``."""
-    logits = forward(cfg, params, adapters, lora, {"tokens": token},
-                     caches=caches, cache_pos=pos, row_block=row_block,
-                     ring=ring)
+    logits, _, caches, _ = forward(cfg, params, adapters, lora,
+                                   {"tokens": token}, caches=caches,
+                                   cache_pos=pos, row_block=row_block,
+                                   ring=ring)
     return logits, caches

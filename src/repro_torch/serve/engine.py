@@ -23,8 +23,17 @@ The batch layout is the reference's:
 Prefill is ``decode_step`` at width S; the decode loop (the reference's
 ``lax.scan``) is a Python loop whose tokens stay on the device, with
 one host copy per batch.  Per-request ``max_new_tokens`` and stop tokens
-truncate each returned row.  Recurrent mixers, ring caches and
-non-causal configs are rejected at construction.  ``quantize="int8"``
+truncate each returned row.  It serves the token decoders whose mixers
+keep position-indexed caches: GQA attention (the dense families, the MoE
+qwen3-moe-30b-a3b) and MLA (deepseek-v2-lite-16b: latent caches, the
+absorbed decode, whose products take the row blocks too and whose sums
+run over fixed-width key chunks, as GQA decode's do).  A MoE FFN's
+expert products group a row with whatever rows routed to the same
+expert, so no row block reaches them: fused and solo decode the same
+ids only as far as those products give a row the same bits in any group
+(ROADMAP C9).  Recurrent
+mixers, local attention (ring caches), the audio and VLM front ends and
+non-causal configs are rejected at construction, as in the reference.  ``quantize="int8"``
 quantizes the backbone once, at construction; every base projection then
 runs the dequant-matmul kernel.
 """
@@ -110,7 +119,6 @@ class ServeEngine:
                         f"mixer {spec.mixer!r} keeps recurrent/ring state; "
                         "the fused serving engine needs position-indexed "
                         "caches (attn/mla)")
-                M._check_ported(spec)
         if not self.greedy:
             raise NotImplementedError("only greedy decoding is implemented")
 

@@ -388,7 +388,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.mesh, repro_torch.elastic.engine, "
             "repro_torch.cluster, repro_torch.cluster.trace, "
             "repro_torch.cluster.simulator, repro_torch.cluster.baselines, "
-            "repro_torch.cluster.metrics, repro_torch.train.serve\n"
+            "repro_torch.cluster.metrics, repro_torch.train.serve, "
+            "repro_torch.models.moe, repro_torch.models.mla, "
+            "repro_torch.models.ssd, repro_torch.models.rglru\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -400,12 +402,12 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize("hd,dtype,match", [
-    (80, torch.bfloat16, "head dim"), (96, torch.bfloat16, "head dim"),
+    (256, torch.bfloat16, "head dim"), (96, torch.bfloat16, "head dim"),
     (64, torch.float32, "bf16"), (64, torch.bfloat16, "device")])
 def test_flash_kernel_refuses_what_it_does_not_take(hd, dtype, match):
-    """The Hopper flash kernel takes head dims 32, 64 and 128 in bf16 on a
-    CUDA device: the check the wrapper makes before any build refuses the
-    rest."""
+    """The Hopper flash kernel takes the (head dim, v width) pairs of
+    ``KERNEL_HEAD_DIMS`` in bf16 on a CUDA device: the check the wrapper
+    makes before any build refuses the rest."""
     q = torch.zeros((8, 16, hd), dtype=dtype)
     kv = torch.zeros((2, 16, hd), dtype=dtype)
     with pytest.raises(ValueError, match=match):
@@ -414,13 +416,14 @@ def test_flash_kernel_refuses_what_it_does_not_take(hd, dtype, match):
 
 @pytest.mark.parametrize("hd", [32, 64, 128, 80, 96, 192, 256])
 def test_flash_kernel_head_dims(hd):
-    """Head dims 32, 64 and 128 in bf16 pass every check but the device
-    (a CPU tensor here); 80, 96, 192 and 256 are refused for their head
-    dim, before any build."""
+    """With v as wide as q and k, head dims 32, 64, 128 and 80 in bf16
+    pass every check but the device (a CPU tensor here); 96, 192 (taken
+    only with v 128, tests/test_torch_flash_dims.py) and 256 are refused
+    for their widths, before any build."""
     q = torch.zeros((8, 16, hd), dtype=torch.bfloat16)
     kv = torch.zeros((2, 16, hd), dtype=torch.bfloat16)
-    taken = hd in flash_attention.KERNEL_HEAD_DIMS
-    assert taken == (hd in (32, 64, 128))
+    taken = (hd, hd) in flash_attention.KERNEL_HEAD_DIMS
+    assert taken == (hd in (32, 64, 128, 80))
     with pytest.raises(ValueError, match="device" if taken else "head dim"):
         flash_attention.check_kernel_operands(q, kv, kv)
 

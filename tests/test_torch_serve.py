@@ -270,7 +270,7 @@ def test_generation_matches_cacheless_forward():
     seq = list(prompt)
     for _ in range(5):
         logits = M.forward(engine.cfg, engine.params, fused.adapters, ctx,
-                           {"tokens": torch.tensor([seq])})
+                           {"tokens": torch.tensor([seq])})[0]
         seq.append(int(logits[0, -1].argmax()))
     assert got.tolist() == seq[len(prompt):]
 

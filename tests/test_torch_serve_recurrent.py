@@ -109,7 +109,7 @@ def _port_steps(cfg, impl, params, adapters, toks, ids, prompt, n_decode):
         lds.append(ld[:, 0].numpy())
     with torch.no_grad():
         tf = M.forward(cfg, p, a, ssm.lora_ctx(i),
-                       {"tokens": t[:, :prompt + n_decode]}).numpy()
+                       {"tokens": t[:, :prompt + n_decode]})[0].numpy()
     return lp[:, 0].numpy(), lds, tf
 
 
@@ -208,7 +208,7 @@ def test_sliding_window_variant_decodes_like_reference():
     ld, _ = ssm.make_serve_step(ring=True)(
         p, a, caches, {"tokens": t[:, 7:8], "adapter_ids": i}, 7)
     with torch.no_grad():
-        tf = M.forward(cfg, p, a, ssm.lora_ctx(i), {"tokens": t[:, :8]})
+        tf = M.forward(cfg, p, a, ssm.lora_ctx(i), {"tokens": t[:, :8]})[0]
     _close(lp[:, 0], tf[:, 6])
     _close(ld[:, 0], tf[:, 7])
 

@@ -111,7 +111,7 @@ def _port_steps(cfg, impl, params, adapters, toks, ids):
                                       "adapter_ids": i}, PROMPT)
     assert caches2 is caches             # written in place, same list
     with torch.no_grad():
-        tf = M.forward(cfg, p, a, ssm.lora_ctx(i), {"tokens": t})
+        tf = M.forward(cfg, p, a, ssm.lora_ctx(i), {"tokens": t})[0]
     return lp[:, 0], ld[:, 0], tf, ssm
 
 

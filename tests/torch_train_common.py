@@ -75,6 +75,22 @@ def _weights(ref_cfg, seed=0, ranks=RANKS, batch=BATCH):
     return ssm, params, adapters
 
 
+def fill_b(adapters: dict, act: np.ndarray, rng) -> dict:
+    """Every packed B of a numpy adapter tree drawn ~ N(0, 0.05²) on the
+    layout's active rows *act* (R, 1), so that every adapter changes the
+    output and every adapter gradient is nonzero; in place."""
+    def fill(tree):
+        for k, v in tree.items():
+            if k == "B":
+                tree[k] = (rng.standard_normal(v.shape) * 0.05 * act
+                           ).astype(np.float32)
+            elif isinstance(v, dict):
+                fill(v)
+    for seg in adapters["segments"]:
+        fill(seg)
+    return adapters
+
+
 def _adam_close(got: dict, want: dict):
     """test_lossless.py's bound for adapters after Adam steps."""
     assert got.keys() == want.keys()
