@@ -158,7 +158,25 @@ each on standard output:
             torch --no-aimd`` for 4 steps at the launcher's defaults
             (finite losses, no LoRA kernel, 44 flash launches a step, the
             steady step beside train_uniform_torch's), exact launch
-            counts asserted.
+            counts asserted;
+  cluster — ``ClusterController`` on full-width tinyllama-1.1b: (a) a
+            masked and a ragged group under the sequential, roundrobin
+            and threads modes (every pump on the device's default
+            stream), adapters, Adam moments and losses bit-equal
+            (asserted), each mode's wall, peak memory and idle share;
+            (b) a job through the controller against the same job in a
+            solo ``ElasticEngine``, bit-equal (asserted); (c) two solo
+            pumps merged by an overlapped regroup while they step,
+            beside a stop-the-world merge, each event's pause, migrate,
+            warm and resume seconds; (d) ``TraceRunner`` over 7 trace
+            jobs, fault-free and with a worker death in flight, a
+            corrupt checkpoint and a stuck worker: no job lost, every
+            fault recovered, steps lost within the checkpoint period,
+            the corrupt checkpoint's job back at its admission-time init
+            (asserted), measured JCTs, samples/s and recovery latencies;
+            (e) ``ExecutionBackend(hw=H100)`` inside the simulator,
+            predicted against measured steps; every part's launches held
+            to the steps it dispatched.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's and their times at the recurrent widths; the
@@ -175,7 +193,11 @@ same cases timed on two trees in one run of the card, for comparisons.
 
     python3 chip_smoke.py --families
 
-runs only the ``families`` phase.
+runs only the ``families`` phase, and
+
+    python3 chip_smoke.py --cluster
+
+only the ``cluster`` phase.
 
     python3 chip_smoke.py --floors
 
@@ -3921,6 +3943,460 @@ def simulate_phase(cfg, cal):
         raise AssertionError(f"simulate: no calibrated price {looked}")
 
 
+# ------------------------------------------------------------- cluster
+# Cluster control on the one card.  Two groups of the train cell's jobs:
+# ranks 8 and 16 (both pad to 16: a uniform layout, the masked kernels)
+# and ranks 32 and 64 (a mixed layout, the ragged kernels).
+CLUSTER_GROUPS = ((8, 16), (32, 64))
+CLUSTER_MODES = ("sequential", "roundrobin", "threads")
+CLUSTER_STEPS = 4                 # timed steps of each mode (one chunk)
+# the overlapped regroup: chunks of REGROUP_CHUNK steps toward a run
+# target the two pumps are still short of when the merged group is
+# installed (preparing it took 9.4 s beside two 22-layer pumps in
+# chunks of 4, while they stepped on to a target of 16)
+REGROUP_CHUNK, REGROUP_TARGET = 2, 16
+# the trace harness: tinyllama jobs of ranks from the train cell's set,
+# budgets of 12-24 steps, arriving over TRACE_WINDOW_S of wall time;
+# chunks of TRACE_CHUNK steps, a checkpoint every TRACE_CKPT_EVERY
+# chunks.  The harness's groups are singletons (the scheduler merges
+# only under queue pressure), and a 22-layer step costs ~0.45 s of host
+# time whatever its tokens, taken by turns under the GIL: 7 such jobs
+# took 142 s a run and tripped the heartbeat four times without a fault
+# (PERF.md §6).  So the trace runs tinyllama at full width cut to
+# TRACE_LAYERS layers.
+TRACE_JOBS, TRACE_WINDOW_S, TRACE_LAYERS = 6, 10.0, 6
+TRACE_CHUNK, TRACE_CKPT_EVERY = 2, 2
+# heartbeat: past a healthy chunk with every other pump taking the host
+# by turns, and its checkpoint write
+TRACE_STUCK_AFTER = 10.0
+TRACE_MAX_WALL_S = 240.0
+SIM_MAX_TIME = 240.0              # simulated seconds of the backend's run
+
+
+def cluster_controller(cfg, dev, **kw):
+    from repro_torch.cluster.controller import ClusterController
+    kw.setdefault("chunk_size", TRAIN_CHUNK)
+    return ClusterController(lambda m: cfg, impl="cuda",
+                             block_t=TRAIN_BLOCK_T, lr=TRAIN_LR, remat=True,
+                             seed=0, device=dev, **kw)
+
+
+def cluster_spec(jid, rank, budget=10_000, **kw):
+    from repro_torch.core.jobs import LoRAJobSpec
+    return LoRAJobSpec(jid, rank=rank, batch_size=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, steps_budget=budget,
+                       max_slowdown=2.0, **kw)
+
+
+class chunk_tally:
+    """Within the block, every dispatched chunk's steps by route: a
+    uniform layout's steps launch ``MASKED_LAUNCHES``, a mixed one's
+    ``TRAIN_LAUNCHES``, scaled from 22 layers to *layers* (every launch
+    of a chunk is made at dispatch, so a chunk whose collect a fault
+    prevents still counts)."""
+
+    def __init__(self, layers: int = TRAIN_LAYERS):
+        self.layers = layers
+
+    def __enter__(self):
+        import threading
+        from repro_torch.elastic.runtime import GroupRuntime
+        self.steps = {"masked": 0, "ragged": 0}
+        self._orig = orig = GroupRuntime.dispatch_chunk
+        tally, lock = self.steps, threading.Lock()
+
+        def dispatch_chunk(rt, length=None, **kw):
+            route = "masked" if rt.ssm.layout.is_uniform else "ragged"
+            with lock:                    # the pumps dispatch in threads
+                tally[route] += int(length or rt.chunk_size)
+            return orig(rt, length, **kw)
+        GroupRuntime.dispatch_chunk = dispatch_chunk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.elastic.runtime import GroupRuntime
+        GroupRuntime.dispatch_chunk = self._orig
+
+    def expect(self) -> dict:
+        return {k: (self.steps["masked"] * MASKED_LAUNCHES[k]
+                    + self.steps["ragged"] * TRAIN_LAUNCHES[k])
+                * self.layers // TRAIN_LAYERS for k in TRAIN_LAUNCHES}
+
+
+def check_cluster_launches(part, launches, tally):
+    want = tally.expect()
+    if launches != want:
+        raise AssertionError(f"cluster {part}: launches {launches}, "
+                             f"expected {want} for steps {tally.steps}")
+
+
+def cluster_modes(cfg, dev) -> tuple:
+    """(a) The two groups under each concurrency mode, from the same
+    seeds: half a chunk to warm up, CLUSTER_STEPS steps timed, one step
+    under the profiler (whose post-processing takes seconds per 10,000
+    kernels); adapters, Adam moments and per-job losses bit-equal across
+    the modes (asserted); each mode's wall and peak memory over the
+    timed steps, and its device idle share over the profiled step."""
+    import numpy as np
+    import torch
+    out, rts, launches = {}, {}, {}
+    groups = [tuple(f"c{r}" for r in g) for g in CLUSTER_GROUPS]
+    for mode in CLUSTER_MODES:
+        ctl = cluster_controller(cfg, dev, concurrency=mode)
+        for g, ranks in zip(groups, CLUSTER_GROUPS):
+            for jid, r in zip(g, ranks):
+                ctl.submit(cluster_spec(jid, r))
+        ctl.apply_grouping(groups)
+        warm = {"+".join(g): ctl._slots[g].runtime(g).warm([TRAIN_CHUNK])
+                for g in groups}
+        with chunk_tally() as tally:
+            _, lc_warm = counted(lambda: ctl.run(TRAIN_CHUNK // 2))
+        check_cluster_launches(f"modes {mode} warm-up", lc_warm, tally)
+        torch.cuda.reset_peak_memory_stats()
+        with chunk_tally() as tally:
+            t0 = time.perf_counter()
+            _, lc = counted(lambda: ctl.run(CLUSTER_STEPS))
+            wall = time.perf_counter() - t0
+        check_cluster_launches(f"modes {mode}", lc, tally)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_run(lambda: ctl.run(1))
+        rts[mode] = {g: ctl._slots[g].runtime(g) for g in groups}
+        launches[mode] = {k: lc[k] + lc_warm[k] for k in lc}
+        timed = {"+".join(g): float(np.mean(
+            rt.report.step_times[TRAIN_CHUNK // 2:
+                                 TRAIN_CHUNK // 2 + CLUSTER_STEPS]))
+            for g, rt in rts[mode].items()}
+        out[mode] = {"wall_s": wall, "wall_per_step_s": wall / CLUSTER_STEPS,
+                     "warm_s": warm, "step_s_by_group": timed,
+                     "peak_device_memory_bytes": peak,
+                     "profile_one_step": {
+                         k: prof.get(k) for k in ("wall_s", "device_busy_s",
+                                                  "device_idle_share",
+                                                  "device_kernels")},
+                     "routes": {"+".join(g): "masked" if rt.ssm.layout
+                                .is_uniform else "ragged"
+                                for g, rt in rts[mode].items()}}
+        del ctl
+    equal = {mode: {"+".join(g): _same_state(rts["sequential"][g], rt)
+                    for g, rt in rts[mode].items()}
+             for mode in CLUSTER_MODES[1:]}
+    seq = out["sequential"]["wall_s"]
+    for mode in CLUSTER_MODES:
+        out[mode]["wall_vs_sequential"] = out[mode]["wall_s"] / seq
+    total = {k: sum(lc[k] for lc in launches.values())
+             for k in launches["sequential"]}
+    return out, equal, total
+
+
+def cluster_solo(cfg, dev) -> tuple:
+    """(b) One job through the controller against the same job in a solo
+    ``ElasticEngine`` (each draws its own backbone and adapters from the
+    seed): adapters, Adam moments and per-step losses bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.elastic import ElasticEngine
+    spec = cluster_spec("solo-r16", 16)
+
+    def both():
+        ctl = cluster_controller(cfg, dev)
+        ctl.submit(spec)
+        rt_c = ctl.ensure_group((spec.job_id,))
+        rt_c.run(CLUSTER_STEPS)
+        eng = ElasticEngine(cfg, impl="cuda", block_t=TRAIN_BLOCK_T,
+                            lr=TRAIN_LR, chunk_size=TRAIN_CHUNK,
+                            remat=True, seed=0, device=dev)
+        eng.add_job(spec)
+        rt_e = eng.ensure_group((spec.job_id,))
+        rt_e.run(CLUSTER_STEPS)
+        return (ctl.job_state(spec.job_id), eng.job_state(spec.job_id),
+                rt_c, rt_e)
+
+    with chunk_tally() as tally:
+        (a, b, rt_c, rt_e), lc = counted(both)
+    check_cluster_launches("solo", lc, tally)
+    same = {part: all(torch.equal(getattr(a, part)[k], getattr(b, part)[k])
+                      for k in getattr(a, part))
+            for part in ("adapter", "mu", "nu")}
+    same["opt_step"] = a.opt_step == b.opt_step == CLUSTER_STEPS
+    same["per_job_loss"] = bool(np.array_equal(
+        np.stack(rt_c.report.per_job_losses),
+        np.stack(rt_e.report.per_job_losses)))
+    return {"job": spec.job_id, "steps": CLUSTER_STEPS,
+            "bit_equal": same}, lc
+
+
+def cluster_regroup(cfg, dev) -> tuple:
+    """(c) Two solo pumps run toward REGROUP_TARGET steps in chunks of
+    REGROUP_CHUNK; the merged
+    group is prepared while they step, then installed (overlapped); the
+    same groups merged stop-the-world on a second controller.  Asserted:
+    the pumps advanced during the prepare, the event is overlapped with no
+    warm in its stall window, and every job reaches the target."""
+    out = {}
+    ids = ("rg8", "rg64")
+
+    def both():
+        for mode in ("overlapped", "stop_the_world"):
+            ctl = cluster_controller(cfg, dev, chunk_size=REGROUP_CHUNK)
+            ctl.submit(cluster_spec(ids[0], 8))
+            ctl.submit(cluster_spec(ids[1], 64))
+            ctl.apply_grouping([(ids[0],), (ids[1],)])
+            ctl.begin(REGROUP_TARGET)
+            while min(ctl.steps_done(j) for j in ids) < REGROUP_CHUNK:
+                time.sleep(0.01)            # both pumps past their first
+            before = {j: ctl.steps_done(j) for j in ids}
+            prepared, prewarm_s = 0, None
+            if mode == "overlapped":
+                t0 = time.perf_counter()
+                prepared = ctl.prewarm([ids])
+                prewarm_s = time.perf_counter() - t0
+            after = {j: ctl.steps_done(j) for j in ids}
+            ctl.apply_grouping([ids], overlap=mode == "overlapped")
+            ev = ctl.regroup_log[-1]
+            ctl.finish()
+            out[mode] = {
+                **ev.summary(), "fence_steps": dict(ev.fence_steps),
+                "steps_before_prewarm": before,
+                "steps_after_prewarm": after, "prepared": prepared,
+                "prewarm_s": prewarm_s,
+                "steps_done": {j: ctl.steps_done(j) for j in ids},
+                "regroup_events": ctl.regroup_events}
+
+    with chunk_tally() as tally:
+        _, lc = counted(both)
+    check_cluster_launches("regroup", lc, tally)
+    ov = out["overlapped"]
+    checks = {
+        "mode_overlapped": ov["mode"] == "overlapped",
+        "no_warm_in_window": ov["compile_s"] == 0.0,
+        "assembled_off_window": ov["assemble_s"] > 0.0,
+        "pumps_stepped_during_prepare": all(
+            ov["steps_after_prewarm"][j] > ov["steps_before_prewarm"][j]
+            for j in ids),
+        "fence_mid_run": all(0 < s < REGROUP_TARGET
+                             for s in ov["fence_steps"].values()),
+        "reached_target": all(
+            out[m]["steps_done"][j] >= REGROUP_TARGET
+            for m in out for j in ids),
+        "stop_the_world": out["stop_the_world"]["mode"] == "stop_the_world"}
+    return out, checks, lc
+
+
+def trace_jobs():
+    """TRACE_JOBS jobs of the synthetic trace (its arrival order and
+    spacing), given the train cell's shapes, ranks from {8, 16, 32, 64}
+    and budgets of 12-24 steps drawn from seed 7."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.cluster.trace import TraceConfig, generate
+    raw = generate(TraceConfig(months=1, jobs_per_month=8 * TRACE_JOBS,
+                               base_models=("tinyllama-1.1b",),
+                               seed=7))[:TRACE_JOBS]
+    rng = np.random.default_rng(7)
+    return [dataclasses.replace(
+        j, rank=int(rng.choice(TRAIN_RANKS)), batch_size=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, gpus=1, steps_budget=int(rng.integers(12, 25)),
+        max_slowdown=2.0) for j in raw]
+
+
+def cluster_trace(cfg, dev, tmp) -> tuple:
+    """(d) ``TraceRunner`` over the trace jobs on the live controller
+    (*cfg* cut to TRACE_LAYERS layers), fault-free, then with a worker
+    death in flight, a corrupt checkpoint and a stuck worker.  Asserted: no job lost, every fault recovered,
+    steps lost at most the checkpoint period for every job restored from
+    a checkpoint, and the corrupt checkpoint's job restarted from exactly
+    its admission-time init."""
+    import dataclasses
+    import torch
+    from repro_torch.cluster.faults import FaultPlan, FaultSpec
+    from repro_torch.cluster.harness import TraceRunner
+    cfg = dataclasses.replace(cfg, num_layers=min(TRACE_LAYERS,
+                                                  cfg.num_layers))
+    jobs = trace_jobs()
+    by_budget = sorted(jobs, key=lambda j: -j.steps_budget)
+    period = TRACE_CHUNK * TRACE_CKPT_EVERY
+    out, fresh_checks = {}, []
+
+    def restore_checked(ctl):
+        """``_restore_state`` with a check of every fresh restart against
+        the job's admission-time init, drawn anew."""
+        restore = ctl._restore_state
+
+        def wrapped(jid, spec, rec):
+            st = restore(jid, spec, rec)
+            if jid in rec.restarted_fresh:
+                want = ctl._fresh_state(spec)
+                fresh_checks.append({"job": jid, "equal": all(
+                    torch.equal(getattr(st, p)[k], getattr(want, p)[k])
+                    for p in ("adapter", "mu", "nu") for k in want.adapter)
+                    and st.opt_step == st.steps_done == 0})
+            return st
+        return wrapped
+
+    def runs():
+        for name in ("fault_free", "faults"):
+            plan = None if name == "fault_free" else FaultPlan([
+                FaultSpec("worker_death", job_id=by_budget[0].job_id,
+                          at_step=2, phase="inflight"),
+                FaultSpec("corrupt_checkpoint", job_id=by_budget[1].job_id,
+                          at_step=4),
+                FaultSpec("stuck_worker", job_id=by_budget[2].job_id,
+                          at_step=2, stuck_s=120.0)], seed=7)
+            ckpt = os.path.join(tmp, "cluster_" + name)
+            shutil.rmtree(ckpt, ignore_errors=True)
+            os.makedirs(ckpt)
+            ctl = cluster_controller(
+                cfg, dev, concurrency="threads", chunk_size=TRACE_CHUNK,
+                checkpoint_dir=ckpt, checkpoint_every=TRACE_CKPT_EVERY,
+                fault_plan=plan, backoff_base_s=0.2,
+                stuck_after=TRACE_STUCK_AFTER, startup_grace_s=120.0)
+            ctl._restore_state = restore_checked(ctl)
+            res = TraceRunner(ctl, jobs, arrival_window_s=TRACE_WINDOW_S,
+                              max_wall_s=TRACE_MAX_WALL_S).run()
+            s = res.summary()
+            s["jct_per_job_s"] = {j: lg.jct_s for j, lg in res.logs.items()}
+            s["steps_per_job"] = {j: ctl.steps_done(j) for j in res.logs}
+            s["regroups"] = len(ctl.regroup_log)
+            s["regroup_stats"] = ctl.regroup_stats()
+            if plan is not None:
+                s["faults_fired"] = len(plan.fired)
+                s["faults_planned"] = len(plan.faults)
+            out[name] = s
+
+    with chunk_tally(cfg.num_layers) as tally:
+        _, lc = counted(runs)
+    check_cluster_launches("trace", lc, tally)
+    f = out["faults"]
+    fresh = [j for rec in f["failures"] for j in rec["restarted_fresh"]]
+    checks = {
+        "no_job_lost": all(out[n]["lost_jobs"] == 0
+                           and out[n]["completed"] == len(jobs)
+                           and not out[n]["timed_out"] for n in out),
+        "fault_free_has_no_failures": not out["fault_free"]["failures"],
+        "every_fault_fired": f["faults_fired"] == f["faults_planned"] == 3,
+        "every_fault_recovered": f["recovery"]["faults"]
+        == f["recovery"]["recovered"] >= 3,
+        "steps_lost_within_period": all(
+            n <= period for rec in f["failures"]
+            for j, n in rec["steps_lost"].items()
+            if j in rec["restored_from_checkpoint"]),
+        "fresh_restart_is_the_corrupt_checkpoint_job":
+            fresh == [by_budget[1].job_id],
+        "fresh_restart_equals_admission_init": bool(fresh_checks)
+        and all(c["equal"] for c in fresh_checks),
+        "budgets_reached": all(
+            out[n]["steps_per_job"][j.job_id] == j.steps_budget
+            for n in out for j in jobs)}
+    info = {"layers": cfg.num_layers,
+            "jobs": [{"id": j.job_id, "rank": j.rank,
+                      "budget": j.steps_budget} for j in jobs],
+            "checkpoint_period_steps": period, "chunk_size": TRACE_CHUNK,
+            "checkpoint_every": TRACE_CKPT_EVERY,
+            "stuck_after_s": TRACE_STUCK_AFTER,
+            "arrival_window_s": TRACE_WINDOW_S,
+            "fresh_restarts": fresh_checks}
+    return out, checks, info, lc
+
+
+def cluster_execution(cfg, dev, sim_cfg_of=None) -> tuple:
+    """(e) ``ExecutionBackend(hw=H100, impl="cuda")`` inside the cluster
+    simulator (``reduced_models=False``: the full-width config) on a
+    three-job tinyllama trace: the executed groupings, every horizon's
+    predicted (H100 spec) against measured step, and the uncalibrated
+    and calibrated errors.  Asserted: a fused multi-job group executed."""
+    from repro_torch.cluster.execution import ExecutionBackend
+    from repro_torch.cluster.simulator import (ClusterConfig,
+                                               ClusterSimulator,
+                                               tlora_policy)
+    from repro_torch.core import throughput as tp
+    trace = [cluster_spec("x0-r8", 8, 20_000),
+             cluster_spec("x1-r64", 64, 20_000),
+             cluster_spec("x2-r16", 16, 4_000, arrival_time=40.0)]
+
+    def simulate():
+        be = ExecutionBackend(hw=tp.H100, impl="cuda", block_t=TRAIN_BLOCK_T,
+                              lr=TRAIN_LR, steps_per_measure=2, device=dev)
+        cc = ClusterConfig(total_chips=8, horizon=30.0, concurrency_cap=4,
+                           reduced_models=False, hw=tp.H100)
+        sim = ClusterSimulator(cc, None, cfg_of=sim_cfg_of, execution=be)
+        sim.policy = tlora_policy(sim._cfg_of)
+        t0 = time.perf_counter()
+        res = sim.run(trace, max_time=SIM_MAX_TIME)
+        return be, res, time.perf_counter() - t0
+
+    with chunk_tally() as tally:
+        (be, res, wall), lc = counted(simulate)
+    check_cluster_launches("execution", lc, tally)
+    out = {"summary": be.summary(), "wall_s": wall,
+           "config": be.controller._cfg(trace[0].base_model).name,
+           "records": [{"t": r.t, "jobs": list(r.job_ids), "chips": r.chips,
+                        "predicted_s": r.predicted, "measured_s": r.measured,
+                        "predicted_cal_s": r.predicted_cal,
+                        "error": r.error, "error_cal": r.error_cal}
+                       for r in res.step_records],
+           "regroup_events": res.regroup_events}
+    checks = {"observed": bool(res.step_records),
+              "fused_group_executed": any(len(r.job_ids) > 1
+                                          for r in res.step_records)}
+    return out, checks, lc
+
+
+def cluster_phase(cfg, dev, tmp, sim_cfg_of=None):
+    """Cluster control on the one card (``cluster/controller``, its chunk
+    pumps, faults, the trace harness and the execution backend), on
+    full-width tinyllama-1.1b with the "cuda" impl, block_t 128 and
+    remat: (a) the three concurrency modes, (b) controller against the
+    solo engine, (c) the overlapped regroup under live pumps beside a
+    stop-the-world one, (d) the trace harness fault-free and under
+    injected faults, (e) the execution-backed simulator.  Every part's
+    kernel launches are held to its dispatched steps (a mixed layout's
+    TRAIN_LAUNCHES, a uniform one's MASKED_LAUNCHES a step); returns the
+    phase's totals."""
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    modes, equal, lc_a = part("modes", cluster_modes, cfg, dev)
+    solo, lc_b = part("solo", cluster_solo, cfg, dev)
+    regroup, regroup_checks, lc_c = part("regroup", cluster_regroup, cfg, dev)
+    trace, trace_checks, trace_info, lc_d = part("trace", cluster_trace, cfg,
+                                                 dev, tmp)
+    execution, exec_checks, lc_e = part("execution", cluster_execution, cfg,
+                                        dev, sim_cfg_of)
+    launches = {k: sum(lc[k] for lc in (lc_a, lc_b, lc_c, lc_d, lc_e))
+                for k in lc_a}
+    emit({"phase": "cluster", "model": cfg.name, "layers": cfg.num_layers,
+          "stream": "every pump on the device's default stream",
+          "modes": {"groups": [list(g) for g in CLUSTER_GROUPS],
+                    "steps": CLUSTER_STEPS, "by_mode": modes,
+                    "bit_equal_vs_sequential": equal},
+          "controller_vs_solo_engine": solo,
+          "regroup": {"target": REGROUP_TARGET, "by_mode": regroup,
+                      "checks": regroup_checks},
+          "trace": {**trace_info, "runs": trace, "checks": trace_checks},
+          "execution": {**execution, "checks": exec_checks},
+          "launches": launches, "seconds": time.perf_counter() - t0,
+          "part_seconds": part_s, "card": card_line()})
+    if not all(all(same.values()) for e in equal.values()
+               for same in e.values()):
+        raise AssertionError(f"cluster: modes differ from sequential: "
+                             f"{equal}")
+    if not all(solo["bit_equal"].values()):
+        raise AssertionError(f"cluster: controller vs solo engine: {solo}")
+    for name, checks in (("regroup", regroup_checks),
+                         ("trace", trace_checks),
+                         ("execution", exec_checks)):
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"cluster {name}: {failed}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -3931,6 +4407,8 @@ def main() -> int:
                     "(floors_sweep)")
     ap.add_argument("--families", action="store_true", help="only the "
                     "families phase (families_phase)")
+    ap.add_argument("--cluster", action="store_true", help="only the "
+                    "cluster phase (cluster_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -3969,6 +4447,10 @@ def main() -> int:
         return 0
     if args.families:
         families_phase(dev)
+        return 0
+    if args.cluster:
+        ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+        cluster_phase(get_config("tinyllama-1.1b"), dev, ckpt_dir)
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -4026,6 +4508,7 @@ def main() -> int:
     simulate_phase(cfg, cal)
     counts["engine"] = engine_phase(cfg, params, dev, hw)
     counts["launch"] = launch_phase(cfg, params, dev, measured)
+    counts["cluster"] = cluster_phase(cfg, dev, ckpt_dir)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -95,16 +96,36 @@ def build_all() -> Dict[str, float]:
     return secs
 
 
-@functools.lru_cache(maxsize=None)
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
-    path = _lib_path(name)
-    if not path.exists():
-        build_all()
-    lib = ctypes.CDLL(str(path))
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded library of ``csrc/<name>.cu`` (built on first use).
+    Threads that launch their first kernels at the same time (a
+    controller's chunk pumps) wait on one lock, so each library is built
+    and loaded once."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` counter, under a lock:
+    the wrappers launch from several threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

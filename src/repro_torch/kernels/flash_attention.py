@@ -110,7 +110,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hd, vd, kv_groups, int(causal), hd ** -0.5,
         build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    build.count_launch(flash_attention_fwd)
     return o, lse
 
 

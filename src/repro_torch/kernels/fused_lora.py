@@ -168,7 +168,7 @@ def fused_lora_cuda(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         A.stride(0), A.stride(1), B.stride(0), B.stride(1), block_t, rows,
         splits, build.stream_ptr(x.device))
     build.check(lib, err, "fused_lora_cuda")
-    fused_lora_cuda.launches += 1
+    build.count_launch(fused_lora_cuda)
     return out
 
 
@@ -261,7 +261,7 @@ def grouped_matmul_cuda(x: torch.Tensor, W: torch.Tensor,
         d_in, d_out, W.stride(0), ld, int(trans), int(narrow), block_t,
         rows, build.stream_ptr(x.device))
     build.check(lib, err, "grouped_matmul_cuda")
-    grouped_matmul_cuda.launches += 1
+    build.count_launch(grouped_matmul_cuda)
     return out
 
 
@@ -356,7 +356,7 @@ def grouped_wgrad_cuda(x: torch.Tensor, g: torch.Tensor,
         build.ptr(work), T, d_x, d_g, num_adapters, block_t,
         WGRAD_CHUNK_TILES, build.stream_ptr(x.device))
     build.check(lib, err, "grouped_wgrad_cuda")
-    grouped_wgrad_cuda.launches += 1
+    build.count_launch(grouped_wgrad_cuda)
     return out
 
 
@@ -433,7 +433,7 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
         build.ptr(scale) if scale is not None else None, build.ptr(out), T,
         K, N, ld, int(trans), build.stream_ptr(x.device))
     build.check(lib, err, "dequant_matmul_cuda")
-    dequant_matmul_cuda.launches += 1
+    build.count_launch(dequant_matmul_cuda)
     return out
 
 

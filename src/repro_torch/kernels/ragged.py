@@ -304,7 +304,7 @@ def ragged_lora_fwd(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              d_in, d_out, meta.total_r, max(meta.r_pads), block_t, rows,
              splits, build.stream_ptr(x.device))
     build.check(lib, err, "ragged_lora_fwd")
-    ragged_lora_fwd.launches += 1
+    build.count_launch(ragged_lora_fwd)
     return out
 
 
@@ -333,7 +333,7 @@ def ragged_lora_dgrad(dy_s: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              d_in, d_out, meta.total_r, max(meta.r_pads), block_t, rows,
              splits, build.stream_ptr(dy_s.device))
     build.check(lib, err, "ragged_lora_dgrad")
-    ragged_lora_dgrad.launches += 1
+    build.count_launch(ragged_lora_dgrad)
     return dx
 
 
@@ -361,7 +361,7 @@ def ragged_xa(x: torch.Tensor, A: torch.Tensor, meta: RaggedMeta, *,
     if x.device.type == "cpu":
         return ragged_xa_plain(x, A, meta, block_t=block_t)
     out = _packed("ragged_xa", x, A, meta, block_t, transposed=False)
-    ragged_xa.launches += 1
+    build.count_launch(ragged_xa)
     return out
 
 
@@ -377,7 +377,7 @@ def ragged_dxa(dy_s: torch.Tensor, B: torch.Tensor, meta: RaggedMeta, *,
     if dy_s.device.type == "cpu":
         return ragged_dxa_plain(dy_s, B, meta, block_t=block_t)
     out = _packed("ragged_dxa", dy_s, B, meta, block_t, transposed=True)
-    ragged_dxa.launches += 1
+    build.count_launch(ragged_dxa)
     return out
 
 
@@ -411,7 +411,7 @@ def ragged_wgrad(u: torch.Tensor, v: torch.Tensor, meta: RaggedMeta, *,
              meta.num_jobs, max_w, block_t, WGRAD_CHUNK_TILES,
              build.stream_ptr(u.device))
     build.check(lib, err, "ragged_wgrad")
-    ragged_wgrad.launches += 1
+    build.count_launch(ragged_wgrad)
     return out
 
 

@@ -60,8 +60,12 @@ def test_copies_equal_their_originals(ref_mod, port_mod):
 
 def test_cluster_package_exports_the_four_copies():
     import repro_torch.cluster as pkg
-    assert sorted(pkg.__all__) == ["baselines", "metrics", "simulator",
-                                   "trace"]
+    assert {"baselines", "metrics", "simulator", "trace"} <= \
+        set(pkg.__all__)
+    # with cluster control beside them
+    assert sorted(pkg.__all__) == ["baselines", "control", "controller",
+                                   "execution", "faults", "harness",
+                                   "metrics", "simulator", "trace"]
 
 
 @pytest.mark.parametrize("kw", [
@@ -121,11 +125,17 @@ def test_load_csv_equals_reference(tmp_path):
 
 
 def test_validate_trace_without_the_execution_backend():
-    """``executable=True`` asks for cluster/execution, which the port does
-    not have yet (cluster control); an explicit model list works."""
+    """``executable=True`` asks cluster/execution for its executable
+    models, and refuses the jobs the reference refuses with the same
+    message; an explicit model list works."""
     jobs = generate(TraceConfig(months=1, jobs_per_month=10, seed=0))
-    with pytest.raises(ImportError):
+    with pytest.raises(trace.TraceValidationError,
+                       match="not runnable") as err:
         trace.validate_trace(jobs, executable=True)
+    with pytest.raises(ref_trace.TraceValidationError) as ref_err:
+        ref_trace.validate_trace(ref_trace.generate(ref_trace.TraceConfig(
+            months=1, jobs_per_month=10, seed=0)), executable=True)
+    assert str(err.value) == str(ref_err.value)
     with pytest.raises(trace.TraceValidationError, match="not runnable"):
         trace.validate_trace(jobs, models=("tinyllama-1.1b",))
     assert trace.validate_trace(jobs, models=TraceConfig().base_models) \

@@ -390,7 +390,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.cluster.simulator, repro_torch.cluster.baselines, "
             "repro_torch.cluster.metrics, repro_torch.train.serve, "
             "repro_torch.models.moe, repro_torch.models.mla, "
-            "repro_torch.models.ssd, repro_torch.models.rglru\n"
+            "repro_torch.models.ssd, repro_torch.models.rglru, "
+            "repro_torch.cluster.control, repro_torch.cluster.faults, "
+            "repro_torch.cluster.harness, repro_torch.cluster.controller, "
+            "repro_torch.cluster.execution\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -399,6 +402,76 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
+
+
+def test_library_loads_once_from_concurrent_first_launches(monkeypatch,
+                                                          tmp_path):
+    """Eight threads whose first launches meet (a controller's chunk
+    pumps) build the libraries once and share one loaded library."""
+    import ctypes
+    import threading
+    import time
+    import types
+    from repro_torch.kernels import build
+
+    calls = []
+
+    def fake_build_all():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)                   # a build takes a while
+        for name in build.SOURCES:
+            (tmp_path / f"lib{name}.so").touch()
+        return {}
+
+    def fake_lib(path):
+        return types.SimpleNamespace(
+            path=path, repro_cuda_error_string=types.SimpleNamespace())
+
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build, "_lib_path",
+                        lambda name: tmp_path / f"lib{name}.so")
+    monkeypatch.setattr(ctypes, "CDLL", fake_lib)
+    monkeypatch.setattr(build, "_LIBS", {})
+    names = ("ragged_lora", "grouped") * 4
+    start = threading.Barrier(len(names))
+    got = [None] * len(names)
+
+    def first_launch(i, name):
+        start.wait()
+        got[i] = build.load(name)
+
+    threads = [threading.Thread(target=first_launch, args=(i, n))
+               for i, n in enumerate(names)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert len(calls) == 1
+    for name in set(names):
+        libs = {id(lib) for lib, n in zip(got, names) if n == name}
+        assert len(libs) == 1
+        assert build.load(name) is got[names.index(name)]
+    assert got[0].repro_cuda_error_string.restype is ctypes.c_char_p
+
+
+def test_launch_counters_count_every_launch_from_threads():
+    from repro_torch.kernels import build
+
+    def wrapper():
+        pass
+    wrapper.launches = 0
+
+    def bump():
+        for _ in range(20_000):
+            build.count_launch(wrapper)
+
+    import threading
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert wrapper.launches == 8 * 20_000
 
 
 @pytest.mark.parametrize("hd,dtype,match", [
