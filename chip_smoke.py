@@ -176,7 +176,24 @@ each on standard output:
             (asserted), measured JCTs, samples/s and recovery latencies;
             (e) ``ExecutionBackend(hw=H100)`` inside the simulator,
             predicted against measured steps; every part's launches held
-            to the steps it dispatched.
+            to the steps it dispatched;
+  sharded — the train and train_uniform groups data-parallel through
+            ``GroupRuntime(mesh=...)`` on full-width tinyllama-1.1b, 2
+            steps a run: (a) two gloo ranks spawned onto the one card
+            (NCCL refuses two ranks on one device): the train group's
+            exact gather mode, gather at N = 2 with the "rank_desc" nano
+            order, and psum (ragged kernels), the uniform group's gather
+            mode at N = 1 and N = 2 (masked kernels); (b) this process
+            as a one-rank NCCL world, the gather mode.  Rank 0 trains
+            the meshless run of each group with the same seeds first
+            and holds each run against it (SHARDED_RUNS' bars: step 1's
+            losses and adapter gradients for every run), and psum and
+            N = 2 are rerun with half the batch planted out of the
+            gradient, which the gradient limit must catch; every rank's
+            launches are held to the layer pattern x N, every rank's
+            losses must agree; walls, peak memory and rank 0's profiled
+            step are recorded as ranks sharing one card, not as a
+            multi-GPU number.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's and their times at the recurrent widths; the
@@ -193,11 +210,15 @@ same cases timed on two trees in one run of the card, for comparisons.
 
     python3 chip_smoke.py --families
 
-runs only the ``families`` phase, and
+runs only the ``families`` phase,
 
     python3 chip_smoke.py --cluster
 
-only the ``cluster`` phase.
+only the ``cluster`` phase, and
+
+    python3 chip_smoke.py --sharded
+
+only the ``sharded`` phase.
 
     python3 chip_smoke.py --floors
 
@@ -324,11 +345,16 @@ def card_line() -> str:
 
 def _device_us(prof) -> list:
     """(name, device µs, calls) of every device-side event of a profile
-    (a CPU op's self device time would count its kernels twice)."""
+    (a CPU op's self device time would count its kernels twice), summed
+    from the profiler's raw events: ``key_averages`` first builds every
+    event's op tree, tens of seconds for a serve's ~140k kernels."""
     import torch
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return [(k, us, n) for k, (us, n) in rows.items()]
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -4397,6 +4423,337 @@ def cluster_phase(cfg, dev, tmp, sim_cfg_of=None):
     return launches
 
 
+# ----------------------------------------------------------- sharded
+SHARDED_D = 2                  # gloo ranks sharing cuda:0
+SHARDED_STEPS = 2              # steps a run, one at a time
+SHARDED_GROUPS = {"train": TRAIN_RANKS,      # mixed ranks: ragged route
+                  "uniform": UNIFORM_RANKS}  # uniform widths: masked route
+SHARDED_RUNS = (               # (name, group, GroupRuntime options)
+    ("gather", "train", {}),
+    ("gather_n2_rank_desc", "train",
+     {"nano_batches": 2, "nano_order": "rank_desc"}),
+    ("psum", "train", {"grad_sync": "psum"}),
+    ("uniform_gather", "uniform", {}),
+    ("uniform_gather_n2", "uniform", {"nano_batches": 2}))
+# Each run against the meshless run of the same group and seeds, on rank
+# 0.  Every run: step 1's per-job losses at the CPU tests' bars
+# (tests/torch_sharded_common.py: 1e-4 relative and absolute); step 1's
+# adapter gradients, read as Adam's first moments after step 1 ((1 - b1)
+# x the gradient, the same factor on both sides), within SHARD_GRAD_RTOL
+# relative Frobenius difference for every leaf and job; Adam steps and
+# steps done exactly.  Gather at N = 1 computes every adapter gradient
+# as one device does (the same full-shape wgrads over the same rows) and
+# is held to the CPU tests' bars over both steps as well: losses as
+# above; adapters and Adam moments within 2.5e-2 and within 1e-5 for
+# over 85% of the coordinates.  psum and N = 2 sum partial gradients
+# (two ranks', two slices'), each rounded to bf16 where the Function
+# returns it (the reference's rounding point), so their gradients carry
+# a 2^-9 rounding of each partial: SHARD_GRAD_RTOL = 2^-6 sits 4x above
+# the 2^-8 floor that leaves, while a step whose gradient misses half
+# the batch or takes a wrong wgrad reads O(1) (the planted runs below
+# show it).  Adam's second step turns those roundings into lr-sized
+# moves of near-cancelling coordinates, so their step-2 losses are held
+# as N = 1 vs N = 4 is (LOSS_ATOL) and their state is reported.
+SHARD_LOSS_TOL, SHARD_STATE_ATOL, SHARD_BULK = 1e-4, 2.5e-2, 0.85
+SHARD_GRAD_RTOL = 2.0 ** -6
+# The check of the gradient limit itself: these runs are repeated for
+# one step with rank 1's rows dropped from the gradient (its loss
+# multiplied by 0: its forward, collectives and per-job losses stay),
+# the fault of a step that leaves out half the batch; each must read
+# above SHARD_GRAD_RTOL, or the phase fails.
+SHARDED_PLANTED = ("psum", "gather_n2_rank_desc")
+
+
+def _state_diff(a, b) -> dict:
+    """Largest |a - b| over two trees' leaves and the smallest share of a
+    leaf's coordinates within 1e-5 of the other tree's."""
+    from repro_torch.optim.adamw import tree_leaves
+    worst, bulk = 0.0, 1.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, d.max().item())
+        bulk = min(bulk, (d < 1e-5).float().mean().item())
+    return {"max_abs_diff": worst, "min_share_within_1e-5": bulk}
+
+
+def _grad_rel(mu, mu_ref, layout) -> float:
+    """The largest relative Frobenius difference of *mu* from *mu_ref*
+    (step 1's Adam first moments) over every leaf and every job's packed
+    columns."""
+    import torch
+    from repro_torch.core.lora import rank_axis_is_last
+    from repro_torch.optim.adamw import tree_map
+    rel = []
+
+    def one(path, a, b):
+        ax = a.dim() - 1 if rank_axis_is_last(path[-1]) else a.dim() - 2
+        for k in range(layout.num_jobs):
+            off, r = layout.slice_of(k)
+            x, y = (t.narrow(ax, off, r).float() for t in (a, b))
+            rel.append((x - y).norm() / y.norm().clamp_min(1e-30))
+        return a
+    tree_map(one, mu, mu_ref)
+    return torch.stack(rel).max().item()
+
+
+def vs_meshless(rt, mu1, solo, exact: bool) -> dict:
+    """A sharded runtime against the meshless one (*solo*: its runtime
+    and first moments after step 1) after the same steps; *mu1*: the
+    sharded run's first moments after step 1.  Held at the bars of
+    SHARDED_RUNS' comment (*exact*: also the CPU tests' over both
+    steps)."""
+    import numpy as np
+    import torch
+    solo_rt, solo_mu1 = solo
+    got = np.stack(rt.report.per_job_losses)
+    want = np.stack(solo_rt.report.per_job_losses)
+    close = lambda a, b: bool(np.allclose(a, b, rtol=SHARD_LOSS_TOL,
+                                          atol=SHARD_LOSS_TOL))
+    out = {"bars": "cpu tests" if exact else
+           "step 1 and gradients; step 2's losses within LOSS_ATOL",
+           "loss_abs_diff_per_step": np.abs(got - want).max(1).tolist(),
+           "step1_loss_ok": close(got[0], want[0]),
+           "loss_ok": (close(got, want) if exact else
+                       bool(np.abs(got - want).max() <= LOSS_ATOL)),
+           "step1_grad_rel": _grad_rel(mu1, solo_mu1, rt.ssm.layout),
+           "adam_step_equal": torch.equal(rt.opt_state.step,
+                                          solo_rt.opt_state.step),
+           "steps_done_equal": rt.steps_done == solo_rt.steps_done}
+    out["grad_ok"] = out["step1_grad_rel"] <= SHARD_GRAD_RTOL
+    ok = [out[k] for k in ("step1_loss_ok", "loss_ok", "grad_ok",
+                           "adam_step_equal", "steps_done_equal")]
+    for part, x, y in (("adapters", rt.adapters, solo_rt.adapters),
+                       ("adam_mu", rt.opt_state.mu, solo_rt.opt_state.mu),
+                       ("adam_nu", rt.opt_state.nu, solo_rt.opt_state.nu)):
+        d = _state_diff(x, y)
+        if exact:
+            d["ok"] = (d["max_abs_diff"] <= SHARD_STATE_ATOL
+                       and d["min_share_within_1e-5"] > SHARD_BULK)
+            ok.append(d["ok"])
+        out[part] = d
+    out["ok"] = all(ok)
+    return out
+
+
+def _first_moments(rt):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda _, t: t.detach().clone(), rt.opt_state.mu)
+
+
+def planted_half_batch(rank, make_rt, solo) -> dict:
+    """One step of a fresh runtime from *make_rt* with rank 1's rows
+    dropped from the gradient (its loss x 0), read as vs_meshless reads
+    step 1's gradients; every rank takes the step (the collectives must
+    pair)."""
+    from repro_torch.models import model as M
+    loss_fn = M.loss_fn
+
+    def dropped(*a, **kw):
+        total, aux = loss_fn(*a, **kw)
+        return total * 0.0, aux
+    rt = make_rt()
+    rt.warm([1])
+    if rank == 1:
+        M.loss_fn = dropped
+    try:
+        rt.run(1)
+    finally:
+        M.loss_fn = loss_fn
+    if solo is None:
+        return {}
+    rel = _grad_rel(_first_moments(rt), solo[1], rt.ssm.layout)
+    return {"step1_grad_rel": rel, "caught": rel > SHARD_GRAD_RTOL}
+
+
+def sharded_runs(rank, mesh, cfg, params, dev, runs) -> dict:
+    """One rank's part of the sharded phase: trains each of *runs* for
+    SHARDED_STEPS steps through ``GroupRuntime(mesh=...)`` from the
+    seeds every rank shares, its launch counts read around the run and
+    held to the layer pattern x N.  Rank 0 first trains the meshless run
+    of each group with the same seeds and holds every sharded run
+    against it; on more than one rank, the SHARDED_PLANTED runs are
+    repeated with a planted fault that the gradient limit must catch.
+    The first run's second step is profiled on rank 0 (every rank takes
+    it as a step of its own: the collectives must pair).  Raises on a
+    failed check, after emitting what it measured."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+    kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T,
+              chunk_size=SHARDED_STEPS, remat=True, seed=0, device=dev)
+    groups, solos = {}, {}
+    for g in {grp for _, grp, _ in runs}:
+        specs = train_specs(SHARDED_GROUPS[g], prefix=f"shard-{g}")
+        layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+        groups[g] = (specs, train_adapters(cfg, SHARDED_GROUPS[g], layout,
+                                           dev))
+        if rank == 0:
+            solo = GroupRuntime.from_specs(cfg, specs, params=params,
+                                           adapters=groups[g][1], **kw)
+            solo.run(1)
+            mu1 = _first_moments(solo)
+            solo.run(SHARDED_STEPS - 1)
+            solos[g] = (solo, mu1)
+    dist.barrier()
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "runs": {}}
+    failed = []
+    for i, (name, grp, opts) in enumerate(runs):
+        specs, adapters = groups[grp]
+
+        def make_rt():
+            return GroupRuntime.from_specs(cfg, specs, params=params,
+                                           adapters=adapters, mesh=mesh,
+                                           **dict(kw, **opts))
+        rt = make_rt()
+        rt.warm([1])
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        prof, mu1 = {}, {}
+
+        def steps():
+            rt.run(1)
+            if rank == 0:
+                mu1["mu"] = _first_moments(rt)
+            for k in range(1, SHARDED_STEPS):
+                if i == 0 and rank == 0 and k == SHARDED_STEPS - 1:
+                    prof["one_step"] = profile_run(lambda: rt.run(1))
+                else:
+                    rt.run(1)
+        t0 = time.perf_counter()
+        _, launches = counted(steps)
+        wall = time.perf_counter() - t0
+        losses = np.stack(rt.report.per_job_losses)
+        expect = pattern_launches(cfg, masked=grp == "uniform")
+        res = {"group": grp, "ranks": list(SHARDED_GROUPS[grp]),
+               "options": opts, "data_shards": rt.data_shards,
+               "nano": rt.n, "per_step_per_job_loss": losses.tolist(),
+               "step_times_s": rt.report.step_times, "wall_s": wall,
+               "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "expected_launches_per_step": {
+                   k: v * rt.n for k, v in expect.items()}}
+        if prof:
+            res["profile_last_step"] = prof["one_step"]
+        if rank == 0:
+            res["vs_meshless"] = vs_meshless(
+                rt, mu1["mu"], solos[grp],
+                exact=rt.n == 1 and rt.grad_sync == "gather")
+            if not res["vs_meshless"]["ok"]:
+                failed.append(name)
+        del rt
+        if name in SHARDED_PLANTED and dist.get_world_size() > 1:
+            res["planted_half_batch"] = planted_half_batch(
+                rank, make_rt, solos.get(grp))
+            if rank == 0 and not res["planted_half_batch"]["caught"]:
+                failed.append(f"{name} (planted fault not caught)")
+        out["runs"][name] = res
+        check_launches(f"sharded {name} rank {rank}", launches,
+                       SHARDED_STEPS, res["expected_launches_per_step"])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"sharded {name}: losses {losses}")
+        torch.cuda.empty_cache()
+    if failed:
+        emit({"phase": "sharded_rank_failed", **out})
+        raise AssertionError(f"sharded runs {failed} fail their checks: "
+                             + json.dumps({n: out["runs"][n.split()[0]].get(
+                                 "vs_meshless") for n in failed}))
+    return out
+
+
+def sharded_rank(rank, world, init_method, src, out_path):
+    """A spawned gloo rank of the sharded phase's case (a): joins the
+    world, builds full-width tinyllama-1.1b from seed 0 on the one card
+    and runs ``sharded_runs``; writes its results to *out_path* % rank.
+    Anything that fails raises, and the parent fails with it."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import model as M
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = init_mesh(rank, world, init_method, "gloo")
+    cfg = get_config("tinyllama-1.1b")
+    out = sharded_runs(rank, mesh, cfg, M.init_model(cfg, seed=0,
+                                                      device=dev),
+                       dev, SHARDED_RUNS)
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_phase(src, cfg, params, dev):
+    """Case (a): SHARDED_D gloo ranks spawned onto cuda:0 run
+    SHARDED_RUNS; case (b): this process joins a one-rank NCCL world
+    (NCCL's init and collectives on the card) and runs the gather mode
+    over *params*.  Ranks sharing one card measure no multi-GPU scaling:
+    their walls include each other's kernels and the gloo copies through
+    the host.  Returns the launches of every rank of both cases,
+    summed."""
+    import gc
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import init_mesh
+    # hand the earlier phases' cached blocks back to the card: the ranks
+    # are other processes and allocate beside this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="sharded-", dir=os.path.join(ROOT,
+                                                               "build"))
+    cases = {}
+    t0 = time.perf_counter()
+    out_path = os.path.join(tmp, "%d.json")
+    mp.start_processes(sharded_rank, args=(
+        SHARDED_D, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
+        nprocs=SHARDED_D, join=True, start_method="spawn")
+    ranks = []
+    for r in range(SHARDED_D):
+        with open(out_path % r) as f:
+            ranks.append(json.load(f))
+    cases["gloo_shared_card"] = {"seconds": time.perf_counter() - t0,
+                                 "ranks": ranks}
+    t0 = time.perf_counter()
+    mesh = init_mesh(0, 1, f"file://{os.path.join(tmp, 'nccl')}", "nccl",
+                     device_type="cuda")
+    try:
+        one = sharded_runs(0, mesh, cfg, params, dev, SHARDED_RUNS[:1])
+    finally:
+        dist.destroy_process_group()
+    cases["nccl_one_rank"] = {"seconds": time.perf_counter() - t0,
+                              "ranks": [one]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for case, c in cases.items():
+        for res in c["ranks"]:
+            for run in res["runs"].values():
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        # every rank holds the same replicated trajectory
+        for name in c["ranks"][0]["runs"]:
+            first = c["ranks"][0]["runs"][name]["per_step_per_job_loss"]
+            for res in c["ranks"][1:]:
+                if res["runs"][name]["per_step_per_job_loss"] != first:
+                    raise AssertionError(f"sharded {case} {name}: ranks "
+                                         "report different losses")
+    emit({"phase": "sharded", "model": cfg.name,
+          "layers": cfg.num_layers, "steps_a_run": SHARDED_STEPS,
+          "groups": {g: [{"rank": r, "batch_size": TRAIN_BATCH,
+                          "seq_len": TRAIN_SEQ} for r in ranks]
+                     for g, ranks in SHARDED_GROUPS.items()},
+          "block_t": TRAIN_BLOCK_T, "step1_grad_rtol": SHARD_GRAD_RTOL,
+          "note": "ranks share one H100: no time here is a multi-GPU "
+                  "number",
+          "cases": cases, "launches": launches, "card": card_line()})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -4409,6 +4766,8 @@ def main() -> int:
                     "families phase (families_phase)")
     ap.add_argument("--cluster", action="store_true", help="only the "
                     "cluster phase (cluster_phase)")
+    ap.add_argument("--sharded", action="store_true", help="only the "
+                    "sharded phase (sharded_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -4451,6 +4810,12 @@ def main() -> int:
     if args.cluster:
         ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
         cluster_phase(get_config("tinyllama-1.1b"), dev, ckpt_dir)
+        return 0
+    if args.sharded:
+        from repro_torch.models import model as M
+        cfg = get_config("tinyllama-1.1b")
+        sharded_phase(os.path.abspath(args.src), cfg,
+                      M.init_model(cfg, seed=0, device=dev), dev)
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -4509,6 +4874,8 @@ def main() -> int:
     counts["engine"] = engine_phase(cfg, params, dev, hw)
     counts["launch"] = launch_phase(cfg, params, dev, measured)
     counts["cluster"] = cluster_phase(cfg, dev, ckpt_dir)
+    counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg,
+                                      params, dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

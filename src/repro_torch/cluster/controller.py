@@ -41,7 +41,7 @@ group's launches are the ones a sequential run makes, so threads,
 roundrobin and sequential runs give the same bits.  Partitioning the
 pool into submeshes, fixed meshes, ``tp_mode`` other than "dp",
 pipeline stages, the "rank_desc" nano order and the sharded gradient
-sync are multi-GPU and refused (``NO_MESH``).
+sync are multi-device and refused (``NO_MULTI_DEVICE``).
 
 An ``OnlineCalibrator`` (core/throughput) can be attached: every
 measured step AND every measured regroup stall feeds it, and the
@@ -69,7 +69,6 @@ from repro_torch.core import throughput as tp
 from repro_torch.core.jobs import JobRuntimeState, LoRAJobSpec
 from repro_torch.core.lora import pad_rank
 from repro_torch.core.scheduler import AdapterScheduler, Group, SchedulerConfig
-from repro_torch.core.ssm import NO_MESH
 from repro_torch.elastic.engine import ElasticEngine
 from repro_torch.elastic.migrate import JobTrainState
 from repro_torch.elastic.runtime import GroupRuntime, TrainReport
@@ -77,6 +76,9 @@ from repro_torch.models import model as M
 from repro_torch.models import quant
 
 GroupKey = Tuple[str, ...]
+NO_MULTI_DEVICE = ("the multi-device controller (partitioned pools, "
+                   "fixed meshes, sharded groups) is not ported yet "
+                   "(ROADMAP A7e: multi-GPU controller)")
 
 
 def effective_grad_sync(impl: str, mesh, grad_sync: str) -> str:
@@ -159,7 +161,7 @@ class ClusterController:
                 or fixed_mesh is not None or tp_mode != "dp" \
                 or pipeline_stages > 1 or nano_order != "job" \
                 or grad_sync != "gather" or data_axis != "data":
-            raise NotImplementedError(NO_MESH)
+            raise NotImplementedError(NO_MULTI_DEVICE)
         self.cfg_of = cfg_of
         self.devices = [torch.device(d) for d in devices] if devices \
             else [torch.device(device)]
@@ -906,9 +908,12 @@ class ClusterController:
         now = time.monotonic()
         ready = [jid for jid, t in list(self._backoff_until.items())
                  if t <= now and jid in self._parked]
-        for jid in ready:
-            self._backoff_until.pop(jid, None)
         if reschedule and (recs or ready):
+            # a job leaves its backoff only on a tick that re-admits it:
+            # popped on a tick without a reschedule, it would stay
+            # parked, and no later tick would see it as ready
+            for jid in ready:
+                self._backoff_until.pop(jid, None)
             t0 = time.monotonic()
             self.reschedule()
             if recs:                       # detection → pumps respawned

@@ -20,7 +20,7 @@ repository runs).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -171,8 +171,7 @@ def unpack_dense(A: torch.Tensor, B: torch.Tensor, layout: RankLayout,
 
 @dataclass
 class MultiLoRA:
-    """Apply context for one fused group: token→adapter map + impl choice
-    (the single-device forward subset of the reference's context)."""
+    """Apply context for one fused group: token→adapter map + impl choice."""
     adapter_ids: torch.Tensor         # (B,) int32 per-sequence adapter index
     ranks: torch.Tensor               # (K,) int32
     scalings: torch.Tensor            # (K,) f32   alpha_i / r_i
@@ -182,7 +181,20 @@ class MultiLoRA:
     equal_segments: bool = False      # every adapter contributes seg_rows
     layout: Optional[RankLayout] = None
     rows_all: Optional[Tuple[int, ...]] = None   # static per-job rows of
-    #                                   the full fused batch
+    #                                   the full (local) fused batch
+    nano_order: Optional[Tuple[int, ...]] = None  # static job order of the
+    #                                   segments inside a job-proportional
+    #                                   nano slice (sharded step only)
+    # sharded execution (core/ssm, data-parallel): set when this context
+    # covers ONE SHARD's rows.  ``row_solo_pos`` (D·B,) is the solo
+    # job-major position of every shard's rows (shard-major), which the
+    # exact wgrads and the reported losses reassemble by.
+    group: Optional[object] = None    # torch.distributed process group
+    row_solo_pos: Optional[torch.Tensor] = None
+    shards: int = 1
+    grad_sync: str = "gather"         # gather (exact wgrads) | psum
+    _shards: Dict[int, object] = field(default_factory=dict, repr=False,
+                                       compare=False)
 
     @property
     def num_adapters(self) -> int:
@@ -192,12 +204,51 @@ class MultiLoRA:
         """Per-token adapter ids for an (batch, seq) activation."""
         return self.adapter_ids.repeat_interleave(seq)
 
+    @property
+    def solo_rows(self) -> Tuple[int, ...]:
+        """Per-job rows of the full batch over every shard (in solo,
+        job-major order)."""
+        return tuple(r * self.shards for r in self.rows_all or ())
+
     def _slice_rows(self, bsz: int) -> Optional[Tuple[int, ...]]:
-        """Per-job rows of the batch when it is the full fused batch
-        (None otherwise: a contiguous sub-batch has no static tile map)."""
-        if self.rows_all is None or bsz != sum(self.rows_all):
+        """Per-job rows of a job-proportional batch of *bsz* rows: the
+        full fused batch, or (sharded only) a job-wise nano slice; None
+        otherwise.  One device's nano split is contiguous: its slices
+        belong to whichever jobs the cut landed on, and scaled static
+        geometry would apply the wrong adapters."""
+        if self.rows_all is None:
             return None
-        return tuple(self.rows_all)
+        total = sum(self.rows_all)
+        if bsz == total:
+            return tuple(self.rows_all)
+        if self.group is None or bsz == 0 or total % bsz:
+            return None
+        f = total // bsz
+        if any(r % f for r in self.rows_all):
+            return None
+        return tuple(r // f for r in self.rows_all)
+
+    def _shard(self, seq: int):
+        """The kernels' ``Shard`` for (B, seq) activations of the exact
+        gather mode, None otherwise: token positions from the rows',
+        and the full batch's adapter per token, computed once per
+        sequence length."""
+        if self.group is None or self.grad_sync != "gather":
+            return None
+        if seq not in self._shards:
+            from repro_torch.kernels.ops import Shard
+            rp = self.row_solo_pos
+            assert rp is not None, \
+                "a sharded gather context needs row_solo_pos (core/ssm)"
+            pos = (rp[:, None] * seq + torch.arange(
+                seq, device=rp.device)[None, :]).reshape(-1)
+            rows = torch.as_tensor(self.solo_rows, device=rp.device)
+            solo_ids = torch.repeat_interleave(
+                torch.arange(len(rows), dtype=torch.int32,
+                             device=rp.device), rows * seq)
+            self._shards[seq] = Shard(self.group, pos, int(rows.sum()) * seq,
+                                      solo_ids)
+        return self._shards[seq]
 
     def apply(self, x: torch.Tensor, ab: Dict[str, torch.Tensor]
               ) -> torch.Tensor:
@@ -212,6 +263,7 @@ class MultiLoRA:
         eq = (self.equal_segments
               and self.seg_rows is not None
               and bsz == self.seg_rows * self.num_adapters)
+        shard = self._shard(seq)
         if (self.layout is not None and self.layout.is_uniform
                 and self.impl in ("torch", "cuda")):
             # uniform padded widths: the packed (d, K*rp) pair reshapes
@@ -224,17 +276,23 @@ class MultiLoRA:
             B_st = B.reshape(K, rp, B.shape[-1])
             out = ops.fused_lora(xf, A_st, B_st, ids, self.ranks,
                                  self.scalings, impl=self.impl,
-                                 block_t=self.block_t, equal_segments=eq)
+                                 block_t=self.block_t, equal_segments=eq,
+                                 shard=shard)
         elif self.layout is not None:
+            # the rows the wgrads run over: with a shard, the full batch
+            # in solo order (each job's shard slices concatenated back)
+            solo_rows = (self.solo_rows if shard is not None
+                         else tuple(self.rows_all or ()))
             out = ops.fused_lora_ragged(
                 xf, A, B, ids, self.scalings, self.layout, impl=self.impl,
                 block_t=self.block_t, equal_segments=eq,
                 slice_rows=self._slice_rows(bsz), seq_len=seq,
-                ranks=self.ranks)
+                nano_order=self.nano_order, solo_rows=solo_rows,
+                shard=shard, ranks=self.ranks)
         else:
             out = ops.fused_lora(xf, A, B, ids, self.ranks, self.scalings,
                                  impl=self.impl, block_t=self.block_t,
-                                 equal_segments=eq)
+                                 equal_segments=eq, shard=shard)
         return out.reshape(bsz, seq, -1)
 
 

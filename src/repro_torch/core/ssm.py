@@ -19,17 +19,25 @@ into a single executable model:
     caches (full or ring) and recurrent state; an encoder (non-causal)
     has no decode and is refused there.
 
-Not ported yet, and refused where asked for: the sharded and pipeline
-steps (ROADMAP queue A, multi-GPU); ``pipeline_legal_stages``, the
-scheduler's view of the pipeline depths a config allows, is here.
+``make_train_step(mesh=...)`` is the data-parallel sharded step
+(``tp_mode="dp"``): every mesh axis folds into row sharding over a
+``torch.distributed`` group, each rank runs the step on its shard's rows
+(the shard-major layout of ``data/pipeline.shard_permutation``) and
+holds the adapters and Adam state replicated.  Not ported yet, and
+refused where asked for: ``tp_mode="auto"`` (tensor parallelism, ROADMAP
+A7c), pipeline mode (A7b) and a MoE model over a mesh (A7d);
+``pipeline_legal_stages``, the scheduler's view of the pipeline depths a
+config allows, is here.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -38,8 +46,22 @@ from repro_torch.core.lora import MultiLoRA, RankLayout
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
-NO_MESH = ("sharded and pipeline group execution are not ported yet "
-           "(ROADMAP queue A: multi-GPU)")
+NO_PIPELINE = ("pipeline group execution (tp_mode='pipeline', "
+               "pipeline_stages > 1) is not ported yet (ROADMAP A7b: "
+               "multi-GPU pipeline mode)")
+NO_AUTO_TP = ("tensor-parallel group execution (tp_mode='auto') is not "
+              "ported yet (ROADMAP A7c: multi-GPU tensor parallelism)")
+
+
+def check_tp_mode(tp_mode: str, pipeline_stages: int = 1) -> None:
+    """Refuse what the port does not run over a mesh: only the
+    data-parallel ``tp_mode="dp"`` is ported."""
+    if tp_mode == "pipeline" or pipeline_stages > 1:
+        raise NotImplementedError(NO_PIPELINE)
+    if tp_mode == "auto":
+        raise NotImplementedError(NO_AUTO_TP)
+    if tp_mode != "dp":
+        raise ValueError(f"unknown tp_mode {tp_mode!r}")
 
 
 @dataclass
@@ -49,6 +71,9 @@ class SharedSuperModel:
     jobs: List[LoRAJobSpec]
     impl: str = "cuda"           # fused-LoRA impl (cuda|torch|ref|loop)
     block_t: int = 128           # token tile of the LoRA kernels
+    data_shards: int = 1         # data-parallel degree: row counts pad so
+    #                              every job splits evenly over the shards
+    #                              with per-shard tile alignment
 
     ranks: np.ndarray = field(init=False)
     scalings: np.ndarray = field(init=False)
@@ -82,9 +107,9 @@ class SharedSuperModel:
         return params, adapters
 
     def rows_per_job(self) -> List[int]:
-        """Tile-aligned row count per job (mirrors FusedBatcher)."""
-        return [tile_rows(j.batch_size, j.seq_len, self.block_t)
-                for j in self.jobs]
+        """Tile/shard-aligned row count per job (mirrors FusedBatcher)."""
+        return [tile_rows(j.batch_size, j.seq_len, self.block_t,
+                          shards=self.data_shards) for j in self.jobs]
 
     def device_consts(self, device) -> Tuple[torch.Tensor, ...]:
         """(ranks, scalings, packed column -> job) on *device*, copied on
@@ -102,7 +127,8 @@ class SharedSuperModel:
         """Everything a step reads from the host once, ahead of the first
         step on *device*: the device constants and, for the "cuda" impl on
         a CUDA device, the kernel libraries (built if missing) and the
-        ragged kernels' tile tables of the full fused batch."""
+        ragged kernels' tile tables of the full fused batch (with shards,
+        of the local batch as well)."""
         dev = torch.device(device)
         self.device_consts(dev)
         if self.impl != "cuda" or dev.type != "cuda":
@@ -112,28 +138,45 @@ class SharedSuperModel:
         from repro_torch.kernels.ops import _tile_jobs_static
         for name in build.SOURCES:
             build.load(name)
-        tiles = _tile_jobs_static(self.rows_per_job(), self.jobs[0].seq_len,
-                                  self.block_t)
-        if tiles is not None and not self.layout.is_uniform:
-            meta = rg.RaggedMeta.build(tiles, self.layout)
-            rg._device_table(meta, dev)
-            rg._device_wgrad_tables(meta, dev)
-
-    def lora_ctx(self, adapter_ids: torch.Tensor) -> MultiLoRA:
-        """Apply context of one fused batch (single device)."""
         rows = self.rows_per_job()
+        for rs in {tuple(rows), tuple(r // self.data_shards for r in rows)}:
+            tiles = _tile_jobs_static(rs, self.jobs[0].seq_len, self.block_t)
+            if tiles is not None and not self.layout.is_uniform:
+                meta = rg.RaggedMeta.build(tiles, self.layout)
+                rg._device_table(meta, dev)
+                rg._device_wgrad_tables(meta, dev)
+
+    def lora_ctx(self, adapter_ids: torch.Tensor, *, group=None,
+                 row_solo_pos: Optional[torch.Tensor] = None,
+                 grad_sync: str = "gather",
+                 nano_order: Optional[Tuple[int, ...]] = None) -> MultiLoRA:
+        """Apply context of one fused batch.  With a *group* the context
+        is shard-local: *adapter_ids* covers one shard's rows, segment
+        geometry is the per-shard layout (global rows / data_shards), and
+        the exact wgrads reassemble solo order via *row_solo_pos* (the
+        solo position of every shard's rows, shard-major).  ``nano_order``
+        is the static job order of the segments inside a job-wise nano
+        slice."""
+        rows = self.rows_per_job()
+        if group is not None:
+            rows = [r // self.data_shards for r in rows]
         ranks, scalings, _ = self.device_consts(adapter_ids.device)
         return MultiLoRA(adapter_ids=adapter_ids, ranks=ranks,
                          scalings=scalings, impl=self.impl,
                          block_t=self.block_t, seg_rows=max(rows),
                          equal_segments=len(set(rows)) == 1,
-                         layout=self.layout, rows_all=tuple(rows))
+                         layout=self.layout, rows_all=tuple(rows),
+                         nano_order=nano_order, group=group,
+                         row_solo_pos=row_solo_pos,
+                         shards=self.data_shards, grad_sync=grad_sync)
 
     # --------------------------------------------------------- train step
     def make_train_step(self, *, lr_fn: Callable, nano_batches: int = 1,
                         remat: bool = True, weight_decay: float = 0.0,
                         steps: Optional[int] = None, mesh=None,
-                        pipeline_stages: int = 1) -> Callable:
+                        grad_sync: str = "gather", tp_mode: str = "dp",
+                        pipeline_stages: int = 1,
+                        nano_order: str = "job") -> Callable:
         """Build the fused train step: per-job-normalized loss, adapter
         grads by autograd through the kernels' Functions, one AdamW
         update with per-job step vectors over packed columns.
@@ -148,70 +191,177 @@ class SharedSuperModel:
         ``steps`` != None returns the chunked variant: a loop over a
         (steps, ...) stack of staged batches carrying (adapters,
         opt_state), with metrics stacked per step (the reference's
-        ``lax.scan`` over the chunk).  Raises, on every device, for a
-        mesh or pipeline stages, which the port does not run yet."""
-        if mesh is not None or pipeline_stages > 1:
-            raise NotImplementedError(NO_MESH)
+        ``lax.scan`` over the chunk).
+
+        ``mesh`` != None returns the SHARDED variant
+        (``_make_sharded_step``): the returned function takes THIS
+        rank's rows of the batch, in the shard-major layout.
+        ``grad_sync`` picks the cross-shard gradient strategy: "gather"
+        (exact: the kernels' shard-local backwards) or "psum" (one
+        all-reduce of the partial gradients; the only mode "ref" and
+        "loop" take).  ``nano_order`` ("job" or "rank_desc") orders the
+        job segments inside each sharded nano slice.  ``tp_mode`` other
+        than "dp" and pipeline stages are refused (``check_tp_mode``)."""
+        assert nano_order in ("job", "rank_desc"), nano_order
+        check_tp_mode(tp_mode, pipeline_stages)
+        if mesh is not None:
+            return self._make_sharded_step(
+                lr_fn=lr_fn, nano_batches=nano_batches, remat=remat,
+                weight_decay=weight_decay, steps=steps, mesh=mesh,
+                grad_sync=grad_sync, nano_order=nano_order)
         cfg, K = self.cfg, self.num_jobs
 
         def train_step(params, adapters, opt_state, batch):
             denom = _per_job_token_counts(batch, K, causal=cfg.causal)
-            ad = adamw.tree_map(
-                lambda _, t: t.detach().requires_grad_(True), adapters)
-            leaves = list(adamw.tree_leaves(ad))
+            slices = [(nb, self.lora_ctx(nb["adapter_ids"]))
+                      for nb in _reshape_nano(batch, nano_batches)]
+            return self._update(params, adapters, opt_state, denom, slices,
+                                lr_fn, remat, weight_decay)
 
-            def grad_fn(nb):
-                with torch.enable_grad():
-                    total, aux = M.loss_fn(cfg, params, ad,
-                                           self.lora_ctx(nb["adapter_ids"]),
-                                           nb, remat=remat,
-                                           per_job_denom=denom)
-                    g = torch.autograd.grad(total, leaves)
-                return g, aux["per_job"].detach(), aux["aux"].detach()
+        return train_step if steps is None else _chunked(train_step)
 
-            if nano_batches == 1:
-                g_leaves, per_job, moe_aux = grad_fn(batch)
-            else:
-                g_leaves = [torch.zeros(t.shape, dtype=torch.float32,
-                                        device=t.device) for t in leaves]
-                per_job = torch.zeros((K,), dtype=torch.float32,
-                                      device=denom.device)
-                moe_aux = torch.zeros((), device=denom.device)
-                for nb in _reshape_nano(batch, nano_batches):
-                    g, pj, a = grad_fn(nb)
-                    g_leaves = [a_ + b.float() for a_, b in zip(g_leaves, g)]
-                    per_job = per_job + pj
-                    moe_aux = moe_aux + a
-            it = iter(g_leaves)
-            grads = adamw.tree_map(lambda _, t: next(it), ad)
-            lr = lr_fn(opt_state.step)
-            new_adapters, new_opt = adamw.update(
-                grads, opt_state, adapters, lr=lr,
-                weight_decay=weight_decay,
-                col_jobs=self.device_consts(denom.device)[2])
-            # "aux": the MoE load-balance loss the step's total carried
-            # beside the per-job losses (summed over nano slices; 0
-            # without MoE layers)
-            metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
-                       "lr": torch.as_tensor(lr), "aux": moe_aux}
-            return new_adapters, new_opt, metrics
+    def _update(self, params, adapters, opt_state, denom, slices, lr_fn,
+                remat, weight_decay, reduce=None):
+        """The step's body over nano *slices*, (batch, LoRA context)
+        pairs: gradients through ``loss_fn``, accumulated in f32 over
+        more than one slice, optionally reduced (``reduce(grads,
+        per_job, aux)``, the psum mode), then one AdamW update.  Returns
+        (adapters, opt_state, metrics)."""
+        cfg, K = self.cfg, self.num_jobs
+        ad = adamw.tree_map(
+            lambda _, t: t.detach().requires_grad_(True), adapters)
+        leaves = list(adamw.tree_leaves(ad))
 
-        if steps is None:
-            return train_step
+        def grad_fn(nb, lora):
+            with torch.enable_grad():
+                total, aux = M.loss_fn(cfg, params, ad, lora, nb,
+                                       remat=remat, per_job_denom=denom)
+                g = torch.autograd.grad(total, leaves)
+            return g, aux["per_job"].detach(), aux["aux"].detach()
 
-        def chunked_step(params, adapters, opt_state, batches):
-            """batches: the train_step batch dict with a leading (steps,)
-            chunk axis.  The loop body is the exact single train_step."""
-            ms = []
-            for i in range(next(iter(batches.values())).shape[0]):
-                adapters, opt_state, m = train_step(
-                    params, adapters, opt_state,
-                    {k: v[i] for k, v in batches.items()})
-                ms.append(m)
-            metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-            return adapters, opt_state, metrics
+        if len(slices) == 1:
+            g_leaves, per_job, moe_aux = grad_fn(*slices[0])
+        else:
+            g_leaves = [torch.zeros(t.shape, dtype=torch.float32,
+                                    device=t.device) for t in leaves]
+            per_job = torch.zeros((K,), dtype=torch.float32,
+                                  device=denom.device)
+            moe_aux = torch.zeros((), device=denom.device)
+            for nb, lora in slices:
+                g, pj, a = grad_fn(nb, lora)
+                g_leaves = [a_ + b.float() for a_, b in zip(g_leaves, g)]
+                per_job = per_job + pj
+                moe_aux = moe_aux + a
+        if reduce is not None:
+            g_leaves, per_job, moe_aux = reduce(g_leaves, per_job, moe_aux)
+        it = iter(g_leaves)
+        grads = adamw.tree_map(lambda _, t: next(it), ad)
+        lr = lr_fn(opt_state.step)
+        new_adapters, new_opt = adamw.update(
+            grads, opt_state, adapters, lr=lr, weight_decay=weight_decay,
+            col_jobs=self.device_consts(denom.device)[2])
+        # "aux": the MoE load-balance loss the step's total carried beside
+        # the per-job losses (summed over nano slices; 0 without MoE)
+        metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
+                   "lr": torch.as_tensor(lr), "aux": moe_aux}
+        return new_adapters, new_opt, metrics
 
-        return chunked_step
+    def _make_sharded_step(self, *, lr_fn, nano_batches, remat,
+                           weight_decay, steps, mesh, grad_sync,
+                           nano_order) -> Callable:
+        """The data-parallel step over *mesh* (the reference's
+        ``tp_mode="dp"`` shard_map step, ``ssm.py:263``): the
+        single-device body on this rank's rows.  The per-job token
+        denominators are all-reduced (integer-valued f32 sums, exact in
+        any order) and clipped after the sum (a per-shard clip would
+        inflate a job whose shard holds only padding); the loss the
+        gradient flows through is the shard's partial; the adapter
+        wgrads are either gathered-exact (the kernels' shard-local
+        backwards, ``grad_sync="gather"``) or all-reduced with the
+        metrics (``"psum"``).  The update then runs on the replicated
+        state identically on every rank."""
+        from repro_torch.data.pipeline import shard_permutation
+        from repro_torch.launch.mesh import data_group
+        from repro_torch.models.moe import MOE_NO_MESH
+        cfg, K = self.cfg, self.num_jobs
+        if cfg.num_experts:
+            raise NotImplementedError(MOE_NO_MESH)
+        exact = grad_sync == "gather"
+        assert grad_sync in ("gather", "psum"), grad_sync
+        if exact and self.impl in ("ref", "loop"):
+            raise ValueError(
+                f"impl={self.impl!r} has no shard-local VJP for exact "
+                "gathered wgrads; use impl='torch'/'cuda' or "
+                "grad_sync='psum'")
+        group, D, _ = data_group(mesh)
+        assert self.data_shards == D, \
+            (f"SSM built for data_shards={self.data_shards}, the mesh "
+             f"runs {D}-way: construct SharedSuperModel(data_shards={D})")
+        rows = self.rows_per_job()
+        rows_loc = [r // D for r in rows]
+        # the solo position of every shard's rows, (D, local rows): the
+        # exact wgrads and the reported losses reassemble by it
+        solo = torch.as_tensor(
+            shard_permutation(rows, D).reshape(D, -1))
+        seg_order = None
+        if nano_batches > 1:
+            g = math.gcd(*rows_loc)
+            assert g % nano_batches == 0, \
+                (f"nano_batches={nano_batches} must divide every job's "
+                 f"per-shard rows {rows_loc}")
+            if self.impl == "cuda":
+                # the ragged kernels' static tile map: every job's slice
+                # must stay whole token tiles
+                S = self.jobs[0].seq_len
+                assert all((r * S) % (nano_batches * self.block_t) == 0
+                           for r in rows_loc), \
+                    (f"nano_batches={nano_batches} breaks the token-tile "
+                     f"alignment of per-shard rows {rows_loc} (seq_len="
+                     f"{S}, block_t={self.block_t})")
+            seg_order = tuple(
+                sorted(range(K), key=lambda k: (-int(self.ranks[k]), k))
+                if nano_order == "rank_desc" else range(K))
+        nano_idx = torch.as_tensor(_nano_index(rows_loc, nano_batches,
+                                               order=seg_order))
+        on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+        def reduce(g_leaves, per_job, moe_aux):
+            # classic DP: one all-reduce of every partial gradient (one
+            # flat buffer) and of the metrics
+            flat = torch.cat([t.reshape(-1) for t in g_leaves]
+                             + [per_job, moe_aux.reshape(1)])
+            dist.all_reduce(flat, group=group)
+            out, at = [], 0
+            for t in g_leaves:
+                out.append(flat[at:at + t.numel()].view_as(t))
+                at += t.numel()
+            return out, flat[at:at + K], flat[at + K]
+
+        def train_step(params, adapters, opt_state, batch):
+            # batch: THIS shard's rows, shard-major layout
+            dev = batch["adapter_ids"].device
+            denom = _per_job_token_counts(batch, K, causal=cfg.causal,
+                                          clip=False)
+            dist.all_reduce(denom, group=group)
+            denom = denom.clamp_min(1)
+            if dev not in on_device:      # copied once, not every step
+                on_device[dev] = (solo.to(dev), nano_idx.to(dev))
+            row_solo, idx = on_device[dev]
+            # the solo positions ride the batch through the nano split
+            # (row i of the shard: every shard's row i), as in the
+            # reference
+            batch = dict(batch, _row_solo=row_solo.T)
+            slices = []
+            for nb in _reshape_nano_jobwise(batch, nano_batches, idx):
+                rs = nb.pop("_row_solo").T.reshape(-1)
+                slices.append((nb, self.lora_ctx(
+                    nb["adapter_ids"], group=group, row_solo_pos=rs,
+                    grad_sync=grad_sync, nano_order=seg_order)))
+            return self._update(params, adapters, opt_state, denom, slices,
+                                lr_fn, remat, weight_decay,
+                                reduce=None if exact else reduce)
+
+        return train_step if steps is None else _chunked(train_step)
 
     # --------------------------------------------------------- serve steps
     def make_prefill_step(self, shape: InputShape, *, ring: bool = False,
@@ -298,9 +448,27 @@ def _check_decoder(cfg: ModelConfig) -> None:
                          "no decode steps")
 
 
+def _chunked(train_step: Callable) -> Callable:
+    def chunked_step(params, adapters, opt_state, batches):
+        """batches: the train_step batch dict with a leading (steps,)
+        chunk axis.  The loop body is the exact single train_step."""
+        ms = []
+        for i in range(next(iter(batches.values())).shape[0]):
+            adapters, opt_state, m = train_step(
+                params, adapters, opt_state,
+                {k: v[i] for k, v in batches.items()})
+            ms.append(m)
+        metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return adapters, opt_state, metrics
+
+    return chunked_step
+
+
 def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,
-                          causal: bool) -> torch.Tensor:
-    """Full-batch per-job loss-token counts (denominators), clipped at 1."""
+                          causal: bool, clip: bool = True) -> torch.Tensor:
+    """Full-batch per-job loss-token counts (denominators), clipped at 1.
+    ``clip=False`` returns the raw counts, for per-shard partials that
+    are summed into a global denominator and clipped once there."""
     ids = batch["adapter_ids"]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -311,18 +479,35 @@ def _per_job_token_counts(batch: Dict[str, torch.Tensor], K: int,
         m = mask[:, 1:] if causal else mask
         counts = m.float().sum(-1)
     onehot = F.one_hot(ids.long(), K).float()
-    return (onehot.T @ counts).clamp_min(1)
+    raw = onehot.T @ counts
+    return raw.clamp_min(1) if clip else raw
 
 
 def _reshape_nano(batch: Dict[str, torch.Tensor], n: int
                   ) -> List[Dict[str, torch.Tensor]]:
     """(R, ...) -> n contiguous slices of R/n rows each (the reference's
-    (n, R/n, ...) scan input, as a list of views)."""
+    (n, R/n, ...) scan input, as a list of views; n = 1: the batch)."""
+    if n == 1:
+        return [batch]
     rows = {x.shape[0] for x in batch.values()}
     assert len(rows) == 1 and rows.pop() % n == 0, (batch.keys(), n)
     m = next(iter(batch.values())).shape[0] // n
     return [{k: x[i * m:(i + 1) * m] for k, x in batch.items()}
             for i in range(n)]
+
+
+def _reshape_nano_jobwise(batch: Dict[str, torch.Tensor], n: int,
+                          idx: torch.Tensor
+                          ) -> List[Dict[str, torch.Tensor]]:
+    """The sharded step's job-aware nano split: slice i takes rows
+    ``[i*r_j/n, (i+1)*r_j/n)`` of EVERY job, segments in the order
+    ``idx`` (``_nano_index``, on the batch's device) lays out, so each
+    slice is itself a job-major mini fused batch with a static tile map.
+    n = 1: the batch as it is."""
+    if n == 1:
+        return [batch]
+    return [{k: v.index_select(0, sel) for k, v in batch.items()}
+            for sel in idx.split(idx.numel() // n)]
 
 
 def _nano_index(rows: Sequence[int], n: int,

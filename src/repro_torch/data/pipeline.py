@@ -12,8 +12,10 @@ would.
 ``FusedBatcher`` lays out a group's batch the way the SSM and kernels
 require: job-major concatenation (tokens of one adapter contiguous) and
 each job's batch padded so its token count is a multiple of the kernel
-tile.  The reference's ``shards`` (per-shard row alignment of the
-sharded runtime) is not ported: the port runs one device.
+tile.  With ``shards`` = D > 1 every job's rows pad further, so they
+split evenly over the D data shards with per-shard tile alignment; the
+batch stays in the solo job-major order, and ``shard_permutation`` gives
+the shard-major order the sharded runtime stages from.
 
 ``frontend_inputs`` gives a batch of an audio or VLM config the stub
 front-end inputs the reference's tests feed (tests/test_archs.py): the
@@ -75,12 +77,17 @@ class FusedBatcher:
 
     def __init__(self, jobs: Sequence[LoRAJobSpec], vocab_size: int,
                  block_t: int = 128, seed: int = 0,
-                 streams: Optional[Sequence[JobStream]] = None):
+                 streams: Optional[Sequence[JobStream]] = None,
+                 shards: int = 1):
         assert len({j.seq_len for j in jobs}) == 1, \
             "group members must share seq_len (scheduler invariant)"
         self.jobs = list(jobs)
         self.seq_len = jobs[0].seq_len
         self.block_t = block_t
+        # shards > 1: pad every job's rows to split evenly over the data
+        # shards, tile-aligned per shard.  Padding rows draw nothing from
+        # the stream, so a job consumes the same data whatever the mesh.
+        self.shards = shards
         if streams is None:
             streams = [JobStream(j, vocab_size, seed) for j in jobs]
         else:
@@ -91,7 +98,8 @@ class FusedBatcher:
         self.streams = list(streams)
 
     def _rows_for(self, job: LoRAJobSpec) -> int:
-        return tile_rows(job.batch_size, self.seq_len, self.block_t)
+        return tile_rows(job.batch_size, self.seq_len, self.block_t,
+                         shards=self.shards)
 
     def next_batch(self) -> Dict[str, np.ndarray]:
         toks, labels, masks, aids = [], [], [], []
@@ -129,6 +137,32 @@ class FusedBatcher:
 
     def rows_per_job(self) -> List[int]:
         return [self._rows_for(j) for j in self.jobs]
+
+
+# ----------------------------------------------------------- shard layout
+def shard_permutation(rows: Sequence[int], shards: int) -> np.ndarray:
+    """Row permutation taking the solo job-major fused batch to the
+    shard-major layout: ``perm[p]`` is the solo index of the row at
+    shard-major position p.  Shard s holds, for every job j, its rows
+    ``[s*rows_j/shards, (s+1)*rows_j/shards)`` concatenated job-major, so
+    every shard is a tile-aligned mini fused batch with the same job
+    composition and per-job segments of 1/shards the solo ones."""
+    assert all(r % shards == 0 for r in rows), (rows, shards)
+    offs = np.concatenate([[0], np.cumsum(rows)])
+    out = []
+    for s in range(shards):
+        for j, r in enumerate(rows):
+            rl = r // shards
+            out.append(np.arange(offs[j] + s * rl, offs[j] + (s + 1) * rl))
+    return np.concatenate(out).astype(np.int64)
+
+
+def inverse_permutation(perm: np.ndarray) -> np.ndarray:
+    """inv with inv[perm[p]] = p: a solo row index to its shard-major
+    position."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=perm.dtype)
+    return inv
 
 
 def frontend_inputs(cfg, batch: Dict[str, np.ndarray],

@@ -12,7 +12,11 @@ closures and device tables included: no state moves).  Changed groups
 are dissolved member by member into ``JobTrainState``s and fused anew,
 which is lossless (migrate.py).  Per-job step accounting (train steps and
 Adam steps) survives every migration.  Every runtime the engine builds
-runs on its ``device`` (the GPU unless the caller asks for the CPU).
+runs on its ``device`` (the GPU unless the caller asks for the CPU) and,
+with a ``mesh``, sharded over it (``GroupRuntime``'s data-parallel
+mode): every rank runs the same engine, and a ``JobTrainState`` does not
+depend on the mesh, so jobs move between engines of different meshes
+losslessly.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.core import throughput as tp
 from repro_torch.core.jobs import JobRuntimeState, LoRAJobSpec
 from repro_torch.core.lora import pad_rank
 from repro_torch.core.scheduler import AdapterScheduler
-from repro_torch.core.ssm import NO_MESH
+from repro_torch.core.ssm import check_tp_mode
 from repro_torch.elastic.migrate import JobTrainState, diff_grouping
 from repro_torch.elastic.runtime import GroupRuntime, TrainReport
 from repro_torch.models import model as M
@@ -41,12 +45,13 @@ class ElasticEngine:
                  lr_fn: Optional[Callable] = None, remat: bool = True,
                  quantize: Optional[str] = None,
                  nano_batches: int = 1, adaptive_nano: bool = False,
-                 aimd_max_n: int = 16, weight_decay: float = 0.0,
-                 chunk_size: int = 4, mesh=None,
+                 aimd_max_n: int = 16, nano_order: str = "job",
+                 weight_decay: float = 0.0, chunk_size: int = 4,
+                 mesh=None, data_axis: str = "data",
+                 grad_sync: str = "gather", tp_mode: str = "dp",
                  checkpoint_dir=None, checkpoint_every: int = 0,
                  seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(NO_MESH)
+        check_tp_mode(tp_mode)
         self.cfg = cfg
         self.device = device
         self.params = params if params is not None else \
@@ -59,8 +64,11 @@ class ElasticEngine:
                                nano_batches=nano_batches,
                                adaptive_nano=adaptive_nano,
                                aimd_max_n=aimd_max_n,
+                               nano_order=nano_order,
                                weight_decay=weight_decay,
                                chunk_size=chunk_size, seed=seed,
+                               mesh=mesh, data_axis=data_axis,
+                               grad_sync=grad_sync, tp_mode=tp_mode,
                                checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every,
                                device=device)

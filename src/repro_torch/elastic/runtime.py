@@ -28,12 +28,23 @@ built; an already quantized tree (a migrated group reusing its donor's
 ``QuantTensor``s) passes through unchanged.  Adapters and optimizer
 state never quantize.
 
-Not ported yet, and refused where asked for: meshes (ROADMAP queue A,
-multi-GPU).
+With a ``mesh`` (``launch/mesh``, a ``torch.distributed`` DeviceMesh)
+the group runs data-parallel over the mesh's ranks (``tp_mode="dp"``):
+every rank is one process holding the replicated backbone, adapters and
+Adam state on its ``device``, builds the same union batch from the same
+seeds and stages only its own shard-major slice; the step
+(``SharedSuperModel._make_sharded_step``) reduces over the mesh's group.
+The ranks agree on every decision that would otherwise diverge: AIMD is
+fed the all-reduced max of the ranks' chunk times (the step is
+synchronous, so the slowest rank's time is the step's), and checkpoints
+and publishes are written by the group's rank 0 alone, behind a barrier
+after which every rank can restore them.  ``tp_mode`` "auto" and
+"pipeline" are refused (ROADMAP A7c, A7b).
 """
 from __future__ import annotations
 
 import copy
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -41,11 +52,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.nanobatch import AIMDController
-from repro_torch.core.ssm import NO_MESH, SharedSuperModel, valid_nano_counts
+from repro_torch.core.ssm import (SharedSuperModel, check_tp_mode,
+                                  valid_nano_counts)
 from repro_torch.data.pipeline import FusedBatcher, JobStream, frontend_inputs
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
@@ -115,27 +128,58 @@ class GroupRuntime:
                  lr: float = 1e-3, lr_fn: Optional[Callable] = None,
                  impl: str = "cuda", block_t: int = 128,
                  nano_batches: int = 1, adaptive_nano: bool = False,
-                 aimd_max_n: int = 16, remat: bool = True,
+                 aimd_max_n: int = 16, nano_order: str = "job",
+                 remat: bool = True,
                  quantize: Optional[str] = None, weight_decay: float = 0.0,
-                 chunk_size: int = 4, mesh=None,
+                 chunk_size: int = 4, mesh=None, data_axis: str = "data",
+                 grad_sync: str = "gather", tp_mode: str = "dp",
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
                  publish_pool=None, publish_every: int = 0,
                  seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(NO_MESH)
+        check_tp_mode(tp_mode)
+        assert nano_order in ("job", "rank_desc"), nano_order
+        assert grad_sync in ("gather", "psum"), grad_sync
         self.cfg = cfg
         self.specs = list(specs)
         self.device = torch.device(device)
+        # sharded execution: rows over every mesh axis ("dp"), the
+        # trainable state replicated on every rank
+        self.mesh, self.grad_sync = mesh, grad_sync
+        self.tp_mode, self.nano_order = tp_mode, nano_order
+        if mesh is not None:
+            from repro_torch.launch.mesh import data_group
+            if grad_sync == "gather" and impl in ("ref", "loop"):
+                # fail at construction, not inside the first step
+                raise ValueError(
+                    f"impl={impl!r} has no shard-local VJP for exact "
+                    "gathered wgrads; use impl='torch'/'cuda' or "
+                    "grad_sync='psum'")
+            # "dp" carries rows over every axis of the mesh: data_axis
+            # only names one that must exist (the reference's argument)
+            if data_axis not in mesh.mesh_dim_names:
+                raise ValueError(f"data_axis {data_axis!r} is not an axis "
+                                 f"of the mesh {mesh.mesh_dim_names}")
+            self._group, D, self._shard = data_group(mesh)
+        else:
+            self._group, D, self._shard = None, 1, 0
+        self.data_shards = D
         # the frozen backbone in int8, once, before any step is built
         # (idempotent: a quantized tree's QuantTensors are reused)
         self.quantize = quantize
         params = quant.quantize_params(params, quantize)
         self.ssm = SharedSuperModel(cfg, self.specs, impl=impl,
-                                    block_t=block_t)
+                                    block_t=block_t, data_shards=D)
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,
                                     block_t=block_t, seed=seed,
-                                    streams=streams)
+                                    streams=streams, shards=D)
+        # this rank's rows of the solo batch, in shard-major order
+        self._rows = None
+        if mesh is not None:
+            from repro_torch.data.pipeline import shard_permutation
+            perm = shard_permutation(self.batcher.rows_per_job(), D)
+            n = perm.size // D
+            self._rows = perm[self._shard * n:(self._shard + 1) * n]
         # an audio or VLM config's front-end stub inputs (frames,
         # patches), drawn from *seed* beside the token streams; they are
         # not part of a job's portable stream state
@@ -154,16 +198,28 @@ class GroupRuntime:
         self.remat = remat
         self.weight_decay = weight_decay
         self.n = nano_batches
-        nano_rows = self.batcher.total_rows()
-        # The CUDA kernels need every contiguous nano slice to be whole
-        # token tiles, (rows / N) * seq_len % block_t == 0; the legal set
-        # keeps only such N (the reference leaves it unfiltered on one
-        # device and fails inside the step instead; ROADMAP §C).
-        legal = (valid_nano_counts(nano_rows, min(nano_rows, aimd_max_n),
-                                   seg_rows=[nano_rows],
-                                   seq_len=self.specs[0].seq_len,
-                                   block_t=block_t)
-                 if impl == "cuda" else None)
+        if D > 1:
+            # sharded: the job-wise nano split needs N to divide every
+            # job's per-shard rows, and for "cuda" to keep every job's
+            # per-slice tokens whole tiles (the reference's rule)
+            rows_loc = [r // D for r in self.batcher.rows_per_job()]
+            nano_rows = math.gcd(*rows_loc)
+            legal = valid_nano_counts(
+                nano_rows, min(nano_rows, aimd_max_n),
+                **(dict(seg_rows=rows_loc, seq_len=self.specs[0].seq_len,
+                        block_t=block_t) if impl == "cuda" else {}))
+        else:
+            # The CUDA kernels need every contiguous nano slice to be
+            # whole token tiles, (rows / N) * seq_len % block_t == 0; the
+            # legal set keeps only such N (the reference leaves it
+            # unfiltered on one device and fails inside the step
+            # instead; ROADMAP §C).
+            nano_rows = self.batcher.total_rows()
+            legal = (valid_nano_counts(nano_rows, min(nano_rows, aimd_max_n),
+                                       seg_rows=[nano_rows],
+                                       seq_len=self.specs[0].seq_len,
+                                       block_t=block_t)
+                     if impl == "cuda" else None)
         self.aimd = AIMDController(rows=nano_rows, n=self.n,
                                    max_n=min(nano_rows, aimd_max_n),
                                    legal=legal) if adaptive_nano else None
@@ -239,7 +295,9 @@ class GroupRuntime:
         if key not in self._step_cache:
             self._step_cache[key] = self.ssm.make_train_step(
                 lr_fn=self.lr_fn, nano_batches=n, remat=self.remat,
-                weight_decay=self.weight_decay, steps=chunk)
+                weight_decay=self.weight_decay, steps=chunk, mesh=self.mesh,
+                grad_sync=self.grad_sync, tp_mode=self.tp_mode,
+                nano_order=self.nano_order)
         return self._step_cache[key]
 
     def _stage(self, n: int) -> Dict[str, torch.Tensor]:
@@ -252,6 +310,10 @@ class GroupRuntime:
         batches = self.batcher.next_batches(n)
         if self._frontend_rng is not None:
             batches = frontend_inputs(self.cfg, batches, self._frontend_rng)
+        if self._rows is not None:
+            # every rank built the same union batch; it stages its rows
+            batches = {k: np.ascontiguousarray(v[:, self._rows])
+                       for k, v in batches.items()}
         if self.device.type != "cuda":
             return {k: torch.from_numpy(v).to(self.device)
                     for k, v in batches.items()}
@@ -323,6 +385,10 @@ class GroupRuntime:
             host[k] = flat[at:at + n].reshape(pending.metrics[k].shape)
             at += n
         dt = (time.perf_counter() - pending.t0) / L
+        count_aimd = self.aimd is not None and pending.count_aimd
+        if count_aimd and self._group is not None:
+            # one step time for every rank (AIMD must pick one N)
+            dt = self._all_max(dt)
         losses = np.atleast_1d(np.asarray(host["loss"], np.float64))
         rep.last_metrics = host
         rep.steps += L
@@ -333,7 +399,7 @@ class GroupRuntime:
         for jid in self.job_ids:
             self.steps_done[jid] += L
         # AIMD (Eq. 2) fed the chunk's mean step time
-        if self.aimd is not None and pending.count_aimd:
+        if count_aimd:
             self.n = self.aimd.update(dt)
         log(f"steps {rep.steps - L:4d}..{rep.steps - 1:4d} "
             f"loss {losses[-1]:.4f} nano {self.n} dt {dt*1e3:.1f}ms/step")
@@ -451,6 +517,20 @@ class GroupRuntime:
         if state.stream is not None:
             self.batcher.streams[idx] = copy.deepcopy(state.stream)
 
+    def _all_max(self, value: float) -> float:
+        """The max of *value* over the mesh's ranks (an NCCL group takes a
+        device tensor, gloo a host one)."""
+        dev = (self.device if dist.get_backend(self._group) == "nccl"
+               else torch.device("cpu"))
+        t = torch.tensor([value], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return float(t.item())
+
+    def _writer(self) -> bool:
+        """Whether this rank writes what the group persists or
+        publishes: every rank meshless, the group's rank 0 on a mesh."""
+        return self._shard == 0
+
     # -------------------------------------------------------- checkpoints
     def save_checkpoints(self, directory: Optional[str] = None, *,
                          stream_states: Optional[List[str]] = None
@@ -472,14 +552,17 @@ class GroupRuntime:
         for idx, spec in enumerate(self.specs):
             off, _ = self.ssm.layout.slice_of(idx)
             path = os.path.join(directory, f"{spec.job_id}.npz")
-            save_job(path, spec.job_id, off, spec.rank, self.adapters,
-                     self.opt_state,
-                     step=int(step_vec[idx % step_vec.size]),
-                     meta={"steps_done": self.steps_done[spec.job_id],
-                           "stream": stream_states[idx]})
+            if self._writer():
+                save_job(path, spec.job_id, off, spec.rank, self.adapters,
+                         self.opt_state,
+                         step=int(step_vec[idx % step_vec.size]),
+                         meta={"steps_done": self.steps_done[spec.job_id],
+                               "stream": stream_states[idx]})
             self.last_checkpoint_step[spec.job_id] = \
                 self.steps_done[spec.job_id]
             paths.append(path)
+        if self._group is not None:
+            dist.barrier(group=self._group)    # the files exist for all
         return paths
 
     # ---------------------------------------------------------- migration
@@ -501,7 +584,10 @@ class GroupRuntime:
                    ) -> Dict[str, int]:
         """Publish members' host snapshots (``export``) into a serving
         ``AdapterPool`` under their job ids, between chunks; training
-        does not pause.  Returns {job_id: published version}."""
+        does not pause.  On a mesh the group's rank 0 publishes and the
+        others return {}.  Returns {job_id: published version}."""
+        if not self._writer():
+            return {}
         return {jid: pool.publish_state(self.export(jid))
                 for jid in (job_ids if job_ids is not None
                             else self.job_ids)}

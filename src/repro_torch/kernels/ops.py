@@ -1,5 +1,5 @@
 """Dispatch of the fused multi-LoRA kernels (port of
-``repro.kernels.ops``, single device).
+``repro.kernels.ops``).
 
 ``fused_lora`` — the MASKED max-rank family over stacked (K, d, r_pad)
 adapters: "cuda" (kernels/fused_lora.py, differentiable through
@@ -34,12 +34,22 @@ of the reference's "xla" expression).
 Scaling and rounding follow the reference exactly: the ragged kernel
 returns f32 unscaled and is scaled once, then cast; the masked kernel
 returns x.dtype unscaled and is scaled in f32, then cast again.
+
+Shard-local variants (data-parallel sharded execution, ``core/ssm``):
+given a ``Shard``, the four Functions run the forward and dx on this
+rank's rows only, then reassemble x, the cotangent and the ids at full
+shape in solo order (``gather_solo``) and run the SAME wgrad code as on
+one device, once per rank, so the adapter gradient every rank holds is
+replicated and equal to the single-device one given the same operands.
+"ref" and "loop" have no hand-written backward to localize and refuse a
+``Shard`` (the sharded step's ``grad_sync="psum"`` serves them).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ragged as rg
@@ -57,6 +67,49 @@ def _tile_map(ids: torch.Tensor, block_t: int) -> torch.Tensor:
         .to(torch.int32).contiguous()
 
 
+# ---------------------------------------------------------- shard-local
+def gather_solo(t: torch.Tensor, group, solo_pos: torch.Tensor,
+                total: int) -> torch.Tensor:
+    """Reassemble a (total, ...) tensor in SOLO order from every shard's
+    rows: one all-gather of the shards' (n, ...) pieces
+    (shard-major, in the group's rank order), then a copy of row p to
+    solo position ``solo_pos[p]``; *solo_pos* (D·n,) holds the solo
+    position of every gathered row, which every rank knows (the shard
+    layout is static).  Rows no shard holds (a nano slice's other
+    slices) are exact zeros.  Bit-preserving: every value is copied,
+    none is summed.  The reference scatters into zeros and sums with a
+    psum because its partial-auto ``shard_map`` had no all-gather; the
+    gather moves each row once, 1/D of that traffic."""
+    D = dist.get_world_size(group)
+    shape = tuple(t.shape[1:])
+    buf = t.new_empty((D * t.shape[0],) + shape)
+    dist.all_gather_into_tensor(buf, t.contiguous(), group=group)
+    make = torch.empty if buf.shape[0] == total else torch.zeros
+    out = make((total,) + shape, dtype=t.dtype, device=t.device)
+    return out.index_copy_(0, solo_pos, buf)
+
+
+class Shard(NamedTuple):
+    """What a shard-local Function needs to reassemble its operands: the
+    data-parallel process group, the solo token position of every
+    shard's tokens (shard-major), the fused batch's token count, and the
+    adapter of every token of the full batch in solo order (job-major
+    segments, each whole token tiles: the masked wgrads' tile map)."""
+    group: object
+    solo_pos: torch.Tensor
+    total: int
+    solo_ids: Optional[torch.Tensor] = None
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather_solo(t, self.group, self.solo_pos, self.total)
+
+
+def _no_shard_vjp(impl: str) -> ValueError:
+    return ValueError(
+        f"impl {impl!r} has no shard-local VJP; use impl='torch'/'cuda' "
+        "or grad_sync='psum'")
+
+
 class _MaskedLoRA(torch.autograd.Function):
     """The masked "cuda" path with its backward (the reference's
     ``_make_pallas_fn``).  Backward = five launches over the device tile
@@ -66,31 +119,47 @@ class _MaskedLoRA(torch.autograd.Function):
     Rounding points as in the reference: dy_s = bf16(dy · s[ids]) in f32;
     dxa and xa rank-masked in f32, then cast to x.dtype; dA, dB f32, then
     cast to A's and B's dtypes.  ids, ranks and the scalings (alpha / r
-    constants, never trained) get no gradient."""
+    constants, never trained) get no gradient.
+
+    Shard-local (``shard`` given, the reference's
+    ``_make_pallas_sharded_fn``): the forward and the two dx launches run
+    over this rank's tiles; x, dy_s and dxa (rank-wide) are gathered in
+    solo order, and xa and the two grouped wgrads run over the full
+    batch's tile map (``Shard.solo_ids``).  A nano slice gathers into a
+    buffer whose other slices' rows are zeros: they add exact zeros to
+    whichever adapter the full batch's map gives them, so one map serves
+    every slice (the kernels take any tile map)."""
 
     @staticmethod
-    def forward(ctx, x, A, B, ids, ranks, scalings, block_t: int):
+    def forward(ctx, x, A, B, ids, ranks, scalings, block_t: int,
+                shard: Optional[Shard] = None):
         tm = _tile_map(ids, block_t)
         rk = ranks.to(torch.int32).contiguous()
         ctx.save_for_backward(x, A, B, ids, rk, scalings, tm)
-        ctx.block_t = block_t
+        ctx.block_t, ctx.shard = block_t, shard
         y = fused_lora_cuda(x, A, B, tm, rk, block_t=block_t)
         return (y.float() * scalings[ids][:, None]).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, A, B, ids, rk, scalings, tm = ctx.saved_tensors
-        bt, K = ctx.block_t, A.shape[0]
+        bt, K, sh = ctx.block_t, A.shape[0], ctx.shard
         dy_s = (dy.float() * scalings[ids][:, None]).to(dy.dtype)
         dxa = grouped_matmul_cuda(dy_s, B.transpose(1, 2), tm, block_t=bt)
         dxa = ref_impl.rank_mask(dxa.float(), ids, rk).to(x.dtype)
         dx = grouped_matmul_cuda(dxa, A.transpose(1, 2), tm, block_t=bt)
+        if sh is not None:
+            # a row's dxa is the same whatever tiles it is computed in
+            # (one summation order): gathered, not recomputed
+            x, dy_s, dxa = sh.gather(x), sh.gather(dy_s), sh.gather(dxa)
+            ids = sh.solo_ids
+            tm = _tile_map(ids, bt)
         xa = grouped_matmul_cuda(x, A, tm, block_t=bt)
         xa = ref_impl.rank_mask(xa.float(), ids, rk).to(x.dtype)
         dA = grouped_wgrad_cuda(x, dxa, tm, K, block_t=bt)
         dB = grouped_wgrad_cuda(xa, dy_s, tm, K, block_t=bt)
         return (dx.to(x.dtype), dA.to(A.dtype), dB.to(B.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 class _RaggedLoRA(torch.autograd.Function):
@@ -100,13 +169,24 @@ class _RaggedLoRA(torch.autograd.Function):
     active (token tile, rank tile) pairs.  Rounding points as in the
     reference: dy_s = bf16(dy · s[ids]) in f32; dx f32 then cast to
     x.dtype; dA, dB f32 then cast to A's and B's dtypes.  ids and the
-    scalings (alpha / r constants, never trained) get no gradient."""
+    scalings (alpha / r constants, never trained) get no gradient.
+
+    Shard-local (``shard`` given, the reference's
+    ``_make_ragged_pallas_sharded_fn``): the forward and the dgrad run
+    over this rank's (token tile, rank tile) pairs (``meta``); x and
+    dy_s are gathered in solo order, and xa, dxa and the two wgrads run
+    over the full batch under the solo metadata ``meta_solo``.  The solo
+    metadata holds for a nano slice too: the other slices' rows are
+    zeros, which add exact zeros to whatever segment the map gives
+    them."""
 
     @staticmethod
     def forward(ctx, x, A, B, ids, scalings, meta: RaggedMeta,
-                block_t: int):
+                block_t: int, shard: Optional[Shard] = None,
+                meta_solo: Optional[RaggedMeta] = None):
         ctx.save_for_backward(x, A, B, ids, scalings)
         ctx.meta, ctx.block_t = meta, block_t
+        ctx.shard, ctx.meta_solo = shard, meta_solo
         y = rg.ragged_lora_fwd(x, A, B, meta, block_t=block_t)
         return (y * scalings[ids][:, None]).to(x.dtype)
 
@@ -116,12 +196,15 @@ class _RaggedLoRA(torch.autograd.Function):
         meta, bt = ctx.meta, ctx.block_t
         dy_s = (dy.float() * scalings[ids][:, None]).to(dy.dtype)
         dx = rg.ragged_lora_dgrad(dy_s, A, B, meta, block_t=bt)
+        if ctx.shard is not None:
+            x, dy_s = ctx.shard.gather(x), ctx.shard.gather(dy_s)
+            meta = ctx.meta_solo
         xa = rg.ragged_xa(x, A, meta, block_t=bt)
         dxa = rg.ragged_dxa(dy_s, B, meta, block_t=bt).to(x.dtype)
         dA = rg.ragged_wgrad(dxa, x, meta, block_t=bt)         # (R, d_in)
         dB = rg.ragged_wgrad(xa, dy_s, meta, block_t=bt)       # (R, d_out)
         return (dx.to(x.dtype), dA.T.to(A.dtype), dB.to(B.dtype), None,
-                None, None, None)
+                None, None, None, None, None)
 
 
 # ---------------------------------------------------------------- torch
@@ -184,6 +267,33 @@ def _masked_fallback_parts(x, A, B, ids, ranks, scalings, dy):
     return dy_k, xa, dxa
 
 
+def _masked_torch_bwd(x, A, B, ids, ranks, scalings, dy, equal: bool,
+                      want_dx: bool = True, want_w: bool = True):
+    """(dx, dA, dB) of the masked "torch" backward, each None where not
+    wanted: one evaluation of the parts, so that one device and the
+    shard-local variant run literally the same expressions."""
+    T, d_in = x.shape
+    Af = A.float()
+    dx = dA = dB = None
+    if equal:
+        buf, dy_s, xa, dxa = _masked_equal_parts(x, A, B, ranks, scalings,
+                                                 dy)
+        if want_dx:
+            dx = torch.einsum("kcr,kdr->kcd", dxa, Af).reshape(T, d_in)
+        if want_w:
+            dA = torch.einsum("kcd,kcr->kdr", buf.float(), dxa)
+            dB = torch.einsum("kcr,kco->kro", xa.float(), dy_s)
+        return dx, dA, dB
+    dy_k, xa, dxa = _masked_fallback_parts(x, A, B, ids, ranks, scalings,
+                                           dy)
+    if want_dx:
+        dx = torch.einsum("tkr,kdr->td", dxa, Af)
+    if want_w:
+        dA = torch.einsum("td,tkr->kdr", x.float(), dxa)
+        dB = torch.einsum("tkr,tko->kro", xa.float(), dy_k)
+    return dx, dA, dB
+
+
 class _MaskedTorch(torch.autograd.Function):
     """The masked "torch" path with the reference's hand-written backward
     (``_make_xla_fn``).  Equal segments: a reshape (T, d) -> (K, T/K, d)
@@ -191,44 +301,30 @@ class _MaskedTorch(torch.autograd.Function):
     dxa[k], dB[k] = xa[k]ᵀ·dy_s[k]; otherwise the dense-over-K one-hot
     fallback, whose wgrads stay exact without a one-hot of their own.
     ids, ranks and the scalings (alpha / r constants, never trained) get
-    no gradient."""
+    no gradient.  Shard-local (``shard`` given, the reference's
+    ``_make_xla_sharded_fn``): dx from this rank's rows, the wgrads from
+    x, dy and the ids gathered in solo order."""
 
     @staticmethod
-    def forward(ctx, x, A, B, ids, ranks, scalings, equal: bool):
+    def forward(ctx, x, A, B, ids, ranks, scalings, equal: bool,
+                shard: Optional[Shard] = None):
         equal = equal and x.shape[0] % A.shape[0] == 0
         ctx.save_for_backward(x, A, B, ids, ranks, scalings)
-        ctx.equal = equal
+        ctx.equal, ctx.shard = equal, shard
         return _masked_forward(x, A, B, ids, ranks, scalings, equal)
 
     @staticmethod
     def backward(ctx, dy):
         x, A, B, ids, ranks, scalings = ctx.saved_tensors
-        T, d_in = x.shape
-        Af = A.float()
-        if ctx.equal:
-            buf, dy_s, xa, dxa = _masked_equal_parts(x, A, B, ranks,
-                                                     scalings, dy)
-            dx = torch.einsum("kcr,kdr->kcd", dxa, Af).reshape(T, d_in)
-            dA = torch.einsum("kcd,kcr->kdr", buf.float(), dxa)
-            dB = torch.einsum("kcr,kco->kro", xa.float(), dy_s)
-        else:
-            dy_k, xa, dxa = _masked_fallback_parts(x, A, B, ids, ranks,
-                                                   scalings, dy)
-            dx = torch.einsum("tkr,kdr->td", dxa, Af)
-            dA = torch.einsum("td,tkr->kdr", x.float(), dxa)
-            dB = torch.einsum("tkr,tko->kro", xa.float(), dy_k)
+        sh = ctx.shard
+        dx, dA, dB = _masked_torch_bwd(x, A, B, ids, ranks, scalings, dy,
+                                       ctx.equal, want_w=sh is None)
+        if sh is not None:
+            _, dA, dB = _masked_torch_bwd(
+                sh.gather(x), A, B, sh.gather(ids), ranks, scalings,
+                sh.gather(dy), ctx.equal, want_dx=False)
         return (dx.to(x.dtype), dA.to(A.dtype), dB.to(B.dtype), None, None,
-                None, None)
-
-
-def fused_lora_torch(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                     ids: torch.Tensor, ranks: torch.Tensor,
-                     scalings: torch.Tensor,
-                     equal_segments: bool = False) -> torch.Tensor:
-    """Segment-dense grouped GEMM pair over stacked (K, d, r_pad)
-    adapters (the reference's ``fused_lora_xla``); see ``_MaskedTorch``."""
-    return _MaskedTorch.apply(x, A, B, ids, ranks, scalings,
-                              bool(equal_segments))
+                None, None, None)
 
 
 def _contiguous(jobs) -> bool:
@@ -301,8 +397,10 @@ def _ragged_equal_forward(x, A, B, scalings, layout):
     return torch.stack(pieces).reshape(T, -1).to(x.dtype)
 
 
-def _ragged_equal_bwd(x, A, B, scalings, layout, dy):
-    """dx, dA, dB from one evaluation of the per-bucket intermediates."""
+def _ragged_equal_bwd(x, A, B, scalings, layout, dy, want_dx: bool = True,
+                      want_w: bool = True):
+    """(dx, dA, dB), each None where not wanted, from one evaluation of
+    the per-bucket intermediates."""
     T, d_in = x.shape
     K = layout.num_jobs
     C = T // K
@@ -318,13 +416,19 @@ def _ragged_equal_bwd(x, A, B, scalings, layout, dy):
             xa = torch.where(m[:, None, :], xa, 0.0)
             dxa = torch.where(m[:, None, :], dxa, 0.0)
         xa = xa.to(x.dtype)
-        dx_b = torch.einsum("kcr,kdr->kcd", dxa, Ab.float())
-        dA_b = torch.einsum("kcd,kcr->kdr", buf_b.float(), dxa)
-        dB_b = torch.einsum("kcr,kco->kro", xa.float(), dy_s)
+        if want_dx:
+            dx_b = torch.einsum("kcr,kdr->kcd", dxa, Ab.float())
+        if want_w:
+            dA_b = torch.einsum("kcd,kcr->kdr", buf_b.float(), dxa)
+            dB_b = torch.einsum("kcr,kco->kro", xa.float(), dy_s)
         for i, k in enumerate(jobs):
-            dx_p[k], dA_p[k], dB_p[k] = dx_b[i], dA_b[i], dB_b[i]
-    return (torch.stack(dx_p).reshape(T, d_in), torch.cat(dA_p, dim=-1),
-            torch.cat(dB_p, dim=0))
+            if want_dx:
+                dx_p[k] = dx_b[i]
+            if want_w:
+                dA_p[k], dB_p[k] = dA_b[i], dB_b[i]
+    return (torch.stack(dx_p).reshape(T, d_in) if want_dx else None,
+            torch.cat(dA_p, dim=-1) if want_w else None,
+            torch.cat(dB_p, dim=0) if want_w else None)
 
 
 def _ragged_fallback_forward(x, A, B, ids, scalings, layout):
@@ -345,11 +449,14 @@ def _ragged_fallback_forward(x, A, B, ids, scalings, layout):
     return y.to(x.dtype)
 
 
-def _ragged_fallback_bwd(x, A, B, ids, scalings, layout, dy):
-    """dx, dA, dB of the fallback: dy_k carries the bucket's one-hot, so
-    dxa is segment-sparse and the wgrads need no further masking."""
+def _ragged_fallback_bwd(x, A, B, ids, scalings, layout, dy,
+                         want_dx: bool = True, want_w: bool = True):
+    """(dx, dA, dB) of the fallback, each None where not wanted: dy_k
+    carries the bucket's one-hot, so dxa is segment-sparse and the
+    wgrads need no further masking."""
     K = layout.num_jobs
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dx = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+          if want_dx else None)
     dA_p, dB_p = [None] * K, [None] * K
     for rp, jobs, Ab, Bb in _bucket_params(A, B, layout):
         onehot = _bucket_onehot(ids, jobs)
@@ -362,12 +469,15 @@ def _ragged_fallback_bwd(x, A, B, ids, scalings, layout, dy):
             xa = torch.where(m[None, :, :], xa, 0.0)
             dxa = torch.where(m[None, :, :], dxa, 0.0)
         xa = xa.to(x.dtype)
-        dx = dx + torch.einsum("tkr,kdr->td", dxa, Ab.float())
-        dA_b = torch.einsum("td,tkr->kdr", x.float(), dxa)
-        dB_b = torch.einsum("tkr,tko->kro", xa.float(), dy_k)
-        for i, k in enumerate(jobs):
-            dA_p[k], dB_p[k] = dA_b[i], dB_b[i]
-    return dx, torch.cat(dA_p, dim=-1), torch.cat(dB_p, dim=0)
+        if want_dx:
+            dx = dx + torch.einsum("tkr,kdr->td", dxa, Ab.float())
+        if want_w:
+            dA_b = torch.einsum("td,tkr->kdr", x.float(), dxa)
+            dB_b = torch.einsum("tkr,tko->kro", xa.float(), dy_k)
+            for i, k in enumerate(jobs):
+                dA_p[k], dB_p[k] = dA_b[i], dB_b[i]
+    return (dx, torch.cat(dA_p, dim=-1) if want_w else None,
+            torch.cat(dB_p, dim=0) if want_w else None)
 
 
 class _RaggedTorch(torch.autograd.Function):
@@ -375,13 +485,16 @@ class _RaggedTorch(torch.autograd.Function):
     (``_make_ragged_xla_fn``): equal segments take one batched GEMM pair
     per rank bucket, anything else the per-bucket one-hot fallback; the
     wgrads are bucket-dense at true-rank widths.  ids and the scalings get
-    no gradient."""
+    no gradient.  Shard-local (``shard`` given, the reference's
+    ``_make_ragged_xla_sharded_fn``): dx from this rank's rows, the
+    wgrads from x, dy and the ids gathered in solo order."""
 
     @staticmethod
-    def forward(ctx, x, A, B, ids, scalings, layout, equal: bool):
+    def forward(ctx, x, A, B, ids, scalings, layout, equal: bool,
+                shard: Optional[Shard] = None):
         equal = equal and x.shape[0] % layout.num_jobs == 0
         ctx.save_for_backward(x, A, B, ids, scalings)
-        ctx.layout, ctx.equal = layout, equal
+        ctx.layout, ctx.equal, ctx.shard = layout, equal, shard
         if equal:
             return _ragged_equal_forward(x, A, B, scalings, layout)
         return _ragged_fallback_forward(x, A, B, ids, scalings, layout)
@@ -389,13 +502,19 @@ class _RaggedTorch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, A, B, ids, scalings = ctx.saved_tensors
-        if ctx.equal:
-            dx, dA, dB = _ragged_equal_bwd(x, A, B, scalings, ctx.layout, dy)
-        else:
-            dx, dA, dB = _ragged_fallback_bwd(x, A, B, ids, scalings,
-                                              ctx.layout, dy)
+        sh, lay = ctx.shard, ctx.layout
+
+        def bwd(x, ids, dy, **kw):
+            if ctx.equal:
+                return _ragged_equal_bwd(x, A, B, scalings, lay, dy, **kw)
+            return _ragged_fallback_bwd(x, A, B, ids, scalings, lay, dy,
+                                        **kw)
+        dx, dA, dB = bwd(x, ids, dy, want_w=sh is None)
+        if sh is not None:
+            _, dA, dB = bwd(sh.gather(x), sh.gather(ids), sh.gather(dy),
+                            want_dx=False)
         return (dx.to(x.dtype), dA.to(A.dtype), dB.to(B.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 def _tile_jobs_static(rows: Sequence[int], seq_len: int, block_t: int,
@@ -420,61 +539,86 @@ def fused_lora_ragged(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                       equal_segments: bool = False,
                       slice_rows: Optional[Tuple[int, ...]] = None,
                       seq_len: int = 1,
+                      nano_order: Optional[Tuple[int, ...]] = None,
+                      solo_rows: Tuple[int, ...] = (),
+                      shard: Optional[Shard] = None,
                       ranks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused heterogeneous multi-LoRA over PACKED RAGGED adapters.
 
     x (T, d_in), A (d_in, R), B (R, d_out) with R = Σ_k r_pad_k
     (``layout``: core/lora.RankLayout).  ``slice_rows`` is the static
-    per-job row count of this batch — required for the static tile map
+    per-job row count of this batch when it is job-proportional (the
+    full fused batch, or a sharded step's job-wise nano slice, whose
+    segments come in ``nano_order``) — required for the static tile map
     of the "cuda" kernel; without it the call densifies and takes the
     masked family, whose device tile map handles any tile-aligned layout.
-    ``equal_segments`` (every job owns T / K tokens) sends "torch" down
-    its per-bucket batched path; "torch" ignores ``slice_rows`` and takes
-    its exact one-hot fallback for any other batch, as the reference's
-    "xla" does.
+    ``solo_rows`` is the per-job rows of the batch the wgrads run over:
+    the full (local) batch, or with a ``shard`` the full fused batch in
+    solo order.  ``equal_segments`` (every job owns T / K tokens) sends
+    "torch" down its per-bucket batched path; "torch" ignores
+    ``slice_rows`` and takes its exact one-hot fallback for any other
+    batch, as the reference's "xla" does.
     """
     from repro_torch.core.lora import unpack_dense
     rk = ranks if ranks is not None else torch.tensor(
         layout.ranks, dtype=torch.int32, device=x.device)
     if impl in ("ref", "loop"):
+        if shard is not None:
+            raise _no_shard_vjp(impl)
         Af, Bf = unpack_dense(A, B, layout)
         fn = (ref_impl.fused_lora_loop if impl == "loop"
               else ref_impl.fused_lora_ref)
         return fn(x, Af.to(x.dtype), Bf.to(x.dtype), ids, rk, scalings)
     if impl == "torch":
         return _RaggedTorch.apply(x, A, B, ids, scalings, layout,
-                                  bool(equal_segments))
+                                  bool(equal_segments), shard)
     if impl == "cuda":
         T = x.shape[0]
         tile_jobs = None
         if slice_rows is not None and T % block_t == 0:
-            tile_jobs = _tile_jobs_static(slice_rows, seq_len, block_t)
+            is_slice = tuple(slice_rows) != tuple(solo_rows)
+            tile_jobs = _tile_jobs_static(
+                slice_rows, seq_len, block_t,
+                order=nano_order if is_slice else None)
         if tile_jobs is None:
-            # no static tile map (the contiguous nano split): densify to
-            # the layout's widest segment and take the masked family,
-            # whose device tile map takes any tile-aligned layout
+            # no static tile map (the contiguous nano split of one
+            # device): densify to the layout's widest segment and take
+            # the masked family, whose device tile map takes any
+            # tile-aligned layout
+            assert shard is None, \
+                "sharded ragged cuda needs a job-proportional batch"
             Af, Bf = unpack_dense(A, B, layout)
             return _MaskedLoRA.apply(x, Af.to(x.dtype), Bf.to(x.dtype),
                                      ids, rk, scalings, block_t)
         meta = RaggedMeta.build(tile_jobs, layout)
-        return _RaggedLoRA.apply(x, A, B, ids, scalings, meta, block_t)
+        meta_solo = None
+        if shard is not None:
+            solo_tiles = _tile_jobs_static(solo_rows, seq_len, block_t)
+            assert solo_tiles is not None, (solo_rows, seq_len, block_t)
+            meta_solo = RaggedMeta.build(solo_tiles, layout)
+        return _RaggedLoRA.apply(x, A, B, ids, scalings, meta, block_t,
+                                 shard, meta_solo)
     raise ValueError(f"unknown fused_lora_ragged impl {impl!r}")
 
 
 def fused_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                ids: torch.Tensor, ranks: torch.Tensor,
                scalings: torch.Tensor, impl: str = "ref",
-               block_t: int = 128,
-               equal_segments: bool = False) -> torch.Tensor:
+               block_t: int = 128, equal_segments: bool = False,
+               shard: Optional[Shard] = None) -> torch.Tensor:
     """Fused heterogeneous multi-LoRA: y_t = s_a ((x_t A_a) B_a), a=ids[t].
     x (T, d_in), A (K, d_in, r), B (K, r, d_out) -> (T, d_out).
     ``equal_segments``: every adapter owns T / K consecutive tokens (the
-    "torch" impl's batched path)."""
+    "torch" impl's batched path).  ``shard`` selects the shard-local
+    variant (x and ids are this rank's tokens)."""
     if impl == "cuda":
-        return _MaskedLoRA.apply(x, A, B, ids, ranks, scalings, block_t)
+        return _MaskedLoRA.apply(x, A, B, ids, ranks, scalings, block_t,
+                                 shard)
     if impl == "torch":
-        return fused_lora_torch(x, A, B, ids, ranks, scalings,
-                                equal_segments)
+        return _MaskedTorch.apply(x, A, B, ids, ranks, scalings,
+                                  bool(equal_segments), shard)
+    if shard is not None:
+        raise _no_shard_vjp(impl)
     if impl == "loop":
         return ref_impl.fused_lora_loop(x, A, B, ids, ranks, scalings)
     if impl == "ref":

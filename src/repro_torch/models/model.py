@@ -472,13 +472,31 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
                             device=seq_loss.device)
                  if mask is None else mask.float().sum(-1))
     if lora is not None:
-        onehot = F.one_hot(lora.adapter_ids.long(),
-                           lora.num_adapters).float()              # (B, K)
+        K = lora.num_adapters
+        onehot = F.one_hot(lora.adapter_ids.long(), K).float()     # (B, K)
         denom = (per_job_denom if per_job_denom is not None
                  else (onehot.T @ seq_count).clamp_min(1))
         per_job = (onehot.T @ seq_loss) / denom
-        return per_job.sum() + aux, {"per_job": per_job, "aux": aux,
-                                     "per_job_count": onehot.T @ seq_count}
+        total = per_job.sum() + aux
+        if lora.group is not None and lora.grad_sync == "gather":
+            # sharded exact mode: the gradient flows through the LOCAL
+            # partial above (its per-row cotangents are the 1/denom
+            # scalars of one device, and the kernels' shard-local
+            # backwards make the wgrads exact); the REPORTED per-job
+            # losses are recomputed at full shape from the per-row
+            # losses gathered in solo row order, as one device sums them
+            from repro_torch.kernels.ops import gather_solo
+            with torch.no_grad():
+                rows = torch.stack([seq_loss, seq_count,
+                                    lora.adapter_ids.float()], dim=1)
+                g = gather_solo(rows, lora.group, lora.row_solo_pos,
+                                sum(lora.solo_rows))
+                oh_g = F.one_hot(g[:, 2].long(), K).float()
+                per_job = (oh_g.T @ g[:, 0]) / denom
+            return total, {"per_job": per_job, "aux": aux,
+                           "per_job_count": oh_g.T @ g[:, 1]}
+        return total, {"per_job": per_job, "aux": aux,
+                       "per_job_count": onehot.T @ seq_count}
     total = seq_loss.sum() / seq_count.sum().clamp_min(1) + aux
     return total, {"per_job": total[None], "aux": aux}
 

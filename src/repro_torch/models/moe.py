@@ -31,8 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import swiglu, swiglu_init
 
-MOE_NO_MESH = ("expert-parallel MoE dispatch over a device mesh is not "
-               "ported yet (ROADMAP queue A: multi-GPU)")
+MOE_NO_MESH = ("the MoE over a device mesh (capacity dispatch over a mesh, "
+               "expert parallelism) is not ported yet (ROADMAP A7d: "
+               "multi-GPU MoE)")
 
 
 def moe_init(cfg, dtype, *, generator: torch.Generator, device="cuda",

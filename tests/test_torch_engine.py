@@ -127,4 +127,5 @@ def test_engine_defaults_to_the_card(cfg):
     eng = ElasticEngine(cfg, params={}, block_t=BT)
     assert eng.device == "cuda" and eng._rt_kwargs["device"] == "cuda"
     with pytest.raises(NotImplementedError):
-        ElasticEngine(cfg, params={}, mesh=object(), device="cpu")
+        ElasticEngine(cfg, params={}, mesh=object(), tp_mode="pipeline",
+                      device="cpu")

@@ -237,3 +237,28 @@ def test_corrupt_checkpoint_restarts_from_the_admission_time_init(tmp_path):
     _until(lambda: len(ctl.finished) == 2, tick)
     ctl.drain()
     assert ctl.steps_done("v") == 6 and ctl.steps_done("p") == 6
+
+
+def test_a_tick_without_reschedule_leaves_restored_jobs_ready(tmp_path):
+    """ROADMAP C10: a supervise tick that reschedules nothing must not
+    take a restored job out of its retry backoff, or no later tick sees
+    it as ready and it stays parked.  With no backoff at all every tick
+    finds the backoff expired, as a loaded host does after 0.01 s."""
+    plan = FaultPlan([FaultSpec("worker_death", job_id="v", at_step=2)])
+    ctl = _controller(PORT, tmp_path, plan)
+    ctl.backoff_base_s = 0.0
+    ctl.submit(_spec(LoRAJobSpec, "v", budget=4))
+    ctl.reschedule()
+    ctl.begin(until_budget=True)
+    recs = []
+    _until(lambda: recs,
+           lambda: recs.extend(ctl.supervise(reschedule=False)))
+    assert recs[0].restored_from_checkpoint == ["v"]
+    assert "v" in ctl._parked and "v" in ctl._backoff_until
+
+    def tick():
+        ctl.supervise(reschedule=True)
+        ctl.reap_completed()
+    _until(lambda: "v" in ctl.finished, tick, limit=120.0)
+    ctl.drain()
+    assert ctl.steps_done("v") == 4

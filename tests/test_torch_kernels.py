@@ -393,7 +393,21 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.ssd, repro_torch.models.rglru, "
             "repro_torch.cluster.control, repro_torch.cluster.faults, "
             "repro_torch.cluster.harness, repro_torch.cluster.controller, "
-            "repro_torch.cluster.execution\n"
+            "repro_torch.cluster.execution, repro_torch.kernels.ops, "
+            "repro_torch.data.pipeline, torch.distributed.device_mesh\n"
+            # the sharded path: a one-rank gloo world, its mesh, and the
+            # shard-local gather, all without JAX
+            "import os, tempfile, torch\n"
+            "from repro_torch.launch.mesh import init_mesh, data_group\n"
+            "from repro_torch.kernels.ops import Shard, gather_solo\n"
+            "mesh = init_mesh(0, 1, 'file://' + os.path.join("
+            "tempfile.mkdtemp(), 's'), 'gloo')\n"
+            "g, D, s = data_group(mesh)\n"
+            "x = torch.arange(6.).reshape(3, 2)\n"
+            "assert (D, s) == (1, 0)\n"
+            "assert torch.equal(Shard(g, torch.tensor([2, 0, 1]), 3)"
+            ".gather(x), x[[1, 2, 0]])\n"
+            "torch.distributed.destroy_process_group()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

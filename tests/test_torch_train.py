@@ -442,14 +442,15 @@ def test_uniform_group_adapter_isolation(uniform_setup):
 
 # --------------------------------------------------------- refusals
 def test_make_train_step_refuses_what_is_not_ported():
-    """On every device: meshes and pipeline stages (ROADMAP queue A,
-    multi-GPU).  Uniform layouts and nano batches build."""
+    """On every device: tensor-parallel meshes and pipeline stages
+    (ROADMAP A7c, A7b: multi-GPU).  Uniform layouts and nano batches
+    build."""
     cfg = _cfgs("float32")[1]
     lr = constant(LR)
     ragged = SharedSuperModel(cfg, _specs(LoRAJobSpec), impl="cuda",
                               block_t=BT)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ragged.make_train_step(lr_fn=lr, mesh=object())
+        ragged.make_train_step(lr_fn=lr, mesh=object(), tp_mode="auto")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ragged.make_train_step(lr_fn=lr, pipeline_stages=2)
     uniform = SharedSuperModel(cfg, _specs(LoRAJobSpec, ranks=(4, 8, 16)),
