@@ -2700,10 +2700,11 @@ def family_engine(cfg, params, dev) -> dict:
     """``ServeEngine.serve`` on *cfg* with 4 adapters of ranks {8, 16, 32,
     64} and the serve cell's 16 prompts: launches and tokens/s; fused
     against solo prefill logits (asserted within LOGIT_ATOL); two
-    requests per adapter decoded whole, fused against solo (compared and
-    reported: the MoE expert products group a row with whatever rows
-    routed to its experts, which no row block reaches), and where they
-    part, the first differing decode step and op (``c1_probe``)."""
+    requests per adapter decoded whole, fused against solo (asserted:
+    the MoE expert products group a row with whatever rows routed to
+    its experts, and ``expert_mm_probe`` holds them row invariant), and
+    where they part, the first differing decode step and op
+    (``c1_probe``)."""
     import torch
     from repro_torch.serve import AdapterPool, ServeEngine, ServeRequest
     names = [f"fam{i}-r{r}" for i, r in enumerate(TRAIN_RANKS)]
@@ -2744,11 +2745,75 @@ def family_engine(cfg, params, dev) -> dict:
         i = same.index(False)
         out["c1_probe_first_differing_request"] = c1_probe(
             engine, reqs, request=i, steps=reqs[i].max_new_tokens - 1)
+    # the expert products are row invariant (expert_mm_probe, asserted
+    # beside this line), so fused and solo decode the same ids
     out["ok"] = bool(prefill_diff <= LOGIT_ATOL and out["finite"]
+                     and all(same)
                      and all(launches[n] for n in ("ragged_lora_fwd",
                                                    "flash_attention_fwd")))
     del engine, pool
     return out
+
+
+
+# C9's probe: each expert's first rows alone against the same rows inside
+# larger groups (rows per expert: small vs big), the two serving products
+# and the backward's transposed one, at the engine model's widths
+EXPERT_PROBE_ROWS = ((1, 16), (1, 256), (3, 256), (16, 256))
+
+
+def expert_mm_probe(cfg, dev, seed=11) -> dict:
+    """Whether ``models/moe._ExpertMM``'s products (``torch._grouped_mm``
+    on bf16) are row invariant on the card, as ``c1_probe`` asks of the
+    dense products: for each (small, big) of EXPERT_PROBE_ROWS, every
+    expert's first *small* rows are multiplied alone (every expert's
+    segment *small* rows) and inside segments of *big* rows, and the
+    same rows compared bit for bit; also one expert alone with every
+    other segment empty.  Products: x·w_in (d -> 2 f), h·w_out (f -> d)
+    and dy·w_inᵀ (the backward's, through the transposed view)."""
+    import torch
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w_in = (torch.randn((E, d, 2 * f), generator=g, device=dev)
+            / d ** 0.5).to(torch.bfloat16)
+    w_out = (torch.randn((E, f, d), generator=g, device=dev)
+             / f ** 0.5).to(torch.bfloat16)
+    prods = {"x.w_in": (w_in, d), "h.w_out": (w_out, f),
+             "dy.w_in^T": (w_in.transpose(-1, -2), 2 * f)}
+
+    def offs(rows):
+        return torch.cumsum(torch.as_tensor(rows, device=dev), 0).to(
+            torch.int32)
+    cases = []
+    for name, (w, k) in prods.items():
+        for small, big in EXPERT_PROBE_ROWS:
+            xb = torch.randn((E * big, k), generator=g,
+                             device=dev).to(torch.bfloat16)
+            yb = torch._grouped_mm(xb, w, offs=offs([big] * E))
+            pick = torch.cat([torch.arange(e * big, e * big + small,
+                                           device=dev) for e in range(E)])
+            ys = torch._grouped_mm(xb[pick].contiguous(), w,
+                                   offs=offs([small] * E))
+            diff = (ys.float() - yb[pick].float()).abs()
+            rows = diff.amax(-1) > 0
+            # one expert alone: the others' segments empty
+            e = E // 2
+            alone = torch._grouped_mm(
+                xb[e * big:e * big + small].contiguous(), w,
+                offs=offs([0] * e + [small] + [0] * (E - e - 1)))
+            d_alone = (alone.float() - yb[e * big:e * big + small].float()
+                       ).abs().max().item()
+            cases.append({"product": name, "rows_small": small,
+                          "rows_big": big, "rows_compared": int(pick.numel()),
+                          "rows_differing": int(rows.sum().item()),
+                          "max_abs_diff": diff.max().item(),
+                          "one_expert_alone_max_abs_diff": d_alone})
+    torch.cuda.synchronize()
+    return {"model": cfg.name, "experts": E, "d_model": d, "moe_d_ff": f,
+            "dtype": "bfloat16", "cases": cases,
+            "row_invariant": all(c["rows_differing"] == 0
+                                 and c["one_expert_alone_max_abs_diff"] == 0
+                                 for c in cases)}
 
 
 def families_phase(dev):
@@ -2864,9 +2929,13 @@ def families_phase(dev):
             total[k] += launches[k]
         if arch == FAM_ENGINE:
             del adapters
+            probe = expert_mm_probe(cfg, dev)
             engine = family_engine(cfg, params, dev)
             emit({"phase": "families", "model": cfg.name,
-                  "engine": engine, "card": card_line()})
+                  "expert_mm_probe": probe, "engine": engine,
+                  "card": card_line()})
+            if not probe["row_invariant"]:
+                failed.append(f"{cfg.name}.expert_mm_row_invariance")
             if not engine["ok"]:
                 failed.append(f"{cfg.name}.engine")
             del params
@@ -4754,6 +4823,397 @@ def sharded_phase(src, cfg, params, dev):
     return launches
 
 
+
+# ------------------------------------------------------ cluster_sharded
+# The multi-device controller: CLUSTER_GROUPS at TRAIN_BATCH x TRAIN_SEQ
+# on two 2-rank slices of CS_RANKS gloo ranks spawned onto cuda:0 (NCCL
+# refuses two ranks on one device), full-width tinyllama-1.1b, "cuda",
+# block_t 128, remat, every rank building the same controller
+# (cluster/controller's SPMD design).  Steps are few: a gloo gather step
+# moves x and dy through host memory (the sharded phase: 5.36 s a
+# step on two ranks), so each part runs one or two.
+CS_RANKS = 4
+CS_STEPS = 2             # (a)/(b): threads and sequential, one chunk
+CS_STAGE = 1             # (c): steps of each repartition stage
+CS_DEATH = (2, 3)        # (d): worker_death at step 2 in flight, budget 3
+CS_LOSS = (1, 2)         # (e): submesh_loss at step 1, budget 2
+
+
+def _cs_decisions(ctl) -> dict:
+    """What every rank of the pool must agree on (times excluded)."""
+    return {"devices": sorted([list(g), list(d)]
+                              for g, d in ctl.group_devices().items()),
+            "regroups": [[ev.mode, ev.groups_built, ev.groups_dissolved,
+                          sorted(ev.fence_steps.items())]
+                         for ev in ctl.regroup_log],
+            "failures": [[r.kind, list(r.gkey), sorted(r.steps_lost.items()),
+                          sorted(r.restored_from_checkpoint),
+                          sorted(r.restarted_fresh),
+                          list(r.quarantined_devices)]
+                         for r in ctl.failure_log],
+            "quarantined": sorted(ctl.quarantined),
+            "finished": sorted(ctl.finished)}
+
+
+def _cs_mine(ctl):
+    """This rank's group of *ctl* and its runtime (None, None if the rank
+    runs none)."""
+    for g, slot in ctl._slots.items():
+        if slot.engine is not None:
+            return g, slot.runtime(g)
+    return None, None
+
+
+def _cs_job_diff(a, b) -> dict:
+    """Two JobTrainStates at the CPU tests' bars: the largest |a - b| of
+    adapter and Adam moments, the smallest share within 1e-5, and the
+    Adam step and step count."""
+    worst, bulk = 0.0, 1.0
+    for part in ("adapter", "mu", "nu"):
+        x, y = getattr(a, part), getattr(b, part)
+        for k in x:
+            d = (x[k].float() - y[k].float()).abs()
+            worst = max(worst, d.max().item())
+            bulk = min(bulk, (d < 1e-5).float().mean().item())
+    return {"max_abs_diff": worst, "min_share_within_1e-5": bulk,
+            "opt_step": [a.opt_step, b.opt_step],
+            "steps_done": [a.steps_done, b.steps_done],
+            "ok": bool(worst <= SHARD_STATE_ATOL and bulk > SHARD_BULK
+                       and a.opt_step == b.opt_step
+                       and a.steps_done == b.steps_done)}
+
+
+def _cs_losses(ctl, gkey, job):
+    """Per-step losses of *job* in group *gkey*, its first rank's."""
+    rt = ctl._slots[gkey].runtime(gkey)
+    mine = [float(l[gkey.index(job)]) for l in rt.report.per_job_losses] \
+        if rt is not None else None
+    return ctl.first_rank_value(gkey, mine)
+
+
+def cluster_sharded_runs(rank, cfg, dev, ckpt_dir) -> dict:
+    """One rank's part of the cluster_sharded phase.  Every rank builds
+    each controller and calls the same methods in the same order:
+    (a) CLUSTER_GROUPS on two 2-rank slices, sequential and threads,
+    CS_STEPS steps each, bit-equal; (b) the same groups through the
+    meshless controller (``partition=False``: every rank runs both
+    groups whole), each slice's group within the CPU tests' bars of it;
+    (c) a repartition 2+2 -> 4 -> 2+2, CS_STAGE steps a stage, against
+    the threads run carried on to the same step (no repartition): every
+    job at the CPU bars, steps and Adam steps exact; (d) a worker death
+    in flight in the mixed group, replay-exact, no job lost; (e) a lost
+    submesh, its ranks never used again.  Every rank's launches held to
+    its dispatched steps.  Raises on a failed check, after emitting."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.faults import FaultPlan, FaultSpec
+    from repro_torch.models import model as M
+    params = M.init_model(cfg, seed=0, device=dev)
+    groups = [tuple(f"s{r}" for r in g) for g in CLUSTER_GROUPS]
+    jobs = [j for g in groups for j in g]
+    rank_of = {f"s{r}": r for g in CLUSTER_GROUPS for r in g}
+    ga, gb = groups               # gb: the mixed (ragged) group
+
+    def make(conc, budget=10_000, chunk=CS_STEPS, **kw):
+        ctl = cluster_controller(cfg, dev, concurrency=conc,
+                                 chunk_size=chunk, **kw)
+        ctl._backbones[cfg.name] = params       # one backbone a rank
+        for j in jobs:
+            ctl.submit(cluster_spec(j, rank_of[j], budget))
+        return ctl
+
+    out = {"rank": rank, "decisions": {}}
+    checks, walls = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def body():
+        # (a) sequential and threads on two 2-rank slices
+        runs = {}
+        for conc in ("sequential", "threads"):
+            ctl = make(conc)
+            ctl.apply_grouping(groups, chips=[2, 2])
+            g, rt = _cs_mine(ctl)
+            rt.warm([CS_STEPS])
+            ctl._barrier()
+            t0 = time.perf_counter()
+            ctl.run(CS_STEPS)
+            walls[conc] = time.perf_counter() - t0
+            runs[conc] = ctl
+            out["decisions"][conc] = _cs_decisions(ctl)
+        g, rt_s = _cs_mine(runs["sequential"])
+        _, rt_t = _cs_mine(runs["threads"])
+        out["group"], out["data_shards"] = list(g), rt_t.data_shards
+        eq = _same_state(rt_s, rt_t)
+        out["threads_vs_sequential_bit_equal"] = eq
+        checks["threads_equal_sequential"] = all(eq.values())
+        del runs["sequential"]
+        # (b) the meshless controller on the same grouping
+        ml = make("sequential", partition=False)
+        ml.apply_grouping(groups, chips=[2, 2])
+        t0 = time.perf_counter()
+        ml.run(CS_STEPS)
+        walls["meshless"] = time.perf_counter() - t0
+        rt_m = ml._slots[g].runtime(g)
+        got = np.stack(rt_t.report.per_job_losses)
+        want = np.stack(rt_m.report.per_job_losses)
+        vs = {"loss_max_abs_diff": float(np.abs(got - want).max()),
+              "loss_ok": bool(np.allclose(got, want, rtol=SHARD_LOSS_TOL,
+                                          atol=SHARD_LOSS_TOL)),
+              "adam_step_equal": torch.equal(rt_t.opt_state.step,
+                                             rt_m.opt_state.step)}
+        for part, x, y in (("adapters", rt_t.adapters, rt_m.adapters),
+                           ("adam_mu", rt_t.opt_state.mu, rt_m.opt_state.mu),
+                           ("adam_nu", rt_t.opt_state.nu,
+                            rt_m.opt_state.nu)):
+            d = _state_diff(x, y)
+            d["ok"] = (d["max_abs_diff"] <= SHARD_STATE_ATOL
+                       and d["min_share_within_1e-5"] > SHARD_BULK)
+            vs[part] = d
+        out["partitioned_vs_meshless"] = vs
+        checks["partitioned_vs_meshless"] = (
+            vs["loss_ok"] and vs["adam_step_equal"]
+            and all(vs[p]["ok"] for p in ("adapters", "adam_mu",
+                                          "adam_nu")))
+        del ml, rt_m
+        # (c) repartition 2+2 -> 4 -> 2+2 against no repartition
+        T = runs["threads"]
+        rp = make("sequential", chunk=CS_STAGE)
+        rp.apply_grouping(groups, chips=[2, 2])
+        rp.run(CS_STAGE)
+        losses = {j: list(_cs_losses(rp, gk, j)) for gk in groups
+                  for j in gk}
+        merged = ga + gb
+        rp.apply_grouping([merged], chips=[4])
+        merged_shards = rp.ensure_group(merged).data_shards
+        t0 = time.perf_counter()
+        rp.run(CS_STAGE)
+        walls["merged_stage"] = time.perf_counter() - t0
+        for j in jobs:
+            losses[j] += _cs_losses(rp, merged, j)
+        rp.apply_grouping(groups, chips=[2, 2])
+        rp.run(CS_STAGE)
+        for gk in groups:
+            for j in gk:
+                losses[j] += _cs_losses(rp, gk, j)
+        extra = 3 * CS_STAGE - CS_STEPS
+        prof = profile_run(lambda: T.run(extra)) if rank == 0 else None
+        if rank != 0:
+            T.run(extra)
+        ref = {j: _cs_losses(T, gk, j) for gk in groups for j in gk}
+        rep = {"merged_data_shards": merged_shards,
+               "loss_max_abs_diff": max(
+                   float(np.abs(np.subtract(losses[j], ref[j])).max())
+                   for j in jobs),
+               "losses": losses, "no_repartition_losses": ref,
+               "regroup_events": rp.regroup_events,
+               "jobs": {j: _cs_job_diff(rp.job_state(j), T.job_state(j))
+                        for j in jobs}}
+        rep["loss_ok"] = all(np.allclose(losses[j], ref[j],
+                                         rtol=SHARD_LOSS_TOL,
+                                         atol=SHARD_LOSS_TOL) for j in jobs)
+        out["repartition"] = rep
+        out["decisions"]["repartition"] = _cs_decisions(rp)
+        checks["repartition"] = (rep["loss_ok"] and merged_shards == 4
+                                 and rep["regroup_events"] >= 2
+                                 and all(v["ok"]
+                                         for v in rep["jobs"].values()))
+        if prof is not None:
+            out["profile_threads_step_rank0"] = prof
+        del rp
+        # (d) a worker death in flight in the mixed group
+        at, budget = CS_DEATH
+        plan = FaultPlan([FaultSpec("worker_death", job_id=gb[0],
+                                    at_step=at, phase="inflight")])
+        dd = os.path.join(ckpt_dir, "death")
+        os.makedirs(dd, exist_ok=True)
+        fc = make("threads", budget=budget, chunk=1, checkpoint_dir=dd,
+                  checkpoint_every=1, fault_plan=plan, backoff_base_s=0.0,
+                  stuck_after=None)
+        fc.apply_grouping(groups, chips=[2, 2])
+        t0 = time.perf_counter()
+        fc.begin(until_budget=True)
+        recs = []
+        while not recs:
+            recs += fc.supervise(reschedule=False)
+            time.sleep(0.05)
+        rec = recs[0]
+        ckpt_step = min(fc._parked[j].steps_done for j in gb)
+        fc.apply_grouping(groups, chips=[2, 2])
+        while not all(fc._gather(all(w.done.is_set()
+                                     for w in fc._workers.values()))):
+            time.sleep(0.05)
+        g_d, rt_d = _cs_mine(fc)
+        post = np.stack(rt_d.report.per_job_losses)
+        want = np.stack(rt_t.report.per_job_losses)
+        ok_d = (bool(np.array_equal(post, want)) if g_d == ga else
+                bool(np.allclose(post, want[ckpt_step:budget],
+                                 rtol=SHARD_LOSS_TOL, atol=SHARD_LOSS_TOL)))
+        fc.reap_completed()
+        walls["worker_death"] = time.perf_counter() - t0
+        steps = {j: fc.steps_done(j) for j in jobs}
+        out["worker_death"] = {
+            "kind": rec.kind, "gkey": list(rec.gkey),
+            "restored_from_checkpoint": sorted(rec.restored_from_checkpoint),
+            "steps_lost": rec.steps_lost, "checkpoint_step": ckpt_step,
+            "replay_ok": ok_d, "finished": sorted(fc.finished),
+            "steps": steps, "detect_latency_s": rec.detect_latency_s}
+        out["decisions"]["worker_death"] = _cs_decisions(fc)
+        checks["worker_death"] = (
+            rec.kind == "worker_death" and tuple(rec.gkey) == gb and ok_d
+            and sorted(rec.restored_from_checkpoint) == sorted(gb)
+            and sorted(fc.finished) == sorted(jobs)
+            and all(v == budget for v in steps.values()))
+        del fc, T, rt_t, rt_s
+        # (e) a lost submesh
+        at, budget = CS_LOSS
+        plan = FaultPlan([FaultSpec("submesh_loss", job_id=gb[0],
+                                    at_step=at)])
+        dl = os.path.join(ckpt_dir, "loss")
+        os.makedirs(dl, exist_ok=True)
+        lc = make("threads", budget=budget, chunk=1, checkpoint_dir=dl,
+                  checkpoint_every=1, fault_plan=plan, backoff_base_s=0.0,
+                  stuck_after=None)
+        lc.apply_grouping(groups, chips=[2, 2])
+        lost = set(lc.group_devices()[gb])
+        t0 = time.perf_counter()
+        lc.begin(until_budget=True)
+        recs = []
+        while not recs:
+            recs += lc.supervise(reschedule=False)
+            time.sleep(0.05)
+        lc.apply_grouping(groups, chips=[2, 2])
+        used_after = {i for d in lc.group_devices().values() for i in d}
+        while not all(lc._gather(all(w.done.is_set()
+                                     for w in lc._workers.values()))):
+            time.sleep(0.05)
+        lc.reap_completed()
+        walls["submesh_loss"] = time.perf_counter() - t0
+        steps = {j: lc.steps_done(j) for j in jobs}
+        out["submesh_loss"] = {
+            "kind": recs[0].kind, "lost_ranks": sorted(lost),
+            "quarantined": sorted(lc.quarantined),
+            "ranks_used_after": sorted(used_after),
+            "finished": sorted(lc.finished), "steps": steps}
+        out["decisions"]["submesh_loss"] = _cs_decisions(lc)
+        checks["submesh_loss"] = (
+            recs[0].kind == "submesh_loss" and lc.quarantined == lost
+            and not used_after & lost
+            and sorted(lc.finished) == sorted(jobs)
+            and all(v == budget for v in steps.values()))
+        del lc
+
+    with chunk_tally() as tally:
+        _, launches = counted(body)
+    out.update(walls_s=walls, checks=checks, launches=launches,
+               dispatched_steps=dict(tally.steps),
+               peak_device_memory_bytes=torch.cuda.max_memory_allocated())
+    try:
+        check_cluster_launches(f"cluster_sharded rank {rank}", launches,
+                               tally)
+        checks["launches"] = True
+    except AssertionError as e:
+        out["launch_error"] = str(e)
+        checks["launches"] = False
+    return out
+
+
+def cluster_sharded_rank(rank, world, init_method, src, out_path, ckpt):
+    """A spawned gloo rank of the cluster_sharded phase: joins the world
+    on cuda:0 and runs ``cluster_sharded_runs``; writes its results to
+    *out_path* % rank, then raises if a check failed."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_mesh(rank, world, init_method, "gloo")
+    out = cluster_sharded_runs(rank, get_config("tinyllama-1.1b"), dev, ckpt)
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    failed = [k for k, ok in out["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"cluster_sharded rank {rank}: {failed}")
+
+
+def cluster_sharded_phase(src, cfg):
+    """CS_RANKS gloo ranks spawned onto cuda:0 run the multi-device
+    controller (``cluster_sharded_runs``); the parent holds every rank's
+    decisions equal and emits the walls, rank 0's idle share over one
+    threads step, every rank's peak memory and launches.  The ranks share
+    one H100, so no time here is a multi-GPU number.  Returns the
+    launches of every rank, summed."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="cluster-sharded-",
+                           dir=os.path.join(ROOT, "build"))
+    out_path = os.path.join(tmp, "%d.json")
+    t0 = time.perf_counter()
+    err = None
+    try:
+        mp.start_processes(cluster_sharded_rank, args=(
+            CS_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path,
+            tmp), nprocs=CS_RANKS, join=True, start_method="spawn")
+    except Exception as e:            # emit what the ranks wrote first
+        err = e
+    ranks = []
+    for r in range(CS_RANKS):
+        if os.path.exists(out_path % r):
+            with open(out_path % r) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len(ranks) < CS_RANKS:
+        emit({"phase": "cluster_sharded_failed", "ranks_written":
+              [r["rank"] for r in ranks], "by_rank": ranks})
+        raise AssertionError(f"cluster_sharded: {len(ranks)} of {CS_RANKS} "
+                             "ranks finished") from err
+    same = all(r["decisions"] == ranks[0]["decisions"] for r in ranks[1:])
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    r0 = ranks[0]
+    emit({"phase": "cluster_sharded", "model": cfg.name,
+          "layers": cfg.num_layers, "ranks": CS_RANKS,
+          "groups": [[{"rank": r, "batch_size": TRAIN_BATCH,
+                       "seq_len": TRAIN_SEQ} for r in g]
+                     for g in CLUSTER_GROUPS],
+          "block_t": TRAIN_BLOCK_T, "steps": {"modes": CS_STEPS,
+                                              "stage": CS_STAGE,
+                                              "worker_death": CS_DEATH,
+                                              "submesh_loss": CS_LOSS},
+          "note": "the ranks share one H100: no time here is a multi-GPU "
+                  "number",
+          "seconds": seconds, "decisions_equal_on_every_rank": same,
+          "decisions": r0["decisions"],
+          "walls_s_by_rank": [r["walls_s"] for r in ranks],
+          "rank0_idle_share_threads_step": r0.get(
+              "profile_threads_step_rank0", {}).get("device_idle_share"),
+          "profile_threads_step_rank0": r0.get("profile_threads_step_rank0"),
+          "peak_device_memory_bytes_by_rank": [
+              r["peak_device_memory_bytes"] for r in ranks],
+          "by_rank": [{k: r[k] for k in (
+              "rank", "group", "data_shards", "checks", "launches",
+              "dispatched_steps", "threads_vs_sequential_bit_equal",
+              "partitioned_vs_meshless", "worker_death", "submesh_loss")}
+              for r in ranks],
+          "repartition_rank0": {k: v for k, v in r0["repartition"].items()
+                                if k not in ("losses",
+                                             "no_repartition_losses")},
+          "launches": launches, "card": card_line()})
+    if not same:
+        raise AssertionError("cluster_sharded: the ranks' decisions differ")
+    if err is not None:
+        raise err
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -4768,6 +5228,8 @@ def main() -> int:
                     "cluster phase (cluster_phase)")
     ap.add_argument("--sharded", action="store_true", help="only the "
                     "sharded phase (sharded_phase)")
+    ap.add_argument("--cluster-sharded", action="store_true", help="only "
+                    "the cluster_sharded phase (cluster_sharded_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -4816,6 +5278,10 @@ def main() -> int:
         cfg = get_config("tinyllama-1.1b")
         sharded_phase(os.path.abspath(args.src), cfg,
                       M.init_model(cfg, seed=0, device=dev), dev)
+        return 0
+    if args.cluster_sharded:
+        cluster_sharded_phase(os.path.abspath(args.src),
+                              get_config("tinyllama-1.1b"))
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -4876,6 +5342,9 @@ def main() -> int:
     counts["cluster"] = cluster_phase(cfg, dev, ckpt_dir)
     counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg,
                                       params, dev)
+    del params
+    counts["cluster_sharded"] = cluster_sharded_phase(
+        os.path.abspath(args.src), cfg)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

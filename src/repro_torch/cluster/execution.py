@@ -127,10 +127,13 @@ class ExecutionBackend:
         self.calibration_path = calibration_path
         self.calibrator = calibrator if calibrator is not None \
             else tp.OnlineCalibrator(hw)
-        # one device: every group meshless on it (a mesh, a device pool
-        # or the sharded options are refused by the controller)
+        # controller modes: an explicit device pool partitions into
+        # per-group submeshes (concurrent measurement); an explicit mesh
+        # pins every group to it; neither = the meshless measurement
+        # instrument (single-device semantics)
         self.controller = ClusterController(
             self._cfg_of, devices=devices, fixed_mesh=mesh,
+            partition=devices is not None and mesh is None,
             calibrator=self.calibrator,
             calibration_path=calibration_path,
             concurrency="sequential", impl=impl, block_t=block_t, lr=lr,
@@ -187,9 +190,15 @@ class ExecutionBackend:
         # chunk_size=1: per-step wall times are the signal, so keep
         # step-at-a-time granularity rather than chunk means; a rebuilt
         # group's first step (its step closures, tile tables and first
-        # staging) is the window's outlier, which min() discards
-        rt.run(self.steps_per_measure, chunk_size=1)
-        measured = rt.report.measured_step_time(self.steps_per_measure)
+        # staging) is the window's outlier, which min() discards.  On a
+        # pool the group's ranks step it and its first rank's time is
+        # the one every rank records (the simulator decides by it).
+        measured = None
+        if rt is not None:
+            rt.run(self.steps_per_measure, chunk_size=1)
+            measured = rt.report.measured_step_time(self.steps_per_measure)
+        measured = self.controller.first_rank_value(group.job_ids,
+                                                    measured)
         self.calibrator.observe(cfg, group.specs, group.chips, measured,
                                 backbone_dtype=self.backbone_dtype)
         self.records.append(StepRecord(

@@ -25,7 +25,7 @@ into a single executable model:
 (the shard-major layout of ``data/pipeline.shard_permutation``) and
 holds the adapters and Adam state replicated.  Not ported yet, and
 refused where asked for: ``tp_mode="auto"`` (tensor parallelism, ROADMAP
-A7c), pipeline mode (A7b) and a MoE model over a mesh (A7d);
+A4), pipeline mode (A2) and a MoE model over a mesh (A3);
 ``pipeline_legal_stages``, the scheduler's view of the pipeline depths a
 config allows, is here.
 """
@@ -47,10 +47,11 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
 NO_PIPELINE = ("pipeline group execution (tp_mode='pipeline', "
-               "pipeline_stages > 1) is not ported yet (ROADMAP A7b: "
-               "multi-GPU pipeline mode)")
+               "pipeline_stages > 1) is not ported yet (ROADMAP A2, old "
+               "A7b: multi-GPU pipeline mode)")
 NO_AUTO_TP = ("tensor-parallel group execution (tp_mode='auto') is not "
-              "ported yet (ROADMAP A7c: multi-GPU tensor parallelism)")
+              "ported yet (ROADMAP A4, old A7c: multi-GPU tensor "
+              "parallelism)")
 
 
 def check_tp_mode(tp_mode: str, pipeline_stages: int = 1) -> None:

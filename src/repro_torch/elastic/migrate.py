@@ -14,12 +14,17 @@ padding lanes' gradients, and so their Adam moments, at zero, so pack ->
 train -> unpack -> re-pack is exact.
 
 The portable slices are host-resident CPU tensors, so a state moves
-between runtimes on any device.
+between runtimes on any device.  Between processes (the ranks of a
+partitioned pool, ``cluster/controller``) it moves whole by
+``broadcast_states``: ``pack_states`` lays every slice of a list of
+states end to end in one flat tensor beside a small picklable header
+(specs, keys, shapes, dtypes, Adam steps, step counts, data streams),
+and ``unpack_states`` rebuilds them bit for bit.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,3 +180,60 @@ def diff_grouping(old: Sequence[Sequence[str]],
     new_sets = {frozenset(n) for n in new}
     dissolved = [tuple(g) for g in old if frozenset(g) not in new_sets]
     return {"keep": keep, "build": build, "dissolve": dissolved}
+
+
+_PARTS = ("adapter", "mu", "nu")
+
+
+def pack_states(states: Sequence[JobTrainState]
+                ) -> Tuple[List[dict], torch.Tensor]:
+    """(headers, flat): every slice of *states* in one flat float32
+    tensor, in (state, part, key) order, and per state a header with
+    what ``unpack_states`` needs to cut it back out (f32 holds every
+    slice dtype the fused trees use, bf16 included, exactly)."""
+    heads, flat = [], []
+    for st in states:
+        layout = []
+        for part in _PARTS:
+            for k, t in getattr(st, part).items():
+                layout.append((part, k, tuple(t.shape), t.dtype))
+                flat.append(t.detach().reshape(-1).to("cpu", torch.float32))
+        heads.append({"spec": st.spec, "layout": layout,
+                      "opt_step": st.opt_step, "steps_done": st.steps_done,
+                      "stream": st.stream})
+    return heads, (torch.cat(flat) if flat else torch.zeros(0))
+
+
+def unpack_states(heads: Sequence[dict], flat: torch.Tensor
+                  ) -> List[JobTrainState]:
+    """The inverse of ``pack_states``: fresh host tensors, owned."""
+    out, at = [], 0
+    for h in heads:
+        parts = {p: {} for p in _PARTS}
+        for part, k, shape, dtype in h["layout"]:
+            n = int(np.prod(shape)) if shape else 1
+            parts[part][k] = flat[at:at + n].reshape(shape).to(dtype).clone()
+            at += n
+        out.append(JobTrainState(spec=h["spec"], opt_step=h["opt_step"],
+                                 steps_done=h["steps_done"],
+                                 stream=h["stream"], **parts))
+    return out
+
+
+def broadcast_states(states: Optional[Sequence[JobTrainState]], src: int,
+                     group) -> List[JobTrainState]:
+    """*states*, held by global rank *src*, on every rank of *group*
+    (collective: every rank of the group calls it; the others pass
+    None).  The header goes as a pickled object, the slices as one
+    float32 tensor on the host (gloo).  *src* gets its own objects
+    back."""
+    import torch.distributed as dist
+    mine = dist.get_rank() == src
+    heads, flat = pack_states(states) if mine else (None, None)
+    box = [(heads, int(flat.numel())) if mine else None]
+    dist.broadcast_object_list(box, src=src, group=group)
+    heads, n = box[0]
+    if not mine:
+        flat = torch.empty(n, dtype=torch.float32)
+    dist.broadcast(flat, src=src, group=group)
+    return list(states) if mine else unpack_states(heads, flat)

@@ -38,8 +38,11 @@ The ranks agree on every decision that would otherwise diverge: AIMD is
 fed the all-reduced max of the ranks' chunk times (the step is
 synchronous, so the slowest rank's time is the step's), and checkpoints
 and publishes are written by the group's rank 0 alone, behind a barrier
-after which every rank can restore them.  ``tp_mode`` "auto" and
-"pipeline" are refused (ROADMAP A7c, A7b).
+after which every rank can restore them.  The mesh may be a 1-D submesh
+over part of the world (the controller's slices, ``launch/mesh
+.partition_mesh``): the runtime exists only on its ranks and reduces over
+the submesh's group.  ``tp_mode`` "auto" and "pipeline" are refused
+(ROADMAP A4, A2).
 """
 from __future__ import annotations
 

@@ -9,15 +9,25 @@ on the CPU or when ranks share one GPU: NCCL refuses two ranks on one
 device), ``make_local_mesh`` lays the world out as a ("data", "model")
 mesh, and ``data_group`` gives the process group, shard count and shard
 index the data-parallel step reduces over (every mesh axis folded into
-rows, the reference's ``tp_mode="dp"``).  ``stage_mesh``,
-``partition_mesh`` and ``make_production_mesh`` wait for pipeline mode
-and the multi-device controller (ROADMAP A7b, A7e).
+rows, the reference's ``tp_mode="dp"``).
+
+The cluster controller's pool is the world's ranks (pool index i is
+rank i).  ``partition_mesh`` carves it into disjoint 1-D submeshes, one
+per group, over process groups that ``subgroup`` creates once per rank
+tuple: ``torch.distributed.new_group`` is collective over the whole
+world, so every rank, member or not, asks for every slice in the same
+order, and a repartition back to a slice seen before reuses its
+communicator.  ``control_group`` is a separate gloo group over the world
+for the controller's own collectives (agreement on decisions, state
+moves): gloo does not order two threads' calls on one group, and the
+slices' groups belong to the groups' chunk pumps.  ``stage_mesh`` and
+``make_production_mesh`` wait for pipeline mode (ROADMAP A2).
 """
 from __future__ import annotations
 
 import math
 from datetime import timedelta
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -83,8 +93,10 @@ def data_group(mesh) -> Tuple[object, int, int]:
     data-parallel step over *mesh*: every mesh axis folds into row
     sharding, shards ordered by the group's ranks.  A one-dimensional
     mesh reduces over its own group, a mesh over the whole world over
-    the world; a multi-dimensional mesh over part of the world waits for
-    the multi-device controller (ROADMAP A7e)."""
+    the world.  A multi-dimensional mesh over part of the world is
+    refused: its ranks' group would have to be created by every rank of
+    the world, which the ranks outside it never reach here; the
+    controller's slices are 1-D (``partition_mesh``)."""
     ranks = mesh.mesh.flatten().tolist()
     if mesh.ndim == 1:
         group = mesh.get_group()
@@ -92,9 +104,76 @@ def data_group(mesh) -> Tuple[object, int, int]:
         group = dist.group.WORLD
     else:
         raise NotImplementedError(
-            "a multi-dimensional mesh over part of the world is not "
-            "ported yet (ROADMAP A7e: multi-GPU controller)")
+            "a multi-dimensional mesh over part of the world has no group "
+            "every rank created; carve 1-D slices with partition_mesh")
     return group, len(ranks), dist.get_rank(group)
+
+
+# process groups by (ranks, backend, tag), for the world they were made in
+_GROUPS: Dict[tuple, object] = {}
+_GROUPS_WORLD: List[object] = [None]
+
+
+def subgroup(ranks: Sequence[int], backend: Optional[str] = None,
+             tag: str = ""):
+    """The process group over *ranks* of the world (on *backend*, the
+    world's by default), created on first use and cached by (ranks,
+    backend, tag).  ``dist.new_group`` is collective over the whole
+    world: every rank calls this for every group in the same order,
+    member or not; a rank outside *ranks* gets the non-member sentinel.
+    The cache is the world's: a new world starts an empty one."""
+    if _GROUPS_WORLD[0] is not dist.group.WORLD:
+        _GROUPS.clear()
+        _GROUPS_WORLD[0] = dist.group.WORLD
+    key = (tuple(int(r) for r in ranks), backend, tag)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key[0]), backend=backend)
+    return _GROUPS[key]
+
+
+def control_group():
+    """A gloo group over every rank of the world, for the controller's
+    own collectives on its control thread (agreement, state moves); no
+    chunk pump uses it."""
+    return subgroup(range(dist.get_world_size()), backend="gloo",
+                    tag="control")
+
+
+def partition_mesh(sizes: Sequence[int], ranks: Optional[Sequence[int]] = None,
+                   axis: str = "data", stages: int = 1,
+                   device_type: str = "cpu") -> List:
+    """Partition the pool of *ranks* (default: the world's) into disjoint
+    1-D per-group submeshes.
+
+    ``sizes[i]`` ranks (consecutive in pool order, so groups that keep
+    their size keep their ranks across repartitions) become one
+    ``(sizes[i],)`` mesh over *axis*, which ``data_group`` reduces over.
+    Every rank calls this with the same arguments (``subgroup``): the
+    returned list holds this rank's submesh where it is a member and
+    None elsewhere.
+
+    ``stages`` > 1 asserts that every slice can later be carved into
+    that many pipeline stages: a ValueError naming the legal divisors
+    fires HERE, at partition time (pipeline mode itself is ROADMAP A2).
+    *device_type* names the devices the ranks compute on, as in
+    ``make_local_mesh``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = list(range(dist.get_world_size())) if ranks is None \
+        else [int(r) for r in ranks]
+    assert all(s >= 1 for s in sizes), sizes
+    assert sum(sizes) <= len(ranks), (sizes, len(ranks))
+    for s in sizes:
+        _check_stages(stages, int(s), "group slice")
+    me = dist.get_rank()
+    out, cur = [], 0
+    for s in sizes:
+        part = ranks[cur:cur + s]
+        cur += s
+        group = subgroup(part)
+        out.append(DeviceMesh.from_group(
+            group, device_type, mesh=torch.tensor(part),
+            mesh_dim_names=(axis,)) if me in part else None)
+    return out
 
 
 def device_shares(weights: Sequence[float], n_devices: int) -> List[int]:

@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import swiglu, swiglu_init
 
 MOE_NO_MESH = ("the MoE over a device mesh (capacity dispatch over a mesh, "
-               "expert parallelism) is not ported yet (ROADMAP A7d: "
-               "multi-GPU MoE)")
+               "expert parallelism) is not ported yet (ROADMAP A3, old "
+               "A7d: multi-GPU MoE)")
 
 
 def moe_init(cfg, dtype, *, generator: torch.Generator, device="cuda",

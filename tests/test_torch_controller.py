@@ -13,7 +13,8 @@ port's own contracts: a controller-run job equal to the same job in a
 solo ``ElasticEngine`` bit for bit, threads / roundrobin / sequential
 runs of the same groups bit-equal, a dying pump surfacing, a stuck join
 bounded, the overlapped regroup under live pumps, the calibration round
-trip, and the refusals of what is multi-GPU.
+trip, and the multi-GPU options: accepted and passed through where the
+pool of ranks runs them, refused where it does not (ROADMAP A2, A4).
 """
 import dataclasses
 import inspect
@@ -320,20 +321,95 @@ def test_calibration_warm_start_roundtrip(cfg, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(partition=True), dict(fixed_mesh=object()),
+    dict(partition=True), dict(fixed_mesh="world"),
     dict(devices=["cpu", "cpu"]), dict(tp_mode="fsdp"),
     dict(pipeline_stages=2), dict(nano_order="rank_desc"),
     dict(grad_sync="psum"), dict(data_axis="dp")],
     ids=["partition", "fixed_mesh", "two_devices", "tp_mode", "pipeline",
          "nano_order", "grad_sync", "data_axis"])
-def test_multi_gpu_options_refused(cfg, kw):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _port(cfg, **kw)
+def test_multi_gpu_options_refused(cfg, kw, tmp_path):
+    """The options the single-device controller refused as multi-GPU.
+    A ``tp_mode`` other than "dp" and pipeline stages still refuse
+    (ROADMAP A4, A2).  The rest now run over a pool of ranks and are
+    accepted and passed through to the engines: partition, a fixed
+    mesh, ``nano_order``, ``grad_sync`` and ``data_axis`` in a one-rank
+    gloo world, where the group is built on a one-rank mesh and trains
+    two steps; two devices on a world of two spawned gloo ranks, where
+    the pool partitions into one rank a group."""
+    if "tp_mode" in kw or "pipeline_stages" in kw:
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            _port(cfg, **kw)
+        return
+    if "devices" in kw:
+        import torch_sharded_common as C
+        import torch_sharded_worker as W
+        got = C.collect(C.spawn(["ctl_pool_of_two"], tmp_path,
+                                W.ctl_inputs(), world=2))
+        for r in range(2):
+            res = C.result(got, "ctl_pool_of_two", r)
+            assert res["devices"] == kw["devices"]
+            assert res["partition"] and res["concurrency"] == "threads"
+            assert res["groups"] == [(["g0j0"], [0]), (["g0j1"], [1])]
+            assert res["steps"] == 2
+        return
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_mesh
+    mesh = init_mesh(0, 1, f"file://{tmp_path}/store", "gloo")
+    try:
+        if kw.get("fixed_mesh") == "world":
+            kw = dict(fixed_mesh=mesh)
+        elif "partition" not in kw:
+            kw = dict(kw, partition=True)   # the sharded options need a mesh
+        ctl = _port(cfg, **kw)
+        for k, v in kw.items():
+            if k in ctl._engine_kwargs:
+                assert ctl._engine_kwargs[k] == v
+        ctl.submit(_spec("a", rank=4, bs=2))
+        ctl.submit(_spec("b", rank=8, bs=2))
+        rt = ctl.ensure_group(("a", "b"))
+        if "fixed_mesh" in kw:
+            assert rt.mesh is mesh and not ctl.partition
+        else:
+            assert rt.mesh.mesh_dim_names == (kw.get("data_axis", "data"),)
+        assert rt.data_shards == 1
+        assert ctl.group_devices()[("a", "b")] == \
+            (() if "fixed_mesh" in kw else (0,))
+        assert rt.nano_order == kw.get("nano_order", "job")
+        assert rt.grad_sync == kw.get("grad_sync", "gather")
+        ctl.run(2)
+        assert ctl.steps_done("a") == ctl.steps_done("b") == 2
+        assert np.isfinite(np.asarray(rt.report.per_job_losses)).all()
+    finally:
+        dist.destroy_process_group()
 
 
-def test_execution_backend_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        execution.ExecutionBackend(mesh=object(), device="cpu")
+def test_execution_backend_refuses_a_mesh(cfg, tmp_path):
+    """``ExecutionBackend(mesh=)`` pins every group to that mesh and
+    ``(devices=)`` partitions the pool (the reference's modes), here in a
+    one-rank gloo world: each measures a positive step; "ref" falls back
+    to "psum" on a mesh."""
+    import torch.distributed as dist
+    from repro_torch.core.jobs import JobRuntimeState
+    from repro_torch.core.scheduler import Group
+    from repro_torch.launch.mesh import init_mesh
+    mesh = init_mesh(0, 1, f"file://{tmp_path}/store", "gloo")
+    try:
+        for kw in (dict(mesh=mesh), dict(devices=["cpu"])):
+            be = execution.ExecutionBackend(impl="cuda", block_t=BT, seed=0,
+                                            device="cpu", **kw)
+            assert be.controller.fixed_mesh is kw.get("mesh")
+            assert be.controller.partition == ("devices" in kw)
+            group = Group(jobs=[JobRuntimeState(spec=_spec("x1", bs=2))],
+                          chips=1)
+            t = be.observe(cfg, group, predicted=1e-3, now=0.0)
+            assert t is not None and t > 0 and be.records[0].measured == t
+            rt = be.controller.ensure_group(("x1",))
+            assert rt.mesh is not None and rt.data_shards == 1
+        be2 = execution.ExecutionBackend(block_t=BT, mesh=mesh, impl="ref",
+                                         device="cpu")
+        assert be2._engine_kwargs["grad_sync"] == "psum"
+    finally:
+        dist.destroy_process_group()
 
 
 def test_controller_runs_on_the_given_device(cfg):

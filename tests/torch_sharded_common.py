@@ -87,22 +87,22 @@ def ref_runs(key: str, at=(2, 4), **kw) -> dict:
     return out
 
 
-def spawn(names, tmp_path, inputs):
-    """Start WORLD gloo ranks running *names*; returns what ``collect``
-    takes."""
+def spawn(names, tmp_path, inputs, world=WORLD):
+    """Start *world* gloo ranks running *names*; returns what
+    ``collect`` takes."""
     inp = os.path.join(tmp_path, "inputs.pt")
     torch.save(inputs, inp)
     ctx = mp.start_processes(
-        W.main, args=(WORLD, os.path.join(tmp_path, "store"), inp,
+        W.main, args=(world, os.path.join(tmp_path, "store"), inp,
                       str(tmp_path), list(names)),
-        nprocs=WORLD, join=False, start_method="spawn")
-    return ctx, tmp_path
+        nprocs=world, join=False, start_method="spawn")
+    return ctx, tmp_path, world
 
 
 def collect(handle) -> list:
     """Join the ranks (bounded) and load every rank's results; a rank
     that raised fails every scenario it did not finish."""
-    ctx, tmp_path = handle
+    ctx, tmp_path, world = handle
     t0 = time.monotonic()
     try:
         while not ctx.join(timeout=1.0):
@@ -116,7 +116,7 @@ def collect(handle) -> list:
         for p in ctx.processes:
             p.join(10)
     out = []
-    for r in range(WORLD):
+    for r in range(world):
         path = os.path.join(tmp_path, f"{r}.pt")
         out.append(torch.load(path, weights_only=False)
                    if os.path.exists(path) else {})

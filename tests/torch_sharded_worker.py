@@ -19,6 +19,7 @@ reference's single-device ``GroupRuntime`` too.
 """
 import copy
 import dataclasses
+import inspect
 import os
 import time
 import traceback
@@ -357,6 +358,401 @@ def make_train_step_on_a_mesh(inputs):
             "batch": {k: v for k, v in batch.items()}}
 
 
+# ---------------------------------------------- the controller on a pool
+# The reference's controller scenarios (tests/sharded_worker.py:385-691)
+# on the four ranks of the world: ClusterController(device="cpu") over
+# the pool of ranks, impl "cuda" (its kernels' plain versions), f32.
+CTL_JOBS = [("g0j0", 4), ("g0j1", 8), ("g1j0", 4), ("g1j1", 8)]
+CTL_GROUPS = [("g0j0", "g0j1"), ("g1j0", "g1j1")]
+CTL_BUDGET = 12                    # steps of the fault scenarios' jobs
+
+
+def ctl_specs(budget=10_000):
+    return {j: LoRAJobSpec(j, rank=r, batch_size=2, seq_len=SEQ,
+                           base_model=cfg_f32().name, steps_budget=budget)
+            for j, r in CTL_JOBS}
+
+
+def controller(conc, seed=3, **kw):
+    from repro_torch.cluster.controller import ClusterController
+    cfg = cfg_f32()
+    return ClusterController(lambda m: cfg, impl="cuda", block_t=BT, lr=LR,
+                             remat=False, chunk_size=2, concurrency=conc,
+                             seed=seed, device="cpu", **kw)
+
+
+def ctl_inputs(budget=CTL_BUDGET) -> dict:
+    """Port-drawn initial states and backbone for the controller
+    scenarios that are not held against the reference."""
+    from repro_torch.core.lora import pad_rank
+    from repro_torch.elastic.migrate import JobTrainState
+    from repro_torch.models import model as M
+    cfg, specs = cfg_f32(), ctl_specs(budget)
+    states = {j: JobTrainState.fresh(specs[j], cfg, 100 + i,
+                                     r_pad=pad_rank(r, multiple=8))
+              for i, (j, r) in enumerate(CTL_JOBS)}
+    return {"ctl": {"params": M.init_model(cfg, seed=5, device="cpu"),
+                    "states": states}}
+
+
+def admit(ctl, inputs, ids, budget=10_000):
+    """Submit *ids* with the reference's initial states and backbone
+    (``inputs["ctl"]``), as the test process's controllers do."""
+    ctl._backbones[cfg_f32().name] = inputs["ctl"]["params"]
+    specs = ctl_specs(budget)
+    for j in ids:
+        ctl.submit(specs[j], state=copy.deepcopy(inputs["ctl"]["states"][j]))
+
+
+def decisions(ctl) -> dict:
+    """What every rank of a pool must agree on (times excluded)."""
+    return {"devices": sorted((list(g), list(d))
+                              for g, d in ctl.group_devices().items()),
+            "regroups": [(ev.mode, ev.groups_built, ev.groups_dissolved,
+                          sorted(ev.fence_steps.items()))
+                         for ev in ctl.regroup_log],
+            "failures": [(r.kind, list(r.gkey), sorted(r.steps_lost.items()),
+                          sorted(r.restored_from_checkpoint),
+                          sorted(r.restarted_fresh), list(r.poisoned),
+                          list(r.quarantined_devices),
+                          sorted(r.attempts.items()))
+                         for r in ctl.failure_log],
+            "quarantined": sorted(ctl.quarantined),
+            "regroup_events": ctl.regroup_events,
+            "finished": sorted(ctl.finished)}
+
+
+def local_group(ctl, gkeys):
+    """The one group of *gkeys* this rank runs, and its runtime."""
+    mine = [g for g in gkeys if ctl._slots[g].engine is not None]
+    assert len(mine) == 1, (dist.get_rank(), mine)
+    return mine[0], ctl._slots[mine[0]].runtime(mine[0])
+
+
+def state_of(st) -> dict:
+    return {"adapter": flat(st.adapter), "mu": flat(st.mu),
+            "nu": flat(st.nu), "opt_step": st.opt_step,
+            "steps_done": st.steps_done}
+
+
+def first_losses(ctl, gkey, job=0):
+    """Job *job*'s per-step losses of group *gkey*, from its first rank."""
+    rt = ctl._slots[gkey].runtime(gkey)
+    mine = [float(l[job]) for l in rt.report.per_job_losses] \
+        if rt is not None else None
+    return ctl.first_rank_value(gkey, mine)
+
+
+def until(cond, limit=240.0):
+    """Poll *cond* (a collective on every rank, so every rank leaves the
+    loop on the same round)."""
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < limit, "scenario hung"
+        time.sleep(0.05)
+
+
+def all_ranks(ctl, flag) -> bool:
+    return all(ctl._gather(bool(flag)))
+
+
+def ctl_concurrent_parity(inputs):
+    """Two 2-job groups on disjoint 2-rank slices, threads and
+    sequential (tests/sharded_worker.py:391): this rank's group's
+    trajectory and state under each mode, and the decisions."""
+    out = {}
+    for conc in ("threads", "sequential"):
+        ctl = controller(conc)
+        admit(ctl, inputs, [j for j, _ in CTL_JOBS])
+        ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+        devs = ctl.group_devices()
+        assert all(len(d) == 2 for d in devs.values()), devs
+        assert not (set(devs[CTL_GROUPS[0]]) & set(devs[CTL_GROUPS[1]]))
+        assert ctl.concurrency == conc and ctl.partition
+        ctl.run(6)
+        g, rt = local_group(ctl, CTL_GROUPS)
+        assert rt.data_shards == 2
+        out[conc] = {"gkey": g, "run": summary(rt),
+                     "decisions": decisions(ctl)}
+    return out
+
+
+def ctl_repartition_migration(inputs):
+    """A job solo on one rank, fused on four, solo again, against solo
+    throughout (tests/sharded_worker.py:420); then the incremental
+    regroup on a full pool."""
+    k = 2
+    ga, gab = ("g0j0",), ("g0j0", "g0j1")
+    ref = controller("sequential")
+    admit(ref, inputs, ga)
+    ref.apply_grouping([ga], chips=[1])
+    assert ref.group_devices()[ga] == (0,)
+    ref.run(3 * k)
+    ref_losses = first_losses(ref, ga)
+
+    ctl = controller("sequential")
+    admit(ctl, inputs, ga)
+    ctl.apply_grouping([ga], chips=[1])
+    ctl.run(k)
+    got = list(first_losses(ctl, ga))
+    admit(ctl, inputs, ("g0j1",))               # arrival -> repartition
+    ctl.apply_grouping([gab], chips=[4])
+    assert len(ctl.group_devices()[gab]) == 4
+    assert ctl._slots[gab].runtime(gab).data_shards == 4
+    ctl.run(k)
+    got += first_losses(ctl, gab)
+    st_b = ctl.remove_job("g0j1")               # completion -> repartition
+    ctl.apply_grouping([ga], chips=[1])
+    ctl.run(k)
+    got += first_losses(ctl, ga)
+    out = {"got": np.asarray(got), "ref": np.asarray(ref_losses),
+           "b_steps": (st_b.steps_done, st_b.opt_step),
+           "regroup_events": ctl.regroup_events,
+           "steps_done": ctl.steps_done("g0j0"),
+           "state": state_of(ctl.job_state("g0j0")),
+           "ref_state": state_of(ref.job_state("g0j0")),
+           "decisions": decisions(ctl)}
+    # incremental regroup on a FULL pool: ensure_group allocates AFTER
+    # dissolving the superseded slot, so the freed ranks are reusable
+    ctl2 = controller("sequential")
+    admit(ctl2, inputs, gab)
+    ctl2.ensure_group(gab, chips=4)
+    full = len(ctl2.group_devices()[gab])
+    ctl2.ensure_group(ga, chips=1)
+    out["incremental"] = (full, ctl2.group_devices()[ga])
+    return out
+
+
+def ctl_overlapped_migration(inputs):
+    """Two pumping groups merged onto the whole pool while they step
+    (tests/sharded_worker.py:478): the overlapped handoff, then the
+    merged group run on; a stop-the-world run cut at the same fences."""
+    ctl = controller("threads")
+    admit(ctl, inputs, [j for j, _ in CTL_JOBS])
+    merged = CTL_GROUPS[0] + CTL_GROUPS[1]
+    ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    ctl.begin(100_000)            # effectively: pump until drained below
+    until(lambda: min(ctl.steps_done(j) for j in merged) >= 4)
+    assert ctl.prewarm([merged], chips=[4]) == 1   # sources keep stepping
+    ctl.apply_grouping([merged], chips=[4])
+    ev = ctl.regroup_log[-1]
+    out = {"event": {"mode": ev.mode, "compile_s": ev.compile_s,
+                     "assemble_s": ev.assemble_s, "stall_s": ev.stall_s,
+                     "dissolved": ev.groups_dissolved,
+                     "built": ev.groups_built},
+           "fence_steps": dict(ev.fence_steps),
+           "devices": ctl.group_devices()[merged]}
+    until(lambda: ctl.steps_done(merged[0]) - ev.fence_steps[merged[0]]
+          >= 4)
+    ctl.drain()
+    fence = ev.fence_steps
+    extra = {j: ctl.steps_done(j) - fence[j] for j in merged}
+    assert len(set(extra.values())) == 1, extra    # members step together
+    r = next(iter(extra.values()))
+    ref = controller("sequential")
+    admit(ref, inputs, [j for j, _ in CTL_JOBS])
+    ref.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    g, rt = local_group(ref, CTL_GROUPS)
+    rt.run(fence[g[0]])
+    ref._barrier()
+    ref.apply_grouping([merged], chips=[4])
+    ref._slots[merged].runtime(merged).run(r)
+    out["states"] = {j: state_of(ctl.job_state(j)) for j in merged}
+    out["ref_states"] = {j: state_of(ref.job_state(j)) for j in merged}
+    out["decisions"] = decisions(ctl)
+    return out
+
+
+def ctl_fixed_mesh(inputs):
+    """Every group on the world's mesh (``fixed_mesh``), sequential and
+    roundrobin: each group's trajectory on every rank."""
+    out = {}
+    for conc in ("sequential", "roundrobin"):
+        ctl = controller(conc, fixed_mesh=world_mesh())
+        assert not ctl.partition
+        admit(ctl, inputs, [j for j, _ in CTL_JOBS])
+        ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+        ctl.run(4)
+        out[conc] = {"+".join(g): summary(ctl._slots[g].runtime(g))
+                     for g in CTL_GROUPS}
+        out[conc]["shards"] = [ctl._slots[g].runtime(g).data_shards
+                               for g in CTL_GROUPS]
+        out[conc]["decisions"] = decisions(ctl)
+    return out
+
+
+def ctl_execution_backend(inputs):
+    """``ExecutionBackend(mesh=)`` and ``(devices=)`` each measure a
+    positive step (tests/sharded_worker.py:693); "ref" falls back to
+    "psum"."""
+    from repro_torch.cluster.execution import ExecutionBackend
+    from repro_torch.core.jobs import JobRuntimeState
+    from repro_torch.core.scheduler import Group
+    cfg = cfg_f32()
+    specs = [LoRAJobSpec("x1", rank=4, batch_size=2, seq_len=SEQ,
+                         base_model="tinyllama-1.1b"),
+             LoRAJobSpec("x2", rank=8, batch_size=2, seq_len=SEQ,
+                         base_model="tinyllama-1.1b")]
+    group = Group(jobs=[JobRuntimeState(spec=s) for s in specs], chips=2)
+    out = {"decisions": []}
+    for name, kw in (("mesh", dict(mesh=world_mesh())),
+                     ("devices", dict(devices=["cpu"] * 4))):
+        be = ExecutionBackend(impl="cuda", block_t=BT, seed=0,
+                              device="cpu", **kw)
+        t = be.observe(cfg, group, predicted=1e-3, now=0.0)
+        ctl = be.controller
+        out[name] = {"t": t, "records": [r.measured for r in be.records],
+                     "partition": ctl.partition,
+                     "devices": ctl.group_devices()[("x1", "x2")],
+                     "grad_sync": be._engine_kwargs["grad_sync"]}
+        out["decisions"].append(decisions(ctl))
+    be2 = ExecutionBackend(impl="ref", block_t=BT, mesh=world_mesh(),
+                           seed=0, device="cpu")
+    out["ref_grad_sync"] = be2._engine_kwargs["grad_sync"]
+    return out
+
+
+def ctl_trace(inputs):
+    """A short ``TraceRunner`` trace over the partitioned pool: every
+    job completes."""
+    from repro_torch.cluster.controller import run_trace
+    from repro_torch.cluster.harness import TraceRunner
+    ctl = controller("threads", seed=0)
+    ctl.register_cfg(cfg_f32().name, cfg_f32())
+    jobs = [LoRAJobSpec(f"t{i}", rank=r, batch_size=2, seq_len=SEQ,
+                        base_model=cfg_f32().name, steps_budget=4,
+                        arrival_time=float(i), max_slowdown=2.0)
+            for i, r in enumerate((4, 8, 16, 4))]
+    res = run_trace(TraceRunner(ctl, jobs, arrival_window_s=1.0,
+                                poll_s=0.05, max_wall_s=180.0))
+    return {"completed": sorted(res.completed), "lost": res.lost,
+            "timed_out": res.timed_out, "wall_s": res.wall_s,
+            "steps": {j: ctl.steps_done(j) for j in sorted(res.logs)},
+            "decisions": decisions(ctl)}
+
+
+# ----------------------------------------------------- faults on a pool
+def _ft_setup(inputs, kind, phase, out_dir, tag):
+    """Two 2-job groups on disjoint 2-rank slices, checkpoints every
+    chunk, one scripted fault on group B's first member
+    (tests/sharded_worker.py:529)."""
+    from repro_torch.cluster.faults import FaultPlan, FaultSpec
+    ckpt = os.path.join(out_dir, f"ckpt-{tag}")
+    os.makedirs(ckpt, exist_ok=True)
+    plan = FaultPlan([FaultSpec(kind, job_id="g1j0", at_step=4,
+                                phase=phase)])
+    ctl = controller("threads", checkpoint_dir=ckpt, checkpoint_every=1,
+                     fault_plan=plan, max_restarts=3, backoff_base_s=0.02,
+                     stuck_after=None)
+    admit(ctl, inputs, [j for j, _ in CTL_JOBS], budget=CTL_BUDGET)
+    ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    return ctl, plan
+
+
+def _ft_reference(inputs):
+    """The fault-free sequential run of the same partition."""
+    ref = controller("sequential")
+    admit(ref, inputs, [j for j, _ in CTL_JOBS], budget=CTL_BUDGET)
+    ref.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    g, rt = local_group(ref, CTL_GROUPS)
+    rt.run(CTL_BUDGET)
+    ref._barrier()
+    return ref, g, rt
+
+
+def _first_failure(ctl):
+    recs = []
+    until(lambda: recs.extend(ctl.supervise(reschedule=False)) or recs)
+    return recs[0]
+
+
+def ft_worker_death(inputs, out_dir):
+    """A worker killed mid-chunk in group B (tests/sharded_worker.py:595):
+    A's pump untouched, B restored from its checkpoints and rebuilt,
+    replay-exact from the checkpoint step on."""
+    ref, g_ref, rt_ref = _ft_reference(inputs)
+    ref_losses = np.asarray(rt_ref.report.per_job_losses)
+    ctl, plan = _ft_setup(inputs, "worker_death", "inflight", out_dir,
+                          "death")
+    ga, gb = CTL_GROUPS
+    ctl.begin(until_budget=True)
+    w_a = ctl._workers.get(ga)
+    rec = _first_failure(ctl)
+    out = {"rec": (rec.kind, rec.gkey, sorted(rec.restored_from_checkpoint),
+                   rec.restarted_fresh, rec.poisoned,
+                   dict(rec.steps_lost)),
+           "fired": len(plan.fired), "group": g_ref,
+           "a_same": w_a is None or (ctl._workers.get(ga) is w_a
+                                     and w_a.exception is None),
+           "quarantined": sorted(ctl.quarantined)}
+    ckpt_step = min(ctl._parked[j].steps_done for j in gb)
+    out["ckpt_step"] = ckpt_step
+    time.sleep(0.05)                       # let the retry backoff pass
+    res = ctl.apply_grouping([ga, gb], chips=[2, 2])
+    out["keep_build"] = (res["keep"], res["build"])
+    until(lambda: all_ranks(ctl, all(w.done.is_set()
+                                     for w in ctl._workers.values())))
+    assert all(w.exception is None for w in ctl._workers.values())
+    g, rt = local_group(ctl, CTL_GROUPS)
+    assert g == g_ref
+    out["post"] = np.asarray(rt.report.per_job_losses)
+    out["ref_losses"] = ref_losses
+    out["a_bit_equal"] = g != ga or np.array_equal(
+        np.asarray(rt.report.per_job_losses), ref_losses)
+    ctl.reap_completed()
+    out["finished"] = sorted(ctl.finished)
+    out["steps"] = {j: ctl.steps_done(j) for j, _ in CTL_JOBS}
+    out["states"] = {j: state_of(ctl.job_state(j)) for j, _ in CTL_JOBS}
+    out["ref_states"] = {j: state_of(ref.job_state(j)) for j, _ in CTL_JOBS}
+    out["decisions"] = decisions(ctl)
+    return out
+
+
+def ft_submesh_loss(inputs, out_dir):
+    """Group B's slice lost (tests/sharded_worker.py:659): its ranks
+    quarantined for good, B rebuilt on disjoint ranks, every job at its
+    budget on the shrunken pool."""
+    ctl, _ = _ft_setup(inputs, "submesh_loss", "boundary", out_dir, "loss")
+    ga, gb = CTL_GROUPS
+    lost = set(ctl.group_devices()[gb])
+    ctl.begin(until_budget=True)
+    rec = _first_failure(ctl)
+    out = {"rec": (rec.kind, rec.gkey, list(rec.quarantined_devices),
+                   dict(rec.steps_lost)),
+           "lost": sorted(lost), "quarantined": sorted(ctl.quarantined),
+           "available": ctl.available_device_ids()}
+    time.sleep(0.05)
+    ctl.apply_grouping([ga, gb], chips=[2, 2])
+    out["devices_after"] = {"+".join(g): list(d)
+                            for g, d in ctl.group_devices().items()}
+    until(lambda: all_ranks(ctl, all(w.done.is_set()
+                                     for w in ctl._workers.values())))
+    assert all(w.exception is None for w in ctl._workers.values())
+    ctl.reap_completed()
+    out["finished"] = sorted(ctl.finished)
+    out["steps"] = {j: ctl.steps_done(j) for j, _ in CTL_JOBS}
+    out["quarantined_end"] = sorted(ctl.quarantined)
+    out["decisions"] = decisions(ctl)
+    return out
+
+
+def ctl_pool_of_two(inputs):
+    """A pool of two devices (two ranks): partitioned, threads."""
+    ctl = controller(None, devices=["cpu", "cpu"])
+    admit(ctl, inputs, CTL_GROUPS[0])
+    ctl.apply_grouping([CTL_GROUPS[0][:1], CTL_GROUPS[0][1:]],
+                       chips=[1, 1])
+    ctl.run(2)
+    return {"devices": [str(d) for d in ctl.devices],
+            "partition": ctl.partition, "concurrency": ctl.concurrency,
+            "groups": decisions(ctl)["devices"],
+            "steps": ctl.steps_done(CTL_GROUPS[0][0])}
+
+
+CONTROLLER = ["ctl_concurrent_parity", "ctl_repartition_migration",
+              "ctl_overlapped_migration", "ctl_fixed_mesh",
+              "ctl_execution_backend", "ctl_trace"]
+FAULTS = ["ft_worker_death", "ft_submesh_loss"]
 PARITY = ["parity_k4_hetero_ranks", "parity_k1_nondivisible_rows",
           "parity_unequal_segments", "parity_psum_mode",
           "parity_cuda_gather", "gather_solo_bitexact", "local_mesh_clamps"]
@@ -376,7 +772,7 @@ def main(rank, world, store, inputs_path, out_dir, names):
         for name in names:
             fn = globals()[name]
             t0 = time.perf_counter()
-            if name == "checkpoints_and_publish_on_rank0":
+            if len(inspect.signature(fn).parameters) == 2:
                 res = fn(inputs, out_dir)
             else:
                 res = fn(inputs)
