@@ -178,8 +178,8 @@ each on standard output:
             predicted against measured steps; every part's launches held
             to the steps it dispatched;
   sharded — the train and train_uniform groups data-parallel through
-            ``GroupRuntime(mesh=...)`` on full-width tinyllama-1.1b, 2
-            steps a run: (a) two gloo ranks spawned onto the one card
+            ``GroupRuntime(mesh=...)`` on tinyllama-1.1b at full width
+            cut to 11 layers (SHARDED_LAYERS), 2 steps a run: (a) two gloo ranks spawned onto the one card
             (NCCL refuses two ranks on one device): the train group's
             exact gather mode, gather at N = 2 with the "rank_desc" nano
             order, and psum (ragged kernels), the uniform group's gather
@@ -193,7 +193,24 @@ each on standard output:
             launches are held to the layer pattern x N, every rank's
             losses must agree; walls, peak memory and rank 0's profiled
             step are recorded as ranks sharing one card, not as a
-            multi-GPU number.
+            multi-GPU number;
+  cluster_sharded — the controller over four gloo ranks on cuda:0,
+            tinyllama-1.1b at full width cut to 11 layers (CS_LAYERS):
+            two groups on 2-rank slices, sequential vs threads, vs
+            meshless, a repartition, a worker death and a lost slice;
+  pipeline_mode — pipeline mode (``tp_mode="pipeline"``) on full-width,
+            full-depth tinyllama-1.1b in 2 stages of 11 layers, gloo
+            ranks on cuda:0: (a) two ranks, P = 2 x D = 1: the train
+            group at N = 2 "rank_desc" and N = 4 (ragged kernels, B9),
+            the uniform group at N = 2 (masked kernels); (b) four ranks,
+            P = 2 x D = 2: the train group at N = 2.  Each run's step 1
+            against the meshless run (losses, adapter gradients at
+            2^-6), a zeroed handoff that limit must catch, occupancy
+            counters, launches a rank (its stage's layers x the pattern
+            x N), every rank's losses and the resident backbone bytes
+            (at least 40% below the meshless run's), all asserted;
+            walls, rank 0's idle share and peak memory recorded as ranks
+            sharing one card.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's and their times at the recurrent widths; the
@@ -214,11 +231,15 @@ runs only the ``families`` phase,
 
     python3 chip_smoke.py --cluster
 
-only the ``cluster`` phase, and
+only the ``cluster`` phase,
 
     python3 chip_smoke.py --sharded
 
-only the ``sharded`` phase.
+only the ``sharded`` phase, and
+
+    python3 chip_smoke.py --pipeline
+
+only the ``pipeline_mode`` phase.
 
     python3 chip_smoke.py --floors
 
@@ -1004,26 +1025,43 @@ def dequant_library(x, q, scale, trans: bool):
         return None
 
 
+# B10 at the other families' projection widths (ROADMAP A7), the train
+# shape, forward and the backward's dx from q^T: (d_in, d_out, model,
+# projection)
+B10_WIDTHS = ((2560, 12368, "mamba2-2.7b", "ssd_in"),
+              (5120, 2560, "mamba2-2.7b", "ssd_out"),
+              (2048, 3072, "deepseek-v2-lite-16b", "q"),
+              (2048, 576, "deepseek-v2-lite-16b", "kv_a"),
+              (512, 4096, "deepseek-v2-lite-16b", "kv_b"))
+
+
 def dequant_kernel_cases(g, dev):
     """B10 at the int8 backbone's shapes: decode (64 rows) at 2048 ->
     5632 and 2048 -> 2048; training (8192 tokens) at 2048 -> 2048 (q, o),
     2048 -> 256 (k, v), 2048 -> 5632 (gate, up) and 5632 -> 2048 (down);
-    and the backward's transposed read, dx (8192, 5632) = dys · q_down^T.
-    Besides the library call, each case times what the bf16 backbone
-    pays for the same projection: cuBLAS on a bf16 copy of the weight."""
+    and the backward's transposed read, dx (8192, 5632) = dys · q_down^T;
+    then at B10_WIDTHS, forward and dx, without the library call (73-207
+    ms a call at 8192 rows).  Besides the library call, each case times
+    what the bf16 backbone pays for the same projection: cuBLAS on a
+    bf16 copy of the weight."""
     import torch
     from repro_torch.kernels import fused_lora as fl
     from repro_torch.models.quant import quantize_array
     cases = []
     library = "torch._weight_int8pack_mm"
-    for step, T, d_in, d_out, trans in (
-            ("decode", 64, 2048, 5632, False),
-            ("decode", 64, 2048, 2048, False),
-            ("train", 8192, 2048, 2048, False),
-            ("train", 8192, 2048, 256, False),
-            ("train", 8192, 2048, 5632, False),
-            ("train", 8192, 5632, 2048, False),
-            ("train", 8192, 5632, 2048, True)):
+    shapes = [(step, T, d_in, d_out, trans, {}) for step, T, d_in, d_out,
+              trans in (("decode", 64, 2048, 5632, False),
+                        ("decode", 64, 2048, 2048, False),
+                        ("train", 8192, 2048, 2048, False),
+                        ("train", 8192, 2048, 256, False),
+                        ("train", 8192, 2048, 5632, False),
+                        ("train", 8192, 5632, 2048, False),
+                        ("train", 8192, 5632, 2048, True))]
+    shapes += [("train", 8192, d_in, d_out, trans,
+                {"model": model, "projection": proj})
+               for d_in, d_out, model, proj in B10_WIDTHS
+               for trans in (False, True)]
+    for step, T, d_in, d_out, trans, where in shapes:
         qt = quantize_array(torch.randn((d_in, d_out), generator=g,
                                         device=dev) / d_in ** 0.5)
         if trans:       # dx = dys · q^T: unit scales, q read transposed
@@ -1038,11 +1076,11 @@ def dequant_kernel_cases(g, dev):
               ).to(torch.bfloat16)
         nbytes = T * K * 2 + K * N + (N * 4 if scale is not None else 0) \
             + T * N * 2
-        lib = dequant_library(x, q, scale, trans)
+        lib = None if where else dequant_library(x, q, scale, trans)
         cases.append((
             "dequant_matmul_cuda", step,
             dict(op="dx = dys . q^T" if trans else "y = (x . q) * scale",
-                 T=T, d_in=K, d_out=N),
+                 T=T, d_in=K, d_out=N, **where),
             functools.partial(fl.dequant_matmul_cuda, x, q, scale),
             functools.partial(fl.dequant_matmul_plain, x, q, scale),
             lib, nbytes, 2 * T * K * N,
@@ -4495,6 +4533,10 @@ def cluster_phase(cfg, dev, tmp, sim_cfg_of=None):
 # ----------------------------------------------------------- sharded
 SHARDED_D = 2                  # gloo ranks sharing cuda:0
 SHARDED_STEPS = 2              # steps a run, one at a time
+# tinyllama-1.1b at full width cut to 11 of its 22 layers (PR 27: the
+# whole run's time pays for the pipeline_mode phase; no check depends on
+# the depth, launches follow it through ``pattern_launches``)
+SHARDED_LAYERS = 11
 SHARDED_GROUPS = {"train": TRAIN_RANKS,      # mixed ranks: ragged route
                   "uniform": UNIFORM_RANKS}  # uniform widths: masked route
 SHARDED_RUNS = (               # (name, group, GroupRuntime options)
@@ -4658,13 +4700,15 @@ def sharded_runs(rank, mesh, cfg, params, dev, runs) -> dict:
         layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
         groups[g] = (specs, train_adapters(cfg, SHARDED_GROUPS[g], layout,
                                            dev))
-        if rank == 0:
-            solo = GroupRuntime.from_specs(cfg, specs, params=params,
-                                           adapters=groups[g][1], **kw)
-            solo.run(1)
-            mu1 = _first_moments(solo)
-            solo.run(SHARDED_STEPS - 1)
-            solos[g] = (solo, mu1)
+        # every rank trains it (rank 0 holds the runs against it): a
+        # spawned process's first steps on the card are slow (PERF.md
+        # §7), and are taken here at once on every rank
+        solo = GroupRuntime.from_specs(cfg, specs, params=params,
+                                       adapters=groups[g][1], **kw)
+        solo.run(1)
+        mu1 = _first_moments(solo)
+        solo.run(SHARDED_STEPS - 1)
+        solos[g] = (solo, mu1)
     dist.barrier()
     out = {"rank": rank, "world": dist.get_world_size(),
            "backend": dist.get_backend(), "runs": {}}
@@ -4732,11 +4776,17 @@ def sharded_runs(rank, mesh, cfg, params, dev, runs) -> dict:
     return out
 
 
+def sharded_cfg(cfg):
+    """*cfg* (tinyllama-1.1b) at full width, cut to SHARDED_LAYERS."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=SHARDED_LAYERS)
+
+
 def sharded_rank(rank, world, init_method, src, out_path):
     """A spawned gloo rank of the sharded phase's case (a): joins the
-    world, builds full-width tinyllama-1.1b from seed 0 on the one card
-    and runs ``sharded_runs``; writes its results to *out_path* % rank.
-    Anything that fails raises, and the parent fails with it."""
+    world, builds tinyllama-1.1b (``sharded_cfg``) from seed 0 on the one
+    card and runs ``sharded_runs``; writes its results to *out_path* %
+    rank.  Anything that fails raises, and the parent fails with it."""
     sys.path.insert(0, src)
     import torch
     import torch.distributed as dist
@@ -4746,7 +4796,7 @@ def sharded_rank(rank, world, init_method, src, out_path):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     mesh = init_mesh(rank, world, init_method, "gloo")
-    cfg = get_config("tinyllama-1.1b")
+    cfg = sharded_cfg(get_config("tinyllama-1.1b"))
     out = sharded_runs(rank, mesh, cfg, M.init_model(cfg, seed=0,
                                                       device=dev),
                        dev, SHARDED_RUNS)
@@ -4756,20 +4806,22 @@ def sharded_rank(rank, world, init_method, src, out_path):
     dist.destroy_process_group()
 
 
-def sharded_phase(src, cfg, params, dev):
+def sharded_phase(src, cfg, dev):
     """Case (a): SHARDED_D gloo ranks spawned onto cuda:0 run
     SHARDED_RUNS; case (b): this process joins a one-rank NCCL world
-    (NCCL's init and collectives on the card) and runs the gather mode
-    over *params*.  Ranks sharing one card measure no multi-GPU scaling:
-    their walls include each other's kernels and the gloo copies through
-    the host.  Returns the launches of every rank of both cases,
-    summed."""
+    (NCCL's init and collectives on the card) and runs the gather mode;
+    both on *cfg* cut to SHARDED_LAYERS, its weights drawn from seed 0.
+    Ranks sharing one card measure no multi-GPU scaling: their walls
+    include each other's kernels and the gloo copies through the host.
+    Returns the launches of every rank of both cases, summed."""
     import gc
     import tempfile
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import model as M
+    cfg = sharded_cfg(cfg)
     # hand the earlier phases' cached blocks back to the card: the ranks
     # are other processes and allocate beside this one
     gc.collect()
@@ -4792,7 +4844,9 @@ def sharded_phase(src, cfg, params, dev):
     mesh = init_mesh(0, 1, f"file://{os.path.join(tmp, 'nccl')}", "nccl",
                      device_type="cuda")
     try:
-        one = sharded_runs(0, mesh, cfg, params, dev, SHARDED_RUNS[:1])
+        one = sharded_runs(0, mesh, cfg, M.init_model(cfg, seed=0,
+                                                      device=dev),
+                           dev, SHARDED_RUNS[:1])
     finally:
         dist.destroy_process_group()
     cases["nccl_one_rank"] = {"seconds": time.perf_counter() - t0,
@@ -4827,12 +4881,16 @@ def sharded_phase(src, cfg, params, dev):
 # ------------------------------------------------------ cluster_sharded
 # The multi-device controller: CLUSTER_GROUPS at TRAIN_BATCH x TRAIN_SEQ
 # on two 2-rank slices of CS_RANKS gloo ranks spawned onto cuda:0 (NCCL
-# refuses two ranks on one device), full-width tinyllama-1.1b, "cuda",
-# block_t 128, remat, every rank building the same controller
-# (cluster/controller's SPMD design).  Steps are few: a gloo gather step
-# moves x and dy through host memory (the sharded phase: 5.36 s a
-# step on two ranks), so each part runs one or two.
+# refuses two ranks on one device), full-width tinyllama-1.1b cut to
+# CS_LAYERS of its 22 layers, "cuda", block_t 128, remat, every rank
+# building the same controller (cluster/controller's SPMD design).  Steps
+# are few: a gloo gather step moves x and dy through host memory (the
+# sharded phase: 5.36 s a step on two ranks), so each part runs one or
+# two.  The depth was cut (PR 27) to pay for the pipeline_mode phase
+# inside the whole run's time; no check depends on it (launches are
+# scaled to the depth by ``chunk_tally``).
 CS_RANKS = 4
+CS_LAYERS = 11
 CS_STEPS = 2             # (a)/(b): threads and sequential, one chunk
 CS_STAGE = 1             # (c): steps of each repartition stage
 CS_DEATH = (2, 3)        # (d): worker_death at step 2 in flight, budget 3
@@ -4924,6 +4982,18 @@ def cluster_sharded_runs(rank, cfg, dev, ckpt_dir) -> dict:
 
     out = {"rank": rank, "decisions": {}}
     checks, walls = {}, {}
+    # a spawned process's first steps on the card are slow (PERF.md §7):
+    # every rank takes one meshless step of its slice's group first, at
+    # once, outside the timed and counted parts
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+    warm = [cluster_spec(f"warm{r}", r) for r in CLUSTER_GROUPS[rank // 2]]
+    layout = SharedSuperModel(cfg, warm, block_t=TRAIN_BLOCK_T).layout
+    GroupRuntime.from_specs(
+        cfg, warm, params=params,
+        adapters=train_adapters(cfg, [s.rank for s in warm], layout, dev),
+        impl="cuda", block_t=TRAIN_BLOCK_T, lr=TRAIN_LR, remat=True,
+        chunk_size=1, seed=0, device=dev).run(1)
     torch.cuda.reset_peak_memory_stats()
 
     def body():
@@ -5102,7 +5172,7 @@ def cluster_sharded_runs(rank, cfg, dev, ckpt_dir) -> dict:
             and all(v == budget for v in steps.values()))
         del lc
 
-    with chunk_tally() as tally:
+    with chunk_tally(cfg.num_layers) as tally:
         _, launches = counted(body)
     out.update(walls_s=walls, checks=checks, launches=launches,
                dispatched_steps=dict(tally.steps),
@@ -5129,7 +5199,8 @@ def cluster_sharded_rank(rank, world, init_method, src, out_path, ckpt):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     init_mesh(rank, world, init_method, "gloo")
-    out = cluster_sharded_runs(rank, get_config("tinyllama-1.1b"), dev, ckpt)
+    out = cluster_sharded_runs(rank, cs_cfg(get_config("tinyllama-1.1b")),
+                               dev, ckpt)
     with open(out_path % rank, "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5139,14 +5210,21 @@ def cluster_sharded_rank(rank, world, init_method, src, out_path, ckpt):
         raise AssertionError(f"cluster_sharded rank {rank}: {failed}")
 
 
+def cs_cfg(cfg):
+    """*cfg* (tinyllama-1.1b) at full width, cut to CS_LAYERS layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=CS_LAYERS)
+
+
 def cluster_sharded_phase(src, cfg):
     """CS_RANKS gloo ranks spawned onto cuda:0 run the multi-device
-    controller (``cluster_sharded_runs``); the parent holds every rank's
-    decisions equal and emits the walls, rank 0's idle share over one
-    threads step, every rank's peak memory and launches.  The ranks share
-    one H100, so no time here is a multi-GPU number.  Returns the
-    launches of every rank, summed."""
+    controller (``cluster_sharded_runs``) on *cfg* cut to CS_LAYERS; the
+    parent holds every rank's decisions equal and emits the walls, rank
+    0's idle share over one threads step, every rank's peak memory and
+    launches.  The ranks share one H100, so no time here is a multi-GPU
+    number.  Returns the launches of every rank, summed."""
     import gc
+    cfg = cs_cfg(cfg)
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -5214,6 +5292,280 @@ def cluster_sharded_phase(src, cfg):
     return launches
 
 
+# -------------------------------------------------------- pipeline_mode
+# Pipeline mode (tp_mode="pipeline"): full-width, full-depth
+# tinyllama-1.1b cut into P = 2 stages of 11 layers, the train cell's
+# jobs (4 x 512 tokens a job), PP_STEPS steps a run, "cuda", block_t 128,
+# remat, gloo ranks spawned onto cuda:0.  (a) Two ranks, P = 2 x D = 1;
+# (b) all four, P = 2 x D = 2.  Each run against the meshless run of its
+# group with the same seeds (rank 0 trains it first, one step): step 1's
+# per-job losses at SHARD_LOSS_TOL and step 1's adapter gradients (Adam's
+# first moments, assembled whole over the stages) within SHARD_GRAD_RTOL
+# per leaf and job, as the sharded phase reads them: a micro is a nano
+# slice, whose gradients are summed from bf16 partials.  PP_PLANTED is
+# rerun for one step with stage 1 zeroing micro 0's handoff, which must
+# read above that limit.  Occupancy, launches a rank (its stage's 11
+# layers x the pattern x N), every rank's losses and each rank's resident
+# backbone bytes (PP_RESIDENT_CUT below the meshless run's) are asserted.
+PP_RANKS = 4
+PP_STAGES = 2
+PP_STEPS = 2
+PP_RUNS = (                    # (name, group, ranks, GroupRuntime options)
+    ("gather_n2_rank_desc", "train", 2,
+     {"nano_batches": 2, "nano_order": "rank_desc"}),
+    ("gather_n4", "train", 2, {"nano_batches": 4}),
+    ("uniform_gather_n2", "uniform", 2, {"nano_batches": 2}),
+    ("gather_n2_d2", "train", 4, {"nano_batches": 2}))
+PP_PLANTED = "gather_n2_rank_desc"
+PP_RESIDENT_CUT = 0.40
+
+
+def _zero_first_receive():
+    """A stand-in for ``launch/mesh.handoff`` that zeroes the first
+    tensor this rank receives (stage 1: micro 0's activation)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    real, seen = mesh_mod.handoff, [0]
+
+    def handoff(t, group, src):
+        out = real(t, group, src)
+        if src != dist.get_rank():
+            seen[0] += 1
+            if seen[0] == 1:
+                out.zero_()
+        return out
+    return real, handoff
+
+
+def pipeline_mode_runs(rank, cfg, dev) -> dict:
+    """One rank's part of the pipeline_mode phase: PP_RUNS through
+    ``GroupRuntime(tp_mode="pipeline")`` from the seeds every rank
+    shares, each held to the bars of the block comment above; rank 0's
+    second step of the first run profiled.  Raises on a failed check,
+    after returning what it measured to the caller's file."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    params = M.init_model(cfg, seed=0, device=dev)
+    kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T, chunk_size=1,
+              remat=True, seed=0, device=dev, tp_mode="pipeline",
+              pipeline_stages=PP_STAGES)
+    stage_cfg = dataclasses.replace(cfg,
+                                    num_layers=cfg.num_layers // PP_STAGES)
+    groups, solos = {}, {}
+    for g in SHARDED_GROUPS:
+        specs = train_specs(SHARDED_GROUPS[g], prefix=f"pipe-{g}")
+        layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+        groups[g] = (specs, train_adapters(cfg, SHARDED_GROUPS[g], layout,
+                                           dev))
+        # every rank takes the meshless step (rank 0 holds the runs
+        # against it): a spawned process's first step on the card costs
+        # 13-16 s (PERF.md §7), paid here at once on every rank instead
+        # of once a fresh rank in the timed runs
+        solo = GroupRuntime.from_specs(
+            cfg, specs, params=params, adapters=groups[g][1],
+            **{k: v for k, v in kw.items()
+               if k not in ("tp_mode", "pipeline_stages")})
+        solo.run(1)
+        solos[g] = (np.stack(solo.report.per_job_losses)[0],
+                    _first_moments(solo), tree_bytes(solo.params))
+        del solo
+    torch.cuda.empty_cache()
+    meshes = {2: mesh_mod.partition_mesh([2], stages=PP_STAGES)[0],
+              4: mesh_mod.make_local_mesh(stages=PP_STAGES)}
+    dist.barrier()
+    out = {"rank": rank, "runs": {}}
+    failed = []
+    for i, (name, grp, n_ranks, opts) in enumerate(PP_RUNS):
+        mesh = meshes[n_ranks]
+        if mesh is None:              # not on this run's slice
+            dist.barrier()
+            continue
+        specs, adapters = groups[grp]
+
+        def make_rt():
+            return GroupRuntime.from_specs(cfg, specs, params=params,
+                                           adapters=adapters, mesh=mesh,
+                                           **dict(kw, **opts))
+        rt = make_rt()
+        rt.warm([1])
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group=rt._slice_group)
+        prof, mu1 = {}, {}
+
+        def steps():
+            rt.run(1)
+            mu1["mu"] = rt.whole_state()[1].mu
+            for k in range(1, PP_STEPS):
+                if i == 0 and rank == 0 and k == PP_STEPS - 1:
+                    prof["one_step"] = profile_run(lambda: rt.run(1))
+                else:
+                    rt.run(1)
+        t0 = time.perf_counter()
+        _, launches = counted(steps)
+        wall = time.perf_counter() - t0
+        losses = np.stack(rt.report.per_job_losses)
+        m = rt.report.last_metrics
+        N, P = rt.n, rt.pipeline_stages
+        expect = {k: v * N for k, v in pattern_launches(
+            stage_cfg, masked=grp == "uniform").items()}
+        res = {"group": grp, "ranks": list(SHARDED_GROUPS[grp]),
+               "options": opts, "stages": P, "data_shards": rt.data_shards,
+               "stage": rt._stage_idx, "nano": N,
+               "per_step_per_job_loss": losses.tolist(),
+               "step_times_s": rt.report.step_times, "wall_s": wall,
+               "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+               "resident_backbone_bytes": tree_bytes(rt.params),
+               "pipe_useful_slots": int(m["pipe_useful_slots"]),
+               "pipe_slots": int(m["pipe_slots"]),
+               "launches": launches, "expected_launches_per_step": expect}
+        res["occupancy_ok"] = (res["pipe_useful_slots"] == N * P
+                               and res["pipe_slots"] == (N + P - 1) * P)
+        if prof:
+            res["profile_last_step"] = prof["one_step"]
+        if rank == 0:
+            want_loss, want_mu, solo_bytes = solos[grp]
+            vs = {"step1_loss_abs_diff": float(np.abs(
+                      losses[0] - want_loss).max()),
+                  "step1_loss_ok": bool(np.allclose(
+                      losses[0], want_loss, rtol=SHARD_LOSS_TOL,
+                      atol=SHARD_LOSS_TOL)),
+                  "step1_grad_rel": _grad_rel(mu1["mu"], want_mu,
+                                              rt.ssm.layout),
+                  "meshless_backbone_bytes": solo_bytes}
+            vs["grad_ok"] = vs["step1_grad_rel"] <= SHARD_GRAD_RTOL
+            vs["resident_ok"] = res["resident_backbone_bytes"] <= \
+                (1 - PP_RESIDENT_CUT) * solo_bytes
+            vs["ok"] = all(vs[k] for k in ("step1_loss_ok", "grad_ok",
+                                           "resident_ok"))
+            res["vs_meshless"] = vs
+            if not vs["ok"]:
+                failed.append(name)
+        if not res["occupancy_ok"]:
+            failed.append(f"{name} (occupancy)")
+        del rt
+        if name == PP_PLANTED:
+            real, zeroing = _zero_first_receive()
+            if res["stage"] == 1:
+                mesh_mod.handoff = zeroing
+            try:
+                bad = make_rt()
+                bad.run(1)
+                mu = bad.whole_state()[1].mu
+            finally:
+                mesh_mod.handoff = real
+            if rank == 0:
+                rel = _grad_rel(mu, solos[grp][1], bad.ssm.layout)
+                res["planted_zero_handoff"] = {
+                    "step1_grad_rel": rel, "caught": rel > SHARD_GRAD_RTOL}
+                if not res["planted_zero_handoff"]["caught"]:
+                    failed.append(f"{name} (planted fault not caught)")
+            del bad
+        out["runs"][name] = res
+        check_launches(f"pipeline_mode {name} rank {rank}", launches,
+                       PP_STEPS, expect)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"pipeline_mode {name}: losses {losses}")
+        torch.cuda.empty_cache()
+        dist.barrier()
+    out["failed"] = failed
+    return out
+
+
+def pipeline_mode_rank(rank, world, init_method, src, out_path):
+    """A spawned gloo rank of the pipeline_mode phase: joins the world on
+    cuda:0, runs ``pipeline_mode_runs`` and writes its results to
+    *out_path* % rank, then raises if a check failed."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_mesh(rank, world, init_method, "gloo")
+    out = pipeline_mode_runs(rank, get_config("tinyllama-1.1b"), dev)
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if out["failed"]:
+        raise AssertionError(f"pipeline_mode rank {rank}: {out['failed']}")
+
+
+def pipeline_mode_phase(src, cfg):
+    """PP_RANKS gloo ranks spawned onto cuda:0 run PP_RUNS
+    (``pipeline_mode_runs``); the parent holds every rank's losses of a
+    run equal and emits the walls, rank 0's idle share, every rank's peak
+    memory, resident backbone bytes and launches.  The ranks share one
+    H100: no time here is a multi-GPU number.  Returns the launches of
+    every rank, summed."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pipeline-mode-",
+                           dir=os.path.join(ROOT, "build"))
+    out_path = os.path.join(tmp, "%d.json")
+    t0 = time.perf_counter()
+    err = None
+    try:
+        mp.start_processes(pipeline_mode_rank, args=(
+            PP_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
+            nprocs=PP_RANKS, join=True, start_method="spawn")
+    except Exception as e:            # emit what the ranks wrote first
+        err = e
+    ranks = []
+    for r in range(PP_RANKS):
+        if os.path.exists(out_path % r):
+            with open(out_path % r) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len(ranks) < PP_RANKS:
+        emit({"phase": "pipeline_mode_failed", "by_rank": ranks})
+        raise AssertionError(f"pipeline_mode: {len(ranks)} of {PP_RANKS} "
+                             "ranks finished") from err
+    launches = {}
+    for r in ranks:
+        for run in r["runs"].values():
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    agree = {}
+    for name, *_ in PP_RUNS:
+        got = [r["runs"][name]["per_step_per_job_loss"] for r in ranks
+               if name in r["runs"]]
+        agree[name] = all(g == got[0] for g in got[1:])
+    r0 = ranks[0]
+    emit({"phase": "pipeline_mode", "model": cfg.name,
+          "layers": cfg.num_layers, "stages": PP_STAGES,
+          "layers_a_stage": cfg.num_layers // PP_STAGES,
+          "steps_a_run": PP_STEPS,
+          "groups": {g: [{"rank": k, "batch_size": TRAIN_BATCH,
+                          "seq_len": TRAIN_SEQ} for k in rk]
+                     for g, rk in SHARDED_GROUPS.items()},
+          "block_t": TRAIN_BLOCK_T, "step1_grad_rtol": SHARD_GRAD_RTOL,
+          "note": "the ranks share one H100: no time here is a multi-GPU "
+                  "number",
+          "seconds": seconds, "losses_equal_on_every_rank": agree,
+          "rank0_idle_share_step": r0["runs"][PP_RUNS[0][0]].get(
+              "profile_last_step", {}).get("device_idle_share"),
+          "by_rank": ranks, "launches": launches, "card": card_line()})
+    if not all(agree.values()):
+        raise AssertionError(f"pipeline_mode: ranks report different "
+                             f"losses: {agree}")
+    if err is not None:
+        raise err
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -5230,6 +5582,8 @@ def main() -> int:
                     "sharded phase (sharded_phase)")
     ap.add_argument("--cluster-sharded", action="store_true", help="only "
                     "the cluster_sharded phase (cluster_sharded_phase)")
+    ap.add_argument("--pipeline", action="store_true", help="only the "
+                    "pipeline_mode phase (pipeline_mode_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -5274,14 +5628,16 @@ def main() -> int:
         cluster_phase(get_config("tinyllama-1.1b"), dev, ckpt_dir)
         return 0
     if args.sharded:
-        from repro_torch.models import model as M
-        cfg = get_config("tinyllama-1.1b")
-        sharded_phase(os.path.abspath(args.src), cfg,
-                      M.init_model(cfg, seed=0, device=dev), dev)
+        sharded_phase(os.path.abspath(args.src),
+                      get_config("tinyllama-1.1b"), dev)
         return 0
     if args.cluster_sharded:
         cluster_sharded_phase(os.path.abspath(args.src),
                               get_config("tinyllama-1.1b"))
+        return 0
+    if args.pipeline:
+        pipeline_mode_phase(os.path.abspath(args.src),
+                            get_config("tinyllama-1.1b"))
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -5340,10 +5696,11 @@ def main() -> int:
     counts["engine"] = engine_phase(cfg, params, dev, hw)
     counts["launch"] = launch_phase(cfg, params, dev, measured)
     counts["cluster"] = cluster_phase(cfg, dev, ckpt_dir)
-    counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg,
-                                      params, dev)
+    counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg, dev)
     del params
     counts["cluster_sharded"] = cluster_sharded_phase(
+        os.path.abspath(args.src), cfg)
+    counts["pipeline_mode"] = pipeline_mode_phase(
         os.path.abspath(args.src), cfg)
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -5428,7 +5785,8 @@ def main() -> int:
                      **{k: r["shape"][k] for k in ("op", "operand")
                         if k in r["shape"]},
                      **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms", "max_abs_err")}}
+                                          "library_ms", "max_abs_err",
+                                          "cublas_bf16_ms") if k in r}}
                     for r in rec]
         if name in TORCH_ROUTE_OF:
             # the "torch" route's same-function time beside the kernels'

@@ -96,8 +96,15 @@ the same order.  What keeps the ranks together:
     second control thread would interleave its collectives and
     ``new_group`` calls with the first's.
 
-``tp_mode`` "auto" and "pipeline" stay refused (ROADMAP A4, A2), and so
-does a MoE model over a mesh (A3, raised by the sharded step).
+``tp_mode="pipeline"`` with ``pipeline_stages`` P runs each group's
+slice as a (stage, data) pipeline: ``_submesh`` carves the pool with
+``partition_mesh(stages=P)``, so a depth that does not divide a slice
+fails there, on every rank, with the divisor-naming error, and every
+rank makes each slice's stage groups; the group's engine carves its
+stage mesh from them.  A live job's state is then assembled over the
+slice, so every rank of it exports (``job_state``).  ``tp_mode="auto"``
+stays refused (ROADMAP A4), and so does a MoE model over a mesh (A3,
+raised by the sharded and pipeline steps).
 
 An ``OnlineCalibrator`` (core/throughput) can be attached: every
 measured step AND every measured regroup stall feeds it (on a pool, the
@@ -127,6 +134,7 @@ from repro_torch.core import throughput as tp
 from repro_torch.core.jobs import JobRuntimeState, LoRAJobSpec
 from repro_torch.core.lora import pad_rank
 from repro_torch.core.scheduler import AdapterScheduler, Group, SchedulerConfig
+from repro_torch.core.ssm import TP_MODES
 from repro_torch.elastic.engine import ElasticEngine
 from repro_torch.elastic.migrate import JobTrainState, broadcast_states
 from repro_torch.elastic.runtime import GroupRuntime, TrainReport
@@ -136,9 +144,9 @@ from repro_torch.models import model as M
 from repro_torch.models import quant
 
 GroupKey = Tuple[str, ...]
-NO_TP_MODES = ("tensor-parallel and pipeline group execution on the "
-               "multi-GPU pool (tp_mode 'auto', 'pipeline', pipeline_stages "
-               "> 1) is not ported yet (ROADMAP A4, A2)")
+NO_TP_MODES = ("tensor-parallel group execution on the multi-GPU pool "
+               "(tp_mode 'auto') is not ported yet (ROADMAP A4); the "
+               "pool runs tp_mode 'dp' and 'pipeline'")
 NO_SHARED_PUMPS = ("concurrent pumps on one fixed mesh: its ranks share one "
                    "process group, and gloo and NCCL do not order two "
                    "threads' collectives on one group; run the groups in "
@@ -262,7 +270,7 @@ class ClusterController:
                  backoff_max_s: float = 30.0,
                  stuck_after: Optional[float] = 300.0,
                  startup_grace_s: float = 120.0, device="cuda"):
-        if tp_mode != "dp" or pipeline_stages > 1:
+        if tp_mode not in TP_MODES:
             raise NotImplementedError(NO_TP_MODES)
         self.cfg_of = cfg_of
         # the pool: the world's ranks, pool index i = rank i
@@ -322,6 +330,7 @@ class ClusterController:
             aimd_max_n=aimd_max_n, nano_order=nano_order,
             weight_decay=weight_decay, chunk_size=chunk_size,
             data_axis=data_axis, tp_mode=tp_mode,
+            pipeline_stages=pipeline_stages,
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, seed=seed,
             device=self.device)
@@ -546,12 +555,18 @@ class ClusterController:
     def _submesh(self, device_ids: Tuple[int, ...]):
         """The group's mesh: the fixed mesh or None (meshless) for an
         empty slice, else a 1-D submesh over the slice's ranks (every
-        rank calls this: ``partition_mesh``; None off the slice)."""
+        rank calls this: ``partition_mesh``; None off the slice).  In
+        pipeline mode a depth that does not divide the slice is refused
+        HERE, at partition time, and the slice's stage groups are made
+        (``partition_mesh(stages=)``)."""
         if not device_ids:
             return self.fixed_mesh          # None in meshless mode
+        kw = self._engine_kwargs
+        stages = (kw["pipeline_stages"] if kw["tp_mode"] == "pipeline"
+                  else 1)
         return partition_mesh([len(device_ids)],
                               [int(i) for i in device_ids],
-                              axis=self.data_axis,
+                              axis=self.data_axis, stages=stages,
                               device_type=self._mesh_device)[0]
 
     def _alloc_free(self, want: int) -> Tuple[int, ...]:
@@ -1473,8 +1488,10 @@ class ClusterController:
         gkey = self._home(job_id)
         assert gkey is not None, f"unknown job {job_id}"
         slot = self._slots[gkey]
+        # every rank of the slot exports (a pipeline assembles its
+        # stacks over the slice); the first rank's export is shared
         mine = [slot.runtime(gkey).export(job_id)] \
-            if slot.ranks[0] == self._rank else None
+            if self._member(slot) else None
         return self._share(mine, slot.ranks[0])[0]
 
     def retire_finished(self) -> List[str]:

@@ -23,16 +23,20 @@ into a single executable model:
 (``tp_mode="dp"``): every mesh axis folds into row sharding over a
 ``torch.distributed`` group, each rank runs the step on its shard's rows
 (the shard-major layout of ``data/pipeline.shard_permutation``) and
-holds the adapters and Adam state replicated.  Not ported yet, and
-refused where asked for: ``tp_mode="auto"`` (tensor parallelism, ROADMAP
-A4), pipeline mode (A2) and a MoE model over a mesh (A3);
-``pipeline_legal_stages``, the scheduler's view of the pipeline depths a
-config allows, is here.
+holds the adapters and Adam state replicated.  With
+``tp_mode="pipeline"`` it is the stage-partitioned step
+(``_make_pipeline_step``): the group's slice is a (stage, data) mesh,
+each stage holds its run of the scanned layer stack, and the jobs'
+job-wise nano slices are the micro-batches of one GPipe schedule.
+``pipeline_legal_stages``, ``scanned_segment_index`` and
+``stage_slices`` say which depths a config allows and which leaves a
+stage holds.  Refused where asked for: ``tp_mode="auto"`` (tensor
+parallelism, ROADMAP A4) and a MoE model over a mesh (A3).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,22 +50,18 @@ from repro_torch.core.lora import MultiLoRA, RankLayout
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
-NO_PIPELINE = ("pipeline group execution (tp_mode='pipeline', "
-               "pipeline_stages > 1) is not ported yet (ROADMAP A2, old "
-               "A7b: multi-GPU pipeline mode)")
 NO_AUTO_TP = ("tensor-parallel group execution (tp_mode='auto') is not "
               "ported yet (ROADMAP A4, old A7c: multi-GPU tensor "
               "parallelism)")
+TP_MODES = ("dp", "pipeline")
 
 
-def check_tp_mode(tp_mode: str, pipeline_stages: int = 1) -> None:
-    """Refuse what the port does not run over a mesh: only the
-    data-parallel ``tp_mode="dp"`` is ported."""
-    if tp_mode == "pipeline" or pipeline_stages > 1:
-        raise NotImplementedError(NO_PIPELINE)
+def check_tp_mode(tp_mode: str) -> None:
+    """Refuse what the port does not run over a mesh: the data-parallel
+    ``tp_mode="dp"`` and ``"pipeline"`` are ported, ``"auto"`` is not."""
     if tp_mode == "auto":
         raise NotImplementedError(NO_AUTO_TP)
-    if tp_mode != "dp":
+    if tp_mode not in TP_MODES:
         raise ValueError(f"unknown tp_mode {tp_mode!r}")
 
 
@@ -201,11 +201,22 @@ class SharedSuperModel:
         (exact: the kernels' shard-local backwards) or "psum" (one
         all-reduce of the partial gradients; the only mode "ref" and
         "loop" take).  ``nano_order`` ("job" or "rank_desc") orders the
-        job segments inside each sharded nano slice.  ``tp_mode`` other
-        than "dp" and pipeline stages are refused (``check_tp_mode``)."""
+        job segments inside each sharded nano slice.
+        ``tp_mode="pipeline"`` with ``pipeline_stages`` P returns the
+        stage-partitioned step (``_make_pipeline_step``); it takes this
+        rank's data shard's rows and this stage's slice of the trees
+        (``stage_slices``).  Without a mesh ``tp_mode`` and
+        ``pipeline_stages`` are ignored, as in the reference; on a mesh
+        ``tp_mode="auto"`` is refused (``check_tp_mode``)."""
         assert nano_order in ("job", "rank_desc"), nano_order
-        check_tp_mode(tp_mode, pipeline_stages)
         if mesh is not None:
+            check_tp_mode(tp_mode)
+            if tp_mode == "pipeline":
+                return self._make_pipeline_step(
+                    lr_fn=lr_fn, nano_batches=nano_batches, remat=remat,
+                    weight_decay=weight_decay, steps=steps, mesh=mesh,
+                    grad_sync=grad_sync, stages=pipeline_stages,
+                    nano_order=nano_order)
             return self._make_sharded_step(
                 lr_fn=lr_fn, nano_batches=nano_batches, remat=remat,
                 weight_decay=weight_decay, steps=steps, mesh=mesh,
@@ -361,6 +372,236 @@ class SharedSuperModel:
             return self._update(params, adapters, opt_state, denom, slices,
                                 lr_fn, remat, weight_decay,
                                 reduce=None if exact else reduce)
+
+        return train_step if steps is None else _chunked(train_step)
+
+    def _make_pipeline_step(self, *, lr_fn, nano_batches, remat,
+                            weight_decay, steps, mesh, grad_sync, stages,
+                            nano_order) -> Callable:
+        """The stage-partitioned pipeline step (the reference's
+        ``_make_pipeline_step``, ``ssm.py:426``).
+
+        Layout.  The group's slice of P·D ranks is a (stage, data) mesh
+        (``launch/mesh.stage_mesh``): stage s is the run of D ranks
+        ``[s·D, (s+1)·D)``.  The one scanned segment's leaves (backbone,
+        adapters, both Adam moments) are cut along their cycle axis, each
+        stage holding its ``repeats / P`` contiguous cycles
+        (``stage_slices``); the unscanned leaves are whole everywhere.
+        Rows shard over the data axis only: every stage sees the same
+        local rows, in ``shard_permutation`` order.  The N micro-batches
+        are the job-wise nano slices of ``_nano_index`` ("rank_desc" puts
+        the large-rank segments first), each a job-major mini fused batch
+        with a static tile map, so the "cuda" impl keeps the ragged
+        kernels on mixed ranks and the masked ones on uniform ranks.
+
+        Schedule.  ``torch.distributed`` send and recv are not
+        differentiable, so the schedule is explicit GPipe on every rank,
+        which is the reference's: ``jax.grad`` of its tick loop runs every
+        forward tick, then every backward tick in reverse.  Forward: for
+        each micro in order, stage 0 embeds it and runs the pre-segments,
+        a later stage receives it from the previous one as a detached
+        leaf that requires grad; the stage runs its cycles and hands the
+        output on (the last stage instead runs the tail segments, ``ln_f``,
+        the head and the per-job loss of the micro, ``models/model
+        .job_losses``, with the data group's denominators).  Backward, in
+        reverse micro order: the last stage differentiates the micro's
+        loss, a stage before it its output against the cotangent received
+        from the next; each hands its input's gradient back.  A stage's
+        adapter gradients of each micro are kept apart and summed in
+        micro order in f32, as ``_update`` sums nano slices.  The
+        reference's warm-up and cool-down ticks compute clipped repeats
+        that get zero cotangent: they are not computed here, and
+        ``pipe_slots`` still counts the (N + P - 1)·P slots of the
+        schedule, ``pipe_useful_slots`` the N·P that carried a micro.
+
+        Handoff.  Each hop is a broadcast on the two-rank group of the
+        neighbouring stages at one data index (``launch/mesh.handoff``):
+        gloo's point-to-point calls take host tensors only, so on a gloo
+        group a CUDA activation goes through host memory.  Every rank of
+        a stage issues its data group's gathers (the shard-local kernels,
+        the reported losses) in the same order, and both ranks of a pair
+        issue its handoffs in the same order (the N activations, then the
+        N cotangents in reverse), so no wait closes a cycle.
+
+        Reduction.  With ``grad_sync="psum"`` the stage's gradients are
+        all-reduced over its data group; "gather" needs nothing (the
+        kernels' shard-local backwards make them exact).  Then one sum
+        over the stage column: the unscanned segments' gradients (the
+        pre-segments' live on stage 0, the tail's on the last stage,
+        zeros elsewhere), the per-job losses and the occupancy count, so
+        every stage updates the replicated leaves identically and
+        reports the same metrics.  A MoE model is refused (ROADMAP A3)."""
+        from repro_torch.data.pipeline import shard_permutation
+        from repro_torch.launch.mesh import StageMesh, handoff, stage_mesh
+        from repro_torch.models.layers import dtype_of, rms_norm
+        from repro_torch.models.moe import MOE_NO_MESH
+        cfg, K = self.cfg, self.num_jobs
+        P = int(stages)
+        if P < 2:
+            raise ValueError(f"tp_mode='pipeline' needs pipeline_stages >= "
+                             f"2 (got {P}); use tp_mode='dp'")
+        if cfg.num_experts:
+            raise NotImplementedError(MOE_NO_MESH)
+        exact = grad_sync == "gather"
+        assert grad_sync in ("gather", "psum"), grad_sync
+        if exact and self.impl in ("ref", "loop"):
+            raise ValueError(
+                f"impl={self.impl!r} has no shard-local VJP for exact "
+                "gathered wgrads; use impl='torch'/'cuda' or "
+                "grad_sync='psum'")
+        plan = M.segment_plan(cfg)
+        si = scanned_segment_index(cfg)
+        check_stack_stages(cfg, P)
+        seg_local = replace(plan[si], repeats=plan[si].repeats // P)
+        sm = (mesh if isinstance(mesh, StageMesh) and mesh.stages == P
+              else stage_mesh(mesh, P))
+        D, s_me = sm.data, sm.stage
+        first, last = s_me == 0, s_me == P - 1
+        assert self.data_shards == D, \
+            (f"SSM built for data_shards={self.data_shards}, the pipeline "
+             f"mesh runs {D}-way data parallel: construct "
+             f"SharedSuperModel(data_shards={D})")
+        rows = self.rows_per_job()
+        rows_loc = [r // D for r in rows]
+        N = int(nano_batches)
+        assert math.gcd(*rows_loc) % N == 0, \
+            (f"nano_batches={N} must divide every job's per-shard rows "
+             f"{rows_loc}")
+        if self.impl == "cuda":
+            S = self.jobs[0].seq_len
+            assert all((r * S) % (N * self.block_t) == 0 for r in rows_loc), \
+                (f"nano_batches={N} breaks the token-tile alignment of "
+                 f"per-shard rows {rows_loc} (seq_len={S}, block_t="
+                 f"{self.block_t})")
+        seg_order = None
+        if N > 1:
+            seg_order = tuple(
+                sorted(range(K), key=lambda k: (-int(self.ranks[k]), k))
+                if nano_order == "rank_desc" else range(K))
+        solo = torch.as_tensor(shard_permutation(rows, D).reshape(D, -1))
+        nano_idx = torch.as_tensor(_nano_index(rows_loc, N, order=seg_order))
+        on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        act_dtype = dtype_of(cfg)
+        prev_rank = sm.rank_of(s_me - 1) if not first else None
+        next_rank = sm.rank_of(s_me + 1) if not last else None
+
+        def micro_forward(params, ad_segs, nb, lora, denom):
+            """One micro through this stage: (its input leaf or None, its
+            output or, on the last stage, its loss, per-job losses,
+            aux)."""
+            dev = nb["adapter_ids"].device
+            if first:
+                x, _ = M.embed_inputs(cfg, params, nb)
+                x_in = None
+            else:
+                buf = torch.empty(_act_shape(cfg, nb), dtype=act_dtype,
+                                  device=dev)
+                x_in = handoff(buf, sm.prev_group,
+                               prev_rank).requires_grad_(True)
+                x = x_in
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+            aux = torch.zeros((), device=dev)
+            own = range(si + 1) if first else (
+                range(si, len(plan)) if last else range(si, si + 1))
+            for i in own:
+                x, a = M._apply_segment(
+                    cfg, seg_local if i == si else plan[i],
+                    params["segments"][i], ad_segs[i], lora, x, positions,
+                    None, None, remat=remat)
+                aux = aux + a
+            if not last:
+                handoff(x.detach(), sm.next_group, sm.rank_of(s_me))
+                return x_in, x, None, aux.detach()
+            x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+            logits = M._logits(cfg, params, x)
+            total, out = M.job_losses(cfg, logits, _text_off(cfg, nb), aux,
+                                      lora, nb, per_job_denom=denom)
+            return x_in, total, out["per_job"].detach(), aux.detach()
+
+        def train_step(params, adapters, opt_state, batch):
+            # batch: THIS data shard's rows (the same on every stage)
+            dev = batch["adapter_ids"].device
+            if dev not in on_device:      # copied once, not every step
+                on_device[dev] = (solo.to(dev), nano_idx.to(dev))
+            row_solo, idx = on_device[dev]
+            denom = None
+            if last:
+                denom = _per_job_token_counts(batch, K, causal=cfg.causal,
+                                              clip=False)
+                dist.all_reduce(denom, group=sm.data_group)
+                denom = denom.clamp_min(1)
+            batch = dict(batch, _row_solo=row_solo.T)
+            micros = []
+            for nb in _reshape_nano_jobwise(batch, N, idx):
+                rs = nb.pop("_row_solo").T.reshape(-1)
+                micros.append((nb, self.lora_ctx(
+                    nb["adapter_ids"], group=sm.data_group,
+                    row_solo_pos=rs, grad_sync=grad_sync,
+                    nano_order=seg_order)))
+            ad = adamw.tree_map(
+                lambda _, t: t.detach().requires_grad_(True), adapters)
+            leaves = list(adamw.tree_leaves(ad))
+            per_job = torch.zeros((K,), dtype=torch.float32, device=dev)
+            aux = torch.zeros((), device=dev)
+            kept = []
+            with torch.enable_grad():
+                for nb, lora in micros:           # forward, micro order
+                    x_in, out, pj, a = micro_forward(
+                        params, ad["segments"], nb, lora, denom)
+                    kept.append((x_in, out))
+                    aux = aux + a
+                    if pj is not None:
+                        per_job = per_job + pj
+                per_micro = [None] * N
+                for m in reversed(range(N)):      # backward, reverse order
+                    x_in, out = kept[m]
+                    kept[m] = None
+                    inputs = leaves + ([x_in] if x_in is not None else [])
+                    g_out = None if last else handoff(
+                        torch.empty(out.shape, dtype=out.dtype, device=dev),
+                        sm.next_group, next_rank)
+                    g = torch.autograd.grad(out, inputs, grad_outputs=g_out,
+                                            allow_unused=True)
+                    if x_in is not None:
+                        handoff(g[-1], sm.prev_group, sm.rank_of(s_me))
+                    per_micro[m] = [torch.zeros_like(t) if gm is None else gm
+                                    for gm, t in zip(g, leaves)]
+            if N == 1:
+                g_leaves = per_micro[0]
+            else:
+                g_leaves = [torch.zeros(t.shape, dtype=torch.float32,
+                                        device=t.device) for t in leaves]
+                for gm in per_micro:
+                    g_leaves = [a_ + b.float() for a_, b in zip(g_leaves, gm)]
+            if not exact:
+                g_leaves, per_job, aux = _all_reduce_flat(
+                    g_leaves, per_job, aux, sm.data_group)
+            # one sum over the stage column: the unscanned segments'
+            # gradients (zeros off their owning stage), the per-job
+            # losses (zeros off the last stage), the aux and the micros
+            # each stage ran
+            scanned = [p[1] == str(si) for p, _ in _leaf_paths(ad)]
+            rest = [i for i, sc in enumerate(scanned) if not sc]
+            useful = torch.full((1,), float(N), device=dev)
+            red, per_job, aux, useful = _all_reduce_flat(
+                [g_leaves[i] for i in rest], per_job, aux, sm.column_group,
+                extra=useful)
+            for i, t in zip(rest, red):
+                g_leaves[i] = t
+            it = iter(g_leaves)
+            grads = adamw.tree_map(lambda _, t: next(it), ad)
+            lr = lr_fn(opt_state.step)
+            new_adapters, new_opt = adamw.update(
+                grads, opt_state, adapters, lr=lr,
+                weight_decay=weight_decay,
+                col_jobs=self.device_consts(dev)[2])
+            metrics = {"loss": per_job.sum(), "per_job_loss": per_job,
+                       "lr": torch.as_tensor(lr), "aux": aux,
+                       "pipe_useful_slots": useful.round().long()[0],
+                       "pipe_slots": torch.tensor((N + P - 1) * P,
+                                                  device=dev)}
+            return new_adapters, new_opt, metrics
 
         return train_step if steps is None else _chunked(train_step)
 
@@ -566,3 +807,103 @@ def pipeline_legal_stages(cfg: ModelConfig) -> List[int]:
         return [1]
     r = plan[idx[0]].repeats
     return [p for p in range(1, r + 1) if r % p == 0]
+
+
+def scanned_segment_index(cfg: ModelConfig) -> int:
+    """Index of THE scanned segment in ``segment_plan``: the layer stack
+    pipeline mode partitions (the reference's function).  Exactly one is
+    required."""
+    idx = [i for i, s in enumerate(M.segment_plan(cfg)) if s.scanned]
+    if len(idx) != 1:
+        raise ValueError(
+            f"pipeline mode needs exactly one scanned segment; "
+            f"{cfg.name} has {len(idx)}")
+    return idx[0]
+
+
+def check_stack_stages(cfg: ModelConfig, stages: int) -> int:
+    """*stages* if it divides the scanned stack's cycles, else the
+    reference's ValueError naming the legal depths."""
+    repeats = M.segment_plan(cfg)[scanned_segment_index(cfg)].repeats
+    if repeats % int(stages):
+        raise ValueError(
+            f"stages={stages} does not divide the scanned stack's "
+            f"{repeats} cycle(s); legal pipeline depths for {cfg.name}: "
+            f"{pipeline_legal_stages(cfg)}")
+    return int(stages)
+
+
+def stage_slices(cfg: ModelConfig, tree: dict, stages: int,
+                 stage: int) -> dict:
+    """Stage *stage*'s part of a params-, adapters- or moments-shaped
+    *tree* (the port of ``pipeline_stage_specs``: which leaves split over
+    the stages, and how).  The scanned segment's leaves are cut along
+    their leading cycle axis to the stage's ``repeats / stages``
+    contiguous cycles and copied, so the rest of the stack's storage is
+    not kept alive by a view; a ``QuantTensor``'s codes and scales are
+    cut together.  Every other leaf is the caller's, shared."""
+    si = scanned_segment_index(cfg)
+    c = M.segment_plan(cfg)[si].repeats // check_stack_stages(cfg, stages)
+    cut = lambda t: t[stage * c:(stage + 1) * c].clone()
+    out = dict(tree)
+    out["segments"] = [M._tree_map(cut, seg) if i == si else seg
+                       for i, seg in enumerate(tree["segments"])]
+    return out
+
+
+def stage_flat(cfg: ModelConfig, flat: Dict[str, torch.Tensor],
+               stages: int, stage: int) -> Dict[str, torch.Tensor]:
+    """``stage_slices`` of a flat ``segments/i/...``-keyed dict (a job
+    state's slices)."""
+    si = scanned_segment_index(cfg)
+    c = M.segment_plan(cfg)[si].repeats // check_stack_stages(cfg, stages)
+    pre = f"segments/{si}/"
+    return {k: v[stage * c:(stage + 1) * c].clone() if k.startswith(pre)
+            else v for k, v in flat.items()}
+
+
+def _leaf_paths(tree) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(key path, leaf) of every leaf, in ``adamw.tree_leaves`` order."""
+    out = []
+    adamw.tree_map(lambda p, t: out.append((p, t)), tree)
+    return out
+
+
+def _all_reduce_flat(leaves: List[torch.Tensor], per_job: torch.Tensor,
+                     aux: torch.Tensor, group,
+                     extra: Optional[torch.Tensor] = None):
+    """Sum *leaves*, *per_job*, *aux* (and *extra*) over *group* in one
+    all-reduce of one flat f32 buffer; returns them (leaves in their
+    f32, as the sharded step's ``reduce`` returns them) in that order."""
+    parts = [t.reshape(-1).float() for t in leaves] + [
+        per_job, aux.reshape(1)] + ([extra] if extra is not None else [])
+    flat = torch.cat(parts)
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for t in leaves:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    K = per_job.numel()
+    res = [out, flat[at:at + K], flat[at + K]]
+    if extra is not None:
+        res.append(flat[at + K + 1:])
+    return tuple(res)
+
+
+def _text_off(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> int:
+    """The text offset ``embed_inputs`` returns for *batch* (the VLM
+    patches' count), computed without embedding."""
+    return (int(batch["patches"].shape[1])
+            if cfg.family == "vlm" and "patches" in batch else 0)
+
+
+def _act_shape(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[int, int, int]:
+    """(B, S, d) of the residual stream ``embed_inputs`` makes of
+    *batch*: what a pipeline stage receives."""
+    if cfg.family == "audio":
+        B, S = batch["frames"].shape[:2]
+    else:
+        B, S = batch["tokens"].shape[:2]
+        S += _text_off(cfg, batch)
+    return int(B), int(S), cfg.d_model

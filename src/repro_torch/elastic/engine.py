@@ -14,9 +14,10 @@ which is lossless (migrate.py).  Per-job step accounting (train steps and
 Adam steps) survives every migration.  Every runtime the engine builds
 runs on its ``device`` (the GPU unless the caller asks for the CPU) and,
 with a ``mesh``, sharded over it (``GroupRuntime``'s data-parallel
-mode): every rank runs the same engine, and a ``JobTrainState`` does not
-depend on the mesh, so jobs move between engines of different meshes
-losslessly.
+mode, or with ``tp_mode="pipeline"`` and ``pipeline_stages`` its
+stage-partitioned mode): every rank runs the same engine, and a
+``JobTrainState`` does not depend on the mesh, so jobs move between
+engines of different meshes losslessly.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ class ElasticEngine:
                  weight_decay: float = 0.0, chunk_size: int = 4,
                  mesh=None, data_axis: str = "data",
                  grad_sync: str = "gather", tp_mode: str = "dp",
+                 pipeline_stages: int = 1,
                  checkpoint_dir=None, checkpoint_every: int = 0,
                  seed: int = 0, device="cuda"):
         check_tp_mode(tp_mode)
@@ -69,6 +71,7 @@ class ElasticEngine:
                                chunk_size=chunk_size, seed=seed,
                                mesh=mesh, data_axis=data_axis,
                                grad_sync=grad_sync, tp_mode=tp_mode,
+                               pipeline_stages=pipeline_stages,
                                checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every,
                                device=device)

@@ -41,8 +41,20 @@ and publishes are written by the group's rank 0 alone, behind a barrier
 after which every rank can restore them.  The mesh may be a 1-D submesh
 over part of the world (the controller's slices, ``launch/mesh
 .partition_mesh``): the runtime exists only on its ranks and reduces over
-the submesh's group.  ``tp_mode`` "auto" and "pipeline" are refused
-(ROADMAP A4, A2).
+the submesh's group.  ``tp_mode="auto"`` is refused (ROADMAP A4).
+
+``tp_mode="pipeline"`` with ``pipeline_stages`` P carves the mesh once
+into a (stage, data) ``StageMesh`` (``launch/mesh.stage_mesh``) and runs
+``SharedSuperModel._make_pipeline_step``.  Each rank keeps only its
+stage's cycles of the scanned stack resident (backbone, adapters, both
+moments, ``core/ssm.stage_slices``) and stages its data shard's rows,
+the same on every stage.  The nano count is a micro-batch count: it must
+cover the depth (N >= P), and a requested count that is not legal snaps
+to the closest legal one (a tie takes more micros).  AIMD is fed the
+maximum chunk time over the whole slice.  Whatever leaves the runtime
+(``export``, ``save_checkpoints``, ``publish_to``) is assembled whole
+over the stage columns first, a collective over the slice that every
+rank of it calls; an imported state is cut to the stage on the way in.
 """
 from __future__ import annotations
 
@@ -61,7 +73,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.nanobatch import AIMDController
 from repro_torch.core.ssm import (SharedSuperModel, check_tp_mode,
-                                  valid_nano_counts)
+                                  scanned_segment_index, stage_flat,
+                                  stage_slices, valid_nano_counts)
 from repro_torch.data.pipeline import FusedBatcher, JobStream, frontend_inputs
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
@@ -136,6 +149,7 @@ class GroupRuntime:
                  quantize: Optional[str] = None, weight_decay: float = 0.0,
                  chunk_size: int = 4, mesh=None, data_axis: str = "data",
                  grad_sync: str = "gather", tp_mode: str = "dp",
+                 pipeline_stages: int = 1,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
                  publish_pool=None, publish_every: int = 0,
@@ -148,8 +162,23 @@ class GroupRuntime:
         self.device = torch.device(device)
         # sharded execution: rows over every mesh axis ("dp"), the
         # trainable state replicated on every rank
-        self.mesh, self.grad_sync = mesh, grad_sync
         self.tp_mode, self.nano_order = tp_mode, nano_order
+        self.pipeline_stages, self._stage_idx = 1, 0
+        if tp_mode == "pipeline":
+            # carve the (stage, data) mesh ONCE: placement, staging and
+            # the step share it
+            if mesh is None:
+                raise ValueError("tp_mode='pipeline' needs a mesh")
+            from repro_torch.launch.mesh import StageMesh, stage_mesh
+            if not isinstance(mesh, StageMesh):
+                mesh = stage_mesh(mesh, pipeline_stages, axis=data_axis)
+            self.pipeline_stages = mesh.stages
+            if self.pipeline_stages < 2:
+                raise ValueError(
+                    "tp_mode='pipeline' needs pipeline_stages >= 2 "
+                    f"(got {self.pipeline_stages}); use tp_mode='dp'")
+            self._stage_idx = mesh.stage
+        self.mesh, self.grad_sync = mesh, grad_sync
         if mesh is not None:
             from repro_torch.launch.mesh import data_group
             if grad_sync == "gather" and impl in ("ref", "loop"):
@@ -164,8 +193,13 @@ class GroupRuntime:
                 raise ValueError(f"data_axis {data_axis!r} is not an axis "
                                  f"of the mesh {mesh.mesh_dim_names}")
             self._group, D, self._shard = data_group(mesh)
+            # every rank of the group's slice (a pipeline's stages too)
+            self._slice_group = (mesh.slice_group
+                                 if self.pipeline_stages > 1
+                                 else self._group)
         else:
             self._group, D, self._shard = None, 1, 0
+            self._slice_group = None
         self.data_shards = D
         # the frozen backbone in int8, once, before any step is built
         # (idempotent: a quantized tree's QuantTensors are reused)
@@ -189,7 +223,16 @@ class GroupRuntime:
         self._frontend_rng = (np.random.default_rng(seed)
                               if cfg.family in ("audio", "vlm") else None)
         self._staged_frontend = None
-        # own (copy) the trainable state: the caller's trees stay as given
+        # own (copy) the trainable state: the caller's trees stay as
+        # given.  A pipeline stage keeps only its cycles of the scanned
+        # stack, copied, so no view holds the whole stack alive.
+        if self.pipeline_stages > 1:
+            def cut(tree):
+                return stage_slices(cfg, tree, self.pipeline_stages,
+                                    self._stage_idx)
+            params, adapters = cut(params), cut(adapters)
+            opt_state = adamw.AdamWState(opt_state.step, cut(opt_state.mu),
+                                         cut(opt_state.nu))
         self.params = params
         self.adapters = _clone(adapters)
         self.opt_state = adamw.AdamWState(opt_state.step.clone(),
@@ -201,14 +244,17 @@ class GroupRuntime:
         self.remat = remat
         self.weight_decay = weight_decay
         self.n = nano_batches
-        if D > 1:
+        if D > 1 or self.pipeline_stages > 1:
             # sharded: the job-wise nano split needs N to divide every
             # job's per-shard rows, and for "cuda" to keep every job's
-            # per-slice tokens whole tiles (the reference's rule)
+            # per-slice tokens whole tiles (the reference's rule); in a
+            # pipeline the slices are the micro-batches and must cover
+            # the depth (N >= P)
             rows_loc = [r // D for r in self.batcher.rows_per_job()]
             nano_rows = math.gcd(*rows_loc)
             legal = valid_nano_counts(
                 nano_rows, min(nano_rows, aimd_max_n),
+                stages=self.pipeline_stages,
                 **(dict(seg_rows=rows_loc, seq_len=self.specs[0].seq_len,
                         block_t=block_t) if impl == "cuda" else {}))
         else:
@@ -223,6 +269,17 @@ class GroupRuntime:
                                        seq_len=self.specs[0].seq_len,
                                        block_t=block_t)
                      if impl == "cuda" else None)
+        if self.pipeline_stages > 1:
+            if not legal:
+                raise ValueError(
+                    f"no legal microbatch count covers pipeline depth "
+                    f"{self.pipeline_stages} for per-shard rows "
+                    f"{nano_rows} (aimd_max_n={aimd_max_n})")
+            if self.n not in legal:
+                # the closest legal count; a tie takes MORE micros (a
+                # deeper split shrinks the fill/drain bubble)
+                self.n = min(legal, key=lambda n: (abs(n - nano_batches),
+                                                   -n))
         self.aimd = AIMDController(rows=nano_rows, n=self.n,
                                    max_n=min(nano_rows, aimd_max_n),
                                    legal=legal) if adaptive_nano else None
@@ -300,6 +357,7 @@ class GroupRuntime:
                 lr_fn=self.lr_fn, nano_batches=n, remat=self.remat,
                 weight_decay=self.weight_decay, steps=chunk, mesh=self.mesh,
                 grad_sync=self.grad_sync, tp_mode=self.tp_mode,
+                pipeline_stages=self.pipeline_stages,
                 nano_order=self.nano_order)
         return self._step_cache[key]
 
@@ -509,9 +567,13 @@ class GroupRuntime:
         idx = self.index_of(state.spec.job_id)
         off, r_cap = self.ssm.layout.slice_of(idx)
         r = state.spec.rank
-        adapters = insert_job(self.adapters, off, r, state.adapter, r_cap)
-        mu = insert_job(self.opt_state.mu, off, r, state.mu, r_cap)
-        nu = insert_job(self.opt_state.nu, off, r, state.nu, r_cap)
+        cut = ((lambda f: stage_flat(self.cfg, f, self.pipeline_stages,
+                                     self._stage_idx))
+               if self.pipeline_stages > 1 else (lambda f: f))
+        adapters = insert_job(self.adapters, off, r, cut(state.adapter),
+                              r_cap)
+        mu = insert_job(self.opt_state.mu, off, r, cut(state.mu), r_cap)
+        nu = insert_job(self.opt_state.nu, off, r, cut(state.nu), r_cap)
         step = self.opt_state.step.clone()
         step[idx] = int(state.opt_step)
         self.adapters = adapters
@@ -521,18 +583,47 @@ class GroupRuntime:
             self.batcher.streams[idx] = copy.deepcopy(state.stream)
 
     def _all_max(self, value: float) -> float:
-        """The max of *value* over the mesh's ranks (an NCCL group takes a
-        device tensor, gloo a host one)."""
-        dev = (self.device if dist.get_backend(self._group) == "nccl"
+        """The max of *value* over the mesh's ranks, every stage of a
+        pipeline included (an NCCL group takes a device tensor, gloo a
+        host one)."""
+        g = self._slice_group
+        dev = (self.device if dist.get_backend(g) == "nccl"
                else torch.device("cpu"))
         t = torch.tensor([value], dtype=torch.float64, device=dev)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
         return float(t.item())
 
     def _writer(self) -> bool:
         """Whether this rank writes what the group persists or
-        publishes: every rank meshless, the group's rank 0 on a mesh."""
-        return self._shard == 0
+        publishes: every rank meshless, the group's rank 0 on a mesh
+        (stage 0's first rank in a pipeline)."""
+        return self._shard == 0 and self._stage_idx == 0
+
+    # ------------------------------------------------------ pipeline state
+    def _whole(self, tree):
+        """*tree* with the scanned segment's leaves assembled over this
+        rank's stage column: every stage's cycles, in stage order
+        (collective over the slice; the tree itself outside a
+        pipeline)."""
+        if self.pipeline_stages == 1:
+            return tree
+        si = scanned_segment_index(self.cfg)
+        col, P = self.mesh.column_group, self.pipeline_stages
+
+        def gather(path, t):
+            if path[1] != str(si):
+                return t
+            t = t.detach().contiguous()
+            buf = t.new_empty((P * t.shape[0],) + tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(buf, t, group=col)
+            return buf
+        return adamw.tree_map(gather, tree)
+
+    def whole_state(self):
+        """(adapters, opt_state), whole (``_whole``)."""
+        return self._whole(self.adapters), adamw.AdamWState(
+            self.opt_state.step, self._whole(self.opt_state.mu),
+            self._whole(self.opt_state.nu))
 
     # -------------------------------------------------------- checkpoints
     def save_checkpoints(self, directory: Optional[str] = None, *,
@@ -551,36 +642,43 @@ class GroupRuntime:
         if stream_states is None:
             stream_states = [stream_state(s) for s in self.batcher.streams]
         step_vec = np.atleast_1d(self.opt_state.step.detach().cpu().numpy())
+        adapters, opt_state = self.whole_state()
         paths = []
         for idx, spec in enumerate(self.specs):
             off, _ = self.ssm.layout.slice_of(idx)
             path = os.path.join(directory, f"{spec.job_id}.npz")
             if self._writer():
-                save_job(path, spec.job_id, off, spec.rank, self.adapters,
-                         self.opt_state,
+                save_job(path, spec.job_id, off, spec.rank, adapters,
+                         opt_state,
                          step=int(step_vec[idx % step_vec.size]),
                          meta={"steps_done": self.steps_done[spec.job_id],
                                "stream": stream_states[idx]})
             self.last_checkpoint_step[spec.job_id] = \
                 self.steps_done[spec.job_id]
             paths.append(path)
-        if self._group is not None:
-            dist.barrier(group=self._group)    # the files exist for all
+        if self._slice_group is not None:
+            dist.barrier(group=self._slice_group)   # the files exist for all
         return paths
 
     # ---------------------------------------------------------- migration
-    def export(self, job_id: str) -> JobTrainState:
+    def export(self, job_id: str, *, whole=None) -> JobTrainState:
         """Non-destructive snapshot of one member in portable form.  The
         data stream is deep-copied, so the snapshot's rng position stays
-        at the snapshotted state while the runtime trains on."""
+        at the snapshotted state while the runtime trains on.  In a
+        pipeline it is a collective over the slice (the stacks are
+        assembled whole), which every rank of it calls; *whole*, a
+        ``whole_state()`` already assembled, spares that for several
+        exports."""
         idx = self.index_of(job_id)
-        return unfuse_state(self.adapters, self.opt_state, idx,
+        adapters, opt_state = whole or self.whole_state()
+        return unfuse_state(adapters, opt_state, idx,
                             self.specs[idx], layout=self.ssm.layout,
                             steps_done=self.steps_done[job_id],
                             stream=copy.deepcopy(self.batcher.streams[idx]))
 
     def export_all(self) -> List[JobTrainState]:
-        return [self.export(jid) for jid in self.job_ids]
+        whole = self.whole_state()
+        return [self.export(jid, whole=whole) for jid in self.job_ids]
 
     # ----------------------------------------------------------- serving
     def publish_to(self, pool, job_ids: Optional[Sequence[str]] = None
@@ -588,9 +686,12 @@ class GroupRuntime:
         """Publish members' host snapshots (``export``) into a serving
         ``AdapterPool`` under their job ids, between chunks; training
         does not pause.  On a mesh the group's rank 0 publishes and the
-        others return {}.  Returns {job_id: published version}."""
+        others return {} (in a pipeline every rank of the slice calls it:
+        the stacks are assembled whole first).  Returns {job_id:
+        published version}."""
+        ids = job_ids if job_ids is not None else self.job_ids
+        whole = self.whole_state() if self.pipeline_stages > 1 else None
         if not self._writer():
             return {}
-        return {jid: pool.publish_state(self.export(jid))
-                for jid in (job_ids if job_ids is not None
-                            else self.job_ids)}
+        return {jid: pool.publish_state(self.export(jid, whole=whole))
+                for jid in ids}

@@ -79,11 +79,16 @@ def gather_solo(t: torch.Tensor, group, solo_pos: torch.Tensor,
     slices) are exact zeros.  Bit-preserving: every value is copied,
     none is summed.  The reference scatters into zeros and sums with a
     psum because its partial-auto ``shard_map`` had no all-gather; the
-    gather moves each row once, 1/D of that traffic."""
+    gather moves each row once, 1/D of that traffic.  A group of one
+    rank (a pipeline stage of D = 1) gathers nothing: its rows are the
+    buffer."""
     D = dist.get_world_size(group)
     shape = tuple(t.shape[1:])
-    buf = t.new_empty((D * t.shape[0],) + shape)
-    dist.all_gather_into_tensor(buf, t.contiguous(), group=group)
+    if D == 1:
+        buf = t.contiguous()
+    else:
+        buf = t.new_empty((D * t.shape[0],) + shape)
+        dist.all_gather_into_tensor(buf, t.contiguous(), group=group)
     make = torch.empty if buf.shape[0] == total else torch.zeros
     out = make((total,) + shape, dtype=t.dtype, device=t.device)
     return out.index_copy_(0, solo_pos, buf)

@@ -20,12 +20,26 @@ order, and a repartition back to a slice seen before reuses its
 communicator.  ``control_group`` is a separate gloo group over the world
 for the controller's own collectives (agreement on decisions, state
 moves): gloo does not order two threads' calls on one group, and the
-slices' groups belong to the groups' chunk pumps.  ``stage_mesh`` and
-``make_production_mesh`` wait for pipeline mode (ROADMAP A2).
+slices' groups belong to the groups' chunk pumps.
+
+Pipeline mode (``tp_mode="pipeline"``) lays a slice of P·D ranks out as
+a (stage, data) ``StageMesh`` (``stage_mesh``): stage s is the run of D
+ranks ``[s·D, (s+1)·D)`` of the slice, as in the reference.  Its
+process groups are one data group per stage (the shard-local kernels'
+gathers and the denominators), one group per pair of neighbouring
+stages at each data index (the activation and cotangent handoff), one
+column group per data index (the stages' end-of-step reduction) and
+one over the whole slice.  Like every group here they are made by every
+rank of the world, in one fixed order (``_stage_group_keys``): over the
+whole world ``stage_mesh`` makes them itself; a slice of a pool gets
+them from ``partition_mesh(stages=)``, which every rank calls for every
+slice.  ``make_production_mesh`` (the reference's 512-chip dry-run
+target) has no counterpart (ROADMAP A5).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -74,16 +88,31 @@ def clamp_model(model: int, n: int) -> int:
     return model
 
 
-def make_local_mesh(model: int = 1, device_type: str = "cpu"):
+def make_local_mesh(model: int = 1, device_type: str = "cpu",
+                    stages: int = 1):
     """A ("data", "model") mesh over every rank of the initialized
     world, the model degree clamped to a divisor of the world size
     (``clamp_model``).  *device_type* names the devices the ranks
     compute on ("cuda" or "cpu"); gloo ranks sharing one GPU pass
     "cpu": the mesh only lays out ranks, and the runtime's ``device``
-    places the tensors."""
+    places the tensors.
+
+    ``stages`` is clamped the same way against the world (the
+    reference clamps it against the data slice); more than one stage
+    gives the (stage, data) ``StageMesh`` over the world.  The port's
+    pipeline mesh has no model axis (tensor parallelism is ROADMAP A4),
+    so *model* must then be 1."""
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     m = clamp_model(model, n)
+    p = clamp_model(stages, n // m)
+    if p > 1:
+        if m > 1:
+            raise ValueError(
+                f"a pipeline mesh is (stage, data): model={model} needs "
+                "tensor parallelism, which the port does not run "
+                "(ROADMAP A4)")
+        return stage_mesh(list(range(n)), p)
     return init_device_mesh(device_type, (n // m, m),
                             mesh_dim_names=("data", "model"))
 
@@ -93,10 +122,13 @@ def data_group(mesh) -> Tuple[object, int, int]:
     data-parallel step over *mesh*: every mesh axis folds into row
     sharding, shards ordered by the group's ranks.  A one-dimensional
     mesh reduces over its own group, a mesh over the whole world over
-    the world.  A multi-dimensional mesh over part of the world is
-    refused: its ranks' group would have to be created by every rank of
-    the world, which the ranks outside it never reach here; the
-    controller's slices are 1-D (``partition_mesh``)."""
+    the world, a ``StageMesh`` over this rank's stage's data group.  A
+    multi-dimensional DeviceMesh over part of the world is refused: its
+    ranks' group would have to be created by every rank of the world,
+    which the ranks outside it never reach here; the controller's
+    slices are 1-D (``partition_mesh``)."""
+    if isinstance(mesh, StageMesh):
+        return mesh.data_group, mesh.data, mesh.shard
     ranks = mesh.mesh.flatten().tolist()
     if mesh.ndim == 1:
         group = mesh.get_group()
@@ -152,11 +184,13 @@ def partition_mesh(sizes: Sequence[int], ranks: Optional[Sequence[int]] = None,
     returned list holds this rank's submesh where it is a member and
     None elsewhere.
 
-    ``stages`` > 1 asserts that every slice can later be carved into
-    that many pipeline stages: a ValueError naming the legal divisors
-    fires HERE, at partition time (pipeline mode itself is ROADMAP A2).
-    *device_type* names the devices the ranks compute on, as in
-    ``make_local_mesh``."""
+    ``stages`` > 1 asserts that every slice can be carved into that many
+    pipeline stages: a ValueError naming the legal divisors fires HERE,
+    at partition time.  The returned submeshes stay 1-D (the runtime
+    owns the (stage, data) reshape, ``stage_mesh``), but every rank
+    makes each slice's stage groups here, so that the slice's own ranks
+    can carve it later without the rest of the world.  *device_type*
+    names the devices the ranks compute on, as in ``make_local_mesh``."""
     from torch.distributed.device_mesh import DeviceMesh
     ranks = list(range(dist.get_world_size())) if ranks is None \
         else [int(r) for r in ranks]
@@ -170,6 +204,9 @@ def partition_mesh(sizes: Sequence[int], ranks: Optional[Sequence[int]] = None,
         part = ranks[cur:cur + s]
         cur += s
         group = subgroup(part)
+        if stages > 1:
+            for key, tag in _stage_group_keys(part, stages):
+                subgroup(key, tag=tag)
         out.append(DeviceMesh.from_group(
             group, device_type, mesh=torch.tensor(part),
             mesh_dim_names=(axis,)) if me in part else None)
@@ -237,3 +274,134 @@ def _check_stages(stages: int, n_devices: int, what: str) -> int:
             f"stages={stages} does not divide the {what} of {n_devices} "
             f"device(s); legal stage counts: {legal_stage_counts(n_devices)}")
     return stages
+
+
+# -------------------------------------------------------- pipeline mode
+@dataclass(frozen=True)
+class StageMesh:
+    """A group's slice laid out as (stage, data) for pipeline mode, seen
+    from one of its ranks: ``ranks[s][d]`` is the global rank of stage
+    s, data index d.  The groups are this rank's: its stage's data group
+    (D ranks), its column (the P stages at its data index, in stage
+    order), the pairs it shares with the previous and the next stage at
+    its data index (None at the ends) and the whole slice."""
+    ranks: Tuple[Tuple[int, ...], ...]
+    stage: int
+    shard: int
+    data_group: object
+    column_group: object
+    prev_group: object
+    next_group: object
+    slice_group: object
+    axis: str = "data"
+    stage_axis: str = "stage"
+
+    @property
+    def stages(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def data(self) -> int:
+        return len(self.ranks[0])
+
+    @property
+    def mesh_dim_names(self) -> Tuple[str, str]:
+        return (self.stage_axis, self.axis)
+
+    @property
+    def mesh(self) -> torch.Tensor:
+        return torch.tensor(self.ranks)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.stage_axis: self.stages, self.axis: self.data}
+
+    def rank_of(self, stage: int, shard: Optional[int] = None) -> int:
+        """The global rank at *stage* and data index *shard* (default:
+        this rank's)."""
+        return self.ranks[stage][self.shard if shard is None else shard]
+
+
+def _stage_group_keys(ranks: Sequence[int], stages: int
+                      ) -> List[Tuple[Tuple[int, ...], str]]:
+    """(ranks, tag) of every process group of a (stages, D) carve of
+    *ranks*, in the one order every rank of the world makes them: the
+    stages' data groups, the columns, the neighbouring pairs, the
+    slice.  For P = 2 a pair is its column (the cache returns the same
+    group)."""
+    ranks = [int(r) for r in ranks]
+    D = len(ranks) // stages
+    grid = [ranks[s * D:(s + 1) * D] for s in range(stages)]
+    keys = [(tuple(grid[s]), "") for s in range(stages)]
+    keys += [(tuple(grid[s][d] for s in range(stages)), "stage")
+             for d in range(D)]
+    keys += [((grid[s][d], grid[s + 1][d]), "stage")
+             for s in range(stages - 1) for d in range(D)]
+    keys.append((tuple(ranks), ""))
+    return keys
+
+
+def stage_mesh(mesh_or_ranks, stages: int, axis: str = "data",
+               stage_axis: str = "stage") -> StageMesh:
+    """Carve a group's slice (a 1-D mesh, a ``StageMesh`` or a list of
+    ranks) into a (*stage_axis*, *axis*) ``StageMesh`` of *stages*
+    stages: stage s is the s-th consecutive run of D = n / P ranks of
+    the slice's order, so each stage's handoff peer is its neighbouring
+    run (the reference's ``stage_mesh``).  A depth that does not divide
+    the slice is refused with the legal divisors (``_check_stages``).
+
+    Over the whole world every rank calls this and the groups are made
+    here; over part of the world the slice's ranks find them made by
+    ``partition_mesh(stages=)``, and a carve that was not prepared so
+    is refused (``dist.new_group`` would wait for the ranks outside)."""
+    if isinstance(mesh_or_ranks, StageMesh):
+        ranks = [r for row in mesh_or_ranks.ranks for r in row]
+    elif isinstance(mesh_or_ranks, (list, tuple)):
+        ranks = [int(r) for r in mesh_or_ranks]
+    else:
+        ranks = mesh_or_ranks.mesh.flatten().tolist()
+    stages = _check_stages(stages, len(ranks), "group submesh")
+    keys = _stage_group_keys(ranks, stages)
+    whole = sorted(ranks) == list(range(dist.get_world_size()))
+    if not whole:
+        if _GROUPS_WORLD[0] is not dist.group.WORLD or any(
+                (k, None, tag) not in _GROUPS for k, tag in keys):
+            raise RuntimeError(
+                f"the stage groups of the slice {ranks} were not made by "
+                f"every rank of the world: carve the pool with "
+                f"partition_mesh(..., stages={stages})")
+    groups = [subgroup(k, tag=tag) for k, tag in keys]
+    D = len(ranks) // stages
+    grid = tuple(tuple(ranks[s * D:(s + 1) * D]) for s in range(stages))
+    me = dist.get_rank()
+    s_me = next(s for s in range(stages) if me in grid[s])
+    d_me = grid[s_me].index(me)
+    col = tuple(grid[s][d_me] for s in range(stages))
+    prev_key = (grid[s_me - 1][d_me], me) if s_me > 0 else None
+    next_key = (me, grid[s_me + 1][d_me]) if s_me < stages - 1 else None
+    return StageMesh(
+        ranks=grid, stage=s_me, shard=d_me, data_group=groups[s_me],
+        column_group=subgroup(col, tag="stage"),
+        prev_group=subgroup(prev_key, tag="stage") if prev_key else None,
+        next_group=subgroup(next_key, tag="stage") if next_key else None,
+        slice_group=groups[-1], axis=axis, stage_axis=stage_axis)
+
+
+def handoff(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """One pipeline hop on the two-rank *group* of neighbouring stages:
+    global rank *src* passes *t*, the other rank passes a buffer of the
+    same shape and dtype and gets it back filled (both call this, in the
+    same order).  It is a broadcast from *src*: gloo's point-to-point
+    send and recv take host tensors only, so on a gloo group a CUDA
+    tensor goes through host memory (the bytes, whatever the dtype);
+    NCCL takes it where it is."""
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        mine = dist.get_rank() == src
+        h = (t.detach().contiguous().to("cpu") if mine
+             else torch.empty(t.shape, dtype=t.dtype))
+        dist.broadcast(h.view(-1).view(torch.uint8), src=src, group=group)
+        return t if mine else t.copy_(h)
+    dist.broadcast(t.detach().contiguous().view(-1).view(torch.uint8) if
+                   dist.get_rank() == src else t.view(-1).view(torch.uint8),
+                   src=src, group=group)
+    return t

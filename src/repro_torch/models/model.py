@@ -457,6 +457,17 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
     {"per_job", "aux", "per_job_count"})."""
     logits, aux, _, off = forward(cfg, params, adapters, lora, batch,
                                   remat=remat)
+    return job_losses(cfg, logits, off, aux, lora, batch, per_job_denom)
+
+
+def job_losses(cfg: ModelConfig, logits: torch.Tensor, off: int,
+               aux: torch.Tensor, lora: Optional[MultiLoRA], batch: dict,
+               per_job_denom: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``loss_fn`` from the logits on: the per-job-separated loss of
+    *logits* (text offset *off*, the layers' summed *aux*) against
+    *batch*'s labels.  The pipeline step's last stage calls it on the
+    logits it computed from the stages' handoff."""
     labels = batch["labels"]
     if off:
         logits = logits[:, off:]

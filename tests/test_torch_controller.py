@@ -329,14 +329,16 @@ def test_calibration_warm_start_roundtrip(cfg, tmp_path):
          "nano_order", "grad_sync", "data_axis"])
 def test_multi_gpu_options_refused(cfg, kw, tmp_path):
     """The options the single-device controller refused as multi-GPU.
-    A ``tp_mode`` other than "dp" and pipeline stages still refuse
-    (ROADMAP A4, A2).  The rest now run over a pool of ranks and are
-    accepted and passed through to the engines: partition, a fixed
-    mesh, ``nano_order``, ``grad_sync`` and ``data_axis`` in a one-rank
-    gloo world, where the group is built on a one-rank mesh and trains
-    two steps; two devices on a world of two spawned gloo ranks, where
-    the pool partitions into one rank a group."""
-    if "tp_mode" in kw or "pipeline_stages" in kw:
+    A ``tp_mode`` other than "dp" and "pipeline" still refuses (ROADMAP
+    A4).  The rest now run over a pool of ranks and are accepted and
+    passed through to the engines: partition, a fixed mesh,
+    ``pipeline_stages``, ``nano_order``, ``grad_sync`` and ``data_axis``
+    in a one-rank gloo world, where the group is built on a one-rank
+    mesh and trains two steps; two devices on a world of two spawned
+    gloo ranks, where the pool partitions into one rank a group.  With
+    ``tp_mode="pipeline"`` a depth of 2 does not divide the one-rank
+    slice: refused at partition time, as in the reference."""
+    if "tp_mode" in kw:
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             _port(cfg, **kw)
         return
@@ -379,6 +381,12 @@ def test_multi_gpu_options_refused(cfg, kw, tmp_path):
         ctl.run(2)
         assert ctl.steps_done("a") == ctl.steps_done("b") == 2
         assert np.isfinite(np.asarray(rt.report.per_job_losses)).all()
+        if "pipeline_stages" in kw:
+            pipe = _port(cfg, tp_mode="pipeline", **kw)
+            pipe.submit(_spec("a", rank=4, bs=2))
+            with pytest.raises(ValueError,
+                               match="does not divide the group slice"):
+                pipe.ensure_group(("a",))
     finally:
         dist.destroy_process_group()
 

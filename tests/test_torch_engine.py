@@ -126,6 +126,10 @@ def test_engine_defaults_to_the_card(cfg):
     device given every runtime is built for "cuda"."""
     eng = ElasticEngine(cfg, params={}, block_t=BT)
     assert eng.device == "cuda" and eng._rt_kwargs["device"] == "cuda"
+    eng = ElasticEngine(cfg, params={}, mesh=object(), tp_mode="pipeline",
+                        pipeline_stages=2, device="cpu")
+    assert (eng._rt_kwargs["tp_mode"],
+            eng._rt_kwargs["pipeline_stages"]) == ("pipeline", 2)
     with pytest.raises(NotImplementedError):
-        ElasticEngine(cfg, params={}, mesh=object(), tp_mode="pipeline",
+        ElasticEngine(cfg, params={}, mesh=object(), tp_mode="auto",
                       device="cpu")

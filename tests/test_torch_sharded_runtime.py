@@ -268,9 +268,36 @@ def _cfg_and_specs():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(tp_mode="auto"), "A7c"), (dict(tp_mode="pipeline"), "A7b")])
+    pytest.param(dict(tp_mode="auto"), "A7c", id="kw0-A7c"),
+    pytest.param(dict(tp_mode="pipeline"), "pipeline_stages >= 2",
+                 id="kw1-A7b")])
 def test_tp_modes_other_than_dp_refuse(kw, match):
+    """"auto" waits for ROADMAP A4 (old A7c) everywhere.  "pipeline" (old
+    A7b) is ported and refuses what the reference refuses: no mesh, a
+    depth of 1, a depth that does not divide the scanned stack, and a
+    MoE model (A3); the engine passes it through."""
     cfg, jobs = _cfg_and_specs()
+    if kw["tp_mode"] == "pipeline":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            GroupRuntime.from_specs(cfg, jobs, impl="torch", block_t=8,
+                                    device="cpu", pipeline_stages=2, **kw)
+        eng = ElasticEngine(cfg, params={}, mesh=object(), device="cpu",
+                            pipeline_stages=2, **kw)
+        assert (eng._rt_kwargs["tp_mode"],
+                eng._rt_kwargs["pipeline_stages"]) == ("pipeline", 2)
+        ssm_ = SharedSuperModel(cfg, jobs, impl="torch", block_t=8)
+        with pytest.raises(ValueError, match=match):
+            ssm_.make_train_step(lr_fn=constant(1e-2), mesh=object(), **kw)
+        with pytest.raises(ValueError, match="legal pipeline depths"):
+            ssm_.make_train_step(lr_fn=constant(1e-2), mesh=object(),
+                                 pipeline_stages=4, **kw)
+        moe = dataclasses.replace(
+            get_config("qwen3-moe-30b-a3b").reduced(), dtype="float32")
+        with pytest.raises(NotImplementedError, match="A7d"):
+            SharedSuperModel(moe, jobs, impl="torch", block_t=8) \
+                .make_train_step(lr_fn=constant(1e-2), mesh=object(),
+                                 pipeline_stages=2, **kw)
+        return
     with pytest.raises(NotImplementedError, match=match):
         GroupRuntime.from_specs(cfg, jobs, impl="torch", block_t=8,
                                 device="cpu", **kw)

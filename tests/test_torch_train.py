@@ -442,17 +442,24 @@ def test_uniform_group_adapter_isolation(uniform_setup):
 
 # --------------------------------------------------------- refusals
 def test_make_train_step_refuses_what_is_not_ported():
-    """On every device: tensor-parallel meshes and pipeline stages
-    (ROADMAP A7c, A7b: multi-GPU).  Uniform layouts and nano batches
-    build."""
+    """Tensor-parallel meshes refuse (ROADMAP A4, old A7c: multi-GPU).
+    Pipeline stages (old A7b) are ported: without a mesh they are
+    ignored, as in the reference; on a mesh a depth of 1 or one that
+    does not divide the scanned stack is refused before the mesh is
+    touched.  Uniform layouts and nano batches build."""
     cfg = _cfgs("float32")[1]
     lr = constant(LR)
     ragged = SharedSuperModel(cfg, _specs(LoRAJobSpec), impl="cuda",
                               block_t=BT)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ragged.make_train_step(lr_fn=lr, mesh=object(), tp_mode="auto")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ragged.make_train_step(lr_fn=lr, pipeline_stages=2)
+    assert callable(ragged.make_train_step(lr_fn=lr, tp_mode="pipeline",
+                                           pipeline_stages=2))
+    with pytest.raises(ValueError, match="pipeline_stages >= 2"):
+        ragged.make_train_step(lr_fn=lr, mesh=object(), tp_mode="pipeline")
+    with pytest.raises(ValueError, match="legal pipeline depths"):
+        ragged.make_train_step(lr_fn=lr, mesh=object(), tp_mode="pipeline",
+                               pipeline_stages=3)
     uniform = SharedSuperModel(cfg, _specs(LoRAJobSpec, ranks=(4, 8, 16)),
                                impl="cuda", block_t=BT)
     assert uniform.layout.is_uniform

@@ -1,5 +1,8 @@
 """Rank side of the port's sharded tests (tests/test_torch_sharded_
-{parity,runtime}.py).  Imports torch and the port only, never JAX.
+{parity,runtime}.py, the controller's and the pipeline's:
+tests/test_torch_{controller,faults}_sharded.py,
+tests/test_torch_pipeline.py).  Imports torch and the port only, never
+JAX.
 
 ``main`` is the target of ``torch.multiprocessing.start_processes`` with
 the spawn method: each rank joins a gloo world through a ``file://``
@@ -44,6 +47,7 @@ JOBS = {
     "unequal": [("big", 4, 4), ("small", 8, 2)],
     "ab": [("a", 4, 4), ("b", 8, 4)],
     "rag": [("rag-a", 4, 4), ("rag-b", 64, 4)],
+    "pl": [("pl-a", 4, 8), ("pl-b", 64, 8)],
     "mig": [("mig-a", 4, 2), ("mig-b", 8, 2)],
 }
 
@@ -72,11 +76,13 @@ def flat(tree, path=()):
 
 
 def summary(rt) -> dict:
-    """What the tests compare of a finished runtime."""
+    """What the tests compare of a finished runtime (a pipeline's trees
+    assembled whole: a collective over its slice)."""
     rep = rt.report
+    adapters, opt = rt.whole_state()
     return {"losses": np.asarray(rep.per_job_losses, np.float64),
-            "adapters": flat(rt.adapters), "mu": flat(rt.opt_state.mu),
-            "nu": flat(rt.opt_state.nu),
+            "adapters": flat(adapters), "mu": flat(opt.mu),
+            "nu": flat(opt.nu),
             "step": rt.opt_state.step.cpu().numpy().tolist(),
             "steps_done": dict(rt.steps_done),
             "nano": list(rep.nano_history),
@@ -749,6 +755,274 @@ def ctl_pool_of_two(inputs):
             "steps": ctl.steps_done(CTL_GROUPS[0][0])}
 
 
+# ------------------------------------------------------- pipeline mode
+# The reference's pipeline scenarios (tests/sharded_worker.py:225-300,
+# tests/test_lossless.py's pipeline case) and the port's own, on the four
+# ranks of the world: P = 2 x D = 2 over the world, P = 2 x D = 1 on the
+# two 2-rank slices of ``partition_mesh([2, 2], stages=2)``.
+PIPE = dict(tp_mode="pipeline", pipeline_stages=2)
+PIPE_RUNS = {"g2_rank_desc": dict(nano_batches=2, nano_order="rank_desc"),
+             "g4_job": dict(nano_batches=4),
+             "psum2": dict(nano_batches=2, grad_sync="psum")}
+
+
+def pipe_world():
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(stages=2)
+
+
+def pipe_pairs():
+    """This rank's 2-rank slice, its stage groups made by every rank."""
+    from repro_torch.launch.mesh import partition_mesh
+    return partition_mesh([2, 2], stages=2)[dist.get_rank() // 2]
+
+
+def pipe_run(inputs, key, mesh, steps=2, **kw) -> dict:
+    """A pipeline run of job set *key*: its summary, its occupancy
+    counters and its step accounting."""
+    rt = runtime(inputs, key, mesh, impl="cuda", **dict(PIPE, **kw))
+    rt.run(steps)
+    m = rt.report.last_metrics
+    return dict(summary(rt), useful=np.asarray(m["pipe_useful_slots"]),
+                slots=np.asarray(m["pipe_slots"]), n=rt.n,
+                stages=rt.pipeline_stages, shards=rt.data_shards,
+                stage=rt._stage_idx)
+
+
+def pipe_parity(inputs):
+    """The mixed-rank set ("pl", ranks 4 and 64, batch 8) as P = 2 x
+    D = 2 over the world in three runs (gather N = 2 "rank_desc", gather
+    N = 4 "job", psum N = 2) and as P = 2 x D = 1 on each 2-rank slice;
+    beside each, the data-parallel run over the same data shards (D = 2
+    on a 2-rank slice, D = 1 on one rank) with the same N, nano order
+    and grad sync."""
+    from repro_torch.launch.mesh import partition_mesh
+    world = pipe_world()
+    assert world.shape == {"stage": 2, "data": 2}
+    out = {name: pipe_run(inputs, "pl", world, **kw)
+           for name, kw in PIPE_RUNS.items()}
+    pairs = partition_mesh([2, 2])[dist.get_rank() // 2]
+    out["dp"] = {name: run(inputs, "pl", 2, pairs, impl="cuda", **kw)
+                 for name, kw in PIPE_RUNS.items()}
+    out["d1"] = pipe_run(inputs, "pl", pipe_pairs(),
+                         **PIPE_RUNS["g2_rank_desc"])
+    ones = partition_mesh([1, 1, 1, 1])[dist.get_rank()]
+    out["dp1"] = run(inputs, "pl", 2, ones, impl="cuda",
+                     **PIPE_RUNS["g2_rank_desc"])
+    return out
+
+
+def pipe_uniform(inputs):
+    """The uniform set ("ab", ranks 4 and 8 in 8-wide segments: the
+    masked kernels' route), P = 2 x D = 2, gather N = 2, beside its D = 2
+    data-parallel run."""
+    from repro_torch.launch.mesh import partition_mesh
+    got = pipe_run(inputs, "ab", pipe_world(), nano_batches=2)
+    rt = runtime(inputs, "ab", pipe_world(), impl="cuda", **PIPE)
+    got["uniform"] = rt.ssm.layout.is_uniform
+    pairs = partition_mesh([2, 2])[dist.get_rank() // 2]
+    got["dp"] = run(inputs, "ab", 2, pairs, impl="cuda", nano_batches=2)
+    return got
+
+
+def tail_cfg():
+    """recurrentgemma-9b reduced and cut to 7 layers: a scanned 2-cycle
+    stack and an unscanned one-layer tail."""
+    return dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                               dtype="float32", num_layers=7)
+
+
+def pipe_unscanned_tail(inputs):
+    """P = 2 x D = 2 on the 7-layer recurrentgemma: the tail (segment 1)
+    runs on stage 1 only; after each step its adapter leaves and moments
+    are returned from every rank (the test holds them equal), and the
+    run's summary (against the meshless run at the bars)."""
+    cfg, w = tail_cfg(), inputs["tail"]
+    rt = GroupRuntime.from_specs(cfg, specs("ab"), params=w["params"],
+                                 adapters=w["adapters"], mesh=pipe_world(),
+                                 **dict(KW, impl="cuda", chunk_size=1,
+                                        nano_batches=2, **PIPE))
+    tails = []
+    for _ in range(2):
+        rt.run(1)
+        tails.append({"adapters": flat(rt.adapters["segments"][1]),
+                      "mu": flat(rt.opt_state.mu["segments"][1])})
+    return {"tails": tails, "run": summary(rt), "stage": rt._stage_idx}
+
+
+def pipe_residency(inputs):
+    """Each rank holds its stage's cycles of the scanned stack (backbone,
+    adapters, both moments) and nothing else of it, with the f32 and
+    with the int8 backbone (a QuantTensor's codes and scales cut
+    together), the latter then trained two steps."""
+    from repro_torch.models import quant
+    w = inputs["pl"]
+    out = {}
+    for qz in (None, "int8"):
+        rt = runtime(inputs, "pl", pipe_world(), impl="cuda",
+                     quantize=qz, nano_batches=2, **PIPE)
+        s = rt._stage_idx
+        full_p = quant.quantize_params(w["params"], qz)
+        seg_p, seg_f = rt.params["segments"][0], full_p["segments"][0]
+        leaves = {}
+        for k, t in flat_q(seg_p).items():
+            want = flat_q(seg_f)[k][s:s + 1]
+            leaves["params/" + k] = (list(t.shape), bool(torch.equal(
+                t, want)))
+        for part, tree, full in (
+                ("adapters", rt.adapters, w["adapters"]),
+                ("mu", rt.opt_state.mu, None), ("nu", rt.opt_state.nu, None)):
+            for k, t in flat_t(tree).items():
+                ok = True if full is None else bool(torch.equal(
+                    t, flat_t(full)[k][s:s + 1]))
+                leaves[f"{part}/{k}"] = (list(t.shape), ok)
+        out[str(qz)] = {"leaves": leaves, "stage": s,
+                        "quant": isinstance(seg_p["0"]["attn"]["wq"],
+                                            quant.QuantTensor)}
+        if qz:
+            rt.run(2)
+            out["int8_run"] = summary(rt)
+    return out
+
+
+def flat_t(tree, path=()):
+    """{key path: tensor} of a nested dict/list tree of tensors."""
+    if isinstance(tree, dict):
+        return {p: v for k, t in tree.items()
+                for p, v in flat_t(t, path + (k,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in flat_t(t, path + (str(i),)).items()}
+    return {"/".join(path): tree}
+
+
+def flat_q(tree):
+    """``flat_t`` with a QuantTensor's codes and scales as two leaves."""
+    from repro_torch.models.quant import QuantTensor
+    out = {}
+    for k, v in flat_t(tree).items():
+        if isinstance(v, QuantTensor):
+            out[k + "/q"], out[k + "/scale"] = v.q, v.scale
+        else:
+            out[k] = v
+    return out
+
+
+def pipe_legality(inputs):
+    """The reference's contracts: a requested N below the depth snaps to
+    a legal count; a depth that does not divide the slice, or the
+    stack, and a depth of 1 raise ValueError naming the problem; every
+    rank raises the same."""
+    from repro_torch.launch.mesh import make_local_mesh
+    rt = runtime(inputs, "pl", pipe_world(), impl="cuda", nano_batches=1,
+                 **PIPE)
+    out = {"snapped": rt.n, "legal_n1": None}
+    errs = {}
+    for name, kw in (("slice", dict(pipeline_stages=3)),
+                     ("stack", dict(pipeline_stages=4)),
+                     ("depth1", dict(pipeline_stages=1))):
+        try:
+            runtime(inputs, "pl", make_local_mesh(), impl="cuda",
+                    tp_mode="pipeline", **kw)
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    out["errors"] = errs
+    return out
+
+
+def pipe_migration(inputs):
+    """solo k -> fused with a rank-64 peer into a P = 2 x D = 2 group k
+    -> extracted and solo again k (tests/test_lossless.py's pipeline
+    case): the stitched trajectory and the final state against solo
+    throughout, the rank-4 job's slices 4 wide, Adam steps exact."""
+    cfg, params, k = cfg_f32(), inputs["pmig"]["params"], 2
+    kw = dict(KW, impl="cuda")
+
+    def st(i):
+        return copy.deepcopy(inputs["pmig"]["states"][i])
+    ref = GroupRuntime.from_states(cfg, params, [st(0)], **kw)
+    ref_losses = [l[0] for l in ref.run(3 * k).per_job_losses]
+    ra = GroupRuntime.from_states(cfg, params, [st(0)], **kw)
+    ra.run(k)
+    rb = GroupRuntime.from_states(cfg, params, [st(1)], **kw)
+    rb.run(k)
+    merged = GroupRuntime.from_states(
+        cfg, params, [ra.export("small"), rb.export("wide")],
+        mesh=pipe_world(), nano_batches=2, **dict(kw, **PIPE))
+    step0 = merged.opt_state.step.tolist()
+    merged.run(k)
+    small = merged.export("small")
+    widths = sorted({int(v.shape[-1] if n.endswith("A") else v.shape[-2])
+                     for n, v in small.adapter.items()})
+    back = GroupRuntime.from_states(cfg, params, [small], **kw)
+    back.run(k)
+    got = ([l[0] for l in ra.report.per_job_losses]
+           + [l[0] for l in merged.report.per_job_losses]
+           + [l[0] for l in back.report.per_job_losses])
+    have, want = back.export("small"), ref.export("small")
+    return {"got": np.asarray(got), "ref": np.asarray(ref_losses),
+            "step0": step0, "n": merged.n, "widths": widths,
+            "merged_opt_step": small.opt_step,
+            "opt_step": (have.opt_step, want.opt_step),
+            "steps_done": (have.steps_done, want.steps_done),
+            "adapter": flat(have.adapter), "ref_adapter": flat(want.adapter),
+            "mu": flat(have.mu), "ref_mu": flat(want.mu),
+            "nu": flat(have.nu), "ref_nu": flat(want.nu)}
+
+
+def pipe_engine(inputs):
+    """``ElasticEngine(tp_mode="pipeline")`` over the world: the "ab"
+    group trained two steps, then a job removed (every rank exports)."""
+    from repro_torch.elastic.engine import ElasticEngine
+    w = inputs["ab"]
+    eng = ElasticEngine(cfg_f32(), params=w["params"], impl="cuda",
+                        block_t=BT, lr=LR, remat=False, chunk_size=2,
+                        mesh=world_mesh(), nano_batches=2, device="cpu",
+                        **PIPE)
+    for s in specs("ab"):
+        eng.add_job(s, init_seed=11)
+    rt = eng.ensure_group(("a", "b"))
+    assert rt.pipeline_stages == 2 and rt.data_shards == 2
+    rt.run(2)
+    out = summary(rt)
+    st = eng.remove_job("a")
+    out["removed"] = (st.opt_step, st.steps_done, flat(st.adapter))
+    return out
+
+
+def pipe_controller(inputs):
+    """``ClusterController(partition=True, tp_mode="pipeline",
+    pipeline_stages=2)``: CTL_GROUPS on the two 2-rank slices (P = 2 x
+    D = 1 each), run 4 steps; this rank's group's losses, the job
+    states and the decisions.  Then a depth of 3 refused at partition
+    time, on every rank."""
+    ctl = controller("threads", partition=True, **PIPE)
+    admit(ctl, inputs, [j for j, _ in CTL_JOBS])
+    ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    g, rt = local_group(ctl, CTL_GROUPS)
+    assert rt.pipeline_stages == 2 and rt.data_shards == 1
+    ctl.run(4)
+    out = {"gkey": g, "n": rt.n, "stage": rt._stage_idx,
+           "losses": {"+".join(k): [first_losses(ctl, k, j)
+                                    for j in range(2)]
+                      for k in CTL_GROUPS},
+           "states": {j: state_of(ctl.job_state(j)) for j, _ in CTL_JOBS},
+           "decisions": decisions(ctl)}
+    bad = controller("sequential", partition=True, tp_mode="pipeline",
+                     pipeline_stages=3)
+    admit(bad, inputs, CTL_GROUPS[0])
+    try:
+        bad.apply_grouping([CTL_GROUPS[0]], chips=[2])
+        out["depth3"] = None
+    except ValueError as e:
+        out["depth3"] = str(e)
+    return out
+
+
+PIPELINE = ["pipe_parity", "pipe_uniform", "pipe_unscanned_tail",
+            "pipe_residency", "pipe_legality", "pipe_migration",
+            "pipe_engine", "pipe_controller"]
 CONTROLLER = ["ctl_concurrent_parity", "ctl_repartition_migration",
               "ctl_overlapped_migration", "ctl_fixed_mesh",
               "ctl_execution_backend", "ctl_trace"]
