@@ -210,7 +210,20 @@ each on standard output:
             x N), every rank's losses and the resident backbone bytes
             (at least 40% below the meshless run's), all asserted;
             walls, rank 0's idle share and peak memory recorded as ranks
-            sharing one card.
+            sharing one card;
+  tensor_parallel — tensor parallelism (``tp_mode="auto"``) and the MoE
+            over every mesh, two gloo ranks on cuda:0: full-width
+            tinyllama-1.1b cut to 4 layers at data 1 x model 2 (the train
+            and uniform groups: B1-B8 on the split projections, B9 on
+            H/2 heads), full-width qwen3-moe-30b-a3b cut to 2 layers at
+            data 1 x model 2 (64 experts a rank, capacity and ragged),
+            and qwen3-moe through "dp" (data 2) and "pipeline" (P = 2,
+            4 layers).  Each run's step 1 against meshless (losses within
+            0.02, adapter gradients at 2^-6), a row-parallel partial left
+            out that the limit must catch, every rank's adapters equal,
+            launches a rank and the resident backbone (at least 40%
+            below meshless where it is split), all asserted; walls, rank
+            0's idle share and peak memory recorded.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's and their times at the recurrent widths; the
@@ -239,7 +252,11 @@ only the ``sharded`` phase, and
 
     python3 chip_smoke.py --pipeline
 
-only the ``pipeline_mode`` phase.
+only the ``pipeline_mode`` phase, and
+
+    python3 chip_smoke.py --tensor-parallel
+
+only the ``tensor_parallel`` phase.
 
     python3 chip_smoke.py --floors
 
@@ -5395,7 +5412,8 @@ def pipeline_mode_runs(rank, cfg, dev) -> dict:
         rt = make_rt()
         rt.warm([1])
         torch.cuda.reset_peak_memory_stats()
-        dist.barrier(group=rt._slice_group)
+        for g in rt._sync_groups:
+            dist.barrier(group=g)
         prof, mu1 = {}, {}
 
         def steps():
@@ -5566,6 +5584,422 @@ def pipeline_mode_phase(src, cfg):
     return launches
 
 
+# ------------------------------------------------------- tensor_parallel
+# Tensor parallelism (tp_mode="auto") and the MoE over every mesh, on
+# TP_RANKS gloo ranks sharing cuda:0: (a) tinyllama-1.1b at full width cut
+# to 4 layers, data 1 x model 2, the train group (ragged kernels, B9 on
+# H/2 heads) and the uniform group (masked kernels); (b) qwen3-moe-30b-a3b
+# at full width cut to 2 layers, data 1 x model 2 (64 of its 128 experts
+# a rank), the capacity and the ragged dispatch; (c) qwen3-moe through
+# tp_mode="dp" (data 2, gather) at 2 layers and "pipeline" (P = 2, N = 2)
+# at 4.  Every rank first trains the meshless steps of each group (rank 0
+# holds the runs against them; a fresh rank's first steps are the slow
+# ones).  Each run: step 1's per-job losses within LOSS_ATOL of meshless;
+# step 1's adapter gradients (Adam's first moments) per leaf and job,
+# under "auto" against meshless within the larger of SHARD_GRAD_RTOL and
+# twice the floor (``against_floor``: meshless against meshless with the
+# adapters nudged by 2^-9, same run), since a row-parallel product's f32
+# sum adds in another order than the whole product's and the rounding
+# spreads through the norms (``tp_forward_probe``); under "dp" and
+# "pipeline" within SHARD_GRAD_RTOL of the per-shard function they
+# compute (``per_shard_step``: the MoE aux of each data shard or micro,
+# ROADMAP C8); every rank's adapters bit-equal; launches a rank those of
+# the cut config's pattern (a stage's under "pipeline"); and, where the
+# backbone is split, its resident bytes at least TP_RESIDENT_CUT below
+# meshless.  TP_PLANTED is rerun for one step with rank 1's partial of
+# layer 0's first row-parallel product (wo) left out of its all-reduce,
+# which must read above the run's gradient limit.
+TP_RANKS = 2
+TP_STEPS = 2
+TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
+    ("tl_train", "tinyllama-1.1b", 4, None, "train", {"tp_mode": "auto"}),
+    ("tl_uniform", "tinyllama-1.1b", 4, None, "uniform",
+     {"tp_mode": "auto"}),
+    ("moe_capacity", "qwen3-moe-30b-a3b", 2, "capacity", "train",
+     {"tp_mode": "auto"}),
+    ("moe_ragged", "qwen3-moe-30b-a3b", 2, "ragged", "train",
+     {"tp_mode": "auto"}),
+    ("moe_dp", "qwen3-moe-30b-a3b", 2, "ragged", "train", {"tp_mode": "dp"}),
+    ("moe_pipeline", "qwen3-moe-30b-a3b", 4, "ragged", "train",
+     {"tp_mode": "pipeline", "pipeline_stages": 2, "nano_batches": 2}))
+TP_PLANTED = "tl_train"
+TP_RESIDENT_CUT = 0.40
+
+
+def tp_cfg(arch, layers, moe_impl=None):
+    """A registry config at full width cut to *layers* layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    return dataclasses.replace(cfg, moe_impl=moe_impl) if moe_impl else cfg
+
+
+def per_shard_step(cfg, params, specs, adapters, dev, parts: int = 2):
+    """Step 1's (per-job losses, Adam first moments) of the function a
+    data-parallel step over *parts* shards (or a pipeline over as many
+    micros) computes, on one device: the meshless step's update over the
+    job-wise halves of its first batch (``core/ssm._nano_index``: shard
+    or micro i holds rows [i·r/parts, (i+1)·r/parts) of every job), each
+    with the global denominators and its own MoE aux."""
+    import torch
+    from repro_torch.core.ssm import (SharedSuperModel, _nano_index,
+                                      _per_job_token_counts)
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=TRAIN_BLOCK_T)
+    fb = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in fb.next_batch().items()}
+    idx = torch.as_tensor(_nano_index(fb.rows_per_job(), parts),
+                          device=dev).reshape(parts, -1)
+    slices = []
+    for sel in idx:
+        nb = {k: v.index_select(0, sel) for k, v in batch.items()}
+        slices.append((nb, ssm.lora_ctx(nb["adapter_ids"])))
+    denom = _per_job_token_counts(batch, len(specs), causal=cfg.causal)
+    _, opt, m = ssm._update(params, adapters,
+                            adamw.init(adapters, per_job=len(specs)), denom,
+                            slices, constant(TRAIN_LR), True, 0.0)
+    return m["per_job_loss"].cpu().numpy(), opt.mu
+
+
+def _planted_row_proj():
+    """A stand-in for ``models/attention.row_proj`` that leaves this
+    rank's partial of the first row-parallel product out of its sum (its
+    wo block zeroed for that call)."""
+    import torch
+    from repro_torch.models import attention as A
+    real, seen = A.row_proj, [0]
+
+    def row_proj(tp, h, w, lora=None, ab=None):
+        seen[0] += 1
+        return real(tp, h, torch.zeros_like(w) if seen[0] == 1 else w,
+                    lora, ab)
+    return real, row_proj
+
+
+def _ranks_equal(tree) -> bool:
+    """Whether every rank holds the same bits of *tree* (a max and a min
+    over the world of its flattened leaves, on the host)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import tree_leaves
+    flat = torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in tree_leaves(tree)])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def tp_forward_probe(cfg, params, mesh, dev) -> dict:
+    """Where a tensor-parallel forward parts from the meshless one, piece
+    by piece on layer 0 of *cfg* (no adapters) at the train group's
+    batch: this rank's block of each column-parallel product against
+    the same columns of the whole product, the row-parallel products'
+    f32 sum against the whole product, the vocab-split lookup and head,
+    attention and the whole block.  For each: the share of elements
+    that differ and the largest difference (every rank calls it: the
+    pieces make the phase's collectives)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.launch.mesh import model_group
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import attn_block
+    from repro_torch.models.layers import ModelAxis, dense, rms_norm
+    from repro_torch.sharding.rules import shard_params
+    tp = ModelAxis(*model_group(mesh))
+    specs = train_specs(TRAIN_RANKS, prefix="probe")
+    batch = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                         seed=1).next_batch()
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    loc = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
+                       tp.index)
+    first = lambda tree: M._tree_map(lambda v: v[0], tree)
+    p, q = first(params["segments"][0]["0"]), first(loc["segments"][0]["0"])
+
+    def diff(got, want):
+        d = (got.float() - want.float()).abs()
+        return {"differing": (d > 0).float().mean().item(),
+                "max_abs": d.max().item()}
+    out = {}
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+        out["embed"] = diff(M.embed_inputs(cfg, loc, {"tokens": tokens},
+                                           tp=tp)[0], x)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        for name, w, wl in (("wq", p["attn"]["wq"], q["attn"]["wq"]),
+                            ("gate", p["ffn"]["gate"], q["ffn"]["gate"])):
+            full = dense(h, w)
+            out[f"column_{name}"] = diff(
+                tp.column(h, wl), full[..., tp.block(full.shape[-1])])
+        a = dense(h, p["attn"]["wq"])
+        out["row_wo"] = diff(tp.row(a[..., tp.block(a.shape[-1])],
+                                    q["attn"]["wo"]), dense(a, p["attn"]["wo"]))
+        g = F.silu(dense(h, p["ffn"]["gate"]).float()).to(h.dtype) \
+            * dense(h, p["ffn"]["up"])
+        out["row_down"] = diff(tp.row(g[..., tp.block(g.shape[-1])],
+                                      q["ffn"]["down"]),
+                               dense(g, p["ffn"]["down"]))
+        pos = torch.arange(h.shape[1], device=dev)[None].expand(
+            h.shape[0], -1)
+        spec = M.segment_plan(cfg)[0].specs[0]
+        out["attention"] = diff(
+            attn_block(cfg, q["attn"], h, positions=pos, tp=tp)[0],
+            attn_block(cfg, p["attn"], h, positions=pos)[0])
+        out["block"] = diff(
+            M.apply_block(cfg, spec, q, {}, None, x, pos, None, None,
+                          tp=tp)[0],
+            M.apply_block(cfg, spec, p, {}, None, x, pos, None, None)[0])
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        full = dense(x, head)
+        out["head"] = diff(M._logits(cfg, loc, x, tp=tp),
+                           full[..., tp.block(full.shape[-1])])
+    return out
+
+
+def tensor_parallel_runs(rank, dev) -> dict:
+    """One rank's part of the tensor_parallel phase: TP_RUNS through
+    ``GroupRuntime`` from the seeds every rank shares, each held to the
+    bars of the block comment above; rank 0's second step of the first
+    run profiled.  Raises on a failed check, after returning what it
+    measured to the caller's file."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T, chunk_size=1,
+              remat=True, seed=0, device=dev)
+    meshes = {"auto": mesh_mod.make_local_mesh(model=TP_RANKS),
+              "dp": mesh_mod.make_local_mesh(),
+              "pipeline": mesh_mod.make_local_mesh(stages=TP_RANKS)}
+    out = {"rank": rank, "runs": {}}
+    failed = []
+    held = {}                 # config key -> (cfg, params, references)
+    for i, (name, arch, layers, impl, grp, opts) in enumerate(TP_RUNS):
+        key = (arch, layers, impl)
+        if key not in held:
+            held.clear()
+            torch.cuda.empty_cache()
+            cfg = tp_cfg(arch, layers, impl)
+            params = M.init_model(cfg, seed=0, device=dev)
+            held[key] = (cfg, params, {})
+            if i == 0:
+                out["forward_probe"] = tp_forward_probe(
+                    cfg, params, meshes["auto"], dev)
+        cfg, params, solos = held[key]
+        ranks = SHARDED_GROUPS[grp]
+        specs = train_specs(ranks, prefix=f"tp-{grp}")
+        layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+        adapters = train_adapters(cfg, ranks, layout, dev)
+        mode = opts["tp_mode"]
+        if grp not in solos:
+            # every rank takes the meshless steps; rank 0 holds the runs
+            got = []
+            for ad in (adapters, nudged(adapters, dev)):
+                solo = GroupRuntime.from_specs(cfg, specs, params=params,
+                                               adapters=ad, **kw)
+                solo.run(1)
+                got.append((np.stack(solo.report.per_job_losses)[0],
+                            _first_moments(solo)))
+            solos[grp] = (got[0][0], got[0][1], tree_bytes(solo.params),
+                          _grad_rel(got[1][1], got[0][1], layout))
+            del solo
+        if mode != "auto" and (grp, "shards") not in solos:
+            solos[(grp, "shards")] = per_shard_step(cfg, params, specs,
+                                                    adapters, dev)
+        mesh = meshes[mode]
+
+        def make_rt():
+            return GroupRuntime.from_specs(cfg, specs, params=params,
+                                           adapters=adapters, mesh=mesh,
+                                           **dict(kw, **opts))
+        rt = make_rt()
+        rt.warm([1])
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        prof, mu1 = {}, {}
+
+        def steps():
+            rt.run(1)
+            mu1["mu"] = rt.whole_state()[1].mu
+            for k in range(1, TP_STEPS):
+                if i == 0 and rank == 0 and k == TP_STEPS - 1:
+                    prof["one_step"] = profile_run(lambda: rt.run(1))
+                else:
+                    rt.run(1)
+        t0 = time.perf_counter()
+        _, launches = counted(steps)
+        wall = time.perf_counter() - t0
+        losses = np.stack(rt.report.per_job_losses)
+        P = rt.pipeline_stages
+        expect = {k: v * rt.n for k, v in pattern_launches(
+            dataclasses.replace(cfg, num_layers=layers // P),
+            masked=grp == "uniform").items()}
+        split = opts["tp_mode"] != "dp"
+        res = {"arch": arch, "layers": layers, "moe_impl": impl,
+               "group": grp, "ranks": list(ranks), "options": opts,
+               "model_axis": list(rt.model_axis),
+               "data_shards": rt.data_shards, "stages": P, "nano": rt.n,
+               "per_step_per_job_loss": losses.tolist(),
+               "step_times_s": rt.report.step_times, "wall_s": wall,
+               "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+               "resident_backbone_bytes": tree_bytes(rt.params),
+               "adapters_equal_on_every_rank": _ranks_equal(
+                   rt.whole_state()[0]),
+               "launches": launches, "expected_launches_per_step": expect}
+        if prof:
+            res["profile_last_step"] = prof["one_step"]
+        if not res["adapters_equal_on_every_rank"]:
+            failed.append(f"{name} (adapters differ across ranks)")
+        want_loss, want_mu, solo_bytes, floor = solos[grp]
+        if mode != "auto":        # the function over the shards or micros
+            want_mu, floor = solos[(grp, "shards")][1], 0.0
+        limit = against_floor(0.0, floor, SHARD_GRAD_RTOL)["limit"]
+        if rank == 0:
+            vs = {"step1_loss_abs_diff": float(np.abs(
+                      losses[0] - want_loss).max()),
+                  "grads_against": "meshless" if mode == "auto"
+                  else "per_shard_step",
+                  "step1_grad": against_floor(
+                      _grad_rel(mu1["mu"], want_mu, rt.ssm.layout), floor,
+                      SHARD_GRAD_RTOL),
+                  "meshless_backbone_bytes": solo_bytes}
+            if mode != "auto":
+                vs["per_shard_loss_abs_diff"] = float(np.abs(
+                    losses[0] - solos[(grp, "shards")][0]).max())
+            vs["loss_ok"] = vs["step1_loss_abs_diff"] <= LOSS_ATOL
+            vs["resident_ok"] = (not split or res["resident_backbone_bytes"]
+                                 <= (1 - TP_RESIDENT_CUT) * solo_bytes)
+            vs["ok"] = (vs["loss_ok"] and vs["step1_grad"]["ok"]
+                        and vs["resident_ok"])
+            res["vs_meshless"] = vs
+            if not vs["ok"]:
+                failed.append(name)
+        del rt
+        if name == TP_PLANTED:
+            real, planted = _planted_row_proj()
+            if rank == 1:
+                A.row_proj = planted
+            try:
+                bad = make_rt()
+                bad.run(1)
+                mu = bad.opt_state.mu
+            finally:
+                A.row_proj = real
+            if rank == 0:
+                rel = _grad_rel(mu, want_mu, bad.ssm.layout)
+                res["planted_partial_left_out"] = {
+                    "step1_grad_rel": rel, "limit": limit,
+                    "caught": rel > limit}
+                if not res["planted_partial_left_out"]["caught"]:
+                    failed.append(f"{name} (planted fault not caught)")
+            del bad
+        out["runs"][name] = res
+        check_launches(f"tensor_parallel {name} rank {rank}", launches,
+                       TP_STEPS, expect)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"tensor_parallel {name}: losses {losses}")
+        torch.cuda.empty_cache()
+        dist.barrier()
+    out["failed"] = failed
+    return out
+
+
+def tensor_parallel_rank(rank, world, init_method, src, out_path):
+    """A spawned gloo rank of the tensor_parallel phase: joins the world
+    on cuda:0, runs ``tensor_parallel_runs`` and writes its results to
+    *out_path* % rank, then raises if a check failed."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_mesh(rank, world, init_method, "gloo")
+    out = tensor_parallel_runs(rank, dev)
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if out["failed"]:
+        raise AssertionError(f"tensor_parallel rank {rank}: "
+                             f"{out['failed']}")
+
+
+def tensor_parallel_phase(src):
+    """TP_RANKS gloo ranks spawned onto cuda:0 run TP_RUNS
+    (``tensor_parallel_runs``); the parent holds every rank's losses of a
+    run equal and emits the walls, rank 0's idle share, every rank's
+    peak memory, resident backbone bytes and launches.  The ranks share
+    one H100: no time here is a multi-GPU number.  Returns the launches
+    of every rank, summed."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="tensor-parallel-",
+                           dir=os.path.join(ROOT, "build"))
+    out_path = os.path.join(tmp, "%d.json")
+    t0 = time.perf_counter()
+    err = None
+    try:
+        mp.start_processes(tensor_parallel_rank, args=(
+            TP_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
+            nprocs=TP_RANKS, join=True, start_method="spawn")
+    except Exception as e:            # emit what the ranks wrote first
+        err = e
+    ranks = []
+    for r in range(TP_RANKS):
+        if os.path.exists(out_path % r):
+            with open(out_path % r) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len(ranks) < TP_RANKS:
+        emit({"phase": "tensor_parallel_failed", "by_rank": ranks})
+        raise AssertionError(f"tensor_parallel: {len(ranks)} of {TP_RANKS} "
+                             "ranks finished") from err
+    launches = {}
+    for r in ranks:
+        for run in r["runs"].values():
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    agree = {}
+    for name, *_ in TP_RUNS:
+        got = [r["runs"][name]["per_step_per_job_loss"] for r in ranks]
+        agree[name] = all(g == got[0] for g in got[1:])
+    r0 = ranks[0]
+    emit({"phase": "tensor_parallel", "ranks": TP_RANKS,
+          "steps_a_run": TP_STEPS,
+          "groups": {g: [{"rank": k, "batch_size": TRAIN_BATCH,
+                          "seq_len": TRAIN_SEQ} for k in rk]
+                     for g, rk in SHARDED_GROUPS.items()},
+          "block_t": TRAIN_BLOCK_T, "step1_grad_rtol": SHARD_GRAD_RTOL,
+          "step1_loss_atol": LOSS_ATOL,
+          "note": "the ranks share one H100: no time here is a multi-GPU "
+                  "number",
+          "seconds": seconds, "losses_equal_on_every_rank": agree,
+          "rank0_idle_share_step": r0["runs"][TP_RUNS[0][0]].get(
+              "profile_last_step", {}).get("device_idle_share"),
+          "by_rank": ranks, "launches": launches, "card": card_line()})
+    if not all(agree.values()):
+        raise AssertionError(f"tensor_parallel: ranks report different "
+                             f"losses: {agree}")
+    if err is not None:
+        raise err
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -5584,6 +6018,8 @@ def main() -> int:
                     "the cluster_sharded phase (cluster_sharded_phase)")
     ap.add_argument("--pipeline", action="store_true", help="only the "
                     "pipeline_mode phase (pipeline_mode_phase)")
+    ap.add_argument("--tensor-parallel", action="store_true", help="only "
+                    "the tensor_parallel phase (tensor_parallel_phase)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -5638,6 +6074,9 @@ def main() -> int:
     if args.pipeline:
         pipeline_mode_phase(os.path.abspath(args.src),
                             get_config("tinyllama-1.1b"))
+        return 0
+    if args.tensor_parallel:
+        tensor_parallel_phase(os.path.abspath(args.src))
         return 0
 
     cfg = get_config("tinyllama-1.1b")
@@ -5702,6 +6141,8 @@ def main() -> int:
         os.path.abspath(args.src), cfg)
     counts["pipeline_mode"] = pipeline_mode_phase(
         os.path.abspath(args.src), cfg)
+    counts["tensor_parallel"] = tensor_parallel_phase(
+        os.path.abspath(args.src))
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

@@ -103,8 +103,10 @@ fails there, on every rank, with the divisor-naming error, and every
 rank makes each slice's stage groups; the group's engine carves its
 stage mesh from them.  A live job's state is then assembled over the
 slice, so every rank of it exports (``job_state``).  ``tp_mode="auto"``
-stays refused (ROADMAP A4), and so does a MoE model over a mesh (A3,
-raised by the sharded and pipeline steps).
+runs, on the pool's 1-D slices, the data-parallel step over the slice's
+axis: the reference's slices have no model axis (``launch/mesh.py:85``,
+``controller.py:186``); on a ``fixed_mesh`` with a "model" axis it is
+the tensor-parallel step.  A MoE model runs in every mode.
 
 An ``OnlineCalibrator`` (core/throughput) can be attached: every
 measured step AND every measured regroup stall feeds it (on a pool, the
@@ -134,7 +136,7 @@ from repro_torch.core import throughput as tp
 from repro_torch.core.jobs import JobRuntimeState, LoRAJobSpec
 from repro_torch.core.lora import pad_rank
 from repro_torch.core.scheduler import AdapterScheduler, Group, SchedulerConfig
-from repro_torch.core.ssm import TP_MODES
+from repro_torch.core.ssm import check_tp_mode
 from repro_torch.elastic.engine import ElasticEngine
 from repro_torch.elastic.migrate import JobTrainState, broadcast_states
 from repro_torch.elastic.runtime import GroupRuntime, TrainReport
@@ -144,9 +146,6 @@ from repro_torch.models import model as M
 from repro_torch.models import quant
 
 GroupKey = Tuple[str, ...]
-NO_TP_MODES = ("tensor-parallel group execution on the multi-GPU pool "
-               "(tp_mode 'auto') is not ported yet (ROADMAP A4); the "
-               "pool runs tp_mode 'dp' and 'pipeline'")
 NO_SHARED_PUMPS = ("concurrent pumps on one fixed mesh: its ranks share one "
                    "process group, and gloo and NCCL do not order two "
                    "threads' collectives on one group; run the groups in "
@@ -270,8 +269,7 @@ class ClusterController:
                  backoff_max_s: float = 30.0,
                  stuck_after: Optional[float] = 300.0,
                  startup_grace_s: float = 120.0, device="cuda"):
-        if tp_mode not in TP_MODES:
-            raise NotImplementedError(NO_TP_MODES)
+        check_tp_mode(tp_mode)
         self.cfg_of = cfg_of
         # the pool: the world's ranks, pool index i = rank i
         world = dist.is_initialized()

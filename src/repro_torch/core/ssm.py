@@ -30,8 +30,14 @@ each stage holds its run of the scanned layer stack, and the jobs'
 job-wise nano slices are the micro-batches of one GPipe schedule.
 ``pipeline_legal_stages``, ``scanned_segment_index`` and
 ``stage_slices`` say which depths a config allows and which leaves a
-stage holds.  Refused where asked for: ``tp_mode="auto"`` (tensor
-parallelism, ROADMAP A4) and a MoE model over a mesh (A3).
+stage holds.  With ``tp_mode="auto"`` it is the reference's tensor
+parallel step: rows over the mesh's "data" axis only, and over its
+"model" axis Megatron 1-D tensor parallelism of the backbone (each rank
+holds the slices ``sharding/rules.shard_params`` gives it: column
+parallel q/k/v/gate/up, row parallel o/down, vocab-split embedding and
+head, E/m experts a rank), the adapters and their Adam state whole on
+every rank.  A MoE model runs through every mode: per shard (or micro)
+under "dp" and "pipeline", expert parallel under "auto".
 """
 from __future__ import annotations
 
@@ -50,19 +56,38 @@ from repro_torch.core.lora import MultiLoRA, RankLayout
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
-NO_AUTO_TP = ("tensor-parallel group execution (tp_mode='auto') is not "
-              "ported yet (ROADMAP A4, old A7c: multi-GPU tensor "
-              "parallelism)")
-TP_MODES = ("dp", "pipeline")
+TP_MODES = ("dp", "auto", "pipeline")
 
 
 def check_tp_mode(tp_mode: str) -> None:
-    """Refuse what the port does not run over a mesh: the data-parallel
-    ``tp_mode="dp"`` and ``"pipeline"`` are ported, ``"auto"`` is not."""
-    if tp_mode == "auto":
-        raise NotImplementedError(NO_AUTO_TP)
+    """Refuse a tp_mode the reference does not have."""
     if tp_mode not in TP_MODES:
         raise ValueError(f"unknown tp_mode {tp_mode!r}")
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int,
+                          quantize: Optional[str] = None) -> None:
+    """Refuse, naming the ROADMAP line, what tensor parallelism over a
+    model axis of *model* > 1 ranks does not run: the int8 backbone
+    (its quant leaves are not in the rules, A8b), MLA, SSD, RG-LRU and
+    the front ends (A8c), and head counts the axis does not divide (the
+    divisibility drop would otherwise split a head, A4)."""
+    if model <= 1:
+        return
+    if quantize is not None:
+        raise NotImplementedError(
+            "an int8 backbone under tensor parallelism is not ported "
+            "(ROADMAP A8b: its quant leaves are not in the sharding rules)")
+    kinds = {s.mixer for s in M.layer_specs(cfg)}
+    if kinds - {"attn", "local_attn"} or cfg.use_mla or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"{cfg.name} under tensor parallelism is not ported (ROADMAP "
+            "A8c: MLA, SSD, RG-LRU and the front ends over a model axis)")
+    if cfg.num_heads % model or cfg.num_kv_heads % model:
+        raise ValueError(
+            f"{cfg.name}: a model axis of {model} does not divide its "
+            f"{cfg.num_heads} query and {cfg.num_kv_heads} kv heads; the "
+            "divisibility drop would split a head (ROADMAP A4)")
 
 
 @dataclass
@@ -177,7 +202,8 @@ class SharedSuperModel:
                         steps: Optional[int] = None, mesh=None,
                         grad_sync: str = "gather", tp_mode: str = "dp",
                         pipeline_stages: int = 1,
-                        nano_order: str = "job") -> Callable:
+                        nano_order: str = "job",
+                        data_axis: str = "data") -> Callable:
         """Build the fused train step: per-job-normalized loss, adapter
         grads by autograd through the kernels' Functions, one AdamW
         update with per-job step vectors over packed columns.
@@ -205,9 +231,12 @@ class SharedSuperModel:
         ``tp_mode="pipeline"`` with ``pipeline_stages`` P returns the
         stage-partitioned step (``_make_pipeline_step``); it takes this
         rank's data shard's rows and this stage's slice of the trees
-        (``stage_slices``).  Without a mesh ``tp_mode`` and
-        ``pipeline_stages`` are ignored, as in the reference; on a mesh
-        ``tp_mode="auto"`` is refused (``check_tp_mode``)."""
+        (``stage_slices``).  ``tp_mode="auto"`` returns the tensor
+        parallel step: rows over *data_axis* only, and the backbone over
+        the mesh's "model" axis (``_make_sharded_step``); it takes this
+        rank's data shard's rows and its model slices of the backbone
+        (``sharding/rules.shard_params``).  Without a mesh ``tp_mode``
+        and ``pipeline_stages`` are ignored, as in the reference."""
         assert nano_order in ("job", "rank_desc"), nano_order
         if mesh is not None:
             check_tp_mode(tp_mode)
@@ -220,7 +249,8 @@ class SharedSuperModel:
             return self._make_sharded_step(
                 lr_fn=lr_fn, nano_batches=nano_batches, remat=remat,
                 weight_decay=weight_decay, steps=steps, mesh=mesh,
-                grad_sync=grad_sync, nano_order=nano_order)
+                grad_sync=grad_sync, nano_order=nano_order,
+                tp_mode=tp_mode, data_axis=data_axis)
         cfg, K = self.cfg, self.num_jobs
 
         def train_step(params, adapters, opt_state, batch):
@@ -233,7 +263,7 @@ class SharedSuperModel:
         return train_step if steps is None else _chunked(train_step)
 
     def _update(self, params, adapters, opt_state, denom, slices, lr_fn,
-                remat, weight_decay, reduce=None):
+                remat, weight_decay, reduce=None, tp=None):
         """The step's body over nano *slices*, (batch, LoRA context)
         pairs: gradients through ``loss_fn``, accumulated in f32 over
         more than one slice, optionally reduced (``reduce(grads,
@@ -247,7 +277,8 @@ class SharedSuperModel:
         def grad_fn(nb, lora):
             with torch.enable_grad():
                 total, aux = M.loss_fn(cfg, params, ad, lora, nb,
-                                       remat=remat, per_job_denom=denom)
+                                       remat=remat, per_job_denom=denom,
+                                       tp=tp)
                 g = torch.autograd.grad(total, leaves)
             return g, aux["per_job"].detach(), aux["aux"].detach()
 
@@ -280,10 +311,18 @@ class SharedSuperModel:
 
     def _make_sharded_step(self, *, lr_fn, nano_batches, remat,
                            weight_decay, steps, mesh, grad_sync,
-                           nano_order) -> Callable:
+                           nano_order, tp_mode="dp",
+                           data_axis="data") -> Callable:
         """The data-parallel step over *mesh* (the reference's
-        ``tp_mode="dp"`` shard_map step, ``ssm.py:263``): the
-        single-device body on this rank's rows.  The per-job token
+        ``shard_map`` step, ``ssm.py:263``): the single-device body on
+        this rank's rows.  ``tp_mode="dp"`` folds every mesh axis into
+        rows; ``"auto"`` takes rows over *data_axis* only, and the mesh's
+        "model" axis, when it has one of more than one rank, runs the
+        backbone tensor parallel (``models/layers.ModelAxis``): every rank
+        of the axis computes the same loss and the same adapter
+        gradients, so the data axis's reduction below is the one there
+        is.  A MoE model's router, dispatch and aux run on the shard's
+        tokens, as the reference's shard_map runs them.  The per-job token
         denominators are all-reduced (integer-valued f32 sums, exact in
         any order) and clipped after the sum (a per-shard clip would
         inflate a job whose shard holds only padding); the loss the
@@ -293,11 +332,13 @@ class SharedSuperModel:
         metrics (``"psum"``).  The update then runs on the replicated
         state identically on every rank."""
         from repro_torch.data.pipeline import shard_permutation
-        from repro_torch.launch.mesh import data_group
-        from repro_torch.models.moe import MOE_NO_MESH
+        from repro_torch.launch.mesh import data_group, model_group
+        from repro_torch.models.layers import ModelAxis
         cfg, K = self.cfg, self.num_jobs
-        if cfg.num_experts:
-            raise NotImplementedError(MOE_NO_MESH)
+        auto = tp_mode == "auto"
+        mgroup, m, midx = model_group(mesh) if auto else (None, 1, 0)
+        check_tensor_parallel(cfg, m)
+        tp = ModelAxis(mgroup, m, midx) if m > 1 else None
         exact = grad_sync == "gather"
         assert grad_sync in ("gather", "psum"), grad_sync
         if exact and self.impl in ("ref", "loop"):
@@ -305,7 +346,7 @@ class SharedSuperModel:
                 f"impl={self.impl!r} has no shard-local VJP for exact "
                 "gathered wgrads; use impl='torch'/'cuda' or "
                 "grad_sync='psum'")
-        group, D, _ = data_group(mesh)
+        group, D, _ = data_group(mesh, data_axis if auto else None)
         assert self.data_shards == D, \
             (f"SSM built for data_shards={self.data_shards}, the mesh "
              f"runs {D}-way: construct SharedSuperModel(data_shards={D})")
@@ -371,7 +412,7 @@ class SharedSuperModel:
                     grad_sync=grad_sync, nano_order=seg_order)))
             return self._update(params, adapters, opt_state, denom, slices,
                                 lr_fn, remat, weight_decay,
-                                reduce=None if exact else reduce)
+                                reduce=None if exact else reduce, tp=tp)
 
         return train_step if steps is None else _chunked(train_step)
 
@@ -430,18 +471,17 @@ class SharedSuperModel:
         pre-segments' live on stage 0, the tail's on the last stage,
         zeros elsewhere), the per-job losses and the occupancy count, so
         every stage updates the replicated leaves identically and
-        reports the same metrics.  A MoE model is refused (ROADMAP A3)."""
+        reports the same metrics.  A MoE layer routes, dispatches and
+        computes its aux on the micro's tokens on the stage that holds
+        it (``ssm.py:452-456``), and the aux enters the micro's loss."""
         from repro_torch.data.pipeline import shard_permutation
         from repro_torch.launch.mesh import StageMesh, handoff, stage_mesh
         from repro_torch.models.layers import dtype_of, rms_norm
-        from repro_torch.models.moe import MOE_NO_MESH
         cfg, K = self.cfg, self.num_jobs
         P = int(stages)
         if P < 2:
             raise ValueError(f"tp_mode='pipeline' needs pipeline_stages >= "
                              f"2 (got {P}); use tp_mode='dp'")
-        if cfg.num_experts:
-            raise NotImplementedError(MOE_NO_MESH)
         exact = grad_sync == "gather"
         assert grad_sync in ("gather", "psum"), grad_sync
         if exact and self.impl in ("ref", "loop"):
@@ -487,8 +527,9 @@ class SharedSuperModel:
 
         def micro_forward(params, ad_segs, nb, lora, denom):
             """One micro through this stage: (its input leaf or None, its
-            output or, on the last stage, its loss, per-job losses,
-            aux)."""
+            output or, on the last stage, its loss, per-job losses or
+            None, the aux of its MoE layers: on a stage before the last
+            still differentiable, the part of the loss it owns)."""
             dev = nb["adapter_ids"].device
             if first:
                 x, _ = M.embed_inputs(cfg, params, nb)
@@ -512,7 +553,7 @@ class SharedSuperModel:
                 aux = aux + a
             if not last:
                 handoff(x.detach(), sm.next_group, sm.rank_of(s_me))
-                return x_in, x, None, aux.detach()
+                return x_in, x, None, aux
             x = rms_norm(x, params["ln_f"], cfg.norm_eps)
             logits = M._logits(cfg, params, x)
             total, out = M.job_losses(cfg, logits, _text_off(cfg, nb), aux,
@@ -549,19 +590,28 @@ class SharedSuperModel:
                 for nb, lora in micros:           # forward, micro order
                     x_in, out, pj, a = micro_forward(
                         params, ad["segments"], nb, lora, denom)
-                    kept.append((x_in, out))
-                    aux = aux + a
+                    kept.append((x_in, out, a))
+                    aux = aux + a.detach()
                     if pj is not None:
                         per_job = per_job + pj
                 per_micro = [None] * N
                 for m in reversed(range(N)):      # backward, reverse order
-                    x_in, out = kept[m]
+                    x_in, out, a = kept[m]
                     kept[m] = None
                     inputs = leaves + ([x_in] if x_in is not None else [])
-                    g_out = None if last else handoff(
-                        torch.empty(out.shape, dtype=out.dtype, device=dev),
-                        sm.next_group, next_rank)
-                    g = torch.autograd.grad(out, inputs, grad_outputs=g_out,
+                    outs, g_outs = [out], None
+                    if not last:
+                        # the stage's differentiated loss: its MoE aux
+                        # plus the output against the next stage's
+                        # cotangent (the reference's where-masked total)
+                        g_outs = [handoff(
+                            torch.empty(out.shape, dtype=out.dtype,
+                                        device=dev),
+                            sm.next_group, next_rank)]
+                        if a.requires_grad:
+                            outs.append(a)
+                            g_outs.append(torch.ones_like(a))
+                    g = torch.autograd.grad(outs, inputs, grad_outputs=g_outs,
                                             allow_unused=True)
                     if x_in is not None:
                         handoff(g[-1], sm.prev_group, sm.rank_of(s_me))

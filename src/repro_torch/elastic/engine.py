@@ -15,7 +15,9 @@ Adam steps) survives every migration.  Every runtime the engine builds
 runs on its ``device`` (the GPU unless the caller asks for the CPU) and,
 with a ``mesh``, sharded over it (``GroupRuntime``'s data-parallel
 mode, or with ``tp_mode="pipeline"`` and ``pipeline_stages`` its
-stage-partitioned mode): every rank runs the same engine, and a
+stage-partitioned mode, or with ``tp_mode="auto"`` its tensor-parallel
+mode, each runtime cutting the engine's backbone to its rank's slices):
+every rank runs the same engine, and a
 ``JobTrainState`` does not depend on the mesh, so jobs move between
 engines of different meshes losslessly.
 """

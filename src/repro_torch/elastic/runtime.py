@@ -41,7 +41,19 @@ and publishes are written by the group's rank 0 alone, behind a barrier
 after which every rank can restore them.  The mesh may be a 1-D submesh
 over part of the world (the controller's slices, ``launch/mesh
 .partition_mesh``): the runtime exists only on its ranks and reduces over
-the submesh's group.  ``tp_mode="auto"`` is refused (ROADMAP A4).
+the submesh's group.
+
+``tp_mode="auto"`` is the reference's tensor-parallel runtime: rows over
+the mesh's *data_axis* only, and over its "model" axis (m > 1 ranks)
+each rank keeps only its slices of the backbone under the runtime
+sharding specs (``sharding/rules.shard_params``: Megatron 1-D tensor
+parallelism, E/m experts a rank; the reference places it so with
+``runtime_param_shardings``), with the adapters and Adam state whole.
+The model ranks of a data shard stage the same rows and compute the
+same loss and the same update.  AIMD's time and the checkpoint barrier
+span both axes, and the group's rank (0, 0) writes.  On a mesh without a
+model axis (the controller's 1-D slices) "auto" is the data-parallel
+step over that axis, as in the reference.
 
 ``tp_mode="pipeline"`` with ``pipeline_stages`` P carves the mesh once
 into a (stage, data) ``StageMesh`` (``launch/mesh.stage_mesh``) and runs
@@ -72,12 +84,14 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.nanobatch import AIMDController
-from repro_torch.core.ssm import (SharedSuperModel, check_tp_mode,
-                                  scanned_segment_index, stage_flat,
-                                  stage_slices, valid_nano_counts)
+from repro_torch.core.ssm import (SharedSuperModel, check_tensor_parallel,
+                                  check_tp_mode, scanned_segment_index,
+                                  stage_flat, stage_slices,
+                                  valid_nano_counts)
 from repro_torch.data.pipeline import FusedBatcher, JobStream, frontend_inputs
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
+from repro_torch.models import model as M
 from repro_torch.models import quant
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
@@ -178,7 +192,7 @@ class GroupRuntime:
                     "tp_mode='pipeline' needs pipeline_stages >= 2 "
                     f"(got {self.pipeline_stages}); use tp_mode='dp'")
             self._stage_idx = mesh.stage
-        self.mesh, self.grad_sync = mesh, grad_sync
+        self.mesh, self.grad_sync, self.data_axis = mesh, grad_sync, data_axis
         if mesh is not None:
             from repro_torch.launch.mesh import data_group
             if grad_sync == "gather" and impl in ("ref", "loop"):
@@ -192,15 +206,32 @@ class GroupRuntime:
             if data_axis not in mesh.mesh_dim_names:
                 raise ValueError(f"data_axis {data_axis!r} is not an axis "
                                  f"of the mesh {mesh.mesh_dim_names}")
-            self._group, D, self._shard = data_group(mesh)
-            # every rank of the group's slice (a pipeline's stages too)
-            self._slice_group = (mesh.slice_group
+            self._group, D, self._shard = data_group(
+                mesh, data_axis if tp_mode == "auto" else None)
+            # the groups that together span every rank of the group's
+            # slice (a pipeline's stages too, a tensor-parallel mesh's
+            # model axis), for the agreed step time and the barrier
+            self._sync_groups = ([mesh.slice_group]
                                  if self.pipeline_stages > 1
-                                 else self._group)
+                                 else [self._group])
         else:
             self._group, D, self._shard = None, 1, 0
-            self._slice_group = None
+            self._sync_groups = []
         self.data_shards = D
+        self.model_axis = (1, 0)
+        if tp_mode == "auto" and mesh is not None:
+            from repro_torch.launch.mesh import model_group
+            from repro_torch.sharding.rules import shard_params
+            mgroup, m, midx = model_group(mesh)
+            check_tensor_parallel(cfg, m, quantize)
+            if m > 1:
+                self.model_axis = (m, midx)
+                # model axis first: the barrier then orders the data
+                # column's ranks behind the writer's row
+                self._sync_groups.insert(0, mgroup)
+                params = shard_params(params, M.init_model(cfg,
+                                                           device="meta"),
+                                      m, midx)
         # the frozen backbone in int8, once, before any step is built
         # (idempotent: a quantized tree's QuantTensors are reused)
         self.quantize = quantize
@@ -358,7 +389,7 @@ class GroupRuntime:
                 weight_decay=self.weight_decay, steps=chunk, mesh=self.mesh,
                 grad_sync=self.grad_sync, tp_mode=self.tp_mode,
                 pipeline_stages=self.pipeline_stages,
-                nano_order=self.nano_order)
+                nano_order=self.nano_order, data_axis=self.data_axis)
         return self._step_cache[key]
 
     def _stage(self, n: int) -> Dict[str, torch.Tensor]:
@@ -584,20 +615,22 @@ class GroupRuntime:
 
     def _all_max(self, value: float) -> float:
         """The max of *value* over the mesh's ranks, every stage of a
-        pipeline included (an NCCL group takes a device tensor, gloo a
-        host one)."""
-        g = self._slice_group
-        dev = (self.device if dist.get_backend(g) == "nccl"
-               else torch.device("cpu"))
-        t = torch.tensor([value], dtype=torch.float64, device=dev)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
-        return float(t.item())
+        pipeline and every model rank included (an NCCL group takes a
+        device tensor, gloo a host one)."""
+        for g in self._sync_groups:
+            dev = (self.device if dist.get_backend(g) == "nccl"
+                   else torch.device("cpu"))
+            t = torch.tensor([value], dtype=torch.float64, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+            value = float(t.item())
+        return value
 
     def _writer(self) -> bool:
         """Whether this rank writes what the group persists or
         publishes: every rank meshless, the group's rank 0 on a mesh
-        (stage 0's first rank in a pipeline)."""
-        return self._shard == 0 and self._stage_idx == 0
+        (stage 0's first rank in a pipeline, model index 0)."""
+        return (self._shard == 0 and self._stage_idx == 0
+                and self.model_axis[1] == 0)
 
     # ------------------------------------------------------ pipeline state
     def _whole(self, tree):
@@ -656,8 +689,8 @@ class GroupRuntime:
             self.last_checkpoint_step[spec.job_id] = \
                 self.steps_done[spec.job_id]
             paths.append(path)
-        if self._slice_group is not None:
-            dist.barrier(group=self._slice_group)   # the files exist for all
+        for g in self._sync_groups:       # the files exist for all
+            dist.barrier(group=g)
         return paths
 
     # ---------------------------------------------------------- migration

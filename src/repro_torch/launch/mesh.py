@@ -9,7 +9,8 @@ on the CPU or when ranks share one GPU: NCCL refuses two ranks on one
 device), ``make_local_mesh`` lays the world out as a ("data", "model")
 mesh, and ``data_group`` gives the process group, shard count and shard
 index the data-parallel step reduces over (every mesh axis folded into
-rows, the reference's ``tp_mode="dp"``).
+rows, the reference's ``tp_mode="dp"``; with ``tp_mode="auto"`` the
+"data" axis only), ``model_group`` the tensor-parallel "model" axis's.
 
 The cluster controller's pool is the world's ranks (pool index i is
 rank i).  ``partition_mesh`` carves it into disjoint 1-D submeshes, one
@@ -100,8 +101,8 @@ def make_local_mesh(model: int = 1, device_type: str = "cpu",
     ``stages`` is clamped the same way against the world (the
     reference clamps it against the data slice); more than one stage
     gives the (stage, data) ``StageMesh`` over the world.  The port's
-    pipeline mesh has no model axis (tensor parallelism is ROADMAP A4),
-    so *model* must then be 1."""
+    pipeline mesh has no model axis (pipeline x tensor parallelism is
+    ROADMAP A8d), so *model* must then be 1."""
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     m = clamp_model(model, n)
@@ -110,25 +111,37 @@ def make_local_mesh(model: int = 1, device_type: str = "cpu",
         if m > 1:
             raise ValueError(
                 f"a pipeline mesh is (stage, data): model={model} needs "
-                "tensor parallelism, which the port does not run "
-                "(ROADMAP A4)")
+                "a model axis inside the stages, which the port does not "
+                "run (ROADMAP A8d: pipeline x tensor parallelism)")
         return stage_mesh(list(range(n)), p)
     return init_device_mesh(device_type, (n // m, m),
                             mesh_dim_names=("data", "model"))
 
 
-def data_group(mesh) -> Tuple[object, int, int]:
+def data_group(mesh, axis: Optional[str] = None
+               ) -> Tuple[object, int, int]:
     """(process group, shard count D, this rank's shard index) of the
-    data-parallel step over *mesh*: every mesh axis folds into row
+    data-parallel rows over *mesh*.
+
+    ``axis`` None (``tp_mode="dp"``): every mesh axis folds into row
     sharding, shards ordered by the group's ranks.  A one-dimensional
     mesh reduces over its own group, a mesh over the whole world over
     the world, a ``StageMesh`` over this rank's stage's data group.  A
     multi-dimensional DeviceMesh over part of the world is refused: its
     ranks' group would have to be created by every rank of the world,
     which the ranks outside it never reach here; the controller's
-    slices are 1-D (``partition_mesh``)."""
+    slices are 1-D (``partition_mesh``).
+
+    ``axis`` named (``tp_mode="auto"``): rows over that axis only, the
+    group of this rank's column of it (the ranks that share its other
+    coordinates: on a ("data", "model") mesh, its model index), which
+    the DeviceMesh made for every rank when it was built."""
     if isinstance(mesh, StageMesh):
         return mesh.data_group, mesh.data, mesh.shard
+    if axis is not None and mesh.ndim > 1:
+        return (mesh.get_group(axis), mesh.size(mesh.mesh_dim_names
+                                                .index(axis)),
+                mesh.get_local_rank(axis))
     ranks = mesh.mesh.flatten().tolist()
     if mesh.ndim == 1:
         group = mesh.get_group()
@@ -139,6 +152,21 @@ def data_group(mesh) -> Tuple[object, int, int]:
             "a multi-dimensional mesh over part of the world has no group "
             "every rank created; carve 1-D slices with partition_mesh")
     return group, len(ranks), dist.get_rank(group)
+
+
+def model_group(mesh) -> Tuple[object, int, int]:
+    """(process group, model degree m, this rank's model index) of the
+    tensor-parallel axis of *mesh* (``tp_mode="auto"``): the ranks that
+    share this rank's data index.  A mesh without the axis (the
+    controller's 1-D slices, a ``StageMesh``) has m = 1 and no group:
+    "auto" then runs the data-parallel step over its data axis, as the
+    reference's slices do."""
+    if isinstance(mesh, StageMesh) or "model" not in (mesh.mesh_dim_names
+                                                      or ()):
+        return None, 1, 0
+    return (mesh.get_group("model"),
+            mesh.size(mesh.mesh_dim_names.index("model")),
+            mesh.get_local_rank("model"))
 
 
 # process groups by (ranks, backend, tag), for the world they were made in

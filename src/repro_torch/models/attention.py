@@ -39,9 +39,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.lora import MultiLoRA, proj
+from repro_torch.core.lora import MultiLoRA, column_proj, proj, row_proj
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import ModelAxis, apply_rope, dense_init
 
 NEG_BIG = -1e30
 # Keys per chunk of the decode scan.  Fixed, not cut to the cache width:
@@ -398,23 +398,43 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
                local: bool = False,
                ring: bool = False,
                chunk: int = 1024,
-               row_block: Optional[int] = None
+               row_block: Optional[int] = None,
+               tp: Optional[ModelAxis] = None
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GQA attention with optional fused multi-LoRA on q/k/v/o.
 
     x: (B, S, d). Returns (out, cache).  ``local``: sliding-window
     attention (``cfg.sliding_window``); ``ring``: the cache is a ring
     (``ring_attention``).  ``row_block``: rows per base product and per
-    decode chunk product (``layers.dense``)."""
+    decode chunk product (``layers.dense``).
+
+    ``tp`` (training, no cache): Megatron tensor parallelism over the
+    model axis.  The rank holds the column blocks of wq/wk/wv (and the
+    biases) and the row block of wo, so it runs its H/m query heads over
+    its KV/m kv heads (the GQA grouping is unchanged: query head h reads
+    kv head h // G).  The LoRA adapters are whole on every rank: q/k/v's
+    deltas are computed at full width on the replicated input and cut
+    to the rank's columns (``core/lora.column_proj``), o's on its input
+    gathered whole (``core/lora.row_proj``), so every rank computes the
+    same adapter gradients."""
     B, S, _ = x.shape
     la = lora_ab or {}
     rb = row_block
-    q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"), rb)
-    k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"), rb)
-    v = proj(x, params["wv"], params.get("bv"), lora, la.get("v"), rb)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if tp is not None:
+        assert cache is None, "tensor parallelism is a training path"
+        H, KV = H // tp.size, KV // tp.size
+        q, k, v = (column_proj(tp, x, params[w], params.get(b), lora,
+                               la.get(t))
+                   for w, b, t in (("wq", "bq", "q"), ("wk", "bk", "k"),
+                                   ("wv", "bv", "v")))
+    else:
+        q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"), rb)
+        k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"), rb)
+        v = proj(x, params["wv"], params.get("bv"), lora, la.get("v"), rb)
+    q = q.reshape(B, S, H, cfg.head_dim)
+    k = k.reshape(B, S, KV, cfg.head_dim)
+    v = v.reshape(B, S, KV, cfg.head_dim)
     if cfg.causal:  # rope only for decoder archs
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -430,6 +450,8 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
         out = chunked_attention(q, k, v, q_offset=0, kv_len=S,
                                 causal=cfg.causal, window=window,
                                 chunk=chunk)
-    out = out.reshape(B, S, cfg.q_dim)
+    out = out.reshape(B, S, H * cfg.head_dim)
+    if tp is not None:
+        return row_proj(tp, out, params["wo"], lora, la.get("o")), cache
     y = proj(out, params["wo"], None, lora, la.get("o"), rb)
     return y, cache

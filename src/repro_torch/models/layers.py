@@ -8,12 +8,34 @@ default is the erf form), and ``softplus`` is the exact log(1 + e^x)
 (``jax.nn.softplus``), where ``F.softplus`` returns x itself above 20.
 In float32 the two softplus forms agree above 20 (log1p(e^-20) < 2.1e-9
 is under half an ulp of 20, and so is the gradient's 1 - sigmoid); below
-it they differ by rounding only."""
+it they differ by rounding only.
+
+Tensor parallelism (``tp_mode="auto"``): ``ModelAxis`` is this rank's
+place on the mesh's "model" axis, and its collectives are the
+Megatron-LM region operators, each an autograd Function over the model
+group.  ``column`` and ``row`` are the base projections: a column block
+of the weight on the replicated input (its input cotangent summed over
+the axis) and a row block on this rank's input columns (the partial
+products summed over the axis).  Both sums run on f32 partials
+(``mm_f32``: the storage-dtype products accumulated in f32 and not
+rounded before the sum), so a split product rounds once, as the whole
+one does, and a rank's activations are the meshless ones up to the f32
+order of one sum.  ``enter`` (identity; the cotangents summed) and
+``sum`` (the f32 sum of partials; the cotangent passes through) serve
+the MoE's expert-parallel dispatch, ``gather`` (the ranks' column blocks
+side by side; the cotangent's own block back) and ``columns`` (this
+rank's column block; the cotangent's blocks gathered) the LoRA deltas.
+Every rank computes the replicated parts of the model identically, so a
+loss is counted once, not once a rank.  ``swiglu(..., tp=)`` is the
+column/row-parallel MLP and ``vocab_cross_entropy`` the cross entropy
+over a vocab-split head."""
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.quant import QuantTensor, qdot
@@ -99,7 +121,21 @@ def swiglu_init(d: int, d_ff: int, dtype, *, generator: torch.Generator,
 
 
 def swiglu(params: dict, x: torch.Tensor,
-           row_block: Optional[int] = None) -> torch.Tensor:
+           row_block: Optional[int] = None,
+           tp: Optional["ModelAxis"] = None,
+           partial: bool = False) -> torch.Tensor:
+    """gate/up -> SiLU(gate) * up -> down.  With *tp* (given by a caller
+    whose hidden width the model axis divides) the rank holds the column
+    blocks of gate and up and the row block of down (the runtime specs):
+    its partial product is summed over the axis (``ModelAxis.sum``), or,
+    with *partial*, returned as it is in f32 for the caller to sum with
+    others (the MoE's shared experts beside its expert combine)."""
+    if tp is not None:
+        g = tp.column(x, params["gate"])
+        u = tp.column(x, params["up"])
+        h = F.silu(g.float()).to(x.dtype) * u
+        return _RowPartial.apply(h, params["down"]) if partial \
+            else tp.row(h, params["down"])
     # qdot: fused int8 dequant when the FFN mats are QuantTensors
     g = dense(x, params["gate"], row_block)
     u = dense(x, params["up"], row_block)
@@ -167,3 +203,221 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         loss = loss * mask.float()
     return loss
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        tp: "ModelAxis", mask=None) -> torch.Tensor:
+    """``cross_entropy`` of logits whose vocab dim is split over the
+    model axis (this rank's contiguous block of ``tp.size``): the
+    per-token loss (...,), the same on every rank."""
+    lead = logits.shape[:-1]
+    loss = _VocabCE.apply(logits.reshape(-1, logits.shape[-1]),
+                          labels.reshape(-1), tp).reshape(lead)
+    if mask is not None:
+        loss = loss * mask.float()
+    return loss
+
+
+# ------------------------------------------------ tensor parallelism
+@dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the "model" axis of a tensor-parallel mesh:
+    the axis's process group, its size m and this rank's index.  A leaf
+    the runtime specs split over the axis holds this rank's contiguous
+    block of one dim; ``splits`` is the specs' divisibility rule."""
+    group: object
+    size: int
+    index: int
+
+    def splits(self, n: int) -> bool:
+        return n > 0 and n % self.size == 0
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a dim of *n* (whole) entries."""
+        w = n // self.size
+        return slice(self.index * w, (self.index + 1) * w)
+
+    def column(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x·w for this rank's column block *w* of a weight, x replicated:
+        its columns of the whole product; x's cotangent is the f32 sum
+        over the axis of the ranks' ``mm_f32`` partials."""
+        return _Column.apply(x, w, self.group)
+
+    def row(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """h·w for this rank's input columns *h* and row block *w*: the
+        f32 sum over the axis of the ranks' ``mm_f32`` partials, in h's
+        dtype; the cotangent passes through to every rank's partial."""
+        return _Sum.apply(_RowPartial.apply(h, w), self.group, h.dtype)
+
+    def enter(self, *xs: torch.Tensor):
+        out = _Enter.apply(self.group, *xs)
+        return out[0] if len(xs) == 1 else out
+
+    def sum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        return _Sum.apply(x, self.group, dtype or x.dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherCols.apply(x, self.group, self.size, self.index)
+
+    def columns(self, x: torch.Tensor) -> torch.Tensor:
+        return _Columns.apply(x, self.group, self.size, self.index)
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) x (K, N) -> (..., N) f32: the products of the operands'
+    values accumulated in f32, the output not rounded to their dtype
+    (a bf16 GEMM with an f32 result on the card; f32 copies elsewhere,
+    which hold bf16 values exactly)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype == w.dtype and x.dtype != torch.float32:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _RowPartial(torch.autograd.Function):
+    """A rank's f32 partial of a row-parallel product, h·w by
+    ``mm_f32``; the backward returns h's cotangent g·wᵀ in h's dtype (the
+    whole product's cotangent columns for this rank's rows)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(w)
+        ctx.dtype = h.dtype
+        return mm_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, = ctx.saved_tensors
+        return dense(g.to(ctx.dtype), w.T), None
+
+
+class _Column(torch.autograd.Function):
+    """x·w on a column block w of a weight, x the same on every rank;
+    the backward sums the ranks' f32 partials g·wᵀ over the axis and
+    rounds once to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(w)
+        ctx.group, ctx.dtype = group, x.dtype
+        return dense(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, = ctx.saved_tensors
+        dx = mm_f32(g, w.T).contiguous()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx.to(ctx.dtype), None, None
+
+
+def _all_gather_last(x: torch.Tensor, group, m: int) -> torch.Tensor:
+    """The ranks' (..., w) blocks as (..., m·w), in rank order."""
+    x = x.contiguous()
+    buf = x.new_empty((m * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(buf, x, group=group)
+    return buf.reshape((m,) + tuple(x.shape)).movedim(0, -2).reshape(
+        *x.shape[:-1], m * x.shape[-1])
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; backward sums each cotangent over the model
+    axis, in f32, all in one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        dist.all_reduce(flat, group=ctx.group)
+        out, at = [], 0
+        for g in gs:
+            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+            at += g.numel()
+        return (None,) + tuple(out)
+
+
+class _Sum(torch.autograd.Function):
+    """The f32 sum of the ranks' partials, cast to *dtype*; the
+    cotangent passes through to every rank's partial."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype = x.dtype
+        s = x.to(torch.float32, memory_format=torch.contiguous_format,
+                 copy=True)
+        dist.all_reduce(s, group=group)
+        return s.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+class _GatherCols(torch.autograd.Function):
+    """The ranks' column blocks side by side; the cotangent, the same on
+    every rank (what reads the gathered tensor is replicated), gives
+    each rank its own block back."""
+
+    @staticmethod
+    def forward(ctx, x, group, m, index):
+        ctx.w, ctx.index = x.shape[-1], index
+        return _all_gather_last(x, group, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, i = ctx.w, ctx.index
+        return g[..., i * w:(i + 1) * w].contiguous(), None, None, None
+
+
+class _Columns(torch.autograd.Function):
+    """This rank's column block of a tensor every rank holds whole; the
+    whole cotangent is the ranks' block cotangents gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, m, index):
+        ctx.group, ctx.m = group, m
+        w = x.shape[-1] // m
+        return x[..., index * w:(index + 1) * w].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_last(g, ctx.group, ctx.m), None, None, None
+
+
+class _VocabCE(torch.autograd.Function):
+    """Per-token cross entropy of (N, V/m) logit blocks: each rank's
+    block log-sum-exp and picked logit (the label's, 0 off the block)
+    gathered in one all-gather, the row's log-sum-exp taken over the
+    ranks' and the picked logit summed; the backward is local, softmax
+    minus one-hot of the block, scaled by the cotangent."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        lf = logits.float()
+        V = lf.shape[-1]
+        lo = tp.index * V
+        lab = labels.long() - lo
+        inside = (lab >= 0) & (lab < V)
+        lab = torch.where(inside, lab, 0)
+        lse_b = torch.logsumexp(lf, dim=-1)
+        picked = torch.where(inside, lf.gather(-1, lab[:, None])[:, 0], 0.0)
+        parts = torch.stack([lse_b, picked])                    # (2, N)
+        buf = parts.new_empty((tp.size * 2, parts.shape[1]))
+        dist.all_gather_into_tensor(buf, parts.contiguous(), group=tp.group)
+        buf = buf.reshape(tp.size, 2, -1)
+        lse = torch.logsumexp(buf[:, 0], dim=0)
+        ctx.save_for_backward(lf, lse, lab, inside)
+        ctx.dtype = logits.dtype
+        return lse - buf[:, 1].sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, lab, inside = ctx.saved_tensors
+        d = torch.exp(lf - lse[:, None])
+        d[torch.arange(d.shape[0], device=d.device), lab] -= inside.float()
+        return (d * g.float()[:, None]).to(ctx.dtype), None, None

@@ -35,9 +35,10 @@ from repro_torch.configs.base import (FULL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.core.lora import MultiLoRA, RankLayout, init_adapter_pair
 from repro_torch.models.attention import KVCache, attn_block, attn_init
-from repro_torch.models.layers import (cross_entropy, dense, dense_init,
-                                       dtype_of, embed_init, rms_norm,
-                                       swiglu, swiglu_init)
+from repro_torch.models.layers import (ModelAxis, cross_entropy, dense,
+                                       dense_init, dtype_of, embed_init,
+                                       rms_norm, swiglu, swiglu_init,
+                                       vocab_cross_entropy)
 from repro_torch.models.mla import MLACache, mla_block, mla_init
 from repro_torch.models.moe import moe_ffn, moe_init
 from repro_torch.models.quant import QuantTensor
@@ -154,8 +155,11 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     """Frozen backbone parameter tree, drawn on *device* from a seeded
     ``torch.Generator`` (the reference's distributions, not its draws).
     A config with a front end (audio frames, VLM patches) gets its
-    ``frontend`` projection (frontend_dim, d_model)."""
-    g = torch.Generator(device=device).manual_seed(seed)
+    ``frontend`` projection (frontend_dim, d_model).  On ``device="meta"``
+    the tree holds shapes only (no generator, nothing allocated): a
+    full-size config's structure for the sharding rules."""
+    g = (None if torch.device(device).type == "meta"
+         else torch.Generator(device=device).manual_seed(seed))
     dt = dtype_of(cfg)
     p: Dict[str, Any] = {
         "embed": embed_init(cfg.vocab_size, cfg.d_model, dt, generator=g,
@@ -286,13 +290,15 @@ def init_caches(cfg: ModelConfig, batch: int, buf: int, ring: bool = False,
 def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                 lora: Optional[MultiLoRA], x: torch.Tensor, positions,
                 cache, cache_pos, row_block: Optional[int] = None,
-                ring: bool = False):
+                ring: bool = False, tp: Optional[ModelAxis] = None):
     """One pre-norm block. Returns (x, cache, aux); the cache is updated
     in place, aux is the MoE FFN's load-balance loss (0 for the other
     FFNs).  A local-attention layer with a cache decodes through a ring
     whatever *ring* says, as in the reference.  ``row_block``: rows per
     dense product of the attention, MLA and FFN blocks (``layers.dense``;
-    the serving engine's decode, which takes no recurrent mixer)."""
+    the serving engine's decode, which takes no recurrent mixer).
+    ``tp``: tensor parallelism over the model axis (attention mixers;
+    the MLP where the axis divides d_ff, the MoE)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     aux = torch.zeros((), device=x.device)
     if spec.mixer in ("attn", "local_attn"):
@@ -301,7 +307,7 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
                                 lora=lora, lora_ab=ad, cache=cache,
                                 cache_pos=cache_pos, local=local,
                                 ring=ring or (local and cache is not None),
-                                row_block=row_block)
+                                row_block=row_block, tp=tp)
     elif spec.mixer == "mla":
         out, cache = mla_block(cfg, p["attn"], h, positions=positions,
                                lora=lora, lora_ab=ad, cache=cache,
@@ -320,20 +326,25 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
     if spec.ffn == "moe":
         # the row blocks reach the shared experts; the expert products
         # group a row with whatever rows routed to the same expert
-        out2, aux = moe_ffn(cfg, p["ffn"], h2, row_block=row_block)
+        out2, aux = moe_ffn(cfg, p["ffn"], h2, row_block=row_block, tp=tp)
     else:
-        out2 = swiglu(p["ffn"], h2, row_block)
+        out2 = swiglu(p["ffn"], h2, row_block,
+                      tp=tp if tp is not None and tp.splits(cfg.d_ff)
+                      else None)
     return x + out2, cache, aux
 
 
 def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
                    lora: Optional[MultiLoRA], x, positions, caches,
                    cache_pos, remat: bool = False,
-                   row_block: Optional[int] = None, ring: bool = False):
+                   row_block: Optional[int] = None, ring: bool = False,
+                   tp: Optional[ModelAxis] = None):
     """Apply one segment; returns (x, aux summed over its layers); caches
     are updated in place.  ``remat`` recomputes each cycle of a scanned
     segment in the backward instead of keeping its activations (the
-    reference's ``jax.checkpoint``)."""
+    reference's ``jax.checkpoint``); under ``tp`` the recomputation
+    makes the forward's collectives again, in the same order on every
+    rank."""
     def cycle(x, layer_p, layer_ad, layer_c):
         aux = torch.zeros((), device=x.device)
         for j, spec in enumerate(seg.specs):
@@ -341,7 +352,7 @@ def _apply_segment(cfg, seg: Segment, p: dict, ad: dict,
             x, _, a = apply_block(cfg, spec, layer_p[str(j)],
                                   layer_ad.get(str(j), {}), lora, x,
                                   positions, c, cache_pos,
-                                  row_block=row_block, ring=ring)
+                                  row_block=row_block, ring=ring, tp=tp)
             aux = aux + a
         return x, aux
 
@@ -371,10 +382,14 @@ def _sinusoid(S: int, d: int, offset=0, device=None) -> torch.Tensor:
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
-                 pos_offset=0) -> Tuple[torch.Tensor, int]:
+                 pos_offset=0, tp: Optional[ModelAxis] = None
+                 ) -> Tuple[torch.Tensor, int]:
     """Resolve modality inputs to (B, S, d) activations.  Returns (x,
     text_offset): logits and labels align from text_offset on (the
-    patches' count for a VLM batch with patches, else 0)."""
+    patches' count for a VLM batch with patches, else 0).  Under ``tp``
+    with a vocab the axis divides, the rank holds its block of the
+    embedding's rows: its lookup is masked to the ids in the block and
+    summed over the axis (exact: one term is not zero)."""
     dt = dtype_of(cfg)
     if cfg.family == "audio":
         x = dense(batch["frames"].to(dt), params["frontend"])
@@ -386,12 +401,25 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
         pe = dense(batch["patches"].to(dt), params["frontend"])
         te = params["embed"][batch["tokens"].long()]
         return torch.cat([pe, te], dim=1), pe.shape[1]
-    return params["embed"][batch["tokens"].long()], 0
+    ids = batch["tokens"].long()
+    if tp is not None and tp.splits(cfg.vocab_size):
+        V = params["embed"].shape[0]
+        loc = ids - tp.index * V
+        inside = (loc >= 0) & (loc < V)
+        x = params["embed"][torch.where(inside, loc, 0)]
+        return tp.sum(torch.where(inside[..., None], x, 0).detach()), 0
+    return params["embed"][ids], 0
 
 
 # ----------------------------------------------------------------- forward
-def _logits(cfg, params, x, row_block: Optional[int] = None):
+def _logits(cfg, params, x, row_block: Optional[int] = None,
+            tp: Optional[ModelAxis] = None):
+    """The head's logits; under ``tp`` with a vocab the axis divides,
+    this rank's vocab block of them (its head columns, or a tied
+    embedding's rows)."""
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if tp is not None and tp.splits(cfg.vocab_size):
+        return tp.column(x, head)
     return dense(x, head, row_block)
 
 
@@ -399,7 +427,7 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
             caches: Optional[list] = None, cache_pos=None,
             remat: bool = False, row_block: Optional[int] = None,
-            ring: bool = False):
+            ring: bool = False, tp: Optional[ModelAxis] = None):
     """Full model.  batch keys: tokens / frames / patches (+ tokens).
 
     Returns (logits, aux, caches, text_offset), the reference's tuple:
@@ -414,13 +442,16 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
     decode-attention chunk product (``layers.dense``; the serving decode
     path on the card).  ``ring``: every attention cache is a ring (the
     sliding-window serving variant); local-attention caches are rings
-    regardless."""
+    regardless.  ``tp``: tensor parallelism over the model axis
+    (training; ``apply_block``, ``embed_inputs``, ``_logits``): the
+    logits are then this rank's vocab block."""
     assert not (remat and caches is not None), "remat is for training"
     vec_pos = isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1
     if vec_pos and cfg.family == "audio":
         raise ValueError("per-row cache positions need token inputs")
     x, text_off = embed_inputs(cfg, params, batch,
-                               pos_offset=0 if vec_pos else cache_pos or 0)
+                               pos_offset=0 if vec_pos else cache_pos or 0,
+                               tp=tp)
     B, S, _ = x.shape
     ar = torch.arange(S, device=x.device)
     if vec_pos:
@@ -435,15 +466,16 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
         c = caches[i] if caches is not None else None
         x, a = _apply_segment(cfg, seg, params["segments"][i], ad_segs[i],
                               lora, x, positions, c, cache_pos, remat=remat,
-                              row_block=row_block, ring=ring)
+                              row_block=row_block, ring=ring, tp=tp)
         aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(cfg, params, x, row_block), aux, caches, text_off
+    return _logits(cfg, params, x, row_block, tp), aux, caches, text_off
 
 
 def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
             lora: Optional[MultiLoRA], batch: dict, *, remat: bool = True,
-            per_job_denom: Optional[torch.Tensor] = None
+            per_job_denom: Optional[torch.Tensor] = None,
+            tp: Optional[ModelAxis] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-job-separated LM loss over a fused batch (lossless contract).
 
@@ -454,20 +486,26 @@ def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
     batch (ROADMAP §C).  Logits align with the labels from the text
     offset on (VLM patches carry no labels); an encoder (non-causal)
     predicts every position.  Returns (total = Σ_j loss_j + aux,
-    {"per_job", "aux", "per_job_count"})."""
+    {"per_job", "aux", "per_job_count"}).  ``tp``: tensor parallelism
+    (``forward``); every rank of the model axis computes the same
+    loss."""
     logits, aux, _, off = forward(cfg, params, adapters, lora, batch,
-                                  remat=remat)
-    return job_losses(cfg, logits, off, aux, lora, batch, per_job_denom)
+                                  remat=remat, tp=tp)
+    return job_losses(cfg, logits, off, aux, lora, batch, per_job_denom,
+                      tp=tp)
 
 
 def job_losses(cfg: ModelConfig, logits: torch.Tensor, off: int,
                aux: torch.Tensor, lora: Optional[MultiLoRA], batch: dict,
-               per_job_denom: Optional[torch.Tensor] = None
+               per_job_denom: Optional[torch.Tensor] = None,
+               tp: Optional[ModelAxis] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``loss_fn`` from the logits on: the per-job-separated loss of
     *logits* (text offset *off*, the layers' summed *aux*) against
     *batch*'s labels.  The pipeline step's last stage calls it on the
-    logits it computed from the stages' handoff."""
+    logits it computed from the stages' handoff.  Under ``tp`` with a
+    vocab the axis divides the logits are the rank's vocab block
+    (``layers.vocab_cross_entropy``)."""
     labels = batch["labels"]
     if off:
         logits = logits[:, off:]
@@ -477,7 +515,10 @@ def job_losses(cfg: ModelConfig, logits: torch.Tensor, off: int,
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask[:, -labels.shape[-1]:]
-    tok_loss = cross_entropy(logits, labels, mask=mask)         # (B, S')
+    if tp is not None and tp.splits(cfg.vocab_size):
+        tok_loss = vocab_cross_entropy(logits, labels, tp, mask=mask)
+    else:
+        tok_loss = cross_entropy(logits, labels, mask=mask)     # (B, S')
     seq_loss = tok_loss.sum(dim=-1)                             # (B,)
     seq_count = (torch.full(seq_loss.shape, float(labels.shape[-1]),
                             device=seq_loss.device)

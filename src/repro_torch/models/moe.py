@@ -15,25 +15,32 @@ Two single-device dispatches, the reference's:
     (E, C, d) buffer (C = T·k/E · capacity_factor, overflow dropped), a
     dense per-expert product, combine.
 
-The reference's expert-parallel path (``_expert_parallel_moe``, the
-capacity dispatch over a device mesh) is multi-device: refused here
-(``MOE_NO_MESH``).  The token combine ``zeros.at[tok].add`` becomes
-``_combine``: the sorted pairs copied back to token-major order and
-summed over each token's k slots in f32, so no atomic adds and the same
-bits on every run.
+Over a mesh.  Under the data-parallel and pipeline steps every rank
+routes and dispatches its own rows on one device, as the reference's
+fully manual ``shard_map`` does: the capacity C comes from the tokens
+the shard (or micro) holds, and the aux from its tokens.  Under tensor
+parallelism (``tp``, a ``models/layers.ModelAxis``) with E % m == 0 the
+dispatch is expert parallel, the reference's ``_expert_parallel_moe`` /
+``_dispatch_local``: every rank holds E/m experts of ``w_in`` and
+``w_out``, routes all its tokens with the replicated f32 router and
+dispatches only the pairs routed to its experts (the capacity dispatch
+with ``e_base = index·E/m``, or the ragged one on its local segments);
+one f32 sum over the axis combines the (T, d) partials, the shared
+experts' column/row-parallel partial riding in the same sum.  C is taken
+from the tokens this data shard holds (the reference's runtime divides
+them by the data size once more: ROADMAP C13).  The token combine
+``zeros.at[tok].add`` is ``_combine``: the sorted pairs copied back to
+token-major order and summed over each token's k slots in f32, so no
+atomic adds and the same bits on every run.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import swiglu, swiglu_init
-
-MOE_NO_MESH = ("the MoE over a device mesh (capacity dispatch over a mesh, "
-               "expert parallelism) is not ported yet (ROADMAP A3, old "
-               "A7d: multi-GPU MoE)")
+from repro_torch.models.layers import ModelAxis, swiglu, swiglu_init
 
 
 def moe_init(cfg, dtype, *, generator: torch.Generator, device="cuda",
@@ -71,15 +78,22 @@ class _ExpertMM(torch.autograd.Function):
     product."""
 
     @staticmethod
-    def forward(ctx, x, w, offs):
-        ctx.save_for_backward(w, offs)
-        return torch._grouped_mm(x, w, offs=offs)
+    def forward(ctx, x, w, offs, valid=None):
+        ctx.save_for_backward(w, offs, valid)
+        return _rows(torch._grouped_mm(x, w, offs=offs), valid)
 
     @staticmethod
     def backward(ctx, dy):
-        w, offs = ctx.saved_tensors
-        return (torch._grouped_mm(dy.contiguous(), w.transpose(-1, -2),
-                                  offs=offs), None, None)
+        w, offs, valid = ctx.saved_tensors
+        return (_rows(torch._grouped_mm(dy.contiguous(), w.transpose(-1, -2),
+                                        offs=offs), valid), None, None, None)
+
+
+def _rows(y: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """*y* with the rows past the last segment zeroed (``valid`` False):
+    the grouped product leaves them unwritten (an expert-parallel rank's
+    pairs routed to the other ranks' experts sort there)."""
+    return y if valid is None else torch.where(valid[:, None], y, 0.0)
 
 
 # Rows of every router product (``_router_logits``).
@@ -112,14 +126,16 @@ def route(cfg, params: dict, xf: torch.Tensor):
     return probs, top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), top_i
 
 
-def moe_ffn(cfg, params: dict, x: torch.Tensor, *, mesh=None,
-            row_block: int | None = None
+def moe_ffn(cfg, params: dict, x: torch.Tensor, *,
+            row_block: Optional[int] = None, tp: Optional[ModelAxis] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d) in x.dtype, aux f32 scalar).
-    ``mesh``: the reference's expert-parallel dispatch, refused.
     ``row_block``: rows per product of the shared experts (the serving
     decode, ``layers.dense``); the expert products group a row with
-    whatever rows routed to the same expert and take none."""
+    whatever rows routed to the same expert and take none.  ``tp``:
+    tensor parallelism (training): expert parallel where the axis
+    divides E, the shared experts column/row parallel where it divides
+    their width; a replicated part runs whole on every rank."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -127,12 +143,26 @@ def moe_ffn(cfg, params: dict, x: torch.Tensor, *, mesh=None,
     probs, top_w, top_i = route(cfg, params, xf)
 
     flat_e = top_i.reshape(-1)                                   # (T*k,)
-    if cfg.moe_impl == "capacity":
-        out = _capacity_moe(cfg, params, xf, flat_e, top_w, E, k, T, d,
-                            x.dtype, mesh)
+    shared = params.get("shared")
+    ff_sh = cfg.moe_d_ff * cfg.num_shared_experts
+    tp_sh = tp if tp is not None and tp.splits(ff_sh) else None
+    if tp is not None and tp.splits(E):
+        # the dispatch's share of the input and of the routing weights
+        # is this rank's: their cotangents are summed over the axis (the
+        # router's own path, through the aux, is replicated and is not)
+        xm, wm = tp.enter(xf, top_w)
+        out = _expert_parallel_moe(cfg, params, xm, flat_e, wm, E, k, T, d,
+                                   x.dtype, tp)
+        if shared is not None and tp_sh is not None:
+            # the shared experts' partial rides in the same sum
+            out = out + swiglu(shared, x, tp=tp_sh,
+                               partial=True).reshape(T, d)
+            shared = None
+        out = tp.sum(out, torch.float32)
+    elif cfg.moe_impl == "capacity":
+        out = _capacity_moe_dense(cfg, params, xf, flat_e, top_w, E, k, T, d,
+                                  x.dtype)
     else:
-        if mesh is not None:
-            raise NotImplementedError(MOE_NO_MESH)
         out = _ragged_moe(params, xf, flat_e, top_w, E, k, T, d, x.dtype)
 
     # ---- load-balance aux (Switch): E * sum_e f_e * P_e ----
@@ -140,12 +170,10 @@ def moe_ffn(cfg, params: dict, x: torch.Tensor, *, mesh=None,
     p_e = probs.mean(dim=0)
     aux = cfg.router_aux_coef * E * (f_e * p_e).sum()
 
-    if "shared" in params:
-        out = out + swiglu(params["shared"], x,
-                           row_block).reshape(T, d).float()
+    if shared is not None:
+        out = out + swiglu(shared, x, row_block,
+                           tp=tp_sh).reshape(T, d).float()
     return out.to(x.dtype).reshape(B, S, d), aux
-
-
 def _counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
     """Pairs per expert, (E,) int64: ``bincount(flat_e, length=E)``
     without the host sync ``torch.bincount`` makes on a CUDA tensor to
@@ -179,24 +207,81 @@ def _combine(vals: torch.Tensor, order: torch.Tensor, T: int,
     return flat.reshape(T, k, -1).sum(dim=1)
 
 
-def _capacity_moe(cfg, params, xf, flat_e, top_w, E, k, T, d, dtype,
-                  mesh=None):
-    """The capacity dispatch: over a mesh the reference shards the
-    experts (``_expert_parallel_moe``); on one device the dense
-    formulation."""
-    if mesh is not None:
-        return _expert_parallel_moe(cfg, params, xf, flat_e, top_w, E, k, T,
-                                    d, dtype, mesh)
-    return _capacity_moe_dense(cfg, params, xf, flat_e, top_w, E, k, T, d,
-                               dtype)
-
-
 def _expert_parallel_moe(cfg, params, xf, flat_e, top_w, E, k, T, d, dtype,
-                         mesh):
-    """The reference's expert-parallel dispatch (each device of the
-    mesh's model axis dispatches its slice of the experts, one psum
-    combines): multi-device, not in the port."""
-    raise NotImplementedError(MOE_NO_MESH)
+                         tp: ModelAxis) -> torch.Tensor:
+    """This rank's (T, d) f32 partial of the expert-parallel dispatch
+    (the reference's ``_expert_parallel_moe``'s ``local``): the pairs
+    routed to its E/m experts ``[index·E/m, (index+1)·E/m)`` (its slices
+    of ``w_in`` and ``w_out``), through the capacity dispatch
+    (``_dispatch_local``, C from the T tokens this data shard holds) or
+    the ragged one on its local segments; the caller sums the partials
+    over the axis."""
+    E_loc = E // tp.size
+    e_base = tp.index * E_loc
+    if cfg.moe_impl == "capacity":
+        C = int(max(1, (T * k / E) * cfg.moe_capacity_factor))
+        return _dispatch_local(params["w_in"], params["w_out"], xf, flat_e,
+                               top_w, k, d, dtype, e_base, E_loc, C)
+    return _ragged_local(params, xf, flat_e, top_w, k, T, dtype, e_base,
+                         E_loc)
+
+
+def _local_order(flat_e, e_base: int, E_loc: int):
+    """(order, local expert of each sorted pair, this rank's pair counts
+    per local expert): the pairs sorted stably by local expert, pairs of
+    the other ranks' experts (local expert E_loc) last."""
+    mine = (flat_e >= e_base) & (flat_e < e_base + E_loc)
+    le = torch.where(mine, flat_e - e_base, E_loc)
+    order = torch.argsort(le, stable=True)
+    return order, le[order], _counts(le, E_loc + 1)[:E_loc]
+
+
+def _ragged_local(params, xf, flat_e, top_w, k, T, dtype, e_base: int,
+                  E_loc: int) -> torch.Tensor:
+    """The ragged dispatch on this rank's experts: its pairs' segments
+    through ``_ExpertMM`` over its E/m slabs, the other pairs' rows
+    zeroed; combined in ``_combine``'s fixed order."""
+    order, se, counts = _local_order(flat_e, e_base, E_loc)
+    valid = se < E_loc
+    xs = xf[order // k]
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    h = _ExpertMM.apply(xs, params["w_in"], offs, valid)
+    g, u = h.chunk(2, dim=-1)
+    h = F.silu(g.float()).to(dtype) * u
+    y = _ExpertMM.apply(h, params["w_out"], offs, valid)
+    w = top_w.reshape(-1)[order] * valid
+    return _combine(y.float() * w[:, None], order, T, k)
+
+
+def _dispatch_local(w_in, w_out, xf, flat_e, top_w, k, d, dtype,
+                    e_base: int, E_loc: int, C: int) -> torch.Tensor:
+    """The reference's ``_dispatch_local``: capacity scatter of the pairs
+    routed to experts ``[e_base, e_base + E_loc)`` into an (E_loc, C, d)
+    buffer (a pair's slot is its place among its expert's pairs in token
+    order; overflow and the other experts' pairs dropped), the dense
+    expert products, the combine.  With e_base 0 and E_loc E it is
+    ``_capacity_moe_dense``."""
+    Tk = flat_e.shape[0]
+    order, se, counts = _local_order(flat_e, e_base, E_loc)
+    starts = torch.cumsum(counts, 0) - counts
+    sc = se.clamp_max(E_loc - 1)
+    pos = torch.arange(Tk, device=xf.device) - starts[sc]
+    keep = (se < E_loc) & (pos < C)
+    dest = sc * C + torch.where(keep, pos, 0)
+    tok = order // k
+
+    xs = xf[tok] * keep[:, None].to(xf.dtype)
+    buf = torch.zeros((E_loc * C, d), dtype=xf.dtype,
+                      device=xf.device).index_add(0, dest, xs)
+    buf = buf.reshape(E_loc, C, d)
+    h = torch.einsum("ecd,edf->ecf", buf.float(), w_in.float())
+    g, u = h.chunk(2, dim=-1)
+    h = (F.silu(g) * u).to(dtype)
+    y = torch.einsum("ecf,efd->ecd", h.float(),
+                     w_out.float()).reshape(E_loc * C, d)
+    w = (top_w.reshape(-1)[order] * keep).float()
+    return _combine(torch.where(keep[:, None], y[dest] * w[:, None], 0.0),
+                    order, xf.shape[0], k)
 
 
 def _capacity_moe_dense(cfg, params, xf, flat_e, top_w, E, k, T, d, dtype):

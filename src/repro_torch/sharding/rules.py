@@ -1,0 +1,188 @@
+"""Name-driven parameter sharding rules (port of
+``repro.sharding.rules``, without JAX).
+
+Rules are keyed by a leaf's *name* (its last dict key) and apply to the
+trailing dims, right-aligned: leading stack axes (the cycle axis, an
+adapter's K) stay unsharded.  An axis that does not divide its dim is
+dropped (smollm's 15 heads, ...).  A spec is a plain tuple of mesh axis
+names, one entry a dim (a name, a tuple of names, or None), trailing
+Nones trimmed: the reference's ``PartitionSpec`` as a tuple.
+
+Weight layout: up-projections shard the output dim over "model",
+down-projections the input dim (Megatron 1-D tensor parallelism: the
+activation stays sharded through the pair, one all-reduce after the
+down-projection).  MoE expert stacks shard the expert dim (expert
+parallelism), embeddings the vocab dim, the router and the norms
+replicate; LoRA adapters and their optimizer state replicate.  The
+dry-run layout adds a "data" axis on the other matmul dim (FSDP); the
+executing runtime drops it (``runtime_param_specs``, the reference's
+``runtime_param_shardings``): Megatron 1-D TP x DP.
+
+``shard_params`` cuts a backbone tree to one model rank's slices under
+the runtime specs (the placement GSPMD makes of
+``runtime_param_shardings`` in the reference).  The cache rules
+(``_cache_spec``) wait for tensor-parallel serving (ROADMAP A4).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+# leaf-name -> (trailing-dims spec), applied right-aligned.
+# "M" = model axis, "D" = data axis (FSDP-style second weight axis),
+# "B" = batch axes (pod, data), None = replicated.
+W_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    # embeddings / heads
+    "embed": ("M", "D"),
+    "head": ("D", "M"),
+    "frontend": ("D", "M"),
+    # attention
+    "wq": ("D", "M"), "wk": ("D", "M"), "wv": ("D", "M"),
+    "wo": ("M", "D"),
+    "bq": ("M",), "bk": ("M",), "bv": ("M",),
+    # MLA
+    "w_kv_a": ("D", "M"), "w_kv_b": ("D", "M"),
+    # dense FFN
+    "gate": ("D", "M"), "up": ("D", "M"), "down": ("M", "D"),
+    # MoE: expert dim sharded (expert parallelism) + d over data
+    "router": (None, None),
+    "w_in": ("M", "D", None), "w_out": ("M", None, "D"),
+    # SSD (mamba2): w_in/w_out shadowed by the MoE names; SSD's are 2-D
+    "conv_w": (None, "M"),
+    # RG-LRU
+    "w_x": ("D", "M"), "w_gate": ("D", "M"),
+    "w_a": ("D", "M"), "w_i": ("D", "M"),
+}
+# the tags the executing runtime drops (rows over "data" are manual)
+RUNTIME_DROP = ("D", "B")
+
+Spec = Tuple[Any, ...]
+
+
+def _resolve(axis_sizes, tag) -> Tuple[str, ...]:
+    if tag == "M":
+        return ("model",) if "model" in axis_sizes else ()
+    if tag == "D":
+        return ("data",) if "data" in axis_sizes else ()
+    if tag == "B":
+        return tuple(a for a in ("pod", "data") if a in axis_sizes)
+    return ()
+
+
+def spec_of_shape(axis_sizes, shape: Sequence[int],
+                  tags: Sequence) -> Spec:
+    """Right-aligned *tags* over *shape* -> spec tuple, dropping an axis
+    that does not divide its dim (the reference's ``_spec``)."""
+    entries = [None] * len(shape)
+    for i, tag in enumerate(tags):
+        dim_idx = len(shape) - len(tags) + i
+        if dim_idx < 0 or tag is None:
+            continue
+        axes = _resolve(axis_sizes, tag)
+        if not axes:
+            continue
+        size = math.prod(axis_sizes.get(a, 1) for a in axes)
+        if shape[dim_idx] % size == 0 and shape[dim_idx] > 0:
+            entries[dim_idx] = axes if len(axes) > 1 else axes[0]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def leaf_spec(axis_sizes, path: Sequence[str], shape: Sequence[int],
+              drop: Tuple[str, ...] = ()) -> Spec:
+    """The spec of the leaf at key *path* (its dict keys and list
+    indices as strings) of *shape*: named by its last dict key; an
+    SSD block's ``w_in``/``w_out`` are 2-D tensor-parallel projections,
+    not expert stacks."""
+    name = next((k for k in reversed(path) if not k.isdigit()), "")
+    tags = W_RULES.get(name)
+    if name in ("w_in", "w_out") and "ssd" in path:
+        tags = ("D", "M") if name == "w_in" else ("M", "D")
+    if tags is None:
+        return ()
+    if drop:
+        tags = tuple(None if t in drop else t for t in tags)
+    return spec_of_shape(axis_sizes, shape, tags)
+
+
+def _is_shape(x) -> bool:
+    return isinstance(x, (tuple, torch.Size)) and all(
+        isinstance(v, int) for v in x)
+
+
+def _walk(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_shape(tree):
+        return [_walk(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf) if _is_shape(leaf) else tuple(leaf.shape)
+
+
+def param_specs(axis_sizes, params, *, drop: Tuple[str, ...] = ()) -> Any:
+    """Spec tree of a backbone tree (tensors, ``meta`` tensors, or shape
+    tuples as leaves) against a ``{axis_name: size}`` geometry.  MoE
+    ``w_in``/``w_out`` are 3-D (E, d, f) stacks -> expert parallel; SSD's
+    are 2-D -> tensor parallel.  ``drop`` removes rule tags
+    (``drop=("D", "B")``: the executing runtime's pure TP specs)."""
+    return _walk(params, lambda path, leaf: leaf_spec(
+        axis_sizes, path, _shape(leaf), drop))
+
+
+def runtime_param_specs(axis_sizes, params) -> Any:
+    """The executing runtime's placement: the same rules with the data
+    and batch tags dropped (Megatron 1-D TP x DP)."""
+    return param_specs(axis_sizes, params, drop=RUNTIME_DROP)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, axis_sizes) -> Tuple[int, ...]:
+    """One rank's share of *shape* under *spec*."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        out[i] //= math.prod(axis_sizes.get(a, 1) for a in axes)
+    return tuple(out)
+
+
+def shard_params(params, full, model: int, index: int):
+    """Model rank *index*'s slices (of *model*) of the backbone tree
+    *params*, under the runtime specs of the FULL tree *full* (the same
+    structure; shapes, ``meta`` tensors or the tensors themselves): a
+    leaf split over "model" is cut to its *index*-th contiguous block
+    along that dim and copied (no view keeps the whole leaf alive); a
+    leaf already of its share's shape is kept as it is, so cutting twice
+    is cutting once.  Every other leaf is the caller's, shared."""
+    sizes = {"data": 1, "model": int(model)}
+    specs = runtime_param_specs(sizes, full)
+
+    def cut(path, leaf):
+        spec = _get(specs, path)
+        want = _shape(_get(full, path))
+        dim = next((i for i, e in enumerate(spec) if e == "model"), None)
+        if dim is None or model == 1:
+            return leaf
+        have = tuple(leaf.shape)
+        loc = local_shape(want, spec, sizes)
+        if have == loc:
+            return leaf
+        if have != want:
+            raise ValueError(f"{'/'.join(path)}: a leaf of shape {have} is "
+                             f"neither the whole {want} nor a model "
+                             f"rank's {loc}")
+        w = want[dim] // model
+        return leaf.narrow(dim, index * w, w).clone()
+    return _walk(params, cut)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+

@@ -322,26 +322,26 @@ def test_calibration_warm_start_roundtrip(cfg, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(partition=True), dict(fixed_mesh="world"),
-    dict(devices=["cpu", "cpu"]), dict(tp_mode="fsdp"),
+    dict(devices=["cpu", "cpu"]), dict(tp_mode="auto"),
     dict(pipeline_stages=2), dict(nano_order="rank_desc"),
     dict(grad_sync="psum"), dict(data_axis="dp")],
     ids=["partition", "fixed_mesh", "two_devices", "tp_mode", "pipeline",
          "nano_order", "grad_sync", "data_axis"])
 def test_multi_gpu_options_refused(cfg, kw, tmp_path):
-    """The options the single-device controller refused as multi-GPU.
-    A ``tp_mode`` other than "dp" and "pipeline" still refuses (ROADMAP
-    A4).  The rest now run over a pool of ranks and are accepted and
-    passed through to the engines: partition, a fixed mesh,
+    """The options the single-device controller refused as multi-GPU
+    now run over a pool of ranks and are accepted and passed through to
+    the engines: partition, a fixed mesh, ``tp_mode="auto"`` (the
+    data-parallel step on the pool's 1-D slices, as in the reference),
     ``pipeline_stages``, ``nano_order``, ``grad_sync`` and ``data_axis``
     in a one-rank gloo world, where the group is built on a one-rank
     mesh and trains two steps; two devices on a world of two spawned
-    gloo ranks, where the pool partitions into one rank a group.  With
+    gloo ranks, where the pool partitions into one rank a group.  A
+    tp_mode the reference does not have is refused.  With
     ``tp_mode="pipeline"`` a depth of 2 does not divide the one-rank
     slice: refused at partition time, as in the reference."""
     if "tp_mode" in kw:
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            _port(cfg, **kw)
-        return
+        with pytest.raises(ValueError, match="unknown tp_mode"):
+            _port(cfg, tp_mode="fsdp")
     if "devices" in kw:
         import torch_sharded_common as C
         import torch_sharded_worker as W
@@ -378,6 +378,7 @@ def test_multi_gpu_options_refused(cfg, kw, tmp_path):
             (() if "fixed_mesh" in kw else (0,))
         assert rt.nano_order == kw.get("nano_order", "job")
         assert rt.grad_sync == kw.get("grad_sync", "gather")
+        assert rt.tp_mode == kw.get("tp_mode", "dp")
         ctl.run(2)
         assert ctl.steps_done("a") == ctl.steps_done("b") == 2
         assert np.isfinite(np.asarray(rt.report.per_job_losses)).all()

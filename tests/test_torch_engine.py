@@ -130,6 +130,9 @@ def test_engine_defaults_to_the_card(cfg):
                         pipeline_stages=2, device="cpu")
     assert (eng._rt_kwargs["tp_mode"],
             eng._rt_kwargs["pipeline_stages"]) == ("pipeline", 2)
-    with pytest.raises(NotImplementedError):
-        ElasticEngine(cfg, params={}, mesh=object(), tp_mode="auto",
+    eng = ElasticEngine(cfg, params={}, mesh=object(), tp_mode="auto",
+                        device="cpu")
+    assert eng._rt_kwargs["tp_mode"] == "auto"
+    with pytest.raises(ValueError, match="unknown tp_mode"):
+        ElasticEngine(cfg, params={}, mesh=object(), tp_mode="fsdp",
                       device="cpu")

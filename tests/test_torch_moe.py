@@ -135,13 +135,37 @@ def test_expert_products_take_bf16_segments():
 
 
 def test_mesh_dispatch_is_refused():
-    """The reference's expert-parallel dispatch is multi-device: refused
-    for either impl, with the queue item named."""
+    """The reference's expert-parallel dispatch: each model rank's (T, d)
+    partial over its E/m experts (``_expert_parallel_moe`` with a
+    ``ModelAxis`` of 2, no collective inside it), summed over the two
+    ranks, is the single-device dispatch, for either impl (the capacity
+    dispatch's slots and drops are the dense one's at the same C).  A
+    device mesh itself is refused: the dispatch takes the model axis
+    (``tp=``), not a mesh."""
+    from repro_torch.models.layers import ModelAxis
     for impl in ("ragged", "capacity"):
         _, pc, params, x, _ = _setup("qwen3-moe-30b-a3b", impl)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            moe.moe_ffn(pc, params_from_numpy(params, "cpu"),
-                        torch.from_numpy(x), mesh=object())
+        tp_ = params_from_numpy(params, "cpu")
+        xf = torch.from_numpy(x).reshape(-1, pc.d_model)
+        E, k, T, d = pc.num_experts, pc.num_experts_per_tok, xf.shape[0], \
+            pc.d_model
+        _, top_w, top_i = moe.route(pc, tp_, xf)
+        flat_e = top_i.reshape(-1)
+        whole = (moe._capacity_moe_dense if impl == "capacity"
+                 else moe._ragged_moe)
+        if impl == "capacity":
+            want = whole(pc, tp_, xf, flat_e, top_w, E, k, T, d, xf.dtype)
+        else:
+            want = whole(tp_, xf, flat_e, top_w, E, k, T, d, xf.dtype)
+        got = sum(moe._expert_parallel_moe(
+            pc, dict(tp_, w_in=tp_["w_in"][r * E // 2:(r + 1) * E // 2],
+                     w_out=tp_["w_out"][r * E // 2:(r + 1) * E // 2]),
+            xf, flat_e, top_w, E, k, T, d, xf.dtype, ModelAxis(None, 2, r))
+            for r in range(2))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+        with pytest.raises(TypeError):
+            moe.moe_ffn(pc, tp_, torch.from_numpy(x), mesh=object())
 
 
 def test_router_logits_do_not_depend_on_the_batch():

@@ -23,6 +23,7 @@ its stage-local gradients are summed in micro order as the nano slices'
 are, and the handoffs copy bytes.
 """
 import dataclasses
+import inspect
 import re
 
 import numpy as np
@@ -46,10 +47,9 @@ from repro_torch.data.pipeline import JobStream
 from repro_torch.elastic.engine import ElasticEngine
 from repro_torch.elastic.migrate import JobTrainState
 from repro_torch.elastic.runtime import GroupRuntime
-from repro_torch.launch.mesh import _stage_group_keys
+from repro_torch.launch.mesh import _stage_group_keys, make_local_mesh
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.moe import MOE_NO_MESH
 from repro_torch.optim.schedule import constant
 
 import torch_sharded_common as C
@@ -265,9 +265,12 @@ def test_legality(runs):
 
 
 def test_refusals_without_a_world():
-    """No mesh, a MoE model, tp_mode "auto": refused as the reference
-    refuses them (the MoE and "auto" by ROADMAP A3 and A4); without a
-    mesh ``make_train_step`` ignores the pipeline arguments."""
+    """No mesh: refused as the reference refuses it; without a mesh
+    ``make_train_step`` ignores the pipeline arguments.  A MoE model's
+    pipeline step is no longer refused (ROADMAP A3): it reaches the
+    depth check, and a depth that does not divide its stack raises the
+    reference's error.  tp_mode "auto" is accepted by the engine (A4);
+    a pipeline mesh with a model axis stays refused (A8d)."""
     cfg, jobs = W.cfg_f32(), W.specs("ab")
     with pytest.raises(ValueError, match="needs a mesh"):
         GroupRuntime.from_specs(cfg, jobs, impl="cuda", block_t=8,
@@ -279,12 +282,14 @@ def test_refusals_without_a_world():
     assert callable(step)
     moe = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
                               dtype="float32")
-    with pytest.raises(NotImplementedError, match=re.escape(MOE_NO_MESH)):
+    with pytest.raises(ValueError, match="legal pipeline depths"):
         SharedSuperModel(moe, jobs, impl="torch", block_t=8) \
             .make_train_step(lr_fn=constant(1e-2), mesh=object(),
-                             tp_mode="pipeline", pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="A4"):
-        ElasticEngine(cfg, params={}, device="cpu", tp_mode="auto")
+                             tp_mode="pipeline", pipeline_stages=4)
+    eng = ElasticEngine(cfg, params={}, device="cpu", tp_mode="auto")
+    assert eng._rt_kwargs["tp_mode"] == "auto"
+    src = inspect.getsource(make_local_mesh)
+    assert "ROADMAP A8d" in src and "a model axis inside the stages" in src
 
 
 # ----------------------------------------------------- the reference's

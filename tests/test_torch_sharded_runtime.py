@@ -51,6 +51,7 @@ from repro_torch.optim.schedule import constant
 
 import torch_sharded_common as C
 import torch_sharded_worker as W
+from torch_train_common import StandInMesh
 from torch_train_common import one_torch_thread  # noqa: F401
 
 
@@ -268,14 +269,17 @@ def _cfg_and_specs():
 
 
 @pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(tp_mode="auto"), "A7c", id="kw0-A7c"),
+    pytest.param(dict(tp_mode="auto"), "A8", id="kw0-A7c"),
     pytest.param(dict(tp_mode="pipeline"), "pipeline_stages >= 2",
                  id="kw1-A7b")])
 def test_tp_modes_other_than_dp_refuse(kw, match):
-    """"auto" waits for ROADMAP A4 (old A7c) everywhere.  "pipeline" (old
+    """"auto" (ROADMAP A4, old A7c) is ported: the engine passes it
+    through, and over a model axis of 2 it refuses what the port does not
+    run there: the int8 backbone (A8b) and MLA (A8c).  "pipeline" (old
     A7b) is ported and refuses what the reference refuses: no mesh, a
-    depth of 1, a depth that does not divide the scanned stack, and a
-    MoE model (A3); the engine passes it through."""
+    depth of 1, a depth that does not divide the scanned stack (a MoE
+    model's too: it is no longer refused, A3); the engine passes it
+    through."""
     cfg, jobs = _cfg_and_specs()
     if kw["tp_mode"] == "pipeline":
         with pytest.raises(ValueError, match="needs a mesh"):
@@ -293,19 +297,23 @@ def test_tp_modes_other_than_dp_refuse(kw, match):
                                  pipeline_stages=4, **kw)
         moe = dataclasses.replace(
             get_config("qwen3-moe-30b-a3b").reduced(), dtype="float32")
-        with pytest.raises(NotImplementedError, match="A7d"):
+        with pytest.raises(ValueError, match="legal pipeline depths"):
             SharedSuperModel(moe, jobs, impl="torch", block_t=8) \
                 .make_train_step(lr_fn=constant(1e-2), mesh=object(),
-                                 pipeline_stages=2, **kw)
+                                 pipeline_stages=4, **kw)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match + "b"):
         GroupRuntime.from_specs(cfg, jobs, impl="torch", block_t=8,
-                                device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        ElasticEngine(cfg, params={}, mesh=object(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        SharedSuperModel(cfg, jobs, impl="torch", block_t=8) \
-            .make_train_step(lr_fn=constant(1e-2), mesh=object(), **kw)
+                                device="cpu", mesh=StandInMesh(),
+                                quantize="int8", **kw)
+    eng = ElasticEngine(cfg, params={}, mesh=object(), device="cpu", **kw)
+    assert eng._rt_kwargs["tp_mode"] == "auto"
+    mla = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").reduced(), dtype="float32")
+    with pytest.raises(NotImplementedError, match=match + "c"):
+        SharedSuperModel(mla, jobs, impl="torch", block_t=8) \
+            .make_train_step(lr_fn=constant(1e-2), mesh=StandInMesh(),
+                             **kw)
 
 
 @pytest.mark.parametrize("impl", ["ref", "loop"])
@@ -333,13 +341,23 @@ def test_gather_mode_refuses_ref_and_loop(impl):
 
 
 def test_moe_over_a_mesh_refuses():
-    """A MoE model's sharded step, like the MoE's own mesh paths, waits
-    for ROADMAP A7d."""
+    """A MoE model's sharded step is no longer refused (ROADMAP A3, old
+    A7d; tests/test_torch_moe_mesh.py trains it): over a ("data",
+    "model") mesh it builds the tensor-parallel step (expert parallel:
+    the model axis divides its E); a MoE model with MLA over a model
+    axis is what still refuses (A8c)."""
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
                               dtype="float32")
+    assert cfg.num_experts % 2 == 0
     ssm = SharedSuperModel(cfg, W.specs("ab"), impl="torch", block_t=8)
-    with pytest.raises(NotImplementedError, match="A7d"):
-        ssm.make_train_step(lr_fn=constant(1e-2), mesh=object())
+    assert callable(ssm.make_train_step(lr_fn=constant(1e-2),
+                                        mesh=StandInMesh(), tp_mode="auto"))
+    mla = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").reduced(), dtype="float32")
+    with pytest.raises(NotImplementedError, match="A8c"):
+        SharedSuperModel(mla, W.specs("ab"), impl="torch", block_t=8) \
+            .make_train_step(lr_fn=constant(1e-2), mesh=StandInMesh(),
+                             tp_mode="auto")
     assert ref_get_config("qwen3-moe-30b-a3b").num_experts
 
 

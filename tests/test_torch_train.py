@@ -54,7 +54,8 @@ from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
 from repro_torch.train.train_loop import train_group
 
-from torch_train_common import (BT, LR, RANKS, RANKS_U, _adam_close,
+from torch_train_common import (BT, LR, RANKS, RANKS_U, StandInMesh,
+                                _adam_close,
                                 _cfgs, _flat, _specs, _weights)
 
 
@@ -442,17 +443,35 @@ def test_uniform_group_adapter_isolation(uniform_setup):
 
 # --------------------------------------------------------- refusals
 def test_make_train_step_refuses_what_is_not_ported():
-    """Tensor-parallel meshes refuse (ROADMAP A4, old A7c: multi-GPU).
-    Pipeline stages (old A7b) are ported: without a mesh they are
-    ignored, as in the reference; on a mesh a depth of 1 or one that
-    does not divide the scanned stack is refused before the mesh is
-    touched.  Uniform layouts and nano batches build."""
+    """Tensor parallelism (``tp_mode="auto"``, ROADMAP A4) builds on a
+    ("data", "model") mesh; what it does not run over a model axis of 2
+    is refused with its ROADMAP line: MLA and the other mixers and front
+    ends (A8c), head counts the axis does not divide (A4), and an
+    unknown tp_mode.  Pipeline stages (old A7b) are ported: without a
+    mesh they are ignored, as in the reference; on a mesh a depth of 1
+    or one that does not divide the scanned stack is refused before the
+    mesh is touched.  Uniform layouts and nano batches build."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ssm import check_tensor_parallel
     cfg = _cfgs("float32")[1]
     lr = constant(LR)
     ragged = SharedSuperModel(cfg, _specs(LoRAJobSpec), impl="cuda",
                               block_t=BT)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ragged.make_train_step(lr_fn=lr, mesh=object(), tp_mode="auto")
+    assert callable(ragged.make_train_step(lr_fn=lr, mesh=StandInMesh(),
+                                           tp_mode="auto"))
+    with pytest.raises(ValueError, match="unknown tp_mode"):
+        ragged.make_train_step(lr_fn=lr, mesh=StandInMesh(),
+                               tp_mode="fsdp")
+    mla = get_config("deepseek-v2-lite-16b").reduced()
+    with pytest.raises(NotImplementedError, match="A8c"):
+        SharedSuperModel(mla, _specs(LoRAJobSpec), impl="cuda",
+                         block_t=BT).make_train_step(
+            lr_fn=lr, mesh=StandInMesh(), tp_mode="auto")
+    with pytest.raises(ValueError, match="split a head"):
+        check_tensor_parallel(cfg, 4)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        check_tensor_parallel(cfg, 2, quantize="int8")
+    check_tensor_parallel(mla, 1)
     assert callable(ragged.make_train_step(lr_fn=lr, tp_mode="pipeline",
                                            pipeline_stages=2))
     with pytest.raises(ValueError, match="pipeline_stages >= 2"):

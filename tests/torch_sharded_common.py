@@ -157,3 +157,78 @@ def compare(want: dict, got: dict, exact_steps: bool = True):
     if exact_steps:
         assert list(want["step"]) == list(got["step"])
         assert want["steps_done"] == got["steps_done"]
+
+
+# ------------------------------------------- any config, per shard
+def ref_weights(rcfg, key: str) -> dict:
+    """The reference's (params, adapters) of job set *key* on config
+    *rcfg*, drawn from PRNGKey(SEED), as numpy and as the port's trees."""
+    ssm = RefSSM(rcfg, W.specs(key, RefSpec), impl="xla", block_t=W.BT)
+    params, adapters = ssm.init(jax.random.PRNGKey(W.SEED))
+    params = jax.tree.map(np.asarray, params)
+    adapters = jax.tree.map(np.asarray, adapters)
+    return {"np": (params, adapters),
+            "port": {"params": params_from_numpy(params, "cpu"),
+                     "adapters": adapters_from_numpy(adapters, "cpu")}}
+
+
+def ref_shard_function(rcfg, key: str, weights, shards: int = 1,
+                       nano: int = 1, steps: int = 2) -> dict:
+    """The reference's function over data shards and nano slices (its
+    ``shard_map`` step's body, evaluated shard by shard on one device):
+    each step, the reference's ``loss_fn`` on every shard's rows
+    (``shard_permutation``) and, within a shard, on every job-wise nano
+    slice (``_nano_index``), each with the global per-job denominators
+    and its own MoE aux; the gradients summed in f32; one AdamW update.
+    One shard and one slice is the single-device step.  The batches are
+    the reference's ``FusedBatcher``'s (seed 0, *shards* shards); impl
+    "ref" (the gather oracle: any slice's geometry)."""
+    import jax.numpy as jnp
+    from repro.core import ssm as rs
+    from repro.data.pipeline import FusedBatcher as RefBatcher
+    from repro.data.pipeline import shard_permutation
+    from repro.models import model as RM
+    from repro.optim import adamw as ra
+    specs = W.specs(key, RefSpec)
+    K = len(specs)
+    params, adapters = (jax.tree.map(jnp.asarray, t) for t in weights)
+    ssm = RefSSM(rcfg, specs, impl="ref", block_t=W.BT, data_shards=shards)
+    fb = RefBatcher(specs, rcfg.vocab_size, block_t=W.BT, seed=0,
+                    shards=shards)
+    rows = ssm.rows_per_job()
+    perm = shard_permutation(rows, shards).reshape(shards, -1)
+    idx = rs._nano_index([r // shards for r in rows], nano).reshape(nano, -1)
+
+    def loss(ad, nb, denom):
+        lora = ssm.lora_ctx(nb["adapter_ids"])
+        total, aux = RM.loss_fn(rcfg, params, ad, lora, nb, remat=False,
+                                per_job_denom=denom)
+        return total, aux["per_job"]
+
+    grad = jax.jit(jax.grad(loss, has_aux=True))
+    opt = ra.init(adapters, per_job=K)
+    losses = []
+    for _ in range(steps):
+        batch = fb.next_batch()
+        denom = rs._per_job_token_counts(
+            {k: jnp.asarray(v) for k, v in batch.items()}, K,
+            causal=rcfg.causal)
+        g_sum, per_job = None, np.zeros(K)
+        for s in range(shards):
+            for sl in idx:
+                rows_s = perm[s][sl]
+                g, pj = grad(adapters, {k: jnp.asarray(v[rows_s])
+                                        for k, v in batch.items()}, denom)
+                g = jax.tree.map(lambda t: t.astype(jnp.float32), g)
+                g_sum = g if g_sum is None else jax.tree.map(
+                    lambda a, b: a + b, g_sum, g)
+                per_job = per_job + np.asarray(pj, np.float64)
+        adapters, opt = ra.update(g_sum, opt, adapters, lr=W.LR,
+                                  col_jobs=ssm.layout.col_jobs)
+        losses.append(per_job)
+    return {"losses": np.asarray(losses),
+            "adapters": W.flat(jax.tree.map(np.asarray, adapters)),
+            "mu": W.flat(jax.tree.map(np.asarray, opt.mu)),
+            "nu": W.flat(jax.tree.map(np.asarray, opt.nu)),
+            "step": np.asarray(opt.step).tolist(),
+            "steps_done": {s.job_id: steps for s in specs}}

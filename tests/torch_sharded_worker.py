@@ -1020,6 +1020,204 @@ def pipe_controller(inputs):
     return out
 
 
+# ------------------------------------------- the MoE over a mesh (A3)
+# Reduced MoE configs in f32 (tests/test_torch_moe_mesh.py): qwen3-moe
+# with either dispatch, and deepseek-v2-lite (MLA + MoE, a dense head
+# layer, a shared expert) cut to 3 layers, so that its scanned stack has
+# the 2 cycles a 2-stage pipeline needs.
+MOE_CFGS = {"qr": ("qwen3-moe-30b-a3b", "ragged", None),
+            "qc": ("qwen3-moe-30b-a3b", "capacity", None),
+            "ds": ("deepseek-v2-lite-16b", "ragged", 3)}
+MOE_DP = {"qr": {"g1": {}, "p1": dict(grad_sync="psum"),
+                 "g2": dict(nano_batches=2)},
+          "qc": {"g1": {}, "g2": dict(nano_batches=2)},
+          "ds": {"g1": {}, "p1": dict(grad_sync="psum")}}
+
+
+def moe_cfg(key, get=None):
+    arch, impl, layers = MOE_CFGS[key]
+    cfg = (get or get_config)(arch).reduced()
+    return dataclasses.replace(cfg, dtype="float32", moe_impl=impl,
+                               **({"num_layers": layers} if layers else {}))
+
+
+def moe_run(inputs, key, mesh, **kw) -> dict:
+    w = inputs[key]
+    rt = GroupRuntime.from_specs(moe_cfg(key), specs("ab"),
+                                 params=w["params"], adapters=w["adapters"],
+                                 mesh=mesh, **dict(KW, impl="cuda", **kw))
+    rt.run(2)
+    return dict(summary(rt), aux=np.asarray(rt.report.last_metrics["aux"]))
+
+
+def moe_dp(inputs):
+    """The MoE configs through ``tp_mode="dp"`` on each 2-rank pair
+    (D = 2): gather and psum at N = 1, gather at N = 2 (job-wise nano
+    slices)."""
+    return {key: {name: moe_run(inputs, key, pair_mesh(), **kw)
+                  for name, kw in runs.items()}
+            for key, runs in MOE_DP.items()}
+
+
+def moe_pipeline(inputs):
+    """The MoE configs through ``tp_mode="pipeline"``, P = 2 x D = 1 on
+    each 2-rank slice, N = 2 micro-batches."""
+    return {key: moe_run(inputs, key, pipe_pairs(), nano_batches=2, **PIPE)
+            for key in MOE_CFGS}
+
+
+# ------------------------------------ tensor parallelism (A3, A4)
+# tp_mode="auto" over ("data", "model") meshes: data 2 x model 2 over
+# the world, data 1 x model 2 on each pair (tests/test_torch_tensor_
+# parallel.py).  Job sets: "rag" (mixed ranks: the ragged kernels),
+# "ab" (uniform: the masked kernels).
+TP_RUNS = {"rag": ("tl", "rag", {}), "ab": ("tl", "ab", {}),
+           "rag_psum": ("tl", "rag", dict(grad_sync="psum")),
+           "qc": ("qc", "ab", {}), "qr": ("qr", "ab", {}),
+           "qs": ("qs", "ab", {})}
+
+
+def tp_cfg(key, get=None):
+    """The port's config of a ``TP_RUNS`` key (*get*: the reference's
+    registry instead): reduced f32 tinyllama ("tl"), a ``MOE_CFGS`` key,
+    or "qs", the ragged qwen3-moe with one shared expert (its SwiGLU
+    column/row parallel beside the expert-parallel dispatch)."""
+    if key == "tl":
+        return dataclasses.replace((get or get_config)(
+            "tinyllama-1.1b").reduced(), dtype="float32")
+    if key == "qs":
+        return dataclasses.replace(moe_cfg("qr", get), num_shared_experts=1)
+    return moe_cfg(key, get)
+
+
+def tp_world():
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(model=2)
+
+
+def tp_pairs():
+    """Data 1 x model 2 on each pair of the world: a (pair, data, model)
+    mesh's ("data", "model") slice, its groups made by every rank."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (dist.get_world_size() // 2, 1, 2),
+                            mesh_dim_names=("pair", "data", "model"))
+    return mesh["data", "model"]
+
+
+def tp_run(inputs, cfg_key, jobs, mesh, **kw) -> dict:
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import runtime_param_specs
+    w = inputs[f"{cfg_key}:{jobs}"]
+    cfg = tp_cfg(cfg_key)
+    rt = GroupRuntime.from_specs(cfg, specs(jobs), params=w["params"],
+                                 adapters=w["adapters"], mesh=mesh,
+                                 tp_mode="auto",
+                                 **dict(KW, impl="cuda", **kw))
+    rt.run(2)
+    spec = runtime_param_specs({"data": 1, "model": 2},
+                               M.init_model(cfg, device="meta"))
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in flat_t(tree).values())
+    return dict(summary(rt), bytes=nbytes(rt.params),
+                whole_bytes=nbytes(w["params"]),
+                shapes={k: tuple(v.shape) for k, v in flat_t(rt.params)
+                        .items()},
+                specs=_flat_specs(spec),
+                model_axis=rt.model_axis, shards=rt.data_shards,
+                aux=np.asarray(rt.report.last_metrics["aux"]))
+
+
+def _flat_specs(tree, path=()):
+    if isinstance(tree, dict):
+        return {p: v for k, t in tree.items()
+                for p, v in _flat_specs(t, path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in _flat_specs(t, path + (str(i),)).items()}
+    return {"/".join(path): tree}
+
+
+def tp_parity(inputs):
+    """Every ``TP_RUNS`` run at data 1 x model 2 (each pair) and the
+    dense ones at data 2 x model 2 (the world)."""
+    pairs = tp_pairs()
+    out = {"d1": {name: tp_run(inputs, c, j, pairs, **kw)
+                  for name, (c, j, kw) in TP_RUNS.items()}}
+    world = tp_world()
+    out["d2"] = {name: tp_run(inputs, c, j, world, **kw)
+                 for name, (c, j, kw) in TP_RUNS.items()}
+    return out
+
+
+def tp_step_and_engine(inputs):
+    """``make_train_step(mesh=, tp_mode="auto")`` called directly on this
+    rank's data shard's rows and its model slices; ``ElasticEngine(
+    tp_mode="auto")`` over the world (data 2 x model 2): a two-job group
+    trained 2 steps, then a job removed."""
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher, shard_permutation
+    from repro_torch.elastic.engine import ElasticEngine
+    from repro_torch.launch.mesh import data_group, model_group
+    from repro_torch.models import model as M
+    from repro_torch.optim.schedule import constant
+    from repro_torch.sharding.rules import shard_params
+    mesh = tp_world()
+    _, D, s = data_group(mesh, "data")
+    _, m, mi = model_group(mesh)
+    cfg, jobs, w = cfg_f32(), specs("ab"), inputs["tl:ab"]
+    ssm = SharedSuperModel(cfg, jobs, impl="cuda", block_t=BT,
+                           data_shards=D)
+    fb = FusedBatcher(jobs, cfg.vocab_size, block_t=BT, shards=D)
+    batch = fb.next_batch()
+    perm = shard_permutation(fb.rows_per_job(), D)
+    n = perm.size // D
+    mine = {k: torch.from_numpy(np.ascontiguousarray(v[perm[s * n:
+                                                          (s + 1) * n]]))
+            for k, v in batch.items()}
+    step = ssm.make_train_step(lr_fn=constant(LR), remat=False, mesh=mesh,
+                               tp_mode="auto")
+    params = shard_params(w["params"], M.init_model(cfg, device="meta"),
+                          m, mi)
+    adapters = w["adapters"]
+    ad, _, met = step(params, adapters,
+                      adamw.init(adapters, per_job=len(jobs)), mine)
+    out = {"step": {"per_job": met["per_job_loss"].numpy(),
+                    "adapters": flat(ad), "batch": dict(batch)}}
+    eng = ElasticEngine(cfg, params=w["params"], impl="cuda", block_t=BT,
+                        lr=LR, remat=False, chunk_size=2, mesh=mesh,
+                        tp_mode="auto", device="cpu")
+    for sp in jobs:
+        eng.add_job(sp, init_seed=11)
+    rt = eng.ensure_group(("a", "b"))
+    assert rt.data_shards == 2 and rt.model_axis == (2, mi)
+    rt.run(2)
+    out["engine"] = summary(rt)
+    st = eng.remove_job("a")
+    out["removed_steps"] = (st.opt_step, st.steps_done)
+    return out
+
+
+def tp_controller(inputs):
+    """``ClusterController(tp_mode="auto")`` over the pool: two 2-job
+    groups on disjoint 2-rank slices, threads; the slices are 1-D, so
+    each group runs the data-parallel step over its slice."""
+    ctl = controller("threads", tp_mode="auto")
+    admit(ctl, inputs, [j for j, _ in CTL_JOBS])
+    ctl.apply_grouping(CTL_GROUPS, chips=[2, 2])
+    ctl.run(4)
+    g, rt = local_group(ctl, CTL_GROUPS)
+    assert rt.tp_mode == "auto" and rt.data_shards == 2
+    return {"gkey": g, "losses": [[float(l[j]) for l in
+                                   rt.report.per_job_losses]
+                                  for j in range(2)],
+            "states": {j: state_of(ctl.job_state(j))
+                       for j, _ in CTL_JOBS},
+            "decisions": decisions(ctl)}
+
+
+MOE_MESH = ["moe_dp", "moe_pipeline"]
+TENSOR_PARALLEL = ["tp_parity", "tp_step_and_engine", "tp_controller"]
 PIPELINE = ["pipe_parity", "pipe_uniform", "pipe_unscanned_tail",
             "pipe_residency", "pipe_legality", "pipe_migration",
             "pipe_engine", "pipe_controller"]

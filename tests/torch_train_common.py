@@ -111,3 +111,20 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+class StandInMesh:
+    """A ("data", "model") mesh of 1 x 2 seen from model rank 0, with no
+    process group behind it: enough to build a tensor-parallel step or
+    reach a runtime's refusals, not to run a step."""
+    mesh_dim_names = ("data", "model")
+    ndim = 2
+
+    def get_group(self, axis):
+        return None
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+    def get_local_rank(self, axis):
+        return 0
