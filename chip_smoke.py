@@ -179,7 +179,7 @@ each on standard output:
             to the steps it dispatched;
   sharded — the train and train_uniform groups data-parallel through
             ``GroupRuntime(mesh=...)`` on tinyllama-1.1b at full width
-            cut to 11 layers (SHARDED_LAYERS), 2 steps a run: (a) two gloo ranks spawned onto the one card
+            cut to 4 layers (SHARDED_LAYERS), 2 steps a run: (a) two gloo ranks spawned onto the one card
             (NCCL refuses two ranks on one device): the train group's
             exact gather mode, gather at N = 2 with the "rank_desc" nano
             order, and psum (ragged kernels), the uniform group's gather
@@ -195,7 +195,7 @@ each on standard output:
             step are recorded as ranks sharing one card, not as a
             multi-GPU number;
   cluster_sharded — the controller over four gloo ranks on cuda:0,
-            tinyllama-1.1b at full width cut to 11 layers (CS_LAYERS):
+            tinyllama-1.1b at full width cut to 2 layers (CS_LAYERS):
             two groups on 2-rank slices, sequential vs threads, vs
             meshless, a repartition, a worker death and a lost slice;
   pipeline_mode — pipeline mode (``tp_mode="pipeline"``) on full-width,
@@ -213,7 +213,7 @@ each on standard output:
             sharing one card;
   tensor_parallel — tensor parallelism (``tp_mode="auto"``) and the MoE
             over every mesh, two gloo ranks on cuda:0: full-width
-            tinyllama-1.1b cut to 4 layers at data 1 x model 2 (the train
+            tinyllama-1.1b cut to 2 layers at data 1 x model 2 (the train
             and uniform groups: B1-B8 on the split projections, B9 on
             H/2 heads), full-width qwen3-moe-30b-a3b cut to 2 layers at
             data 1 x model 2 (64 experts a rank, capacity and ragged),
@@ -223,7 +223,40 @@ each on standard output:
             out that the limit must catch, every rank's adapters equal,
             launches a rank and the resident backbone (at least 40%
             below meshless where it is split), all asserted; walls, rank
-            0's idle share and peak memory recorded.
+            0's idle share and peak memory recorded;
+  tp_serve — the serve steps over a model axis (``make_prefill_step(
+            mesh=)``, ``make_serve_step(mesh=)``), eight gloo ranks on
+            cuda:0: (a) full-width, full-depth tinyllama-1.1b at data 1 x
+            model 2, the mixed adapter set {8, 16, 32, 64} (B1, B9):
+            prefill 8 prompts of 16-200 tokens and 16 decode steps,
+            against the meshless serve steps (prefill and teacher-forced
+            decode logits within 0.25), fused vs solo ids equal under the
+            mesh (the adapter of rank 64 served alone), the
+            caches half the meshless bytes and the launches a rank,
+            asserted; the greedy ids against meshless recorded; (b)
+            tinyllama-1.1b cut to 2 layers at data 1 x model 8, each kv
+            head held by 2 ranks: prefill and 4 decode steps, the same
+            checks (fused vs solo: the adapters of ranks 8 and 64; caches
+            a quarter; the sums over the axis in row blocks), one train step
+            of the train group through GroupRuntime(tp_mode="auto")
+            against meshless (step-1 gradients within max(2^-6, 2 x the
+            2^-9 nudge's floor)) and a planted fault (each kv head's
+            cotangent from one replica) that limit must catch; (c)
+            qwen3-moe-30b-a3b cut to 2 layers at data 1 x model 2:
+            prefill and 8 decode steps within 0.25 of the meshless serve
+            forced onto the split's experts (a routing flip moves a row's
+            logits O(1)), the flipped tokens at most twice the 2^-9
+            nudge's, a planted fault (rank 1's experts left out) above
+            0.25.  Beside
+            it, the dry run's prediction of (a)'s serve peak on rank 0,
+            recorded;
+  dryrun  — (after the serve phase) the dry run's analysis
+            of one step of the train group through ``impl="torch"``
+            (``launch/step_analysis``, meta tensors) against the same
+            step on the card: resident bytes (params, adapters, Adam
+            state) exactly equal, the predicted peak within 10% of
+            ``max_memory_allocated()`` (less what the process held
+            beside the step's inputs), asserted.
 
 Then one line ``{"kernels": [...]}`` (B1-B8 with the "torch" route's time
 beside their Function's and their times at the recurrent widths; the
@@ -256,7 +289,15 @@ only the ``pipeline_mode`` phase, and
 
     python3 chip_smoke.py --tensor-parallel
 
-only the ``tensor_parallel`` phase.
+only the ``tensor_parallel`` phase,
+
+    python3 chip_smoke.py --tp-serve
+
+only the ``tp_serve`` phase, and
+
+    python3 chip_smoke.py --dryrun
+
+only the ``dryrun`` line.
 
     python3 chip_smoke.py --floors
 
@@ -269,6 +310,7 @@ checks are held to.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -4113,8 +4155,9 @@ REGROUP_CHUNK, REGROUP_TARGET = 2, 16
 # time whatever its tokens, taken by turns under the GIL: 7 such jobs
 # took 142 s a run and tripped the heartbeat four times without a fault
 # (PERF.md §6).  So the trace runs tinyllama at full width cut to
-# TRACE_LAYERS layers.
-TRACE_JOBS, TRACE_WINDOW_S, TRACE_LAYERS = 6, 10.0, 6
+# TRACE_LAYERS layers (it was 6: two of them paid for the tp_serve phase
+# and the dryrun line inside the whole run's time).
+TRACE_JOBS, TRACE_WINDOW_S, TRACE_LAYERS = 6, 10.0, 4
 TRACE_CHUNK, TRACE_CKPT_EVERY = 2, 2
 # heartbeat: past a healthy chunk with every other pump taking the host
 # by turns, and its checkpoint write
@@ -4550,10 +4593,12 @@ def cluster_phase(cfg, dev, tmp, sim_cfg_of=None):
 # ----------------------------------------------------------- sharded
 SHARDED_D = 2                  # gloo ranks sharing cuda:0
 SHARDED_STEPS = 2              # steps a run, one at a time
-# tinyllama-1.1b at full width cut to 11 of its 22 layers (PR 27: the
-# whole run's time pays for the pipeline_mode phase; no check depends on
-# the depth, launches follow it through ``pattern_launches``)
-SHARDED_LAYERS = 11
+# tinyllama-1.1b at full width cut to 4 of its 22 layers (cut first to 11
+# to pay for the pipeline_mode phase, then to 6 for tp_serve and the
+# dryrun line, then to 4 for tp_serve's fused vs solo check at model 8,
+# inside the whole run's time; no check depends on the depth, launches
+# follow it through ``pattern_launches``)
+SHARDED_LAYERS = 4
 SHARDED_GROUPS = {"train": TRAIN_RANKS,      # mixed ranks: ragged route
                   "uniform": UNIFORM_RANKS}  # uniform widths: masked route
 SHARDED_RUNS = (               # (name, group, GroupRuntime options)
@@ -4903,11 +4948,13 @@ def sharded_phase(src, cfg, dev):
 # building the same controller (cluster/controller's SPMD design).  Steps
 # are few: a gloo gather step moves x and dy through host memory (the
 # sharded phase: 5.36 s a step on two ranks), so each part runs one or
-# two.  The depth was cut (PR 27) to pay for the pipeline_mode phase
-# inside the whole run's time; no check depends on it (launches are
-# scaled to the depth by ``chunk_tally``).
+# two.  The depth was cut (to 11, for the pipeline_mode phase; then to
+# 4, for tp_serve and the dryrun line; then to 2, for tp_serve's fused vs
+# solo check at model 8) inside the whole run's time;
+# no check depends on it (launches are scaled to the depth by
+# ``chunk_tally``).
 CS_RANKS = 4
-CS_LAYERS = 11
+CS_LAYERS = 2
 CS_STEPS = 2             # (a)/(b): threads and sequential, one chunk
 CS_STAGE = 1             # (c): steps of each repartition stage
 CS_DEATH = (2, 3)        # (d): worker_death at step 2 in flight, budget 3
@@ -5587,7 +5634,8 @@ def pipeline_mode_phase(src, cfg):
 # ------------------------------------------------------- tensor_parallel
 # Tensor parallelism (tp_mode="auto") and the MoE over every mesh, on
 # TP_RANKS gloo ranks sharing cuda:0: (a) tinyllama-1.1b at full width cut
-# to 4 layers, data 1 x model 2, the train group (ragged kernels, B9 on
+# to 2 layers (it was 4: two paid for tp_serve in the run's time), data 1
+# x model 2, the train group (ragged kernels, B9 on
 # H/2 heads) and the uniform group (masked kernels); (b) qwen3-moe-30b-a3b
 # at full width cut to 2 layers, data 1 x model 2 (64 of its 128 experts
 # a rank), the capacity and the ragged dispatch; (c) qwen3-moe through
@@ -5612,8 +5660,8 @@ def pipeline_mode_phase(src, cfg):
 TP_RANKS = 2
 TP_STEPS = 2
 TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
-    ("tl_train", "tinyllama-1.1b", 4, None, "train", {"tp_mode": "auto"}),
-    ("tl_uniform", "tinyllama-1.1b", 4, None, "uniform",
+    ("tl_train", "tinyllama-1.1b", 2, None, "train", {"tp_mode": "auto"}),
+    ("tl_uniform", "tinyllama-1.1b", 2, None, "uniform",
      {"tp_mode": "auto"}),
     ("moe_capacity", "qwen3-moe-30b-a3b", 2, "capacity", "train",
      {"tp_mode": "auto"}),
@@ -5672,10 +5720,10 @@ def _planted_row_proj():
     from repro_torch.models import attention as A
     real, seen = A.row_proj, [0]
 
-    def row_proj(tp, h, w, lora=None, ab=None):
+    def row_proj(tp, h, w, lora=None, ab=None, row_block=None):
         seen[0] += 1
         return real(tp, h, torch.zeros_like(w) if seen[0] == 1 else w,
-                    lora, ab)
+                    lora, ab, row_block)
     return real, row_proj
 
 
@@ -5716,7 +5764,7 @@ def tp_forward_probe(cfg, params, mesh, dev) -> dict:
                          seed=1).next_batch()
     tokens = torch.from_numpy(batch["tokens"]).to(dev)
     loc = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
-                       tp.index)
+                       tp.index, kv_heads=cfg.num_kv_heads)
     first = lambda tree: M._tree_map(lambda v: v[0], tree)
     p, q = first(params["segments"][0]["0"]), first(loc["segments"][0]["0"])
 
@@ -6000,6 +6048,735 @@ def tensor_parallel_phase(src):
     return launches
 
 
+# ------------------------------------------- tensor-parallel serving
+# The tp_serve phase (ROADMAP A8a): the serve steps over a model axis,
+# TPS_WORLD gloo ranks on cuda:0, against the meshless serve steps of
+# the same seeded weights.  Each run prefills TPS_PROMPTS prompts of
+# 16-200 tokens (two an adapter of the MIXED set: B1, and B9 in the
+# prefill), right-padded to one width, each adapter's rows padded to
+# TPS_ROWS (the engine's granule), then decodes from every row's last
+# prompt token at its own position, greedy; the meshless serve,
+# teacher-forced on those ids, gives the logits each step is held to.
+#   (a) tinyllama-1.1b at full width and depth, data 1 x model 2 on
+#       ranks 0-1 (the other ranks wait): prefill and TPS_DECODE decode
+#       steps' logits within LOGIT_ATOL of meshless (teacher-forced);
+#       fused vs solo ids exactly under the mesh (the TPS_SOLO_A adapter's
+#       rows served alone, each adapter re-packed, every product on
+#       TPS_ROWS rows (their tokens in the prefill): C1); the greedy ids
+#       against meshless
+#       recorded (first differing position); the rank's caches half the
+#       meshless bytes; launches a rank (B1 once a projection a pass, B9
+#       once a layer in the prefill).
+#   (b) tinyllama-1.1b at full width cut to TPS_B_LAYERS, data 1 x model
+#       8 over every rank: each of the 4 kv heads held by 2 ranks.  The
+#       same checks, TPS_B_DECODE decode steps (caches a quarter of
+#       meshless); fused vs solo needs the sums over the axis in row
+#       blocks too (``ModelAxis.sum``: above m = 2 an all-reduce's order
+#       follows the buffer's size).  Plus one train step of the train
+#       cell's mixed group through GroupRuntime(tp_mode=
+#       "auto"): step 1's adapter gradients against meshless within
+#       max(SHARD_GRAD_RTOL, 2 x the 2^-9 nudge's floor), as
+#       tensor_parallel holds "auto"; then the planted fault (each kv
+#       head's cotangent from one replica, not the replicas' sum, on
+#       every rank) must read above that limit.
+#   (c) qwen3-moe-30b-a3b at full width cut to TPS_MOE_LAYERS, data 1 x
+#       model 2 on ranks 0-1 (64 of 128 experts a rank): prefill and
+#       TPS_MOE_DECODE decode steps within LOGIT_ATOL of the meshless
+#       serve teacher-forced on the split's ids and experts (a row-
+#       parallel sum's rounding can flip a token's top-k expert, and
+#       that row's logits then move O(1): on an H100 2 of 8 requests,
+#       0.74, unforced; recorded), the tokens whose experts flipped at
+#       most twice the 2^-9 nudge's; a planted fault (rank 1's experts
+#       left out of the sum) must read above LOGIT_ATOL.
+TPS_WORLD = 8
+TPS_PROMPTS = 8
+TPS_ROWS = BLOCK_T
+TPS_DECODE = 16               # decode steps of (a), (b) and (c)
+TPS_B_DECODE = 4              # (eight ranks' collectives through the host)
+TPS_MOE_DECODE = 8
+TPS_B_LAYERS = 2
+TPS_MOE_LAYERS = 2
+TPS_SOLO = (0, 3)              # (b)'s adapters served alone: ranks 8, 64
+TPS_SOLO_A = (3,)              # (a)'s (22 layers): rank 64
+
+
+def tps_batch(cfg, dev, names, seed=3):
+    """(tokens (B, S), adapter ids (B,), prompt lengths (B,)) of
+    TPS_PROMPTS prompts of 16-200 tokens, two an adapter of *names*,
+    adapter-major, each adapter's rows padded to TPS_ROWS (a pad row: one
+    zero token), right-padded to one BLOCK_T-aligned width."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(
+        16, 201)), dtype=np.int32) for _ in range(TPS_PROMPTS)]
+    per = TPS_PROMPTS // len(names)
+    S = -(-max(len(p) for p in prompts) // BLOCK_T) * BLOCK_T
+    B = TPS_ROWS * len(names)
+    toks = np.zeros((B, S), np.int32)
+    lens = np.ones((B,), np.int32)
+    for k in range(len(names)):
+        for j in range(per):
+            p = prompts[k * per + j]
+            toks[k * TPS_ROWS + j, :len(p)] = p
+            lens[k * TPS_ROWS + j] = len(p)
+    ids = np.repeat(np.arange(len(names), dtype=np.int32), TPS_ROWS)
+    return (torch.from_numpy(toks).to(dev), torch.from_numpy(ids).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def tps_serve(cfg, specs, params, adapters, batch, mesh, steps, feed=None,
+              row_block=None):
+    """Prefill *batch* (``tps_batch``) through ``make_prefill_step(mesh=)``
+    and decode *steps* tokens through ``make_serve_step(mesh=)`` (mesh
+    None: meshless), greedy or fed *feed* (B, steps); *row_block*: rows
+    per decode product, and that many rows' tokens per prefill product.
+    Returns (prefill logits (B, V), decode logits (B, steps, V) f32, the
+    ids chosen (B, steps), the caches)."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.ssm import SharedSuperModel
+    toks, ids, lens = batch
+    ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=BLOCK_T)
+    shape = InputShape("tp_serve", toks.shape[1] + steps, toks.shape[0],
+                       "decode")
+    lp, caches = ssm.make_prefill_step(shape, mesh=mesh)(
+        params, adapters, {"tokens": toks, "adapter_ids": ids},
+        row_block=row_block and row_block * toks.shape[1])
+    step = ssm.make_serve_step(mesh=mesh)
+    rows = torch.arange(toks.shape[0], device=toks.device)
+    pos = (lens - 1).long()
+    tok = toks[rows, pos]
+    logits, chosen = [], []
+    for t in range(steps):
+        lg, _ = step(params, adapters, caches, {"tokens": tok[:, None],
+                                                "adapter_ids": ids},
+                     pos, row_block)
+        logits.append(lg[:, 0].float())
+        chosen.append(lg[:, 0].argmax(-1).to(torch.int32))
+        tok = chosen[-1] if feed is None else feed[:, t]
+        pos = pos + 1
+    return (lp[:, 0].float(), torch.stack(logits, 1), torch.stack(chosen, 1),
+            caches)
+
+
+def tps_solo_adapters(adapters, layout, k):
+    """Job *k*'s adapter alone, re-packed as a one-job group's."""
+    from repro_torch.core.lora import (RankLayout, extract_adapter,
+                                       merge_adapter_pair)
+    lay = RankLayout((layout.ranks[k],), multiple=layout.multiple)
+
+    def walk(t):
+        if isinstance(t, dict) and set(t) == {"A", "B"}:
+            return merge_adapter_pair([extract_adapter(t, layout, k)], lay)
+        if isinstance(t, dict):
+            return {kk: walk(v) for kk, v in t.items()}
+        return [walk(v) for v in t]
+    return walk(adapters)
+
+
+@contextlib.contextmanager
+def tps_routes(record=None, force=None):
+    """Within: each call of ``models/moe.route`` appends its top-k experts
+    (T, k) to the list *record*; with *force* (an earlier run's record,
+    call by call) each call's experts are replaced by force's, their
+    weights route's rule over this call's probabilities at them."""
+    from repro_torch.models import moe
+    real, calls = moe.route, iter(force or ())
+
+    def route(cfg, params, xf):
+        probs, top_w, top_i = real(cfg, params, xf)
+        if force is not None:
+            top_i = next(calls)
+            top_w = probs.gather(-1, top_i)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        if record is not None:
+            record.append(top_i)
+        return probs, top_w, top_i
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def tps_flips(a, b) -> int:
+    """Tokens whose expert set differs between two runs' routing records,
+    over every call."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def tps_drop_rank_experts(index):
+    """Within: model rank *index*'s expert-parallel partial is zeros (a
+    rank's experts left out of the sum: the planted fault of (c))."""
+    from repro_torch.models import moe
+    real = moe._expert_parallel_moe
+
+    def dropped(*a, **kw):
+        out = real(*a, **kw)
+        return out * 0 if a[-1].index == index else out
+    moe._expert_parallel_moe = dropped
+    try:
+        yield
+    finally:
+        moe._expert_parallel_moe = real
+
+
+def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
+    """One serving part on *cfg* over *mesh* (every rank of *mesh* calls
+    it): the meshless greedy serve (it warms the rank), the
+    tensor-parallel greedy serve (counted, the decode products TPS_ROWS
+    rows at a time), the meshless serve teacher-forced on its ids (the
+    logits it is held to, within LOGIT_ATOL), and the adapters in *solo*
+    served alone under the mesh.  With *moe* the teacher-forced serve
+    takes the tensor-parallel serve's experts token by token
+    (``tps_routes``): a row-parallel sum's rounding can flip a token's
+    top-k expert, and that row's logits then move O(1), which is not the
+    split's error; the flips are counted against the 2^-9 nudge's, and
+    the unforced comparison is recorded.  Then the planted fault (model
+    rank 1's experts left out, ``tps_drop_rank_experts``) must read above
+    LOGIT_ATOL against its own forced serve.  Returns (readings, failed
+    checks)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.launch.mesh import model_group
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelAxis
+    from repro_torch.sharding.rules import shard_params
+    names = [f"tps{i}-r{r}" for i, r in enumerate(MIXED)]
+    specs = [LoRAJobSpec(n, rank=r, batch_size=TPS_ROWS, seq_len=BLOCK_T)
+             for n, r in zip(names, MIXED)]
+    layout = SharedSuperModel(cfg, specs, block_t=BLOCK_T).layout
+    adapters = train_adapters(cfg, MIXED, layout, dev)
+    batch = tps_batch(cfg, dev, names)
+    toks, _, lens = batch
+    tp = ModelAxis(*model_group(mesh))
+    local = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
+                         tp.index, kv_heads=cfg.num_kv_heads)
+    serve = lambda p, ad, mesh_, feed=None: tps_serve(
+        cfg, specs, p, ad, batch, mesh_, steps, feed=feed,
+        row_block=TPS_ROWS)
+    real = [k * TPS_ROWS + j for k in range(len(names))
+            for j in range(TPS_PROMPTS // len(names))]
+
+    def gap(got, want):
+        """(B, 1 + steps) max |logit difference| a row and position."""
+        return torch.cat([(got[0] - want[0]).abs().amax(-1, keepdim=True),
+                          (got[1] - want[1]).abs().amax(-1)], 1)
+    t0 = time.perf_counter()
+    _, _, ml_ids, ml_c = serve(params, adapters, None)
+    meshless_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    routes = []
+    with tps_routes(record=routes):
+        (tp_p, tp_d, ids, tp_c), launches = counted(
+            lambda: serve(local, adapters, mesh))
+    tp_s = time.perf_counter() - t0
+    # the serve's high-water mark over its inputs (the dry run's
+    # prediction is made apart, ``tps_dry_prediction``)
+    inputs = tree_bytes([local, adapters, list(batch)])
+    peak = torch.cuda.max_memory_allocated() - held + inputs
+    tf_routes = []
+    with tps_routes(record=tf_routes):
+        tf = serve(params, adapters, None, feed=ids)
+    d_pos = gap((tp_p, tp_d), tf)                            # (B, 1+steps)
+    diff = (ids[real] != ml_ids[real]).cpu().numpy()
+    first = [int(np.argmax(r)) if r.any() else None for r in diff]
+    n_proj = sum(len(s.lora_targets) for s in M.layer_specs(cfg))
+    want = dict({w.__name__: 0 for w in lora_wrappers()},
+                ragged_lora_fwd=n_proj * (1 + steps),
+                flash_attention_fwd=sum(s.mixer == "attn"
+                                        for s in M.layer_specs(cfg)))
+    out = {"layers": cfg.num_layers, "model_axis": [tp.size, tp.index],
+           "kv_heads_a_rank": tp.kv_local(cfg.num_kv_heads),
+           "rows": int(toks.shape[0]), "prompt_width": int(toks.shape[1]),
+           "prompt_lens": lens[real].tolist(), "decode_steps": steps,
+           "greedy_ids_equal_meshless": not diff.any(),
+           "first_differing_position_by_request": first,
+           "cache_bytes": tree_bytes(tp_c),
+           "meshless_cache_bytes": tree_bytes(ml_c),
+           "launches": launches, "launches_expected": want,
+           "meshless_serve_s": meshless_s, "tp_serve_s": tp_s,
+           "serve_peak_bytes_measured": peak}
+    out["cache_share"] = out["cache_bytes"] / out["meshless_cache_bytes"]
+    failed = []
+    if moe:
+        out["unforced_max_abs_diff"] = d_pos.max().item()
+        out["unforced_rows_over_logit_atol"] = int(
+            (d_pos[real] > LOGIT_ATOL).any(1).sum())
+        with tps_routes(force=routes):
+            d_pos = gap((tp_p, tp_d), serve(params, adapters, None,
+                                            feed=ids))
+        nudge_routes = []
+        with tps_routes(record=nudge_routes):
+            serve(params, nudged(adapters, dev), None, feed=ids)
+        flips = {"split": tps_flips(routes, tf_routes),
+                 "nudge": tps_flips(nudge_routes, tf_routes),
+                 "tokens": sum(r.shape[0] for r in routes)}
+        out["routing_flips"] = flips
+        if flips["split"] > 2 * flips["nudge"]:
+            failed.append(f"routing flips {flips}")
+        bad_routes = []
+        with tps_drop_rank_experts(1), tps_routes(record=bad_routes):
+            bad = serve(local, adapters, mesh)
+        with tps_routes(force=bad_routes):
+            bad_gap = gap(bad[:2], serve(params, adapters, None,
+                                         feed=bad[2])).max().item()
+        out["planted_rank1_experts_dropped"] = {
+            "max_abs_diff": bad_gap, "caught": bad_gap > LOGIT_ATOL}
+        if not out["planted_rank1_experts_dropped"]["caught"]:
+            failed.append("planted expert fault not caught")
+    out.update({
+        "logits": against_floor(d_pos.max().item(), 0.0, LOGIT_ATOL),
+        "prefill_max_abs_diff": d_pos[:, 0].max().item(),
+        "decode_max_abs_diff_by_step": d_pos[:, 1:].amax(0).tolist(),
+        "rows_over_logit_atol": int((d_pos[real] > LOGIT_ATOL).any(1)
+                                    .sum())})
+    if not out["logits"]["ok"]:
+        failed.append("logits vs meshless")
+    if out["cache_share"] != out["kv_heads_a_rank"] / cfg.num_kv_heads:
+        failed.append(f"cache share {out['cache_share']}")
+    if launches != want:
+        failed.append(f"launches {launches} != {want}")
+    if solo:
+        same = []
+        for k in solo:
+            sel = slice(k * TPS_ROWS, (k + 1) * TPS_ROWS)
+            alone = (toks[sel], torch.zeros_like(batch[1][sel]), lens[sel])
+            got = tps_serve(cfg, [specs[k]], local,
+                            tps_solo_adapters(adapters, layout, k), alone,
+                            mesh, steps, row_block=TPS_ROWS)[2]
+            n = TPS_PROMPTS // len(names)
+            same.append(bool(torch.equal(got[:n], ids[sel][:n])))
+        out["fused_vs_solo_ids_equal"] = dict(zip(map(str, solo), same))
+        if not all(same):
+            failed.append("fused vs solo ids")
+    return out, failed
+
+
+def tps_train(cfg, params, mesh, dev) -> tuple:
+    """(b)'s train step: the train cell's mixed group through
+    ``GroupRuntime(tp_mode="auto")`` on *mesh*, one step, its step-1
+    gradients against the meshless step's within max(SHARD_GRAD_RTOL,
+    2 x the nudge's floor); then the planted replica fault."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.elastic.runtime import GroupRuntime
+    from repro_torch.models import layers
+    kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T, chunk_size=1,
+              remat=True, seed=0, device=dev)
+    specs = train_specs(TRAIN_RANKS, prefix="tps-train")
+    layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
+    adapters = train_adapters(cfg, TRAIN_RANKS, layout, dev)
+    got = []
+    for ad in (adapters, nudged(adapters, dev)):
+        solo = GroupRuntime.from_specs(cfg, specs, params=params,
+                                       adapters=ad, **kw)
+        solo.run(1)
+        got.append((np.stack(solo.report.per_job_losses)[0],
+                    _first_moments(solo)))
+    del solo
+    floor = _grad_rel(got[1][1], got[0][1], layout)
+    make = lambda: GroupRuntime.from_specs(
+        cfg, specs, params=params, adapters=adapters, mesh=mesh,
+        tp_mode="auto", **kw)
+    rt = make()
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: rt.run(1))
+    step_s = time.perf_counter() - t0
+    res = {"step_s": step_s, "launches": launches,
+           "launches_expected": pattern_launches(cfg),
+           "loss_abs_diff": float(np.abs(np.stack(
+               rt.report.per_job_losses)[0] - got[0][0]).max()),
+           "step1_grad": against_floor(_grad_rel(rt.opt_state.mu,
+                                                 got[0][1], layout),
+                                       floor, SHARD_GRAD_RTOL),
+           "adapters_equal_on_every_rank": _ranks_equal(rt.adapters)}
+    del rt
+    real = layers._KVColumns.backward
+
+    def one_replica(ctx, g):
+        # each kv head's cotangent from its first replica alone
+        import torch.distributed as dist
+        n = dist.get_world_size(ctx.group)
+        blocks = [torch.empty_like(g) for _ in range(n)]
+        dist.all_gather(blocks, g.contiguous(), group=ctx.group)
+        r = n * (ctx.sl.stop - ctx.sl.start) // ctx.n
+        return torch.cat(blocks[::r], dim=-1), None, None
+    layers._KVColumns.backward = staticmethod(one_replica)
+    try:
+        bad = make()
+        bad.run(1)
+        rel = _grad_rel(bad.opt_state.mu, got[0][1], layout)
+    finally:
+        layers._KVColumns.backward = real
+    res["planted_one_replica"] = {"step1_grad_rel": rel,
+                                  "limit": res["step1_grad"]["limit"],
+                                  "caught": rel > res["step1_grad"]["limit"]}
+    failed = []
+    if res["launches"] != res["launches_expected"]:
+        failed.append(f"train launches {launches}")
+    if not (res["step1_grad"]["ok"] and res["loss_abs_diff"] <= LOSS_ATOL
+            and res["adapters_equal_on_every_rank"]):
+        failed.append("train step vs meshless")
+    if not res["planted_one_replica"]["caught"]:
+        failed.append("planted replica fault not caught")
+    return res, failed
+
+
+def tps_pair_mesh():
+    """A ("data", "model") mesh of data 1 x model 2 over ranks 0-1 (every
+    rank makes its groups; ranks 2+ get None)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import subgroup
+    pair = subgroup([0, 1])
+    singles = [subgroup([r]) for r in range(dist.get_world_size())]
+    me = dist.get_rank()
+    if me >= 2:
+        return None
+    return DeviceMesh.from_group([singles[me], pair], "cpu",
+                                 mesh=torch.tensor([[0, 1]]),
+                                 mesh_dim_names=("data", "model"))
+
+
+def tp_serve_runs(rank, dev) -> dict:
+    """One rank's part of the tp_serve phase ((a) and (c) on ranks 0-1,
+    (b) on every rank), each check of the block comment above; returns
+    its readings and the names of the checks that failed."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    out, failed = {"rank": rank}, []
+    pair = tps_pair_mesh()
+    wide = make_local_mesh(model=TPS_WORLD)
+    parts = (("a", "tinyllama-1.1b", None, TPS_DECODE),
+             ("c", "qwen3-moe-30b-a3b", TPS_MOE_LAYERS, TPS_MOE_DECODE))
+    for part, arch, layers, steps in parts:
+        if pair is not None:
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            params = M.init_model(cfg, seed=0, device=dev)
+            t0 = time.perf_counter()
+            out[part], bad = tps_part(
+                cfg, params, pair, dev, steps,
+                solo=TPS_SOLO_A if part == "a" else (), moe=part == "c")
+            out[part]["seconds"] = time.perf_counter() - t0
+            failed += [f"({part}) {b}" for b in bad]
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              num_layers=TPS_B_LAYERS)
+    params = M.init_model(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    out["b"], bad = tps_part(cfg, params, wide, dev, TPS_B_DECODE,
+                             solo=TPS_SOLO)
+    failed += [f"(b) {x}" for x in bad]
+    out["b"]["train"], bad = tps_train(cfg, params, wide, dev)
+    failed += [f"(b) {x}" for x in bad]
+    out["b"]["seconds"] = time.perf_counter() - t0
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["failed"] = failed
+    return out
+
+
+def tps_dry_prediction(src):
+    """Start the dry run's prediction of (a)'s tensor-parallel serve on
+    rank 0 (its prefill and one decode step analyzed on meta tensors,
+    ``launch/step_analysis``, in a fake world of 2: data 1 x model 2; the
+    peak the larger of the two) in a process of its own (a fake world
+    takes a process without a process group); returns a function that
+    waits for it and returns its readings."""
+    code = (f"import sys, json; sys.path[:0] = [{ROOT!r}, {src!r}]\n"
+            "import chip_smoke\n"
+            "print(json.dumps(chip_smoke._tps_dry_prediction()))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def wait() -> dict:
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            return {"error": err[-2000:]}
+        return json.loads(out.strip().splitlines()[-1])
+    return wait
+
+
+def _tps_dry_prediction() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import shard_params
+    cfg = get_config("tinyllama-1.1b")
+    names = [f"tps{i}-r{r}" for i, r in enumerate(MIXED)]
+    specs = [LoRAJobSpec(n, rank=r, batch_size=TPS_ROWS, seq_len=BLOCK_T)
+             for n, r in zip(names, MIXED)]
+    ssm = SharedSuperModel(cfg, specs, impl="torch", block_t=BLOCK_T)
+    toks, ids, _ = tps_batch(cfg, "cpu", names)
+    B, S = toks.shape
+    shape = InputShape("tp_serve", S + TPS_DECODE, B, "decode")
+    meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+    with fake_world(2, 0):
+        mesh = make_local_mesh(model=2)
+        full = M.init_model(cfg, device="meta")
+        params = shard_params(full, full, 2, 0, kv_heads=cfg.num_kv_heads)
+        adapters = M.init_adapters(cfg, MIXED, layout=ssm.layout,
+                                   device="meta")
+        pre, (_, caches) = SA.analyze(
+            ssm.make_prefill_step(shape, mesh=mesh),
+            (params, adapters, {"tokens": meta(toks),
+                                "adapter_ids": meta(ids)}))
+        step = ssm.make_serve_step(mesh=mesh)
+        dec, _ = SA.analyze(
+            lambda p, a, c, b: step(p, a, c, b, torch.full(
+                (B,), S, dtype=torch.int32, device="meta"), TPS_ROWS),
+            (params, adapters, caches,
+             {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                    device="meta"),
+              "adapter_ids": meta(ids)}))
+    return {"prefill_peak_bytes": pre.peak_bytes,
+            "decode_peak_bytes": dec.peak_bytes,
+            "serve_peak_bytes_predicted": max(pre.peak_bytes,
+                                              dec.peak_bytes),
+            "prefill_flops": pre.flops, "decode_flops": dec.flops,
+            "decode_collectives": {k: [dec.collective_counts[k], v]
+                                   for k, v in dec.collective_bytes.items()}}
+
+
+def tp_serve_rank(rank, world, init_method, src, out_path):
+    """A spawned gloo rank of the tp_serve phase: joins the world on
+    cuda:0, runs ``tp_serve_runs``, writes its results to *out_path* %
+    rank, then raises if a check failed."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_mesh(rank, world, init_method, "gloo")
+    out = tp_serve_runs(rank, dev)
+    with open(out_path % rank, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if out["failed"]:
+        raise AssertionError(f"tp_serve rank {rank}: {out['failed']}")
+
+
+def tp_serve_phase(src):
+    """TPS_WORLD gloo ranks spawned onto cuda:0 run ``tp_serve_runs``;
+    the parent emits rank 0's readings, every rank's failures and peak
+    memory.  The ranks share one H100: no time here is a multi-GPU
+    number.  Returns the launches of rank 0's counted serves and train
+    step."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="tp-serve-", dir=os.path.join(ROOT,
+                                                                "build"))
+    out_path = os.path.join(tmp, "%d.json")
+    t0 = time.perf_counter()
+    dry_wait = tps_dry_prediction(src)   # its own process, beside the ranks
+    err = None
+    try:
+        mp.start_processes(tp_serve_rank, args=(
+            TPS_WORLD, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
+            nprocs=TPS_WORLD, join=True, start_method="spawn")
+    except Exception as e:            # emit what the ranks wrote first
+        err = e
+    dry = dry_wait()
+    ranks = []
+    for r in range(TPS_WORLD):
+        if os.path.exists(out_path % r):
+            with open(out_path % r) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len(ranks) < TPS_WORLD:
+        emit({"phase": "tp_serve_failed", "by_rank": ranks})
+        raise AssertionError(f"tp_serve: {len(ranks)} of {TPS_WORLD} ranks "
+                             "finished") from err
+    r0 = ranks[0]
+    if "serve_peak_bytes_predicted" in dry:
+        dry["serve_peak_bytes_measured"] = r0["a"][
+            "serve_peak_bytes_measured"]
+        dry["rel_err"] = (abs(dry["serve_peak_bytes_predicted"]
+                              - dry["serve_peak_bytes_measured"])
+                          / dry["serve_peak_bytes_measured"])
+    emit({"phase": "tp_serve", "ranks": TPS_WORLD, "seconds": seconds,
+          "dryrun_rank0_a": dry,
+          "logit_atol": LOGIT_ATOL, "step1_grad_rtol": SHARD_GRAD_RTOL,
+          "note": "the ranks share one H100: no time here is a multi-GPU "
+                  "number",
+          "a": r0["a"], "b": r0["b"], "c": r0["c"],
+          "b_by_rank": [{k: r["b"].get(k) for k in (
+              "model_axis", "cache_share", "logits")} for r in ranks],
+          "failed_by_rank": [r["failed"] for r in ranks],
+          "peak_device_memory_bytes_by_rank": [
+              r["peak_device_memory_bytes"] for r in ranks],
+          "card": card_line()})
+    if err is not None:
+        raise err
+    launches = {}
+    for part in (r0["a"], r0["b"], r0["c"], r0["b"]["train"]):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+# --------------------------------------------------------- dry run
+# The dryrun line: the dry run's analysis (launch/step_analysis: the
+# step on meta tensors, the card's branches, the flash kernel stood in
+# for) of one step of the train cell's group through impl="torch", held
+# against the same step on the card: the resident bytes (params,
+# adapters, optimizer state) exactly equal to the real trees' bytes,
+# the predicted peak within DRYRUN_PEAK_RTOL of max_memory_allocated()
+# reset before the step (less what the process held beside the step's
+# inputs).  A first step warms the card (cuBLAS workspaces, the device
+# constants) and is not measured.
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def _dryrun_predict() -> dict:
+    """The dry run's numbers for the dryrun line: one train-cell step
+    through impl="torch" on meta tensors (``launch/step_analysis``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    specs = train_specs(TRAIN_RANKS, prefix="dry")
+    ssm = SharedSuperModel(cfg, specs, impl="torch", block_t=TRAIN_BLOCK_T)
+    batch = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                         seed=0).next_batch()
+    params = M.init_model(cfg, device="meta")
+    adapters = M.init_adapters(cfg, TRAIN_RANKS, layout=ssm.layout,
+                               device="meta")
+    opt = adamw.init(adapters, per_job=len(specs))
+    mbatch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                             device="meta") for k, v in batch.items()}
+    rep, _ = SA.analyze(ssm.make_train_step(lr_fn=constant(TRAIN_LR),
+                                            remat=True),
+                        (params, adapters, opt, mbatch))
+    return {"resident_bytes": tree_bytes(params) + tree_bytes(adapters)
+            + tree_bytes([opt.mu, opt.nu, opt.step]),
+            "inputs_bytes": rep.resident_bytes,
+            "peak_bytes": rep.peak_bytes, "flops": rep.flops,
+            "flops_f32": rep.flops_f32, "eager_bytes": rep.eager_bytes,
+            "ops": rep.ops, "analysis_s": time.perf_counter() - t0}
+
+
+def dryrun_prediction(src):
+    """Start ``_dryrun_predict`` in a process of its own (host work that
+    overlaps the card's phases); returns a function that waits for it and
+    returns its numbers."""
+    code = (f"import sys, json; sys.path[:0] = [{ROOT!r}, {src!r}]\n"
+            "import chip_smoke\n"
+            "print(json.dumps(chip_smoke._dryrun_predict()))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def wait() -> dict:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"dryrun prediction failed:\n{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+    return wait
+
+
+def dryrun_step_bytes(cfg, params, dev, predicted) -> dict:
+    """The dry run's *predicted* numbers (``dryrun_prediction``'s wait)
+    against one train-cell step through impl="torch" on *params* on the
+    card (every check above; raises on a failed one)."""
+    import torch
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    specs = train_specs(TRAIN_RANKS, prefix="dry")
+    ssm = SharedSuperModel(cfg, specs, impl="torch", block_t=TRAIN_BLOCK_T)
+    batch = FusedBatcher(specs, cfg.vocab_size, block_t=TRAIN_BLOCK_T,
+                         seed=0).next_batch()
+    step = ssm.make_train_step(lr_fn=constant(TRAIN_LR), remat=True)
+    gc_collect()
+    adapters = train_adapters(cfg, TRAIN_RANKS, ssm.layout, dev)
+    opt = adamw.init(adapters, per_job=len(specs))
+    cbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step(params, adapters, opt, cbatch)           # warm, not measured
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    inputs = sum(SA._granule(t.untyped_storage().nbytes())
+                 for t in SA._tensors((params, adapters, opt, cbatch)))
+    torch.cuda.reset_peak_memory_stats()
+    out = step(params, adapters, opt, cbatch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    real = tree_bytes(params) + tree_bytes(adapters) + tree_bytes(
+        [opt.mu, opt.nu, opt.step])
+    pred = predicted()
+    beside = held - inputs               # what the process held besides
+    measured = peak - beside
+    res = {"phase": "dryrun", "group": list(TRAIN_RANKS),
+           "batch_size": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "impl": "torch",
+           "resident_bytes_predicted": pred["resident_bytes"],
+           "resident_bytes_real": real,
+           "resident_exact": pred["resident_bytes"] == real,
+           "peak_bytes_predicted": pred["peak_bytes"],
+           "peak_bytes_measured": measured,
+           "max_memory_allocated": peak, "held_beside_the_inputs": beside,
+           "inputs_bytes_predicted": pred["inputs_bytes"],
+           "inputs_bytes_real": inputs,
+           "step_increment_predicted": pred["peak_bytes"]
+           - pred["inputs_bytes"],
+           "step_increment_measured": peak - held,
+           "peak_rel_err": abs(pred["peak_bytes"] - measured) / measured,
+           "peak_rtol": DRYRUN_PEAK_RTOL,
+           **{k: pred[k] for k in ("flops", "flops_f32", "eager_bytes",
+                                   "ops", "analysis_s")},
+           "card": card_line()}
+    res["peak_ok"] = res["peak_rel_err"] <= DRYRUN_PEAK_RTOL
+    emit(res)
+    if not (res["resident_exact"] and res["peak_ok"]):
+        raise AssertionError(f"dryrun: resident exact {res['resident_exact']}"
+                             f", peak off by {res['peak_rel_err']:.3f}")
+    return res
+
+
+def gc_collect():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
@@ -6020,6 +6797,10 @@ def main() -> int:
                     "pipeline_mode phase (pipeline_mode_phase)")
     ap.add_argument("--tensor-parallel", action="store_true", help="only "
                     "the tensor_parallel phase (tensor_parallel_phase)")
+    ap.add_argument("--tp-serve", action="store_true", help="only the "
+                    "tp_serve phase (tp_serve_phase)")
+    ap.add_argument("--dryrun", action="store_true", help="only the "
+                    "dryrun line (dryrun_step_bytes)")
     ap.add_argument("--src", default=SRC, help="the directory holding the "
                     "repro_torch package to build and run (default: this "
                     "checkout's src)")
@@ -6078,6 +6859,15 @@ def main() -> int:
     if args.tensor_parallel:
         tensor_parallel_phase(os.path.abspath(args.src))
         return 0
+    if args.tp_serve:
+        tp_serve_phase(os.path.abspath(args.src))
+        return 0
+    if args.dryrun:
+        from repro_torch.models import model as M
+        cfg = get_config("tinyllama-1.1b")
+        dryrun_step_bytes(cfg, M.init_model(cfg, seed=0, device=dev), dev,
+                          dryrun_prediction(os.path.abspath(args.src)))
+        return 0
 
     cfg = get_config("tinyllama-1.1b")
     sets = []
@@ -6092,6 +6882,9 @@ def main() -> int:
     assert rows == rows_u and S == S_u, "both sets share one geometry"
 
     kern = kernels_phase(rows, S, dev)
+    # the dryrun line's prediction, on the host while the card works
+    # (after the kernels phase, whose host times it would disturb)
+    dry_predicted = dryrun_prediction(os.path.abspath(args.src))
     troute = torch_route_cases(rows, dev)
     from repro_torch.models import model as M
     params = M.init_model(cfg, seed=0, device=dev)
@@ -6099,6 +6892,7 @@ def main() -> int:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     measured = {}                 # steady steps: the calibrate phase's input
     counts = {"serve": serve_phase(cfg, params, sets, dev)}
+    dryrun_step_bytes(cfg, params, dev, dry_predicted)
     counts["train"], bf16_losses, bf16_step = train_phase(
         cfg, params, dev, measured=measured)
     counts["train_torch"] = torch_phase(
@@ -6143,6 +6937,7 @@ def main() -> int:
         os.path.abspath(args.src), cfg)
     counts["tensor_parallel"] = tensor_parallel_phase(
         os.path.abspath(args.src))
+    counts["tp_serve"] = tp_serve_phase(os.path.abspath(args.src))
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

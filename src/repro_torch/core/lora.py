@@ -319,31 +319,38 @@ def proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 def column_proj(tp, x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None,
                 lora: Optional[MultiLoRA] = None,
-                ab: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                ab: Optional[Dict[str, torch.Tensor]] = None,
+                kv_heads: Optional[int] = None,
+                row_block: Optional[int] = None) -> torch.Tensor:
     """A column-parallel projection (``tp``: ``models/layers.ModelAxis``):
     this rank's output columns.  The base product is ``tp.column`` (x's
     cotangent summed over the axis); the LoRA delta runs at full width on
     x itself and is cut to the rank's columns (``tp.columns``: the
     cotangent's blocks gathered back whole), so the adapters' backward
     sees the whole cotangent and every rank computes the same adapter
-    gradients and LoRA dx."""
-    y = tp.column(x, w)
+    gradients and LoRA dx.  ``kv_heads``: the output is k or v, laid out
+    as that many heads; the rank's columns are its kv heads'
+    (``tp.kv_columns``: under replication the replicas' cotangents are
+    summed).  ``row_block``: rows per base product (``layers.dense``)."""
+    y = tp.column(x, w, row_block)
     if b is not None:
         y = y + b.to(y.dtype)
     if lora is not None and ab is not None:
-        y = y + tp.columns(lora.apply(x, ab)).to(y.dtype)
+        d = lora.apply(x, ab)
+        d = tp.columns(d) if kv_heads is None else tp.kv_columns(d, kv_heads)
+        y = y + d.to(y.dtype)
     return y
 
 
 def row_proj(tp, h: torch.Tensor, w: torch.Tensor,
              lora: Optional[MultiLoRA] = None,
-             ab: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+             ab: Optional[Dict[str, torch.Tensor]] = None,
+             row_block: Optional[int] = None) -> torch.Tensor:
     """A row-parallel projection: *h* holds this rank's input columns and
     *w* the matching rows; the partial products are summed in f32 over
     the axis (``tp.row``).  The LoRA delta runs on *h* gathered whole
     (``tp.gather``), the same on every rank."""
-    y = tp.row(h, w)
+    y = tp.row(h, w, row_block)
     if lora is not None and ab is not None:
         y = y + lora.apply(tp.gather(h), ab).to(y.dtype)
     return y

@@ -70,8 +70,10 @@ def check_tensor_parallel(cfg: ModelConfig, model: int,
     """Refuse, naming the ROADMAP line, what tensor parallelism over a
     model axis of *model* > 1 ranks does not run: the int8 backbone
     (its quant leaves are not in the rules, A8b), MLA, SSD, RG-LRU and
-    the front ends (A8c), and head counts the axis does not divide (the
-    divisibility drop would otherwise split a head, A4)."""
+    the front ends (A8c), and head counts that would split a head (A4):
+    query heads the axis does not divide, or kv heads it neither divides
+    nor is a multiple of (where m is a multiple of KV, m / KV ranks hold
+    the same kv head)."""
     if model <= 1:
         return
     if quantize is not None:
@@ -83,11 +85,13 @@ def check_tensor_parallel(cfg: ModelConfig, model: int,
         raise NotImplementedError(
             f"{cfg.name} under tensor parallelism is not ported (ROADMAP "
             "A8c: MLA, SSD, RG-LRU and the front ends over a model axis)")
-    if cfg.num_heads % model or cfg.num_kv_heads % model:
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % model or (KV % model and model % KV):
         raise ValueError(
             f"{cfg.name}: a model axis of {model} does not divide its "
-            f"{cfg.num_heads} query and {cfg.num_kv_heads} kv heads; the "
-            "divisibility drop would split a head (ROADMAP A4)")
+            f"{H} query heads, or neither divides nor is a multiple of "
+            f"its {KV} kv heads; the divisibility drop would split a head "
+            "(ROADMAP A4)")
 
 
 @dataclass
@@ -175,17 +179,20 @@ class SharedSuperModel:
     def lora_ctx(self, adapter_ids: torch.Tensor, *, group=None,
                  row_solo_pos: Optional[torch.Tensor] = None,
                  grad_sync: str = "gather",
-                 nano_order: Optional[Tuple[int, ...]] = None) -> MultiLoRA:
+                 nano_order: Optional[Tuple[int, ...]] = None,
+                 rows: Optional[Sequence[int]] = None) -> MultiLoRA:
         """Apply context of one fused batch.  With a *group* the context
         is shard-local: *adapter_ids* covers one shard's rows, segment
         geometry is the per-shard layout (global rows / data_shards), and
         the exact wgrads reassemble solo order via *row_solo_pos* (the
         solo position of every shard's rows, shard-major).  ``nano_order``
         is the static job order of the segments inside a job-wise nano
-        slice."""
-        rows = self.rows_per_job()
-        if group is not None:
-            rows = [r // self.data_shards for r in rows]
+        slice.  ``rows``: the per-job rows of the batch, where they are
+        not ``rows_per_job`` (a data rank's share of a serve batch)."""
+        if rows is None:
+            rows = self.rows_per_job()
+            if group is not None:
+                rows = [r // self.data_shards for r in rows]
         ranks, scalings, _ = self.device_consts(adapter_ids.device)
         return MultiLoRA(adapter_ids=adapter_ids, ranks=ranks,
                          scalings=scalings, impl=self.impl,
@@ -656,8 +663,43 @@ class SharedSuperModel:
         return train_step if steps is None else _chunked(train_step)
 
     # --------------------------------------------------------- serve steps
+    def serve_rows(self, mesh) -> Optional[np.ndarray]:
+        """This rank's rows of a serve batch laid out as ``rows_per_job``
+        (job-major) on *mesh*: the batch split in order over the data
+        axis ("pod" folded into it, the reference's ``batch_shardings``)
+        where that divides the rows; None (every row, on every data rank)
+        where it does not (long_500k's batch of 1) or there is no
+        mesh."""
+        if mesh is None:
+            return None
+        from repro_torch.launch.mesh import data_group
+        _, D, s = data_group(mesh, "data")
+        B = sum(self.rows_per_job())
+        if D == 1 or B % D:
+            return None
+        return np.arange(s * B // D, (s + 1) * B // D)
+
+    def _serve_axes(self, mesh):
+        """(ModelAxis or None, the per-job rows of this rank's serve
+        batch or None) on *mesh* (None: no mesh)."""
+        if mesh is None:
+            return None, None
+        from repro_torch.launch.mesh import model_group
+        from repro_torch.models.layers import ModelAxis
+        mgroup, m, midx = model_group(mesh)
+        check_tensor_parallel(self.cfg, m)
+        tp = ModelAxis(mgroup, m, midx) if m > 1 else None
+        idx = self.serve_rows(mesh)
+        if idx is None:
+            return tp, None
+        ends = np.cumsum(self.rows_per_job())
+        starts = ends - np.asarray(self.rows_per_job())
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        return tp, [max(0, min(e, hi) - max(b, lo))
+                    for b, e in zip(starts.tolist(), ends.tolist())]
+
     def make_prefill_step(self, shape: InputShape, *, ring: bool = False,
-                          with_cache: bool = True) -> Callable:
+                          with_cache: bool = True, mesh=None) -> Callable:
         """Prefill of a (B, S) prompt batch at position 0, every row the
         same width: ``prefill_step(params, adapters, batch)`` returns the
         last column's logits (B, 1, V) and, with ``with_cache``, the
@@ -671,42 +713,67 @@ class SharedSuperModel:
         path (the kernel on the card) where it has no window; the LoRA
         delta takes the impl's kernels through ``lora_ctx``.  As in the
         reference, ``ring`` and not ``shape.sliding_window_variant``
-        picks the caches.  An encoder has no decode: refused."""
+        picks the caches.  An encoder has no decode: refused.
+
+        ``mesh``: a ("data", "model") or ("pod", "data", "model") mesh.
+        The step then takes this rank's rows (``serve_rows``) and its
+        model slices of the backbone (``sharding/rules.shard_params``
+        with the config's kv heads), runs the backbone tensor parallel
+        over "model" (``models/layers.ModelAxis``), fills this rank's
+        caches (its kv heads, ``runtime_cache_specs``) and returns the
+        last column's logits over the whole vocab on every model rank
+        (one all-gather of its vocab block).
+
+        ``prefill_step(..., row_block=n)``: the dense products on n
+        tokens at a time (``layers.dense``; a solo batch's rows times the
+        prompt width gives every product a solo batch's shape, so fused
+        and solo prefills write the same caches on the card)."""
         cfg = self.cfg
         _check_decoder(cfg)
+        tp, rows = self._serve_axes(mesh)
 
         @torch.no_grad()
-        def prefill_step(params, adapters, batch):
+        def prefill_step(params, adapters, batch,
+                         row_block: Optional[int] = None):
             model_in = {k: v for k, v in batch.items()
                         if k not in ("adapter_ids", "labels", "loss_mask")}
-            B = batch["adapter_ids"].shape[0]
-            caches = (M.init_caches(cfg, B, shape.seq_len, ring,
-                                    device=batch["adapter_ids"].device)
+            ids = batch["adapter_ids"]
+            caches = (M.init_caches(cfg, ids.shape[0], shape.seq_len, ring,
+                                    device=ids.device, tp=tp)
                       if with_cache else None)
             logits, _, _, _ = M.forward(
-                cfg, params, adapters, self.lora_ctx(batch["adapter_ids"]),
-                model_in, caches=caches, cache_pos=0, ring=ring)
+                cfg, params, adapters, self.lora_ctx(ids, rows=rows),
+                model_in, caches=caches, cache_pos=0, ring=ring, tp=tp,
+                last=tp is not None, row_block=row_block)
             return logits[:, -1:], caches
 
         return prefill_step
 
-    def make_serve_step(self, *, ring: bool = False) -> Callable:
+    def make_serve_step(self, *, ring: bool = False, mesh=None) -> Callable:
         """One decode step: ``serve_step(params, adapters, caches, batch,
-        pos)`` runs ``batch["tokens"]`` (B, S >= 1) at position *pos* (an
-        int, or a per-row (B,) tensor) over *caches* and returns (logits
-        (B, S, V), caches).  The caches are written IN PLACE and the
-        returned list is the one passed in (the reference returns new
-        arrays): a caller that wants to decode a second sequence from the
-        same prefix copies them first.  ``ring``: every attention cache is
-        a ring (local attention's are regardless); a ring takes an int
-        position.  An encoder has no decode: refused."""
+        pos, row_block=None)`` runs ``batch["tokens"]`` (B, S >= 1) at
+        position *pos* (an int, or a per-row (B,) tensor) over *caches*
+        and returns (logits (B, S, V), caches).  The caches are written
+        IN PLACE and the returned list is the one passed in (the
+        reference returns new arrays): a caller that wants to decode a
+        second sequence from the same prefix copies them first.
+        ``ring``: every attention cache is a ring (local attention's are
+        regardless); a ring takes an int position.  ``row_block``: rows
+        per dense and decode-attention chunk product (``layers.dense``:
+        fused and solo batches then decode the same bits on the card).
+        ``mesh``: as ``make_prefill_step`` (this rank's rows, model
+        slices and caches; the logits whole on every model rank).  An
+        encoder has no decode: refused."""
         _check_decoder(self.cfg)
+        tp, rows = self._serve_axes(mesh)
 
         @torch.no_grad()
-        def serve_step(params, adapters, caches, batch, pos):
-            lora = self.lora_ctx(batch["adapter_ids"])
+        def serve_step(params, adapters, caches, batch, pos,
+                       row_block: Optional[int] = None):
+            lora = self.lora_ctx(batch["adapter_ids"], rows=rows)
             return M.decode_step(self.cfg, params, adapters, lora,
-                                 batch["tokens"], pos, caches, ring=ring)
+                                 batch["tokens"], pos, caches, ring=ring,
+                                 row_block=row_block, tp=tp)
 
         return serve_step
 
@@ -719,17 +786,23 @@ class SharedSuperModel:
 
     def init_decode_caches(self, shape: InputShape,
                            batch: Optional[int] = None, *,
-                           device="cuda") -> list:
+                           device="cuda", mesh=None) -> list:
         """Zeroed caches for *batch* rows (default: the shape's global
         batch) on *device*: full KV caches of ``decode_buf`` keys rounded
         up to whole ``DECODE_CHUNK``-key chunks (``KVCache.init``), so
         wider than ``decode_buf``; rings of exactly ``min(decode_buf,
         sliding_window)`` slots for local attention and, for a
         ``sliding_window_variant`` shape, for every attention layer;
-        recurrent state for the recurrent mixers."""
+        recurrent state for the recurrent mixers.  ``mesh``: this rank's
+        caches (its rows where ``serve_rows`` splits them, its kv
+        heads)."""
         B = batch or shape.global_batch
+        tp, rows = self._serve_axes(mesh)
+        if rows is not None:
+            B = sum(rows)
         return M.init_caches(self.cfg, B, self.decode_buf(shape),
-                             shape.sliding_window_variant, device=device)
+                             shape.sliding_window_variant, device=device,
+                             tp=tp)
 
 
 def _check_decoder(cfg: ModelConfig) -> None:

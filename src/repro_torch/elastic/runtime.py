@@ -48,7 +48,8 @@ the mesh's *data_axis* only, and over its "model" axis (m > 1 ranks)
 each rank keeps only its slices of the backbone under the runtime
 sharding specs (``sharding/rules.shard_params``: Megatron 1-D tensor
 parallelism, E/m experts a rank; the reference places it so with
-``runtime_param_shardings``), with the adapters and Adam state whole.
+``runtime_param_shardings``; where m is a multiple of the kv heads, each
+rank's one kv head whole), with the adapters and Adam state whole.
 The model ranks of a data shard stage the same rows and compute the
 same loss and the same update.  AIMD's time and the checkpoint barrier
 span both axes, and the group's rank (0, 0) writes.  On a mesh without a
@@ -231,7 +232,7 @@ class GroupRuntime:
                 self._sync_groups.insert(0, mgroup)
                 params = shard_params(params, M.init_model(cfg,
                                                            device="meta"),
-                                      m, midx)
+                                      m, midx, kv_heads=cfg.num_kv_heads)
         # the frozen backbone in int8, once, before any step is built
         # (idempotent: a quantized tree's QuantTensors are reused)
         self.quantize = quantize

@@ -1,0 +1,281 @@
+"""The production dry run (port of the reference's ``launch/dryrun.py``).
+
+For every assigned (architecture x input shape) on the production mesh,
+16 x 16 ("data", "model") or 2 x 16 x 16 with "pod", it builds the step
+one rank runs there (the train step, ``make_train_step(mesh=,
+tp_mode="auto")``; the prefill step; the decode step over the rank's
+caches), runs it once on meta tensors in a fake world of 256 or 512
+ranks (``launch/mesh.fake_world``, ``launch/step_analysis``) and prices
+what it counted at the H100's data sheet peaks (``launch/roofline``).
+Nothing is allocated and nothing runs on a card: the numbers are a
+model of the step, per rank.
+
+What it copies from the reference: the group (``make_group``, one job of
+each rank in GROUP_RANKS, equal rows), the capacity MoE dispatch, the
+three step kinds and their shapes (``build``, the reference's
+``dryrun.py:61-117``).  What is the port's own: the layout a rank runs
+(Megatron 1-D tensor parallelism over "model" with the kv heads split
+or shared, the rows over "data" with "pod" folded in, the weights
+replicated over "data": ``sharding/rules.shard_params``), the eager
+route ``impl="torch"`` (the reference's dry run compiles ``impl="xla"``),
+and the gradients' ``grad_sync="psum"``, one all-reduce of the adapters'
+partial gradients over "data", as the reference's runtime reduces them.
+
+Every row ends in a status: ``ok`` (with ``fits``: the analysis's peak
+within the card's 80 GB), ``refused`` (what tensor parallelism does not
+run, with its ROADMAP line: A8c for MLA, SSD, RG-LRU and the front ends,
+A4 for heads the model axis would split), ``skipped`` (no decode for an
+encoder, as ``applicable`` says) or ``fail`` (an exception).
+
+Usage:
+    python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
+    python -m repro_torch.launch.dryrun --all --both-meshes [--out rows.json]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import time
+import traceback
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, applicable, get_config
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.registry import get_shape
+from repro_torch.core.jobs import LoRAJobSpec
+from repro_torch.core.ssm import SharedSuperModel, check_tensor_parallel
+from repro_torch.launch import roofline as RL
+from repro_torch.launch import step_analysis as SA
+from repro_torch.launch.mesh import (data_group, fake_world,
+                                     make_production_mesh, model_group)
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import constant
+from repro_torch.sharding.rules import shard_params
+
+# paper §4.1: ranks sampled from {2,4,8,16} — the dry-run group uses one
+# of each so the fused kernel sees heterogeneous ranks.
+GROUP_RANKS = (16, 8, 4, 2)
+# the rank whose step is analyzed (every rank of a mesh runs the same
+# shapes; its groups' placement on nodes is every rank's)
+DRY_RANK = 0
+
+
+def make_group(cfg: ModelConfig, shape: InputShape) -> List[LoRAJobSpec]:
+    B = shape.global_batch
+    K = min(len(GROUP_RANKS), B)
+    while B % K:                      # equal segments (comm-free dispatch)
+        K -= 1
+    jobs = [LoRAJobSpec(job_id=f"dry-{i}", rank=GROUP_RANKS[i % 4],
+                        batch_size=B // K, seq_len=shape.seq_len,
+                        base_model=cfg.name)
+            for i in range(K)]
+    return jobs
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors (numel x itemsize)."""
+    return sum(t.numel() * t.element_size() for t in SA._tensors(tree))
+
+
+def _int_batch(rows: int, cols: Dict[str, int]) -> dict:
+    """Meta int32 leaves of *rows* rows (``cols``: name -> width; 0 for
+    a (rows,) leaf)."""
+    return {k: torch.empty((rows, w) if w else (rows,), dtype=torch.int32,
+                           device="meta") for k, w in cols.items()}
+
+
+def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
+          remat: bool = True):
+    """(step, its inputs as ``meta`` tensors, the inputs by name) of this
+    rank's *shape* step on *mesh*."""
+    _, m, mi = model_group(mesh)
+    _, D, _ = data_group(mesh, "data")
+    train = shape.kind == "train"
+    ssm = SharedSuperModel(cfg, make_group(cfg, shape), impl="torch",
+                           block_t=128, data_shards=D if train else 1)
+    full = M.init_model(cfg, device="meta")
+    parts = {"params": shard_params(full, full, m, mi,
+                                    kv_heads=cfg.num_kv_heads),
+             "adapters": M.init_adapters(cfg, ssm.ranks.tolist(),
+                                         layout=ssm.layout, device="meta")}
+    S = shape.seq_len
+    if train:
+        rows = sum(ssm.rows_per_job()) // D
+        parts["opt_state"] = adamw.init(parts["adapters"],
+                                        per_job=ssm.num_jobs)
+        parts["batch"] = _int_batch(rows, {"tokens": S, "labels": S,
+                                           "adapter_ids": 0})
+        fn = ssm.make_train_step(lr_fn=constant(1e-3),
+                                 nano_batches=nano_batches, remat=remat,
+                                 mesh=mesh, tp_mode="auto",
+                                 grad_sync="psum")
+        return fn, (parts["params"], parts["adapters"], parts["opt_state"],
+                    parts["batch"]), parts
+    idx = ssm.serve_rows(mesh)
+    rows = sum(ssm.rows_per_job()) if idx is None else len(idx)
+    if shape.kind == "prefill":
+        parts["batch"] = _int_batch(rows, {"tokens": S, "adapter_ids": 0})
+        fn = ssm.make_prefill_step(shape, with_cache=True, mesh=mesh)
+        return fn, (parts["params"], parts["adapters"], parts["batch"]), \
+            parts
+    # decode: ONE new token against a seq_len cache
+    parts["caches"] = ssm.init_decode_caches(shape, device="meta", mesh=mesh)
+    parts["batch"] = _int_batch(rows, {"tokens": 1, "adapter_ids": 0})
+    step = ssm.make_serve_step(ring=shape.sliding_window_variant, mesh=mesh)
+    pos = S - 1
+
+    def fn(params, adapters, caches, batch):
+        return step(params, adapters, caches, batch, pos)
+    return fn, (parts["params"], parts["adapters"], parts["caches"],
+                parts["batch"]), parts
+
+
+def _roadmap_line(err: Exception) -> Optional[str]:
+    m = re.search(r"ROADMAP (A\d+[a-z]?)", str(err))
+    return m.group(1) if m else None
+
+
+def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
+               verbose: bool = True, nano_batches: int = 1,
+               remat: bool = True, drill: int = 0) -> Dict:
+    """One (arch, shape, mesh) row; runs in a fake world of its own (a
+    process that has a process group is refused)."""
+    # the reference's TPU path: the capacity expert dispatch
+    cfg = dataclasses.replace(get_config(arch), moe_impl="capacity")
+    shape = get_shape(shape_name)
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
+    if not applicable(arch, shape_name):
+        return dict(head, status="skipped",
+                    reason="encoder-only arch has no decode step")
+    t0 = time.time()
+    chips = 512 if multi_pod else 256
+    try:
+        with fake_world(chips, DRY_RANK):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            m = model_group(mesh)[1]
+            try:
+                check_tensor_parallel(cfg, m)
+            except (ValueError, NotImplementedError) as e:
+                if verbose:
+                    print(f"[{arch} x {shape_name} x {mesh_name}] REFUSED: "
+                          f"{e}")
+                return dict(head, status="refused", roadmap=_roadmap_line(e),
+                            reason=str(e))
+            fn, args, parts = build(cfg, shape, mesh,
+                                    nano_batches=nano_batches, remat=remat)
+            rep, _ = SA.analyze(fn, args)
+            D = data_group(mesh, "data")[1]
+        coll = {}
+        for (kind, ranks), b in rep.collective_groups.items():
+            link = RL.link_of(ranks)
+            coll[link] = coll.get(link, 0.0) + b
+        resident = sum(tree_bytes(parts[k]) for k in
+                       ("params", "adapters", "opt_state") if k in parts)
+        rl = RL.RooflineReport(
+            arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
+            flops=rep.flops, flops_f32=rep.flops_f32,
+            eager_bytes=rep.eager_bytes, coll_bytes=coll,
+            model_flops=RL.model_flops_estimate(cfg, shape,
+                                                shape.kind == "train"),
+            peak_bytes=rep.peak_bytes, resident_bytes=resident)
+        out = dict(head, status="ok", analysis_s=time.time() - t0,
+                   model_axis=m, data_shards=D, ops=rep.ops,
+                   rows_per_rank=int(parts["batch"]["adapter_ids"]
+                                     .shape[0]),
+                   flops=rep.flops, flops_f32=rep.flops_f32,
+                   f32_share=rep.flops_f32 / max(rep.flops, 1.0),
+                   eager_bytes=rep.eager_bytes,
+                   collective_bytes=rep.collective_bytes,
+                   collective_counts=rep.collective_counts,
+                   collective_bytes_by_link=coll,
+                   collectives=rep.describe_collectives(),
+                   peak_bytes=rep.peak_bytes, resident_bytes=resident,
+                   cache_bytes=tree_bytes(parts.get("caches", [])),
+                   batch_bytes=tree_bytes(parts["batch"]),
+                   **rl.row())
+        if verbose:
+            print(f"[{arch} x {shape_name} x {mesh_name}] OK "
+                  f"({out['analysis_s']:.1f}s analysis, {rep.ops} ops)")
+            print(f"  peak {rep.peak_bytes / 1e9:.2f} GB/rank (fits "
+                  f"{RL.CARD}'s 80 GB: {rl.fits}), resident "
+                  f"{resident / 1e9:.2f} GB")
+            print(f"  per-rank: flops={rep.flops:.3e} (f32: "
+                  f"{out['f32_share']:.0%}) eager bytes="
+                  f"{rep.eager_bytes:.3e}")
+            print(f"  collectives: {out['collectives']}")
+            print(f"  roofline (H100 data sheet peaks): compute="
+                  f"{rl.t_compute * 1e3:.2f}ms memory="
+                  f"{rl.t_memory * 1e3:.2f}ms collective="
+                  f"{rl.t_collective * 1e3:.2f}ms -> {rl.bottleneck}-bound"
+                  f"  useful={rl.useful_flops_frac:.2f}")
+        if drill:
+            print("  -- top collective contributors --")
+            for (kind, ranks), b in sorted(rep.collective_groups.items(),
+                                           key=lambda x: -x[1])[:drill]:
+                print(f"    {b / 1e9:8.2f} GB  {kind} over {len(ranks)} "
+                      f"ranks ({RL.link_of(ranks)})")
+            print("  -- top memory-traffic ops --")
+            for name, b in rep.top_ops[:drill]:
+                print(f"    {b / 1e9:8.2f} GB  {name}")
+        return out
+    except Exception as e:
+        if verbose:
+            print(f"[{arch} x {shape_name} x {mesh_name}] FAIL: {e}")
+            traceback.print_exc()
+        return dict(head, status="fail", error=f"{type(e).__name__}: {e}",
+                    analysis_s=time.time() - t0)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, choices=list(ARCH_IDS))
+    ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--nano-batches", type=int, default=1)
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--drill", type=int, default=0,
+                    help="print top-N collective/memory-traffic "
+                         "contributors")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    archs = list(ARCH_IDS) if args.all or not args.arch else [args.arch]
+    shapes = (list(INPUT_SHAPES) if args.all or not args.shape
+              else [args.shape])
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    t0 = time.time()
+    results = []
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                results.append(dryrun_one(arch, shape, mp,
+                                          nano_batches=args.nano_batches,
+                                          remat=not args.no_remat,
+                                          drill=args.drill))
+    count = {s: sum(1 for r in results if r["status"] == s)
+             for s in ("ok", "refused", "skipped", "fail")}
+    print(f"\n=== dry-run: {count['ok']} ok / {count['refused']} refused / "
+          f"{count['skipped']} skipped / {count['fail']} failed of "
+          f"{len(results)} ({time.time() - t0:.1f} s) ===")
+    for r in results:
+        if r["status"] == "fail":
+            print(f"  FAIL {r['arch']} x {r['shape']} x {r['mesh']}: "
+                  f"{r['error']}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print(f"wrote {args.out}")
+    return 0 if not count["fail"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

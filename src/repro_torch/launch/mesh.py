@@ -34,11 +34,17 @@ one over the whole slice.  Like every group here they are made by every
 rank of the world, in one fixed order (``_stage_group_keys``): over the
 whole world ``stage_mesh`` makes them itself; a slice of a pool gets
 them from ``partition_mesh(stages=)``, which every rank calls for every
-slice.  ``make_production_mesh`` (the reference's 512-chip dry-run
-target) has no counterpart (ROADMAP A5).
+slice.
+
+``make_production_mesh`` is the reference's dry-run target, the (16, 16)
+("data", "model") mesh or the (2, 16, 16) one with "pod", over a world
+of 256 or 512 ranks; ``fake_world`` makes such a world in one process
+on torch's "fake" backend (collectives return at once and move nothing),
+for the dry run's analysis of one rank's step (``launch/dryrun``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from datetime import timedelta
@@ -77,6 +83,39 @@ def init_mesh(rank: int, world: int, init_method: str, backend: str, *,
                             world_size=world,
                             timeout=timedelta(seconds=TIMEOUT_S), **kw)
     return make_local_mesh(device_type=device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the initialized world: (16,
+    16) ("data", "model") over 256 ranks, or (2, 16, 16) ("pod", "data",
+    "model") over 512 (``src/repro/launch/mesh.py:15``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{n} ranks, this one has {dist.get_world_size()}")
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int):
+    """A world of *world* ranks seen from *rank*, in this process alone,
+    on torch's "fake" backend (``FakeStore``: no peer, collectives
+    return at once and move nothing), destroyed on exit.  A process that
+    already has a process group is refused: the analysis must never run
+    over a real group (or leave one behind)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process already has a process "
+                           "group; a dry run takes a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def clamp_model(model: int, n: int) -> int:
@@ -135,12 +174,18 @@ def data_group(mesh, axis: Optional[str] = None
     ``axis`` named (``tp_mode="auto"``): rows over that axis only, the
     group of this rank's column of it (the ranks that share its other
     coordinates: on a ("data", "model") mesh, its model index), which
-    the DeviceMesh made for every rank when it was built."""
+    the DeviceMesh made for every rank when it was built.  A "pod" axis
+    folds into "data", as the rules' batch axes fold them: the rows go
+    over the flattened ("pod", "data") submesh, pod-major (every rank
+    makes its group, in the same order)."""
     if isinstance(mesh, StageMesh):
         return mesh.data_group, mesh.data, mesh.shard
     if axis is not None and mesh.ndim > 1:
-        return (mesh.get_group(axis), mesh.size(mesh.mesh_dim_names
-                                                .index(axis)),
+        names = mesh.mesh_dim_names
+        if axis == "data" and "pod" in names:
+            flat = mesh["pod", "data"]._flatten()
+            return flat.get_group(), flat.size(), flat.get_local_rank()
+        return (mesh.get_group(axis), mesh.size(names.index(axis)),
                 mesh.get_local_rank(axis))
     ranks = mesh.mesh.flatten().tolist()
     if mesh.ndim == 1:

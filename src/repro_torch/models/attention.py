@@ -41,7 +41,8 @@ import torch
 
 from repro_torch.core.lora import MultiLoRA, column_proj, proj, row_proj
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.models.layers import ModelAxis, apply_rope, dense_init
+from repro_torch.models.layers import (ModelAxis, apply_rope, dense_init,
+                                       meta_flash, on_card)
 
 NEG_BIG = -1e30
 # Keys per chunk of the decode scan.  Fixed, not cut to the cache width:
@@ -94,9 +95,9 @@ def _flash_kernel(q, k, v, causal: bool):
     qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
     kf = k.transpose(1, 2).reshape(B * KV, Skv, hd)
     vf = v.transpose(1, 2).reshape(B * KV, Skv, -1)
-    out, lse = flash_attention_fwd(qf.contiguous(), kf.contiguous(),
-                                   vf.contiguous(), causal=causal,
-                                   kv_groups=H // KV)
+    flash = (q.is_meta and meta_flash()) or flash_attention_fwd
+    out, lse = flash(qf.contiguous(), kf.contiguous(), vf.contiguous(),
+                     causal=causal, kv_groups=H // KV)
     return (out.reshape(B, H, Sq, -1).transpose(1, 2),
             lse.reshape(B, H, Sq))
 
@@ -116,7 +117,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, chunk: int,
                 window: Optional[int] = None):
-        if q.is_cuda and window is None:
+        if on_card(q) and window is None:
             out, lse = _flash_kernel(q, k, v, causal)
         else:
             out, lse = _chunked_attention_fwd(
@@ -408,26 +409,30 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
     (``ring_attention``).  ``row_block``: rows per base product and per
     decode chunk product (``layers.dense``).
 
-    ``tp`` (training, no cache): Megatron tensor parallelism over the
-    model axis.  The rank holds the column blocks of wq/wk/wv (and the
-    biases) and the row block of wo, so it runs its H/m query heads over
-    its KV/m kv heads (the GQA grouping is unchanged: query head h reads
-    kv head h // G).  The LoRA adapters are whole on every rank: q/k/v's
-    deltas are computed at full width on the replicated input and cut
-    to the rank's columns (``core/lora.column_proj``), o's on its input
-    gathered whole (``core/lora.row_proj``), so every rank computes the
-    same adapter gradients."""
+    ``tp``: Megatron tensor parallelism over the model axis, training
+    and serving.  The rank holds the column blocks of wq (and bq) and the
+    row block of wo, so it runs its H/m query heads; of wk/wv (bk/bv) it
+    holds its kv heads' columns (``ModelAxis.kv_block``): KV/m heads
+    where the axis divides them, else the one head its m / KV replicas
+    share.  Local query head j reads local kv head j // (H/m / KV_loc),
+    which is the global GQA grouping, so ``cache_update``,
+    ``decode_attention`` and ``ring_attention`` run unchanged on the
+    rank's caches of KV_loc heads.  The LoRA adapters are whole on every
+    rank: q/k/v's deltas are computed at full width on the replicated
+    input and cut to the rank's columns (``core/lora.column_proj``), o's
+    on its input gathered whole (``core/lora.row_proj``), so every rank
+    computes the same adapter gradients."""
     B, S, _ = x.shape
     la = lora_ab or {}
     rb = row_block
     H, KV = cfg.num_heads, cfg.num_kv_heads
     if tp is not None:
-        assert cache is None, "tensor parallelism is a training path"
-        H, KV = H // tp.size, KV // tp.size
-        q, k, v = (column_proj(tp, x, params[w], params.get(b), lora,
-                               la.get(t))
-                   for w, b, t in (("wq", "bq", "q"), ("wk", "bk", "k"),
-                                   ("wv", "bv", "v")))
+        H, KV_all, KV = H // tp.size, KV, tp.kv_local(KV)
+        q = column_proj(tp, x, params["wq"], params.get("bq"), lora,
+                        la.get("q"), row_block=rb)
+        k, v = (column_proj(tp, x, params[w], params.get(b), lora,
+                            la.get(t), kv_heads=KV_all, row_block=rb)
+                for w, b, t in (("wk", "bk", "k"), ("wv", "bv", "v")))
     else:
         q = proj(x, params["wq"], params.get("bq"), lora, la.get("q"), rb)
         k = proj(x, params["wk"], params.get("bk"), lora, la.get("k"), rb)
@@ -452,6 +457,7 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
                                 chunk=chunk)
     out = out.reshape(B, S, H * cfg.head_dim)
     if tp is not None:
-        return row_proj(tp, out, params["wo"], lora, la.get("o")), cache
+        return row_proj(tp, out, params["wo"], lora, la.get("o"),
+                        rb), cache
     y = proj(out, params["wo"], None, lora, la.get("o"), rb)
     return y, cache

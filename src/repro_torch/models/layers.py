@@ -25,14 +25,22 @@ order of one sum.  ``enter`` (identity; the cotangents summed) and
 the MoE's expert-parallel dispatch, ``gather`` (the ranks' column blocks
 side by side; the cotangent's own block back) and ``columns`` (this
 rank's column block; the cotangent's blocks gathered) the LoRA deltas.
-Every rank computes the replicated parts of the model identically, so a
-loss is counted once, not once a rank.  ``swiglu(..., tp=)`` is the
+Where the axis is wider than the kv heads (m a multiple of KV: every
+production mesh's 16 ranks over 4 or 8 kv heads), m / KV ranks hold the
+same kv head whole (``kv_head``, ``kv_replicas``): ``kv_columns`` cuts
+the k/v LoRA deltas to it, and its backward sums the replicas'
+cotangents, each covering only its own query heads.  ``whole`` gathers
+a vocab-split head's logits for serving.  Every rank computes the
+replicated parts of the model identically, so a loss is counted once,
+not once a rank.  ``swiglu(..., tp=)`` is the
 column/row-parallel MLP and ``vocab_cross_entropy`` the cross entropy
 over a vocab-split head."""
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -131,11 +139,11 @@ def swiglu(params: dict, x: torch.Tensor,
     with *partial*, returned as it is in f32 for the caller to sum with
     others (the MoE's shared experts beside its expert combine)."""
     if tp is not None:
-        g = tp.column(x, params["gate"])
-        u = tp.column(x, params["up"])
+        g = tp.column(x, params["gate"], row_block)
+        u = tp.column(x, params["up"], row_block)
         h = F.silu(g.float()).to(x.dtype) * u
-        return _RowPartial.apply(h, params["down"]) if partial \
-            else tp.row(h, params["down"])
+        return _RowPartial.apply(h, params["down"], row_block) if partial \
+            else tp.row(h, params["down"], row_block)
     # qdot: fused int8 dequant when the FFN mats are QuantTensors
     g = dense(x, params["gate"], row_block)
     u = dense(x, params["up"], row_block)
@@ -237,24 +245,69 @@ class ModelAxis:
         w = n // self.size
         return slice(self.index * w, (self.index + 1) * w)
 
-    def column(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # ---- kv heads: split (KV % m == 0) or shared (m % KV == 0)
+    def kv_local(self, kv_heads: int) -> int:
+        """The kv heads this rank holds: KV/m where the axis divides
+        them, else the one head its m / KV replicas share."""
+        return kv_heads // self.size if self.splits(kv_heads) else 1
+
+    def kv_replicas(self, kv_heads: int) -> int:
+        """How many ranks hold each of this rank's kv heads (1 where the
+        axis divides KV)."""
+        if self.splits(kv_heads):
+            return 1
+        if self.size % kv_heads:
+            raise ValueError(f"a model axis of {self.size} neither divides "
+                             f"nor is divided by {kv_heads} kv heads")
+        return self.size // kv_heads
+
+    def kv_head(self, kv_heads: int) -> int:
+        """The first kv head this rank holds: rank i's block of KV/m heads,
+        or under replication head i // (m / KV)."""
+        r = self.kv_replicas(kv_heads)
+        return (self.index // r if r > 1
+                else self.index * (kv_heads // self.size))
+
+    def kv_block(self, n: int, kv_heads: int) -> slice:
+        """This rank's columns of a dim of *n* entries laid out as
+        *kv_heads* heads: its kv heads' columns, whole heads."""
+        hd = n // kv_heads
+        lo = self.kv_head(kv_heads) * hd
+        return slice(lo, lo + self.kv_local(kv_heads) * hd)
+
+    def column(self, x: torch.Tensor, w: torch.Tensor,
+               row_block: Optional[int] = None) -> torch.Tensor:
         """x·w for this rank's column block *w* of a weight, x replicated:
         its columns of the whole product; x's cotangent is the f32 sum
-        over the axis of the ranks' ``mm_f32`` partials."""
-        return _Column.apply(x, w, self.group)
+        over the axis of the ranks' ``mm_f32`` partials.  *row_block*:
+        rows per product (``dense``; the serving decode)."""
+        return _Column.apply(x, w, self.group, row_block)
 
-    def row(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def row(self, h: torch.Tensor, w: torch.Tensor,
+            row_block: Optional[int] = None) -> torch.Tensor:
         """h·w for this rank's input columns *h* and row block *w*: the
         f32 sum over the axis of the ranks' ``mm_f32`` partials, in h's
-        dtype; the cotangent passes through to every rank's partial."""
-        return _Sum.apply(_RowPartial.apply(h, w), self.group, h.dtype)
+        dtype; the cotangent passes through to every rank's partial.
+        *row_block*: rows per product and per sum (``sum``)."""
+        return self.sum(_RowPartial.apply(h, w, row_block), h.dtype,
+                        row_block)
 
     def enter(self, *xs: torch.Tensor):
         out = _Enter.apply(self.group, *xs)
         return out[0] if len(xs) == 1 else out
 
-    def sum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
-        return _Sum.apply(x, self.group, dtype or x.dtype)
+    def sum(self, x: torch.Tensor, dtype=None,
+            row_block: Optional[int] = None) -> torch.Tensor:
+        """The f32 sum over the axis of the ranks' *x*, in *dtype*.  An
+        all-reduce adds an element's m addends in an order that follows
+        the element's place in the buffer (gloo's and NCCL's ring cut the
+        buffer into chunks), so above m = 2 a row's sum depends on the
+        rows around it; *row_block*: there, one all-reduce of that many
+        rows at a time, so a fused batch's rows and a solo batch's sum
+        alike (the serving path, ROADMAP C1).  Two addends sum the same
+        in either order: at m = 2 one all-reduce."""
+        return _Sum.apply(x, self.group, dtype or x.dtype,
+                          row_block if self.size > 2 else None)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherCols.apply(x, self.group, self.size, self.index)
@@ -262,17 +315,73 @@ class ModelAxis:
     def columns(self, x: torch.Tensor) -> torch.Tensor:
         return _Columns.apply(x, self.group, self.size, self.index)
 
+    def kv_columns(self, x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+        """This rank's kv heads' columns (``kv_block``) of a tensor every
+        rank holds whole, laid out as *kv_heads* heads.  Where the axis
+        divides the heads it is ``columns``.  Under replication each of a
+        head's m / KV replicas gets a cotangent covering only its own
+        query heads: the backward writes it into the whole width, zeros
+        elsewhere, and one all-reduce sums the replicas and places the
+        heads."""
+        if self.splits(kv_heads):
+            return self.columns(x)
+        return _KVColumns.apply(x, self.group,
+                                self.kv_block(x.shape[-1], kv_heads))
 
-def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' column blocks side by side, no gradient (a
+        vocab-split head's logits on the serving path)."""
+        return _all_gather_last(x, self.group, self.size)
+
+
+# The flash kernel's stand-in while a step runs on meta tensors as the
+# card would run it (``meta_as_card``); a context variable, so no other
+# thread sees it.
+_META_FLASH: ContextVar = ContextVar("meta_flash", default=None)
+
+
+@contextlib.contextmanager
+def meta_as_card(flash: Callable):
+    """Within, in this thread: a meta tensor takes the card's branches
+    (``on_card``) and *flash* stands in for the flash kernel's wrapper
+    (``meta_flash``).  The dry run's analysis (``launch/step_analysis``)
+    counts the card's path so; any other tensor is as it was."""
+    token = _META_FLASH.set(flash)
+    try:
+        yield
+    finally:
+        _META_FLASH.reset(token)
+
+
+def meta_flash() -> Optional[Callable]:
+    """The flash kernel's stand-in under ``meta_as_card``, else None."""
+    return _META_FLASH.get()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether products on *t* take the card's path: a CUDA tensor, or a
+    meta tensor under ``meta_as_card``."""
+    return t.is_cuda or (t.is_meta and _META_FLASH.get() is not None)
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor,
+           row_block: Optional[int] = None) -> torch.Tensor:
     """(..., K) x (K, N) -> (..., N) f32: the products of the operands'
     values accumulated in f32, the output not rounded to their dtype
     (a bf16 GEMM with an f32 result on the card; f32 copies elsewhere,
-    which hold bf16 values exactly)."""
+    which hold bf16 values exactly); *row_block* rows of x a product
+    (``dense``)."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype == w.dtype and x.dtype != torch.float32:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
+    if on_card(x) and x.dtype == w.dtype and x.dtype != torch.float32:
+        mm = lambda a: torch.mm(a, w, out_dtype=torch.float32)
     else:
-        y = x2.float() @ w.float()
+        wf = w.float()
+        mm = lambda a: a.float() @ wf
+    if row_block is None or x2.shape[0] <= row_block:
+        y = mm(x2)
+    else:
+        y = torch.cat([mm(x2[i:i + row_block])
+                       for i in range(0, x2.shape[0], row_block)])
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -282,34 +391,35 @@ class _RowPartial(torch.autograd.Function):
     whole product's cotangent columns for this rank's rows)."""
 
     @staticmethod
-    def forward(ctx, h, w):
+    def forward(ctx, h, w, row_block=None):
         ctx.save_for_backward(w)
         ctx.dtype = h.dtype
-        return mm_f32(h, w)
+        return mm_f32(h, w, row_block)
 
     @staticmethod
     def backward(ctx, g):
         w, = ctx.saved_tensors
-        return dense(g.to(ctx.dtype), w.T), None
+        return dense(g.to(ctx.dtype), w.T), None, None
 
 
 class _Column(torch.autograd.Function):
     """x·w on a column block w of a weight, x the same on every rank;
     the backward sums the ranks' f32 partials g·wᵀ over the axis and
-    rounds once to x's dtype."""
+    rounds once to x's dtype.  Under kv replication the ranks sharing a
+    kv head each add their partial for it: the sum is the whole dx."""
 
     @staticmethod
-    def forward(ctx, x, w, group):
+    def forward(ctx, x, w, group, row_block=None):
         ctx.save_for_backward(w)
         ctx.group, ctx.dtype = group, x.dtype
-        return dense(x, w)
+        return dense(x, w, row_block)
 
     @staticmethod
     def backward(ctx, g):
         w, = ctx.saved_tensors
         dx = mm_f32(g, w.T).contiguous()
         dist.all_reduce(dx, group=ctx.group)
-        return dx.to(ctx.dtype), None, None
+        return dx.to(ctx.dtype), None, None, None
 
 
 def _all_gather_last(x: torch.Tensor, group, m: int) -> torch.Tensor:
@@ -346,16 +456,21 @@ class _Sum(torch.autograd.Function):
     cotangent passes through to every rank's partial."""
 
     @staticmethod
-    def forward(ctx, x, group, dtype):
+    def forward(ctx, x, group, dtype, row_block=None):
         ctx.dtype = x.dtype
         s = x.to(torch.float32, memory_format=torch.contiguous_format,
                  copy=True)
-        dist.all_reduce(s, group=group)
+        if row_block is None or s.numel() <= row_block * s.shape[-1]:
+            dist.all_reduce(s, group=group)
+        else:
+            rows = s.view(-1, s.shape[-1])
+            for i in range(0, rows.shape[0], row_block):
+                dist.all_reduce(rows[i:i + row_block], group=group)
         return s.to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.dtype), None, None
+        return g.to(ctx.dtype), None, None, None
 
 
 class _GatherCols(torch.autograd.Function):
@@ -387,6 +502,25 @@ class _Columns(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather_last(g, ctx.group, ctx.m), None, None, None
+
+
+class _KVColumns(torch.autograd.Function):
+    """The columns *sl* (this rank's kv heads) of a tensor every rank
+    holds whole; the whole cotangent is every rank's block cotangent in
+    its place, zeros elsewhere, summed over the axis: the replicas of a
+    head add up, and the heads land side by side."""
+
+    @staticmethod
+    def forward(ctx, x, group, sl):
+        ctx.group, ctx.sl, ctx.n = group, sl, x.shape[-1]
+        return x[..., sl].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(*g.shape[:-1], ctx.n, dtype=torch.float32)
+        full[..., ctx.sl] = g
+        dist.all_reduce(full, group=ctx.group)
+        return full.to(g.dtype), None, None
 
 
 class _VocabCE(torch.autograd.Function):

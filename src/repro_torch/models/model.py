@@ -223,7 +223,9 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
     """Adapter tree mirroring the segment structure, leaves packed ragged
     — (n_cycles, d, R)/(n_cycles, R, d), R = Σ_k r_pad_k — per *layout*
     (default: per-adapter ``pad_rank``; ``r_pad`` forces a uniform
-    width).  A ~ N(0, 1/r_pad_k) with dead lanes zero, B = 0."""
+    width).  A ~ N(0, 1/r_pad_k) with dead lanes zero, B = 0.  On
+    ``device="meta"`` the tree holds shapes only, as ``init_model``'s."""
+    meta = torch.device(device).type == "meta"
     if layout is None:
         rk = tuple(int(r) for r in ranks)
         layout = RankLayout.uniform(rk, r_pad) if r_pad else RankLayout(rk)
@@ -238,7 +240,8 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
                 # stable crc32 of its path: a leaf's draw does not depend
                 # on which other leaves exist
                 key = zlib.crc32(f"{seed}/{i}/{j}/{t}".encode())
-                g = torch.Generator(device=device).manual_seed(key)
+                g = (None if meta else
+                     torch.Generator(device=device).manual_seed(key))
                 blk[t] = init_adapter_pair(layout, *dims[t], generator=g,
                                            layers=seg.repeats,
                                            device=device)
@@ -250,13 +253,14 @@ def init_adapters(cfg: ModelConfig, ranks: Sequence[int], *, seed: int = 0,
 # ----------------------------------------------------------------- caches
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      buf: int, ring: bool, layers: Optional[int] = None,
-                     device="cuda"):
+                     device="cuda", tp: Optional[ModelAxis] = None):
     """One layer's (or a stack's) cache: attention keeps a full KV cache
     of *buf* keys, or a ring of ``min(buf, sliding_window)`` slots for a
     local-attention layer or when *ring* is asked for; MLA keeps its
     latent and rope key, *buf* wide (whole decode chunks) or a ring of
     ``min(buf, sliding_window)`` slots; the recurrent mixers keep their
-    state and conv tail."""
+    state and conv tail.  Under ``tp`` an attention cache holds the
+    rank's kv heads (``ModelAxis.kv_local``)."""
     if spec.mixer == "mla":
         b = min(buf, cfg.sliding_window) if ring else buf
         return MLACache.init(batch, b, cfg, dtype_of(cfg), layers=layers,
@@ -264,24 +268,27 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     if spec.mixer in ("attn", "local_attn"):
         is_ring = ring or spec.mixer == "local_attn"
         b = min(buf, cfg.sliding_window) if is_ring else buf
-        return KVCache.init(batch, b, cfg.num_kv_heads, cfg.head_dim,
-                            dtype_of(cfg), layers=layers, device=device,
-                            ring=is_ring)
+        kv = (cfg.num_kv_heads if tp is None
+              else tp.kv_local(cfg.num_kv_heads))
+        return KVCache.init(batch, b, kv, cfg.head_dim, dtype_of(cfg),
+                            layers=layers, device=device, ring=is_ring)
     if spec.mixer == "ssd":
         return SSDCache.init(batch, cfg, layers=layers, device=device)
     return RGLRUCache.init(batch, cfg, layers=layers, device=device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, buf: int, ring: bool = False,
-                *, device="cuda") -> list:
-    """Per-segment cache stacks matching segment_plan structure."""
+                *, device="cuda", tp: Optional[ModelAxis] = None) -> list:
+    """Per-segment cache stacks matching segment_plan structure (under
+    ``tp``, this model rank's: its kv heads)."""
     caches = []
     for seg in segment_plan(cfg):
         seg_c = {}
         for j, spec in enumerate(seg.specs):
             seg_c[str(j)] = init_block_cache(
                 cfg, spec, batch, buf, ring,
-                layers=seg.repeats if seg.scanned else None, device=device)
+                layers=seg.repeats if seg.scanned else None, device=device,
+                tp=tp)
         caches.append(seg_c)
     return caches
 
@@ -413,13 +420,15 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
 
 # ----------------------------------------------------------------- forward
 def _logits(cfg, params, x, row_block: Optional[int] = None,
-            tp: Optional[ModelAxis] = None):
+            tp: Optional[ModelAxis] = None, whole: bool = False):
     """The head's logits; under ``tp`` with a vocab the axis divides,
     this rank's vocab block of them (its head columns, or a tied
-    embedding's rows)."""
+    embedding's rows), or with *whole* (the serving path) the whole
+    vocab on every rank: the blocks in one all-gather."""
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     if tp is not None and tp.splits(cfg.vocab_size):
-        return tp.column(x, head)
+        y = tp.column(x, head, row_block)
+        return tp.whole(y) if whole else y
     return dense(x, head, row_block)
 
 
@@ -427,7 +436,8 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
             lora: Optional[MultiLoRA], batch: dict, *,
             caches: Optional[list] = None, cache_pos=None,
             remat: bool = False, row_block: Optional[int] = None,
-            ring: bool = False, tp: Optional[ModelAxis] = None):
+            ring: bool = False, tp: Optional[ModelAxis] = None,
+            last: bool = False):
     """Full model.  batch keys: tokens / frames / patches (+ tokens).
 
     Returns (logits, aux, caches, text_offset), the reference's tuple:
@@ -443,8 +453,12 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
     path on the card).  ``ring``: every attention cache is a ring (the
     sliding-window serving variant); local-attention caches are rings
     regardless.  ``tp``: tensor parallelism over the model axis
-    (training; ``apply_block``, ``embed_inputs``, ``_logits``): the
-    logits are then this rank's vocab block."""
+    (``apply_block``, ``embed_inputs``, ``_logits``): in training the
+    logits are this rank's vocab block, on the serving path (with
+    caches) the whole vocab on every rank.  ``last``: the logits of the
+    last position only (B, 1, V) (the prefill step under a model axis,
+    whose caller reads no other: the head and its gather run on one
+    column)."""
     assert not (remat and caches is not None), "remat is for training"
     vec_pos = isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1
     if vec_pos and cfg.family == "audio":
@@ -469,7 +483,12 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
                               row_block=row_block, ring=ring, tp=tp)
         aux = aux + a
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(cfg, params, x, row_block, tp), aux, caches, text_off
+    if last:
+        x = x[:, -1:]
+    # serving (caches, or the prefill's last column): the whole vocab
+    whole = caches is not None or last
+    return (_logits(cfg, params, x, row_block, tp, whole=whole), aux, caches,
+            text_off)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, adapters: dict,
@@ -556,13 +575,14 @@ def job_losses(cfg: ModelConfig, logits: torch.Tensor, off: int,
 def decode_step(cfg: ModelConfig, params: dict, adapters: Optional[dict],
                 lora: Optional[MultiLoRA], token: torch.Tensor, pos,
                 caches: list, row_block: Optional[int] = None,
-                ring: bool = False):
+                ring: bool = False, tp: Optional[ModelAxis] = None):
     """One decode step. token: (B, 1..S) int; pos: int position or a
     per-row (B,) tensor (full caches only).  Returns (logits (B, S, V),
-    caches).  ``row_block``: rows per dense and chunk product; ``ring``:
-    as ``forward``."""
+    caches).  ``row_block``: rows per dense and chunk product; ``ring``,
+    ``tp``: as ``forward`` (the caches the rank's, ``init_caches(tp=)``;
+    the logits whole on every rank)."""
     logits, _, caches, _ = forward(cfg, params, adapters, lora,
                                    {"tokens": token}, caches=caches,
                                    cache_pos=pos, row_block=row_block,
-                                   ring=ring)
+                                   ring=ring, tp=tp)
     return logits, caches

@@ -133,9 +133,10 @@ def moe_ffn(cfg, params: dict, x: torch.Tensor, *,
     ``row_block``: rows per product of the shared experts (the serving
     decode, ``layers.dense``); the expert products group a row with
     whatever rows routed to the same expert and take none.  ``tp``:
-    tensor parallelism (training): expert parallel where the axis
-    divides E, the shared experts column/row parallel where it divides
-    their width; a replicated part runs whole on every rank."""
+    tensor parallelism (training and serving): expert parallel where the
+    axis divides E, the shared experts column/row parallel where it
+    divides their width; a replicated part runs whole on every rank.  C
+    comes from the T tokens of *x*, the data shard's (ROADMAP C13)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -155,10 +156,10 @@ def moe_ffn(cfg, params: dict, x: torch.Tensor, *,
                                    x.dtype, tp)
         if shared is not None and tp_sh is not None:
             # the shared experts' partial rides in the same sum
-            out = out + swiglu(shared, x, tp=tp_sh,
+            out = out + swiglu(shared, x, row_block, tp=tp_sh,
                                partial=True).reshape(T, d)
             shared = None
-        out = tp.sum(out, torch.float32)
+        out = tp.sum(out, torch.float32, row_block)
     elif cfg.moe_impl == "capacity":
         out = _capacity_moe_dense(cfg, params, xf, flat_e, top_w, E, k, T, d,
                                   x.dtype)

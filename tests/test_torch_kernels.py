@@ -395,7 +395,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.cluster.harness, repro_torch.cluster.controller, "
             "repro_torch.cluster.execution, repro_torch.kernels.ops, "
             "repro_torch.data.pipeline, torch.distributed.device_mesh, "
-            "repro_torch.sharding.rules, repro_torch.sharding.specs\n"
+            "repro_torch.sharding.rules, repro_torch.sharding.specs, "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.step_analysis\n"
             # the sharded path: a one-rank gloo world, its mesh, and the
             # shard-local gather, all without JAX
             "import os, tempfile, torch\n"

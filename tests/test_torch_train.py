@@ -446,8 +446,9 @@ def test_make_train_step_refuses_what_is_not_ported():
     """Tensor parallelism (``tp_mode="auto"``, ROADMAP A4) builds on a
     ("data", "model") mesh; what it does not run over a model axis of 2
     is refused with its ROADMAP line: MLA and the other mixers and front
-    ends (A8c), head counts the axis does not divide (A4), and an
-    unknown tp_mode.  Pipeline stages (old A7b) are ported: without a
+    ends (A8c), head counts that would split a head (A4: a model axis
+    of 3 over 4 query heads; one of 4 over 2 kv heads shares each kv
+    head between 2 ranks and is taken), and an unknown tp_mode.  Pipeline stages (old A7b) are ported: without a
     mesh they are ignored, as in the reference; on a mesh a depth of 1
     or one that does not divide the scanned stack is refused before the
     mesh is touched.  Uniform layouts and nano batches build."""
@@ -468,7 +469,8 @@ def test_make_train_step_refuses_what_is_not_ported():
                          block_t=BT).make_train_step(
             lr_fn=lr, mesh=StandInMesh(), tp_mode="auto")
     with pytest.raises(ValueError, match="split a head"):
-        check_tensor_parallel(cfg, 4)
+        check_tensor_parallel(cfg, 3)
+    check_tensor_parallel(cfg, 4)
     with pytest.raises(NotImplementedError, match="A8b"):
         check_tensor_parallel(cfg, 2, quantize="int8")
     check_tensor_parallel(mla, 1)

@@ -1178,7 +1178,7 @@ def tp_step_and_engine(inputs):
     step = ssm.make_train_step(lr_fn=constant(LR), remat=False, mesh=mesh,
                                tp_mode="auto")
     params = shard_params(w["params"], M.init_model(cfg, device="meta"),
-                          m, mi)
+                          m, mi, kv_heads=cfg.num_kv_heads)
     adapters = w["adapters"]
     ad, _, met = step(params, adapters,
                       adamw.init(adapters, per_job=len(jobs)), mine)
@@ -1216,6 +1216,221 @@ def tp_controller(inputs):
             "decisions": decisions(ctl)}
 
 
+# ------------------------- tensor-parallel serving (ROADMAP A8a)
+# The serve steps over ("data", "model") meshes (tests/test_torch_tp_
+# serve.py): data 1 x model 2 on each pair (kv heads split), data 1 x
+# model 4 over the world (each kv head shared by 2 ranks), data 2 x
+# model 2 over the world (the batch's rows split in order too).  Job set:
+# ranks 4 and 16 (pad 8/16 at block_t 8: the ragged kernels), TPS_ROWS
+# rows a job, so a data rank's share is whole token tiles.
+TPS_RANKS = (4, 16)
+TPS_ROWS = 16
+TPS_PROMPT = 8
+TPS_DECODE = 8
+
+
+def tps_specs(cls=LoRAJobSpec, ranks=TPS_RANKS, rows=TPS_ROWS):
+    return [cls(f"tps-{i}", rank=r, batch_size=rows, seq_len=BT)
+            for i, r in enumerate(ranks)]
+
+
+def tps_shape(cls=None):
+    from repro_torch.configs.base import InputShape
+    return (cls or InputShape)("tps", TPS_PROMPT + TPS_DECODE,
+                               TPS_ROWS * len(TPS_RANKS), "decode")
+
+
+def tps_meshes():
+    """The three serve meshes, made by every rank in one order."""
+    return {"m2": tp_pairs(), "m4": world_mesh(model=4),
+            "d2m2": tp_world()}
+
+
+def tps_greedy(cfg, specs, params, adapters, toks, mesh, ring=False,
+               row_block=None):
+    """Prefill TPS_PROMPT tokens of this rank's rows of *toks* (the
+    whole batch's prompts, job-major), then TPS_DECODE greedy steps:
+    the logits of each step (B_loc, 1 + TPS_DECODE, V), the ids chosen
+    (B_loc, 1 + TPS_DECODE), this rank's caches after the last step and
+    where it sits."""
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.launch.mesh import model_group
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelAxis
+    from repro_torch.sharding.rules import shard_params
+    ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=BT)
+    idx = ssm.serve_rows(mesh)
+    rows = (torch.arange(toks.shape[0]) if idx is None
+            else torch.as_tensor(idx))
+    ids = torch.arange(len(specs), dtype=torch.int32).repeat_interleave(
+        torch.as_tensor(ssm.rows_per_job()))[rows]
+    t = torch.as_tensor(toks)[rows]
+    local, tp = params, None
+    if mesh is not None:
+        tp = ModelAxis(*model_group(mesh))
+        local = shard_params(params, M.init_model(cfg, device="meta"),
+                             tp.size, tp.index, kv_heads=cfg.num_kv_heads)
+    prefill = ssm.make_prefill_step(tps_shape(), ring=ring, mesh=mesh)
+    step = ssm.make_serve_step(ring=ring, mesh=mesh)
+    lp, caches = prefill(local, adapters, {"tokens": t[:, :TPS_PROMPT],
+                                           "adapter_ids": ids},
+                         row_block and row_block * TPS_PROMPT)
+    logits = [lp[:, 0]]
+    for pos in range(TPS_PROMPT, TPS_PROMPT + TPS_DECODE):
+        tok = logits[-1].argmax(-1).to(torch.int32)
+        lg, _ = step(local, adapters, caches, {"tokens": tok[:, None],
+                                               "adapter_ids": ids}, pos,
+                     row_block)
+        logits.append(lg[:, 0])
+    lg = torch.stack(logits, dim=1)
+    kv = caches[0]["0"]
+    return {"rows": rows.numpy(), "logits": lg.numpy(),
+            "ids": lg.argmax(-1).numpy(), "k": kv.k.numpy(),
+            "v": kv.v.numpy(),
+            "model_axis": None if tp is None else (tp.size, tp.index),
+            "kv_head": None if tp is None else tp.kv_head(
+                cfg.num_kv_heads),
+            "kv_local": None if tp is None else tp.kv_local(
+                cfg.num_kv_heads)}
+
+
+def solo_adapters(adapters, layout, k, multiple=BT):
+    """Job *k*'s adapter alone, re-packed as a one-job group's."""
+    from repro_torch.core.lora import (RankLayout, extract_adapter,
+                                       merge_adapter_pair)
+    lay = RankLayout((layout.ranks[k],), multiple=multiple)
+
+    def walk(t):
+        if isinstance(t, dict) and set(t) == {"A", "B"}:
+            return merge_adapter_pair([extract_adapter(t, layout, k)], lay)
+        if isinstance(t, dict):
+            return {kk: walk(v) for kk, v in t.items()}
+        return [walk(v) for v in t]
+    return walk(adapters)
+
+
+def tps_meshes_run(inputs):
+    """Reduced f32 tinyllama served on each of the three meshes, and
+    meshless."""
+    w, toks = inputs["tps:tl"], inputs["tps:toks"]
+    run = lambda mesh: tps_greedy(cfg_f32(), tps_specs(), w["params"],
+                                  w["adapters"], toks, mesh)
+    return dict({name: run(mesh) for name, mesh in tps_meshes().items()},
+                meshless=run(None))
+
+
+def tps_ring(inputs):
+    """Every attention cache a ring (the sliding-window variant) at data
+    1 x model 2 and data 1 x model 4, beside this rank's meshless ring
+    serve (the reference prefills through a ring non-causally, ROADMAP
+    C6: the port's own meshless run is the function)."""
+    w, toks = inputs["tps:tl"], inputs["tps:toks"]
+    run = lambda mesh: tps_greedy(cfg_f32(), tps_specs(), w["params"],
+                                  w["adapters"], toks, mesh, ring=True)
+    meshes = tps_meshes()
+    return {"meshless": run(None), "m2": run(meshes["m2"]),
+            "m4": run(meshes["m4"])}
+
+
+def tps_fused_solo(inputs):
+    """Fused vs solo under data 1 x model 2 and data 1 x model 4 (each kv
+    head shared by 2 ranks): each job's rows served alone (its adapter
+    re-packed as a one-job group) and inside the fused batch, every
+    product and every sum over the model axis TPS_ROWS rows (their
+    tokens in the prefill) at a time: the logits and ids of each."""
+    from repro_torch.core.ssm import SharedSuperModel
+    w, toks = inputs["tps:tl"], inputs["tps:toks"]
+    cfg, specs = cfg_f32(), tps_specs()
+    layout = SharedSuperModel(cfg, specs, block_t=BT).layout
+    meshes = tps_meshes()
+    out = {}
+    for name in ("m2", "m4"):
+        fused = tps_greedy(cfg, specs, w["params"], w["adapters"], toks,
+                           meshes[name], row_block=TPS_ROWS)
+        solo = [tps_greedy(cfg, [sp], w["params"],
+                           solo_adapters(w["adapters"], layout, k),
+                           toks[k * TPS_ROWS:(k + 1) * TPS_ROWS],
+                           meshes[name], row_block=TPS_ROWS)
+                for k, sp in enumerate(specs)]
+        out[name] = {part: (fused[part], np.concatenate([s[part]
+                                                         for s in solo]))
+                     for part in ("logits", "ids")}
+    return out
+
+
+def tps_moe(inputs):
+    """Reduced f32 qwen3-moe-30b-a3b (E 4: 2 experts a rank) served at
+    data 1 x model 2."""
+    w, toks = inputs["tps:qr"], inputs["tps:toks"]
+    return tps_greedy(moe_cfg("qr"), tps_specs(), w["params"],
+                      w["adapters"], toks, tp_pairs())
+
+
+# ---------------- kv heads shared across model ranks (ROADMAP A4)
+# Training at data 1 x model 4 over the world: reduced tinyllama's 2 kv
+# heads, each held whole by 2 model ranks (tests/test_torch_kv_replicas
+# .py), job sets "rag" (the ragged kernels) and "ab" (the masked ones).
+KVR_JOBS = ("rag", "ab")
+
+
+def kvr_runtime(inputs):
+    """``GroupRuntime(tp_mode="auto")`` over data 1 x model 4, 2 steps a
+    job set."""
+    mesh = world_mesh(model=4)
+    return {j: tp_run(inputs, "tl", j, mesh) for j in KVR_JOBS}
+
+
+def kvr_step(inputs):
+    """``make_train_step(mesh=, tp_mode="auto")`` called directly at data
+    1 x model 4: step 1's losses and adapters of job set "rag"."""
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.data.pipeline import FusedBatcher
+    from repro_torch.launch.mesh import model_group
+    from repro_torch.models import model as M
+    from repro_torch.optim.schedule import constant
+    from repro_torch.sharding.rules import shard_params
+    mesh = world_mesh(model=4)
+    _, m, mi = model_group(mesh)
+    cfg, jobs, w = cfg_f32(), specs("rag"), inputs["tl:rag"]
+    ssm = SharedSuperModel(cfg, jobs, impl="cuda", block_t=BT)
+    fb = FusedBatcher(jobs, cfg.vocab_size, block_t=BT)
+    batch = {k: torch.from_numpy(v) for k, v in fb.next_batch().items()}
+    step = ssm.make_train_step(lr_fn=constant(LR), remat=False, mesh=mesh,
+                               tp_mode="auto")
+    params = shard_params(w["params"], M.init_model(cfg, device="meta"), m,
+                          mi, kv_heads=cfg.num_kv_heads)
+    wk = params["segments"][0]["0"]["attn"]["wk"]
+    ad, _, met = step(params, w["adapters"],
+                      adamw.init(w["adapters"], per_job=len(jobs)), batch)
+    return {"per_job": met["per_job_loss"].numpy(), "adapters": flat(ad),
+            "wk_shape": tuple(wk.shape), "model_axis": (m, mi)}
+
+
+def _one_replica_backward(ctx, g):
+    """A planted fault for ``layers._KVColumns``: each kv head's
+    cotangent taken from its first replica alone (the ranks' blocks
+    gathered), instead of the replicas' sum."""
+    m = dist.get_world_size(ctx.group)
+    blocks = [torch.empty_like(g) for _ in range(m)]
+    dist.all_gather(blocks, g.contiguous(), group=ctx.group)
+    r = m * (ctx.sl.stop - ctx.sl.start) // ctx.n
+    return torch.cat(blocks[::r], dim=-1), None, None
+
+
+def kvr_planted(inputs):
+    """Job set "rag" at data 1 x model 4 with ``_one_replica_backward``
+    in place of the replicas' sum."""
+    from repro_torch.models import layers
+    real = layers._KVColumns.backward
+    layers._KVColumns.backward = staticmethod(_one_replica_backward)
+    try:
+        return tp_run(inputs, "tl", "rag", world_mesh(model=4))
+    finally:
+        layers._KVColumns.backward = real
+
+
+KV_REPLICAS = ["kvr_runtime", "kvr_step", "kvr_planted"]
+TP_SERVE = ["tps_meshes_run", "tps_ring", "tps_fused_solo", "tps_moe"]
 MOE_MESH = ["moe_dp", "moe_pipeline"]
 TENSOR_PARALLEL = ["tp_parity", "tp_step_and_engine", "tp_controller"]
 PIPELINE = ["pipe_parity", "pipe_uniform", "pipe_unscanned_tail",
