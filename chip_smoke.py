@@ -223,7 +223,12 @@ each on standard output:
             out that the limit must catch, every rank's adapters equal,
             launches a rank and the resident backbone (at least 40%
             below meshless where it is split), all asserted; walls, rank
-            0's idle share and peak memory recorded;
+            0's idle share and peak memory recorded.  The other families
+            at model 2 the same way (deepseek-v2-lite-16b at 2 layers,
+            recurrentgemma-9b at 3, mamba2-2.7b, hubert-xlarge and
+            internvl2-26b at 2), and the int8 backbone (tinyllama-1.1b
+            and mamba2-2.7b at 2, B10's f32 partials), each with a
+            planted fault on its new collective;
   tp_serve — the serve steps over a model axis (``make_prefill_step(
             mesh=)``, ``make_serve_step(mesh=)``), eight gloo ranks on
             cuda:0: (a) full-width, full-depth tinyllama-1.1b at data 1 x
@@ -247,7 +252,11 @@ each on standard output:
             forced onto the split's experts (a routing flip moves a row's
             logits O(1)), the flipped tokens at most twice the 2^-9
             nudge's, a planted fault (rank 1's experts left out) above
-            0.25.  Beside
+            0.25; (d)-(g) deepseek-v2-lite-16b, mamba2-2.7b,
+            recurrentgemma-9b and internvl2-26b cut to 2-3 layers at
+            data 1 x model 2, (a)'s checks (deepseek's routes forced as
+            (c)'s).  The five multi-rank phases run their ranks in one
+            pool of eight processes spawned once (``RankPool``).  Beside
             it, the dry run's prediction of (a)'s serve peak on rank 0,
             recorded;
   dryrun  — (after the serve phase) the dry run's analysis
@@ -1092,6 +1101,19 @@ B10_WIDTHS = ((2560, 12368, "mamba2-2.7b", "ssd_in"),
               (2048, 3072, "deepseek-v2-lite-16b", "q"),
               (2048, 576, "deepseek-v2-lite-16b", "kv_a"),
               (512, 4096, "deepseek-v2-lite-16b", "kv_b"))
+# B10 at a model rank's widths under tensor parallelism (model 2, ROADMAP
+# A8b), the train shape: (d_in, d_out, model, projection, dx, f32 out).
+# A column block's forward rounds to bf16 and its dx is an f32 partial;
+# a row block's forward is an f32 partial (the ranks sum the partials
+# before the one rounding: the kernel's f32 epilogue).
+B10_TP_WIDTHS = (
+    (2048, 1024, "tinyllama-1.1b", "q (column)", False, False),
+    (2048, 2816, "tinyllama-1.1b", "gate (column)", True, True),
+    (1024, 2048, "tinyllama-1.1b", "o (row)", False, True),
+    (2816, 2048, "tinyllama-1.1b", "down (row)", False, True),
+    (2560, 6224, "mamba2-2.7b", "ssd_in (segments)", False, False),
+    (2560, 6224, "mamba2-2.7b", "ssd_in (segments)", True, True),
+    (2560, 2560, "mamba2-2.7b", "ssd_out (row)", False, True))
 
 
 def dequant_kernel_cases(g, dev):
@@ -1120,7 +1142,12 @@ def dequant_kernel_cases(g, dev):
                 {"model": model, "projection": proj})
                for d_in, d_out, model, proj in B10_WIDTHS
                for trans in (False, True)]
+    shapes += [("train", 8192, d_in, d_out, trans,
+                {"model": model, "projection": proj, "model_axis": 2,
+                 "out": "f32" if f32 else "bf16"})
+               for d_in, d_out, model, proj, trans, f32 in B10_TP_WIDTHS]
     for step, T, d_in, d_out, trans, where in shapes:
+        f32 = where.get("out") == "f32"
         qt = quantize_array(torch.randn((d_in, d_out), generator=g,
                                         device=dev) / d_in ** 0.5)
         if trans:       # dx = dys · q^T: unit scales, q read transposed
@@ -1134,14 +1161,16 @@ def dequant_kernel_cases(g, dev):
         wb = (q.float() * (scale if scale is not None else 1.0)
               ).to(torch.bfloat16)
         nbytes = T * K * 2 + K * N + (N * 4 if scale is not None else 0) \
-            + T * N * 2
+            + T * N * (4 if f32 else 2)
         lib = None if where else dequant_library(x, q, scale, trans)
         cases.append((
             "dequant_matmul_cuda", step,
             dict(op="dx = dys . q^T" if trans else "y = (x . q) * scale",
                  T=T, d_in=K, d_out=N, **where),
-            functools.partial(fl.dequant_matmul_cuda, x, q, scale),
-            functools.partial(fl.dequant_matmul_plain, x, q, scale),
+            functools.partial(fl.dequant_matmul_cuda, x, q, scale,
+                              out_f32=f32),
+            functools.partial(fl.dequant_matmul_plain, x, q, scale,
+                              out_f32=f32),
             lib, nbytes, 2 * T * K * N,
             {"library": library if lib else None,
              "cublas_bf16_ms": functools.partial(torch.matmul, x, wb)}))
@@ -1272,6 +1301,9 @@ def time_cases(cases) -> list:
                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
         for key, val in (more[0] if more else {}).items():
             res[key] = device_ms(val) if callable(val) else val
+        if shape.get("out") == "f32":
+            res.update(f32_unrounded(got, plain()))
+            res["within_tol"] &= res["unrounded"]
         if name == "dequant_matmul_cuda":   # tensor maps encoded per call
             res["host_us_per_call"] = host_us(run)
         emit({"phase": "kernels", **res})
@@ -1280,6 +1312,26 @@ def time_cases(cases) -> list:
                                  f"its plain version: {res}")
         results.append(res)
     return results
+
+
+# B10's f32 epilogue writes the unrounded accumulator: its error from the
+# f32 plain version is the summation order's, far below one bf16 rounding
+# (2^-9 of a value).  The bar sits between the two.
+F32_EPILOGUE_RTOL = 2.0 ** -14
+
+
+def f32_unrounded(got, want) -> dict:
+    """An f32 output against its plain version under the bar
+    ``F32_EPILOGUE_RTOL`` * max |plain|, and the same bar read on the
+    plain version rounded to bf16 and widened back, which it must miss
+    (the bar tells the unrounded epilogue from a rounded one)."""
+    import torch
+    w = want.float()
+    bar = F32_EPILOGUE_RTOL * w.abs().max().item()
+    err = (got.float() - w).abs().max().item()
+    rounded = (w.to(torch.bfloat16).float() - w).abs().max().item()
+    return {"f32_bar": bar, "f32_err": err, "bf16_rounded_err": rounded,
+            "unrounded": err <= bar < rounded}
 
 
 # --------------------------------------------- invariance and equality
@@ -4838,6 +4890,120 @@ def sharded_runs(rank, mesh, cfg, params, dev, runs) -> dict:
     return out
 
 
+# ------------------------------------------------- the ranks' processes
+# The multi-rank phases (sharded, cluster_sharded, pipeline_mode,
+# tensor_parallel, tp_serve) run their gloo ranks in one pool of
+# processes spawned once (ROADMAP A7): a fresh process pays its start,
+# torch's import, its CUDA context and its first steps' lazy loads, ~20 s
+# a phase; a pool process pays them once.  Each phase still joins a
+# world of its own size on the pool's first processes (its rank
+# function calls ``init_mesh`` and destroys the group at its end), the
+# others wait for the next phase.
+_POOL = [None]
+
+
+def _rank_worker(index, tasks, done):
+    """A pool process: runs each task ``(fn, args)`` as ``fn(index,
+    *args)`` and reports (index, None) or (index, its traceback); after
+    a failure it ends (its peers may be stuck in a collective: the pool
+    is torn down)."""
+    import gc
+    import traceback
+    import torch
+    import torch.distributed as dist
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        fn, args = task
+        try:
+            fn(index, *args)
+        except BaseException:
+            done.put((index, traceback.format_exc()))
+            return
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        done.put((index, None))
+
+
+class RankPool:
+    """*n* spawned processes that run the multi-rank phases' rank
+    functions in turn (``run``)."""
+
+    def __init__(self, n: int):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(n)]
+        self.done = ctx.Queue()
+        self.procs = [ctx.Process(target=_rank_worker, daemon=True,
+                                  args=(i, self.tasks[i], self.done))
+                      for i in range(n)]
+        for proc in self.procs:
+            proc.start()
+
+    def run(self, fn, args, nprocs: int) -> None:
+        """``fn(rank, *args)`` on the first *nprocs* processes, joined;
+        raises (and tears the pool down) if one raised or died."""
+        import queue
+        if nprocs > len(self.procs):
+            raise ValueError(f"{nprocs} ranks from a pool of "
+                             f"{len(self.procs)}")
+        for i in range(nprocs):
+            self.tasks[i].put((fn, args))
+        waiting, errors = set(range(nprocs)), []
+        while waiting:
+            try:
+                i, err = self.done.get(timeout=5.0)
+            except queue.Empty:
+                dead = [i for i in waiting if not self.procs[i].is_alive()]
+                if dead:
+                    errors.append(f"rank {dead[0]} died")
+                    break
+                continue
+            waiting.discard(i)
+            if err is not None:
+                errors.append(f"rank {i} raised:\n{err}")
+                break
+        if errors:
+            self.close()
+            raise RuntimeError(f"{fn.__name__}: {errors[0]}")
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in self.procs:
+            proc.join(10)
+        if _POOL[0] is self:
+            _POOL[0] = None
+
+
+@contextlib.contextmanager
+def rank_pool(n: int):
+    """Within: the multi-rank phases run their ranks in one pool of *n*
+    processes (``run_ranks``); closed on the way out."""
+    _POOL[0] = RankPool(n)
+    try:
+        yield
+    finally:
+        if _POOL[0] is not None:
+            for q in _POOL[0].tasks:
+                q.put(None)
+            _POOL[0].close()
+
+
+def run_ranks(fn, args, nprocs: int) -> None:
+    """``fn(rank, *args)`` for ranks 0 .. nprocs - 1 in the open pool's
+    processes (``rank_pool``), or in a pool of their own."""
+    if _POOL[0] is not None:
+        _POOL[0].run(fn, args, nprocs)
+        return
+    with rank_pool(nprocs):
+        _POOL[0].run(fn, args, nprocs)
+
+
 def sharded_cfg(cfg):
     """*cfg* (tinyllama-1.1b) at full width, cut to SHARDED_LAYERS."""
     import dataclasses
@@ -4880,7 +5046,6 @@ def sharded_phase(src, cfg, dev):
     import tempfile
     import torch
     import torch.distributed as dist
-    import torch.multiprocessing as mp
     from repro_torch.launch.mesh import init_mesh
     from repro_torch.models import model as M
     cfg = sharded_cfg(cfg)
@@ -4893,9 +5058,9 @@ def sharded_phase(src, cfg, dev):
     cases = {}
     t0 = time.perf_counter()
     out_path = os.path.join(tmp, "%d.json")
-    mp.start_processes(sharded_rank, args=(
+    run_ranks(sharded_rank, (
         SHARDED_D, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
-        nprocs=SHARDED_D, join=True, start_method="spawn")
+        SHARDED_D)
     ranks = []
     for r in range(SHARDED_D):
         with open(out_path % r) as f:
@@ -5291,7 +5456,6 @@ def cluster_sharded_phase(src, cfg):
     cfg = cs_cfg(cfg)
     import tempfile
     import torch
-    import torch.multiprocessing as mp
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="cluster-sharded-",
@@ -5300,9 +5464,9 @@ def cluster_sharded_phase(src, cfg):
     t0 = time.perf_counter()
     err = None
     try:
-        mp.start_processes(cluster_sharded_rank, args=(
+        run_ranks(cluster_sharded_rank, (
             CS_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path,
-            tmp), nprocs=CS_RANKS, join=True, start_method="spawn")
+            tmp), CS_RANKS)
     except Exception as e:            # emit what the ranks wrote first
         err = e
     ranks = []
@@ -5573,7 +5737,6 @@ def pipeline_mode_phase(src, cfg):
     import gc
     import tempfile
     import torch
-    import torch.multiprocessing as mp
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="pipeline-mode-",
@@ -5582,9 +5745,9 @@ def pipeline_mode_phase(src, cfg):
     t0 = time.perf_counter()
     err = None
     try:
-        mp.start_processes(pipeline_mode_rank, args=(
+        run_ranks(pipeline_mode_rank, (
             PP_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
-            nprocs=PP_RANKS, join=True, start_method="spawn")
+            PP_RANKS)
     except Exception as e:            # emit what the ranks wrote first
         err = e
     ranks = []
@@ -5654,15 +5817,40 @@ def pipeline_mode_phase(src, cfg):
 # ROADMAP C8); every rank's adapters bit-equal; launches a rank those of
 # the cut config's pattern (a stage's under "pipeline"); and, where the
 # backbone is split, its resident bytes at least TP_RESIDENT_CUT below
-# meshless.  TP_PLANTED is rerun for one step with rank 1's partial of
-# layer 0's first row-parallel product (wo) left out of its all-reduce,
-# which must read above the run's gradient limit.
+# meshless.  (d) The other families over the model axis (ROADMAP A8c), at
+# full width and cut depth, data 1 x model 2, the train group:
+# deepseek-v2-lite-16b at 2 layers (the dense layer and one MoE layer;
+# MLA on 8 of 16 heads a rank, the latent computed whole), recurrentgemma
+# -9b at 3 (one rglru, rglru, local_attn cycle; the one kv head shared),
+# mamba2-2.7b, hubert-xlarge and internvl2-26b at 2 each; (e) the int8
+# backbone over the model axis (A8b): tinyllama-1.1b at 2 layers and
+# mamba2-2.7b at 2 (the first int8 training step of a recurrent family
+# on the card), every base projection through B10, a row-parallel
+# product's partials and a column-parallel product's dx partials from
+# its f32 epilogue, summed over the axis before the one rounding; their
+# meshless steps int8 too.  Each of (d) and (e) meets the same bars.
+# TP_PLANTED reruns a run for one step with a fault on its collective,
+# which must read above the run's gradient limit: rank 1's partial of
+# layer 0's first row-parallel product (wo) left out of its all-reduce
+# (bf16, and int8: its codes zeroed); the SSD gated norm's sum of
+# squares without rank 1's term; RG-LRU's gathered conv output with rank
+# 1's block zeroed; MLA's latent without its cotangent summed over the
+# axis (every rank's latent path then sees its own heads' cotangent
+# only).
 TP_RANKS = 2
 TP_STEPS = 2
+TP_AUTO = {"tp_mode": "auto"}
+TP_INT8 = {"tp_mode": "auto", "quantize": "int8"}
 TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
-    ("tl_train", "tinyllama-1.1b", 2, None, "train", {"tp_mode": "auto"}),
-    ("tl_uniform", "tinyllama-1.1b", 2, None, "uniform",
-     {"tp_mode": "auto"}),
+    ("tl_train", "tinyllama-1.1b", 2, None, "train", TP_AUTO),
+    ("tl_uniform", "tinyllama-1.1b", 2, None, "uniform", TP_AUTO),
+    ("tl_int8", "tinyllama-1.1b", 2, None, "train", TP_INT8),
+    ("ds_train", "deepseek-v2-lite-16b", 2, "ragged", "train", TP_AUTO),
+    ("rg_train", "recurrentgemma-9b", 3, None, "train", TP_AUTO),
+    ("mb_train", "mamba2-2.7b", 2, None, "train", TP_AUTO),
+    ("mb_int8", "mamba2-2.7b", 2, None, "train", TP_INT8),
+    ("hb_train", "hubert-xlarge", 2, None, "train", TP_AUTO),
+    ("iv_train", "internvl2-26b", 2, None, "train", TP_AUTO),
     ("moe_capacity", "qwen3-moe-30b-a3b", 2, "capacity", "train",
      {"tp_mode": "auto"}),
     ("moe_ragged", "qwen3-moe-30b-a3b", 2, "ragged", "train",
@@ -5670,7 +5858,9 @@ TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
     ("moe_dp", "qwen3-moe-30b-a3b", 2, "ragged", "train", {"tp_mode": "dp"}),
     ("moe_pipeline", "qwen3-moe-30b-a3b", 4, "ragged", "train",
      {"tp_mode": "pipeline", "pipeline_stages": 2, "nano_batches": 2}))
-TP_PLANTED = "tl_train"
+TP_PLANTED = {"tl_train": "row_partial", "tl_int8": "row_partial",
+              "mb_train": "ssd_norm", "rg_train": "rglru_u",
+              "ds_train": "mla_latent"}
 TP_RESIDENT_CUT = 0.40
 
 
@@ -5712,19 +5902,68 @@ def per_shard_step(cfg, params, specs, adapters, dev, parts: int = 2):
     return m["per_job_loss"].cpu().numpy(), opt.mu
 
 
-def _planted_row_proj():
-    """A stand-in for ``models/attention.row_proj`` that leaves this
-    rank's partial of the first row-parallel product out of its sum (its
-    wo block zeroed for that call)."""
+@contextlib.contextmanager
+def tp_planted(kind: str, rank: int):
+    """Within: the planted fault *kind* of ``TP_PLANTED`` on this rank.
+    "row_partial": rank 1's partial of the first row-parallel product
+    left out of its sum (its wo block zeroed for that call, an int8
+    block's codes); "ssd_norm": rank 1's term of the SSD gated norm's
+    sum of squares zeros; "rglru_u": RG-LRU's gathered conv output with
+    rank 1's block zeroed, on every rank; "mla_latent": MLA's latent
+    entering the rank's heads without its cotangent summed over the
+    axis, on every rank."""
     import torch
     from repro_torch.models import attention as A
-    real, seen = A.row_proj, [0]
+    from repro_torch.models import mla, rglru, ssd
+    from repro_torch.models.quant import QuantTensor
+    seen = [0]
 
     def row_proj(tp, h, w, lora=None, ab=None, row_block=None):
         seen[0] += 1
-        return real(tp, h, torch.zeros_like(w) if seen[0] == 1 else w,
-                    lora, ab, row_block)
-    return real, row_proj
+        if seen[0] == 1:
+            w = (QuantTensor(torch.zeros_like(w.q), w.scale)
+                 if isinstance(w, QuantTensor) else torch.zeros_like(w))
+        return real(tp, h, w, lora, ab, row_block)
+
+    def gather_u(tp, u):
+        g = real(tp, u)
+        w = u.shape[-1]
+        keep = torch.ones(g.shape[-1], dtype=g.dtype, device=g.device)
+        keep[w:2 * w] = 0
+        return g * keep
+    mod, attr, fake = {
+        "row_partial": (A, "row_proj", row_proj if rank == 1 else None),
+        # zero terms that keep their graph: every rank's backward then
+        # makes the same collectives
+        "ssd_norm": (ssd, "_sum_squares", (lambda xf: real(xf) * 0)
+                     if rank == 1 else None),
+        "rglru_u": (rglru, "_gather_u", gather_u),
+        "mla_latent": (mla, "_enter_latent", lambda tp, kv_a: kv_a)}[kind]
+    real = getattr(mod, attr)
+    if fake is not None:
+        setattr(mod, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def quant_launches(cfg) -> int:
+    """B10's launches a training step of *cfg* with its backbone in int8
+    (remat on): every quantized base projection once a forward pass (a
+    scanned segment's twice), and once in the backward for its dx,
+    except those of layer 0 that read the normed embedding (no gradient
+    asked of it: attention's q, k, v; SSD's in-projection)."""
+    from repro_torch.models import model as M
+    per = {"attn": 4, "local_attn": 4, "ssd": 2}
+    readers = {"attn": 3, "local_attn": 3, "ssd": 1}
+    fwd = bwd = 0
+    for seg in M.segment_plan(cfg):
+        n = seg.repeats * sum(per[s.mixer] + 3 * (s.ffn == "swiglu")
+                              for s in seg.specs)
+        fwd += n * (2 if seg.scanned else 1)
+        bwd += n
+    return fwd + bwd - readers[M.layer_specs(cfg)[0].mixer]
 
 
 def _ranks_equal(tree) -> bool:
@@ -5821,7 +6060,6 @@ def tensor_parallel_runs(rank, dev) -> dict:
     from repro_torch.core.ssm import SharedSuperModel
     from repro_torch.elastic.runtime import GroupRuntime
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.models import attention as A
     from repro_torch.models import model as M
     kw = dict(lr=TRAIN_LR, impl="cuda", block_t=TRAIN_BLOCK_T, chunk_size=1,
               remat=True, seed=0, device=dev)
@@ -5832,6 +6070,7 @@ def tensor_parallel_runs(rank, dev) -> dict:
     failed = []
     held = {}                 # config key -> (cfg, params, references)
     for i, (name, arch, layers, impl, grp, opts) in enumerate(TP_RUNS):
+        quantize = opts.get("quantize")
         key = (arch, layers, impl)
         if key not in held:
             held.clear()
@@ -5848,18 +6087,26 @@ def tensor_parallel_runs(rank, dev) -> dict:
         layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
         adapters = train_adapters(cfg, ranks, layout, dev)
         mode = opts["tp_mode"]
-        if grp not in solos:
-            # every rank takes the meshless steps; rank 0 holds the runs
+        if rank > 0:              # rank 0 holds the runs against them
+            solos.setdefault((grp, quantize), (None, None, None, 0.0))
+            solos.setdefault((grp, "shards"), (None, None))
+        if (grp, quantize) not in solos:
+            # rank 0 takes the meshless steps and holds the runs (the
+            # ranks share one card: two meshless steps of a wide vocab
+            # at once, each with its whole f32 logits, do not fit)
             got = []
             for ad in (adapters, nudged(adapters, dev)):
                 solo = GroupRuntime.from_specs(cfg, specs, params=params,
-                                               adapters=ad, **kw)
+                                               adapters=ad,
+                                               quantize=quantize, **kw)
                 solo.run(1)
                 got.append((np.stack(solo.report.per_job_losses)[0],
                             _first_moments(solo)))
-            solos[grp] = (got[0][0], got[0][1], tree_bytes(solo.params),
-                          _grad_rel(got[1][1], got[0][1], layout))
+            solos[(grp, quantize)] = (
+                got[0][0], got[0][1], tree_bytes(solo.params),
+                _grad_rel(got[1][1], got[0][1], layout))
             del solo
+            torch.cuda.empty_cache()      # the other rank's steps need it
         if mode != "auto" and (grp, "shards") not in solos:
             solos[(grp, "shards")] = per_shard_step(cfg, params, specs,
                                                     adapters, dev)
@@ -5891,6 +6138,8 @@ def tensor_parallel_runs(rank, dev) -> dict:
         expect = {k: v * rt.n for k, v in pattern_launches(
             dataclasses.replace(cfg, num_layers=layers // P),
             masked=grp == "uniform").items()}
+        if quantize:
+            expect["dequant_matmul_cuda"] = quant_launches(cfg)
         split = opts["tp_mode"] != "dp"
         res = {"arch": arch, "layers": layers, "moe_impl": impl,
                "group": grp, "ranks": list(ranks), "options": opts,
@@ -5907,7 +6156,7 @@ def tensor_parallel_runs(rank, dev) -> dict:
             res["profile_last_step"] = prof["one_step"]
         if not res["adapters_equal_on_every_rank"]:
             failed.append(f"{name} (adapters differ across ranks)")
-        want_loss, want_mu, solo_bytes, floor = solos[grp]
+        want_loss, want_mu, solo_bytes, floor = solos[(grp, quantize)]
         if mode != "auto":        # the function over the shards or micros
             want_mu, floor = solos[(grp, "shards")][1], 0.0
         limit = against_floor(0.0, floor, SHARD_GRAD_RTOL)["limit"]
@@ -5924,30 +6173,36 @@ def tensor_parallel_runs(rank, dev) -> dict:
                 vs["per_shard_loss_abs_diff"] = float(np.abs(
                     losses[0] - solos[(grp, "shards")][0]).max())
             vs["loss_ok"] = vs["step1_loss_abs_diff"] <= LOSS_ATOL
-            vs["resident_ok"] = (not split or res["resident_backbone_bytes"]
-                                 <= (1 - TP_RESIDENT_CUT) * solo_bytes)
+            # a vocab the axis does not divide (internvl2's 92,553) keeps
+            # embedding and head whole on every rank, as the rules do;
+            # at a cut depth they outweigh the layers, so the bar is
+            # held on the rest (both sides' bytes without them)
+            whole_vocab = 0
+            if mode == "auto" and cfg.vocab_size % TP_RANKS:
+                whole_vocab = tree_bytes([params["embed"],
+                                          params.get("head", [])])
+            vs["replicated_vocab_bytes"] = whole_vocab
+            vs["resident_ok"] = (not split or
+                                 res["resident_backbone_bytes"] - whole_vocab
+                                 <= (1 - TP_RESIDENT_CUT)
+                                 * (solo_bytes - whole_vocab))
             vs["ok"] = (vs["loss_ok"] and vs["step1_grad"]["ok"]
                         and vs["resident_ok"])
             res["vs_meshless"] = vs
             if not vs["ok"]:
                 failed.append(name)
         del rt
-        if name == TP_PLANTED:
-            real, planted = _planted_row_proj()
-            if rank == 1:
-                A.row_proj = planted
-            try:
+        if name in TP_PLANTED:
+            with tp_planted(TP_PLANTED[name], rank):
                 bad = make_rt()
                 bad.run(1)
                 mu = bad.opt_state.mu
-            finally:
-                A.row_proj = real
             if rank == 0:
                 rel = _grad_rel(mu, want_mu, bad.ssm.layout)
-                res["planted_partial_left_out"] = {
-                    "step1_grad_rel": rel, "limit": limit,
-                    "caught": rel > limit}
-                if not res["planted_partial_left_out"]["caught"]:
+                res["planted_fault"] = {
+                    "kind": TP_PLANTED[name], "step1_grad_rel": rel,
+                    "limit": limit, "caught": rel > limit}
+                if not res["planted_fault"]["caught"]:
                     failed.append(f"{name} (planted fault not caught)")
             del bad
         out["runs"][name] = res
@@ -5992,7 +6247,6 @@ def tensor_parallel_phase(src):
     import gc
     import tempfile
     import torch
-    import torch.multiprocessing as mp
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="tensor-parallel-",
@@ -6001,9 +6255,9 @@ def tensor_parallel_phase(src):
     t0 = time.perf_counter()
     err = None
     try:
-        mp.start_processes(tensor_parallel_rank, args=(
+        run_ranks(tensor_parallel_rank, (
             TP_RANKS, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
-            nprocs=TP_RANKS, join=True, start_method="spawn")
+            TP_RANKS)
     except Exception as e:            # emit what the ranks wrote first
         err = e
     ranks = []
@@ -6088,6 +6342,19 @@ def tensor_parallel_phase(src):
 #       0.74, unforced; recorded), the tokens whose experts flipped at
 #       most twice the 2^-9 nudge's; a planted fault (rank 1's experts
 #       left out of the sum) must read above LOGIT_ATOL.
+#   (d)-(g) the other decoders over the model axis (ROADMAP A8c), each at
+#       full width cut to its TPS_FAMILIES depth, data 1 x model 2 on
+#       ranks 0-1: deepseek-v2-lite-16b (MLA's absorbed decode on 8 of
+#       16 heads a rank, the latent cache whole; its MoE as (c), routes
+#       forced), mamba2-2.7b (a rank's heads' SSD state, its channels'
+#       conv tail), recurrentgemma-9b (RG-LRU's channels, the local
+#       attention's one kv head shared) and internvl2-26b (text; its
+#       vocab whole on every rank).  (a)'s checks, TPS_FAM_DECODE decode
+#       steps, the TPS_SOLO_A adapter served alone, the caches the share
+#       of the runtime cache specs (``tps_cache_share``).  The recurrent
+#       mixers have no per-row position: there every prompt is
+#       TPS_REC_PROMPT tokens, prefilled but its last, which the first
+#       decode step takes at one shared position.
 TPS_WORLD = 8
 TPS_PROMPTS = 8
 TPS_ROWS = BLOCK_T
@@ -6098,23 +6365,31 @@ TPS_B_LAYERS = 2
 TPS_MOE_LAYERS = 2
 TPS_SOLO = (0, 3)              # (b)'s adapters served alone: ranks 8, 64
 TPS_SOLO_A = (3,)              # (a)'s (22 layers): rank 64
+TPS_FAM_DECODE = 8
+TPS_REC_PROMPT = 65
+TPS_FAMILIES = (   # (part, arch, layers, moe_impl, recurrent)
+    ("d", "deepseek-v2-lite-16b", 2, "ragged", False),
+    ("e", "mamba2-2.7b", 2, None, True),
+    ("f", "recurrentgemma-9b", 3, None, True),
+    ("g", "internvl2-26b", 2, None, False))
 
 
-def tps_batch(cfg, dev, names, seed=3):
+def tps_batch(cfg, dev, names, seed=3, width=None):
     """(tokens (B, S), adapter ids (B,), prompt lengths (B,)) of
     TPS_PROMPTS prompts of 16-200 tokens, two an adapter of *names*,
     adapter-major, each adapter's rows padded to TPS_ROWS (a pad row: one
-    zero token), right-padded to one BLOCK_T-aligned width."""
+    zero token), right-padded to one BLOCK_T-aligned width; with *width*
+    every prompt (and pad row) is *width* tokens."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(
-        16, 201)), dtype=np.int32) for _ in range(TPS_PROMPTS)]
+    prompts = [rng.integers(1, cfg.vocab_size, size=width or int(
+        rng.integers(16, 201)), dtype=np.int32) for _ in range(TPS_PROMPTS)]
     per = TPS_PROMPTS // len(names)
-    S = -(-max(len(p) for p in prompts) // BLOCK_T) * BLOCK_T
+    S = width or -(-max(len(p) for p in prompts) // BLOCK_T) * BLOCK_T
     B = TPS_ROWS * len(names)
     toks = np.zeros((B, S), np.int32)
-    lens = np.ones((B,), np.int32)
+    lens = np.full((B,), width or 1, np.int32)
     for k in range(len(names)):
         for j in range(per):
             p = prompts[k * per + j]
@@ -6129,10 +6404,14 @@ def tps_serve(cfg, specs, params, adapters, batch, mesh, steps, feed=None,
               row_block=None):
     """Prefill *batch* (``tps_batch``) through ``make_prefill_step(mesh=)``
     and decode *steps* tokens through ``make_serve_step(mesh=)`` (mesh
-    None: meshless), greedy or fed *feed* (B, steps); *row_block*: rows
-    per decode product, and that many rows' tokens per prefill product.
-    Returns (prefill logits (B, V), decode logits (B, steps, V) f32, the
-    ids chosen (B, steps), the caches)."""
+    None: meshless), greedy or fed *feed* (B, steps), the first from
+    every row's last prompt token at its position; *row_block*: rows per
+    decode product, and that many rows' tokens per prefill product.  A
+    batch of prompts of one width (``tps_batch(width=)``) prefills all
+    but its last token and decodes at one shared position (the recurrent
+    mixers keep no per-row position).  Returns (prefill logits (B, V),
+    decode logits (B, steps, V) f32, the ids chosen (B, steps), the
+    caches)."""
     import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.core.ssm import SharedSuperModel
@@ -6140,13 +6419,15 @@ def tps_serve(cfg, specs, params, adapters, batch, mesh, steps, feed=None,
     ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=BLOCK_T)
     shape = InputShape("tp_serve", toks.shape[1] + steps, toks.shape[0],
                        "decode")
+    shared = bool((lens == toks.shape[1]).all())
+    pre = toks[:, :-1] if shared else toks
     lp, caches = ssm.make_prefill_step(shape, mesh=mesh)(
-        params, adapters, {"tokens": toks, "adapter_ids": ids},
-        row_block=row_block and row_block * toks.shape[1])
+        params, adapters, {"tokens": pre, "adapter_ids": ids},
+        row_block=row_block and row_block * pre.shape[1])
     step = ssm.make_serve_step(mesh=mesh)
     rows = torch.arange(toks.shape[0], device=toks.device)
-    pos = (lens - 1).long()
-    tok = toks[rows, pos]
+    pos = toks.shape[1] - 1 if shared else (lens - 1).long()
+    tok = toks[:, -1] if shared else toks[rows, pos]
     logits, chosen = [], []
     for t in range(steps):
         lg, _ = step(params, adapters, caches, {"tokens": tok[:, None],
@@ -6224,7 +6505,25 @@ def tps_drop_rank_experts(index):
         moe._expert_parallel_moe = real
 
 
-def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
+def tps_cache_share(cfg, caches, m: int) -> float:
+    """The share of the whole *caches*' bytes a model rank holds under
+    ``sharding/rules.runtime_cache_specs`` at data 1 x model *m*."""
+    import math
+    from repro_torch.sharding import rules
+    sizes = {"data": 1, "model": m}
+    specs = rules.runtime_cache_specs(sizes, caches, cfg)
+    whole = loc = 0
+    for seg_c, seg_s in zip(caches, specs):
+        for k in seg_c:
+            for t, spec in zip(seg_c[k], seg_s[k]):
+                whole += t.numel() * t.element_size()
+                loc += math.prod(rules.local_shape(tuple(t.shape), spec,
+                                                   sizes)) * t.element_size()
+    return loc / whole
+
+
+def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False,
+             width=None) -> tuple:
     """One serving part on *cfg* over *mesh* (every rank of *mesh* calls
     it): the meshless greedy serve (it warms the rank), the
     tensor-parallel greedy serve (counted, the decode products TPS_ROWS
@@ -6237,8 +6536,9 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
     split's error; the flips are counted against the 2^-9 nudge's, and
     the unforced comparison is recorded.  Then the planted fault (model
     rank 1's experts left out, ``tps_drop_rank_experts``) must read above
-    LOGIT_ATOL against its own forced serve.  Returns (readings, failed
-    checks)."""
+    LOGIT_ATOL against its own forced serve.  *width*: every prompt that
+    many tokens (``tps_batch``; the recurrent mixers).  Returns
+    (readings, failed checks)."""
     import numpy as np
     import torch
     from repro_torch.core.jobs import LoRAJobSpec
@@ -6252,7 +6552,7 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
              for n, r in zip(names, MIXED)]
     layout = SharedSuperModel(cfg, specs, block_t=BLOCK_T).layout
     adapters = train_adapters(cfg, MIXED, layout, dev)
-    batch = tps_batch(cfg, dev, names)
+    batch = tps_batch(cfg, dev, names, width=width)
     toks, _, lens = batch
     tp = ModelAxis(*model_group(mesh))
     local = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
@@ -6292,7 +6592,7 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
     n_proj = sum(len(s.lora_targets) for s in M.layer_specs(cfg))
     want = dict({w.__name__: 0 for w in lora_wrappers()},
                 ragged_lora_fwd=n_proj * (1 + steps),
-                flash_attention_fwd=sum(s.mixer == "attn"
+                flash_attention_fwd=sum(s.mixer in ("attn", "mla")
                                         for s in M.layer_specs(cfg)))
     out = {"layers": cfg.num_layers, "model_axis": [tp.size, tp.index],
            "kv_heads_a_rank": tp.kv_local(cfg.num_kv_heads),
@@ -6306,6 +6606,7 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
            "meshless_serve_s": meshless_s, "tp_serve_s": tp_s,
            "serve_peak_bytes_measured": peak}
     out["cache_share"] = out["cache_bytes"] / out["meshless_cache_bytes"]
+    out["cache_share_expected"] = tps_cache_share(cfg, ml_c, tp.size)
     failed = []
     if moe:
         out["unforced_max_abs_diff"] = d_pos.max().item()
@@ -6341,7 +6642,7 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False) -> tuple:
                                     .sum())})
     if not out["logits"]["ok"]:
         failed.append("logits vs meshless")
-    if out["cache_share"] != out["kv_heads_a_rank"] / cfg.num_kv_heads:
+    if out["cache_share"] != out["cache_share_expected"]:
         failed.append(f"cache share {out['cache_share']}")
     if launches != want:
         failed.append(f"launches {launches} != {want}")
@@ -6409,7 +6710,7 @@ def tps_train(cfg, params, mesh, dev) -> tuple:
         n = dist.get_world_size(ctx.group)
         blocks = [torch.empty_like(g) for _ in range(n)]
         dist.all_gather(blocks, g.contiguous(), group=ctx.group)
-        r = n * (ctx.sl.stop - ctx.sl.start) // ctx.n
+        r = n * (ctx.sl[0].stop - ctx.sl[0].start) // ctx.n
         return torch.cat(blocks[::r], dim=-1), None, None
     layers._KVColumns.backward = staticmethod(one_replica)
     try:
@@ -6460,6 +6761,7 @@ def tp_serve_runs(rank, dev) -> dict:
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as M
     out, failed = {"rank": rank}, []
+    torch.cuda.reset_peak_memory_stats()    # the pool ran earlier phases
     pair = tps_pair_mesh()
     wide = make_local_mesh(model=TPS_WORLD)
     parts = (("a", "tinyllama-1.1b", None, TPS_DECODE),
@@ -6474,6 +6776,23 @@ def tp_serve_runs(rank, dev) -> dict:
             out[part], bad = tps_part(
                 cfg, params, pair, dev, steps,
                 solo=TPS_SOLO_A if part == "a" else (), moe=part == "c")
+            out[part]["seconds"] = time.perf_counter() - t0
+            failed += [f"({part}) {b}" for b in bad]
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    for part, arch, layers, moe_impl, recurrent in TPS_FAMILIES:
+        if pair is not None:
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+            if moe_impl:
+                cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
+            params = M.init_model(cfg, seed=0, device=dev)
+            t0 = time.perf_counter()
+            out[part], bad = tps_part(
+                cfg, params, pair, dev, TPS_FAM_DECODE, solo=TPS_SOLO_A,
+                moe=bool(cfg.num_experts),
+                width=TPS_REC_PROMPT if recurrent else None)
+            out[part]["arch"] = arch
             out[part]["seconds"] = time.perf_counter() - t0
             failed += [f"({part}) {b}" for b in bad]
             del params
@@ -6590,7 +6909,6 @@ def tp_serve_phase(src):
     import gc
     import tempfile
     import torch
-    import torch.multiprocessing as mp
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="tp-serve-", dir=os.path.join(ROOT,
@@ -6600,9 +6918,9 @@ def tp_serve_phase(src):
     dry_wait = tps_dry_prediction(src)   # its own process, beside the ranks
     err = None
     try:
-        mp.start_processes(tp_serve_rank, args=(
+        run_ranks(tp_serve_rank, (
             TPS_WORLD, f"file://{os.path.join(tmp, 'gloo')}", src, out_path),
-            nprocs=TPS_WORLD, join=True, start_method="spawn")
+            TPS_WORLD)
     except Exception as e:            # emit what the ranks wrote first
         err = e
     dry = dry_wait()
@@ -6630,6 +6948,7 @@ def tp_serve_phase(src):
           "note": "the ranks share one H100: no time here is a multi-GPU "
                   "number",
           "a": r0["a"], "b": r0["b"], "c": r0["c"],
+          **{part: r0[part] for part, *_ in TPS_FAMILIES},
           "b_by_rank": [{k: r["b"].get(k) for k in (
               "model_axis", "cache_share", "logits")} for r in ranks],
           "failed_by_rank": [r["failed"] for r in ranks],
@@ -6639,7 +6958,8 @@ def tp_serve_phase(src):
     if err is not None:
         raise err
     launches = {}
-    for part in (r0["a"], r0["b"], r0["c"], r0["b"]["train"]):
+    for part in (r0["a"], r0["b"], r0["c"], r0["b"]["train"],
+                 *(r0[p] for p, *_ in TPS_FAMILIES)):
         for k, v in part["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return launches
@@ -6780,7 +7100,8 @@ def gc_collect():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", help="comma-separated kernel wrappers: only "
-                    "their training cases, each against its plain version "
+                    "their training cases (dequant_matmul_cuda: its cases "
+                    "of the kernels phase), each against its plain version "
                     "with its times")
     ap.add_argument("--floors", action="store_true", help="only the "
                     "depth sweep of what a 2^-9 nudge of the adapters moves "
@@ -6832,7 +7153,10 @@ def main() -> int:
     if args.times:
         names = set(args.times.split(","))
         g = torch.Generator(device=dev).manual_seed(1)
-        time_cases([c for c in train_kernel_cases(g, dev) if c[0] in names])
+        pool = train_kernel_cases(g, dev)
+        if "dequant_matmul_cuda" in names:     # B10's kernels-phase cases
+            pool += dequant_kernel_cases(g, dev)
+        time_cases([c for c in pool if c[0] in names])
         return 0
     if args.floors:
         floors_sweep(dev)
@@ -6929,15 +7253,17 @@ def main() -> int:
     counts["engine"] = engine_phase(cfg, params, dev, hw)
     counts["launch"] = launch_phase(cfg, params, dev, measured)
     counts["cluster"] = cluster_phase(cfg, dev, ckpt_dir)
-    counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg, dev)
-    del params
-    counts["cluster_sharded"] = cluster_sharded_phase(
-        os.path.abspath(args.src), cfg)
-    counts["pipeline_mode"] = pipeline_mode_phase(
-        os.path.abspath(args.src), cfg)
-    counts["tensor_parallel"] = tensor_parallel_phase(
-        os.path.abspath(args.src))
-    counts["tp_serve"] = tp_serve_phase(os.path.abspath(args.src))
+    with rank_pool(max(SHARDED_D, CS_RANKS, PP_RANKS, TP_RANKS, TPS_WORLD)):
+        counts["sharded"] = sharded_phase(os.path.abspath(args.src), cfg,
+                                          dev)
+        del params
+        counts["cluster_sharded"] = cluster_sharded_phase(
+            os.path.abspath(args.src), cfg)
+        counts["pipeline_mode"] = pipeline_mode_phase(
+            os.path.abspath(args.src), cfg)
+        counts["tensor_parallel"] = tensor_parallel_phase(
+            os.path.abspath(args.src))
+        counts["tp_serve"] = tp_serve_phase(os.path.abspath(args.src))
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))
@@ -7011,14 +7337,17 @@ def main() -> int:
             if key in head:
                 summary[-1][key] = head[key]
         for key, archs in (("recurrent_widths", REC_ARCHS),
-                           ("family_widths", FAM_ARCHS)):
+                           ("family_widths", FAM_ARCHS),
+                           ("model_axis_widths", None)):
             rec = [r for r in mine if "d_in" in r["shape"]
-                   and r["shape"].get("model") in archs]
+                   and ("model_axis" in r["shape"]) == (archs is None)
+                   and (archs is None or r["shape"].get("model") in archs)]
             if rec:                  # the LoRA kernels at those widths
                 summary[-1][key] = [
                     {**{k: r["shape"][k] for k in ("d_in", "d_out", "model")
                         if k in r["shape"]},
-                     **{k: r["shape"][k] for k in ("op", "operand")
+                     **{k: r["shape"][k] for k in ("op", "operand",
+                                                   "projection", "out")
                         if k in r["shape"]},
                      **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err",

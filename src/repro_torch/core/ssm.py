@@ -35,8 +35,10 @@ parallel step: rows over the mesh's "data" axis only, and over its
 "model" axis Megatron 1-D tensor parallelism of the backbone (each rank
 holds the slices ``sharding/rules.shard_params`` gives it: column
 parallel q/k/v/gate/up, row parallel o/down, vocab-split embedding and
-head, E/m experts a rank), the adapters and their Adam state whole on
-every rank.  A MoE model runs through every mode: per shard (or micro)
+head, E/m experts a rank, MLA, SSD and RG-LRU by heads or channels, the
+front ends' d_model columns, an int8 backbone's codes and scales cut as
+the dense leaves), the adapters and their Adam state whole on every
+rank.  A MoE model runs through every mode: per shard (or micro)
 under "dp" and "pipeline", expert parallel under "auto".
 """
 from __future__ import annotations
@@ -68,30 +70,34 @@ def check_tp_mode(tp_mode: str) -> None:
 def check_tensor_parallel(cfg: ModelConfig, model: int,
                           quantize: Optional[str] = None) -> None:
     """Refuse, naming the ROADMAP line, what tensor parallelism over a
-    model axis of *model* > 1 ranks does not run: the int8 backbone
-    (its quant leaves are not in the rules, A8b), MLA, SSD, RG-LRU and
-    the front ends (A8c), and head counts that would split a head (A4):
-    query heads the axis does not divide, or kv heads it neither divides
-    nor is a multiple of (where m is a multiple of KV, m / KV ranks hold
-    the same kv head)."""
+    model axis of *model* > 1 ranks does not run: an axis that would
+    split a head (A4).  Attention: query heads the axis does not divide,
+    or kv heads it neither divides nor is a multiple of (where m is a
+    multiple of KV, m / KV ranks hold the same kv head); MLA: its heads;
+    SSD: its heads, or B/C groups it neither divides nor is a multiple
+    of; RG-LRU: its channels.  Every family runs over the axis
+    otherwise, and so does the backbone in any storage (*quantize*: an
+    int8 backbone is cut as its dense leaves are)."""
     if model <= 1:
         return
-    if quantize is not None:
-        raise NotImplementedError(
-            "an int8 backbone under tensor parallelism is not ported "
-            "(ROADMAP A8b: its quant leaves are not in the sharding rules)")
     kinds = {s.mixer for s in M.layer_specs(cfg)}
-    if kinds - {"attn", "local_attn"} or cfg.use_mla or cfg.frontend_dim:
-        raise NotImplementedError(
-            f"{cfg.name} under tensor parallelism is not ported (ROADMAP "
-            "A8c: MLA, SSD, RG-LRU and the front ends over a model axis)")
+    bad = []
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if H % model or (KV % model and model % KV):
+    if kinds & {"attn", "local_attn"} and (H % model
+                                           or (KV % model and model % KV)):
+        bad.append(f"its {H} query heads and {KV} kv heads")
+    if "mla" in kinds and H % model:
+        bad.append(f"its {H} MLA heads")
+    if "ssd" in kinds:          # refuses a split head or B/C group (A4)
+        from repro_torch.models.ssd import tp_heads
+        tp_heads(cfg.ssm_nheads, model, 0)
+    if "rglru" in kinds and cfg.lru_width % model:
+        bad.append(f"its {cfg.lru_width} RG-LRU channels")
+    if bad:
         raise ValueError(
-            f"{cfg.name}: a model axis of {model} does not divide its "
-            f"{H} query heads, or neither divides nor is a multiple of "
-            f"its {KV} kv heads; the divisibility drop would split a head "
-            "(ROADMAP A4)")
+            f"{cfg.name}: a model axis of {model} would split a head of "
+            f"{' and '.join(bad)} (the divisibility drop would split a "
+            "head; ROADMAP A4)")
 
 
 @dataclass
@@ -729,7 +735,7 @@ class SharedSuperModel:
         prompt width gives every product a solo batch's shape, so fused
         and solo prefills write the same caches on the card)."""
         cfg = self.cfg
-        _check_decoder(cfg)
+        check_decoder(cfg)
         tp, rows = self._serve_axes(mesh)
 
         @torch.no_grad()
@@ -764,7 +770,7 @@ class SharedSuperModel:
         ``mesh``: as ``make_prefill_step`` (this rank's rows, model
         slices and caches; the logits whole on every model rank).  An
         encoder has no decode: refused."""
-        _check_decoder(self.cfg)
+        check_decoder(self.cfg)
         tp, rows = self._serve_axes(mesh)
 
         @torch.no_grad()
@@ -805,12 +811,15 @@ class SharedSuperModel:
                              tp=tp)
 
 
-def _check_decoder(cfg: ModelConfig) -> None:
+def check_decoder(cfg: ModelConfig) -> None:
     """The serve steps decode: a non-causal encoder (hubert-xlarge) has
-    no next token to serve (the reference's tests skip it)."""
+    no next token to serve (the reference's tests skip it).  The
+    reference's prefill step builds for an encoder all the same; the
+    port's refuses it (ROADMAP A9)."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} is an encoder (causal=False): it has "
-                         "no decode steps")
+                         "no decode steps, and the port has no encoder "
+                         "prefill step (ROADMAP A9)")
 
 
 def _chunked(train_step: Callable) -> Callable:

@@ -220,6 +220,12 @@ class GroupRuntime:
             self._sync_groups = []
         self.data_shards = D
         self.model_axis = (1, 0)
+        # the frozen backbone in int8, once, before any step is built
+        # (idempotent: a quantized tree's QuantTensors are reused), and
+        # before the model axis cuts it: a row block's codes and scales
+        # are the whole weight's, not a re-quantization of the block
+        self.quantize = quantize
+        params = quant.quantize_params(params, quantize)
         if tp_mode == "auto" and mesh is not None:
             from repro_torch.launch.mesh import model_group
             from repro_torch.sharding.rules import shard_params
@@ -233,10 +239,6 @@ class GroupRuntime:
                 params = shard_params(params, M.init_model(cfg,
                                                            device="meta"),
                                       m, midx, kv_heads=cfg.num_kv_heads)
-        # the frozen backbone in int8, once, before any step is built
-        # (idempotent: a quantized tree's QuantTensors are reused)
-        self.quantize = quantize
-        params = quant.quantize_params(params, quantize)
         self.ssm = SharedSuperModel(cfg, self.specs, impl=impl,
                                     block_t=block_t, data_shards=D)
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,

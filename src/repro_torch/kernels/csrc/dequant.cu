@@ -52,7 +52,11 @@
 //     the 128-byte rows, two 64-feature parts), the backward's q^T a
 //     K-major one: only the tensor map and the descriptor differ;
 //   * the epilogue multiplies the f32 sum by the column's scale, rounds
-//     once to bf16, and leaves through shared memory as 16-byte rows.
+//     once to bf16, and leaves through shared memory as 16-byte rows; or,
+//     for an f32 output (kF32: a model rank's partial of a row-parallel
+//     product, or of a column-parallel product's dx, which the ranks sum
+//     before the one rounding), stores each thread's scaled pairs of the
+//     f32 sum straight from its registers, unrounded.
 // Row invariance: the tile shape, the instruction shapes and the k order
 // are fixed, never chosen by T; rows past T are zero-filled and not
 // stored; no split of K, no atomics.  A row's output depends on its x
@@ -152,12 +156,12 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t conv, int kk) {
     return desc<128>(conv + kk * 16 * 128, kBK * 128);
 }
 
-template <bool kTrans>
+template <bool kTrans, bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
 dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_q,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ out, int T, int K, int N) {
+                  const float* __restrict__ scale, void* __restrict__ out,
+                  int T, int K, int N) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;       // swizzle atoms
@@ -266,11 +270,38 @@ dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
   wgmma_wait<0>();
   fence_regs(acc0);
   fence_regs(acc1);
+  const int cq = 2 * (lane % 4);
+  if constexpr (kF32) {
+    // ---- scale, store the f32 pairs from the registers, unrounded
+    float* o = static_cast<float*>(out);
+    auto store_rows = [&](const float (&acc)[64], int h) {
+      const int ra = m0 + cw * 128 + h * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        const int col = n0 + 8 * i + cq;
+        if (col >= N) continue;            // N % 16 == 0: col + 1 < N
+        float s0 = 1.0f, s1 = 1.0f;
+        if (scale != nullptr) {
+          s0 = scale[col];
+          s1 = scale[col + 1];
+        }
+        if (ra < T)
+          *reinterpret_cast<float2*>(o + static_cast<long>(ra) * N + col) =
+              make_float2(acc[4 * i] * s0, acc[4 * i + 1] * s1);
+        if (ra + 8 < T)
+          *reinterpret_cast<float2*>(o + static_cast<long>(ra + 8) * N +
+                                     col) =
+              make_float2(acc[4 * i + 2] * s0, acc[4 * i + 3] * s1);
+      }
+    };
+    store_rows(acc0, 0);
+    store_rows(acc1, 1);
+    return;
+  }
   // both consumers' products are done: the rings take the output tile
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 
   // ---- scale, round once, stage the tile, leave as 16-byte rows
-  const int cq = 2 * (lane % 4);
   auto stage_rows = [&](const float (&acc)[64], int h) {
     const int ra = cw * 128 + h * 64 + warp * 16 + lane / 4;
 #pragma unroll
@@ -294,8 +325,8 @@ dequant_mm_kernel(const __grid_constant__ CUtensorMap tm_x,
   for (int c = ct; c < kBM * (kBN / 8); c += 256) {
     const int r = c / (kBN / 8), j = c % (kBN / 8);
     if (m0 + r >= T || n0 + j * 8 >= N) continue;
-    *reinterpret_cast<uint4*>(out + static_cast<long>(m0 + r) * N + n0 +
-                              j * 8) =
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) +
+                              static_cast<long>(m0 + r) * N + n0 + j * 8) =
         *reinterpret_cast<const uint4*>(sb + (r * kLdo + j * 8) * 2);
   }
 }
@@ -310,31 +341,32 @@ bool make_map2(CUtensorMap* tm, CUtensorMapDataType type, const void* p,
   return make_map(tm, type, p, 2, dims, strides, elem, box, swizzle);
 }
 
-template <bool kTrans>
+template <bool kTrans, bool kF32>
 cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_q,
-                   const float* scale, __nv_bfloat16* out, int T, int K,
-                   int N, dim3 grid, cudaStream_t st) {
+                   const float* scale, void* out, int T, int K, int N,
+                   dim3 grid, cudaStream_t st) {
   constexpr int bytes = kSmem + 1024;        // + room to align to 1 KB
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dequant_mm_kernel<kTrans>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      dequant_mm_kernel<kTrans, kF32>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
-  dequant_mm_kernel<kTrans><<<grid, kThreads, bytes, st>>>(tm_x, tm_q, scale,
-                                                          out, T, K, N);
+  dequant_mm_kernel<kTrans, kF32><<<grid, kThreads, bytes, st>>>(
+      tm_x, tm_q, scale, out, T, K, N);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out (T, N) bf16 = bf16((x (T, K) · q) * scale).  trans_q = 0: q element
-// (k, n) at q[k * ldq + n]; trans_q = 1: at q[n * ldq + k].  scale may be
-// null (unit scales: the backward's dx).  One kBM x kBN tile shape for
-// every T, the grid one CTA per output tile; a CUDA library without
-// tensor maps is refused.
+// out (T, N) bf16 = bf16((x (T, K) · q) * scale), or with out_f32 the f32
+// (x · q) * scale unrounded.  trans_q = 0: q element (k, n) at
+// q[k * ldq + n]; trans_q = 1: at q[n * ldq + k].  scale may be null
+// (unit scales: the backward's dx).  One kBM x kBN tile shape for every
+// T, the grid one CTA per output tile; a CUDA library without tensor
+// maps is refused.
 extern "C" int dequant_matmul_launch(const void* x, const void* q,
                                      const void* scale, void* out, int T,
                                      int K, int N, long ldq, int trans_q,
-                                     void* stream) {
+                                     int out_f32, void* stream) {
   CUtensorMap tm_x, tm_q;
   bool ok = make_map2(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, K, K, 2,
                       kBM, kBK, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -347,10 +379,16 @@ extern "C" int dequant_matmul_launch(const void* x, const void* q,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kBN - 1) / kBN, (T + kBM - 1) / kBM);
   const auto sp = static_cast<const float*>(scale);
-  const auto op = static_cast<__nv_bfloat16*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      trans_q ? launch<true>(tm_x, tm_q, sp, op, T, K, N, grid, st)
-              : launch<false>(tm_x, tm_q, sp, op, T, K, N, grid, st);
+  cudaError_t err;
+  if (out_f32)
+    err = trans_q ? launch<true, true>(tm_x, tm_q, sp, out, T, K, N, grid, st)
+                  : launch<false, true>(tm_x, tm_q, sp, out, T, K, N, grid,
+                                        st);
+  else
+    err = trans_q ? launch<true, false>(tm_x, tm_q, sp, out, T, K, N, grid,
+                                        st)
+                  : launch<false, false>(tm_x, tm_q, sp, out, T, K, N, grid,
+                                         st);
   return static_cast<int>(err);
 }

@@ -380,21 +380,26 @@ grouped_wgrad_cuda.launches = 0
 
 # ------------------------------------------------------------ dequant mm
 def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor,
-                         scale: Optional[torch.Tensor]) -> torch.Tensor:
+                         scale: Optional[torch.Tensor],
+                         out_f32: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the dequant-matmul: bf16 and int8 are
     exact in f32, so this is the reference's f32-accumulated dot, scaled
-    per output column (``scale=None``: unit scales) and rounded once."""
+    per output column (``scale=None``: unit scales) and rounded once
+    (``out_f32``: not rounded)."""
     y = x.float() @ q.float()
     if scale is not None:
         y = y * scale.float()
-    return y.to(x.dtype)
+    return y if out_f32 else y.to(x.dtype)
 
 
 def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
-                        scale: Optional[torch.Tensor]) -> torch.Tensor:
+                        scale: Optional[torch.Tensor],
+                        out_f32: bool = False) -> torch.Tensor:
     """x: (T, K), q: (K, N) int8, scale: (N,) f32 or None (unit scales).
     Returns (T, N) in x.dtype: ((x · q) * scale) accumulated in f32 and
-    rounded once.
+    rounded once; with ``out_f32`` the f32 sum scaled and not rounded (a
+    model rank's partial, which the ranks sum before rounding:
+    ``models/layers.ModelAxis.row``).
 
     q may be a transposed view of the stored (d_in, d_out) codes (the
     backward's q^T), read in place.  The kernel's output tile is one
@@ -410,7 +415,7 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
                                     and scale.dtype == torch.float32),
                   f"scale must be f32 of shape ({N},)")
     if x.device.type == "cpu":
-        return dequant_matmul_plain(x, q, scale)
+        return dequant_matmul_plain(x, q, scale, out_f32)
     build.require(x.device.type == "cuda", f"unsupported device {x.device}")
     build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
                   "x must be a contiguous bf16 tensor")
@@ -426,12 +431,13 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
                   and ld % 16 == 0,
                   "x and q must be 16-byte aligned with a leading dim of "
                   f"q that is a multiple of 16 (got {ld})")
-    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((T, N), dtype=torch.float32 if out_f32 else x.dtype,
+                      device=x.device)
     lib = _dequant_lib()
     err = lib.dequant_matmul_launch(
         build.ptr(x), build.ptr(q),
         build.ptr(scale) if scale is not None else None, build.ptr(out), T,
-        K, N, ld, int(trans), build.stream_ptr(x.device))
+        K, N, ld, int(trans), int(out_f32), build.stream_ptr(x.device))
     build.check(lib, err, "dequant_matmul_cuda")
     build.count_launch(dequant_matmul_cuda)
     return out
@@ -442,7 +448,8 @@ def _dequant_lib() -> ctypes.CDLL:
     fn = lib.dequant_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

@@ -671,6 +671,36 @@ class _DequantTorch(torch.autograd.Function):
         return dx.to(dy.dtype), None, None
 
 
+def dequant_matmul_f32(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor, impl: str = "cuda"
+                       ) -> torch.Tensor:
+    """(x @ q) * scale accumulated in f32 and not rounded, no gradient: a
+    model rank's partial of a row-parallel int8 product
+    (``models/layers.ModelAxis.row`` sums the ranks' partials and rounds
+    once, as the whole product rounds).  "cuda": the kernel with its f32
+    epilogue; "torch": the plain expression."""
+    if impl == "cuda":
+        return dequant_matmul_cuda(x.contiguous(), q, scale, out_f32=True)
+    if impl == "torch":
+        return dequant_matmul_plain(x, q, scale, out_f32=True)
+    raise ValueError(f"unknown dequant_matmul impl {impl!r}")
+
+
+def dequant_dx_f32(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                   impl: str = "cuda") -> torch.Tensor:
+    """The dx of ``dequant_matmul(x, q, scale, impl)`` for the output
+    cotangent *dy*, in f32 and not rounded: dy · scale (rounded to dy's
+    dtype for "cuda", as ``_DequantMM.backward``; not for "torch", as
+    ``_DequantTorch.backward``) times q^T.  A model rank's partial of a
+    column-parallel int8 product's dx, which the ranks sum."""
+    if impl == "cuda":
+        dys = (dy.float() * scale).to(dy.dtype).contiguous()
+        return dequant_matmul_cuda(dys, q.T, None, out_f32=True)
+    if impl == "torch":
+        return (dy.float() * scale) @ q.T.float()
+    raise ValueError(f"unknown dequant_matmul impl {impl!r}")
+
+
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    impl: str = "cuda") -> torch.Tensor:
     """y = (x @ q) * scale for an int8 per-output-channel-quantized base

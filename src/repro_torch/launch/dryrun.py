@@ -23,9 +23,10 @@ partial gradients over "data", as the reference's runtime reduces them.
 
 Every row ends in a status: ``ok`` (with ``fits``: the analysis's peak
 within the card's 80 GB), ``refused`` (what tensor parallelism does not
-run, with its ROADMAP line: A8c for MLA, SSD, RG-LRU and the front ends,
-A4 for heads the model axis would split), ``skipped`` (no decode for an
-encoder, as ``applicable`` says) or ``fail`` (an exception).
+run, with its ROADMAP line: A4 for heads the model axis would split, A9
+for an encoder's prefill, which the reference builds and the port's
+serve steps refuse), ``skipped`` (no decode for an encoder, as
+``applicable`` says) or ``fail`` (an exception).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -47,12 +48,14 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, applicable, get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.configs.registry import get_shape
 from repro_torch.core.jobs import LoRAJobSpec
-from repro_torch.core.ssm import SharedSuperModel, check_tensor_parallel
+from repro_torch.core.ssm import (SharedSuperModel, check_decoder,
+                                  check_tensor_parallel)
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import step_analysis as SA
 from repro_torch.launch.mesh import (data_group, fake_world,
                                      make_production_mesh, model_group)
 from repro_torch.models import model as M
+from repro_torch.models.layers import dtype_of
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
 from repro_torch.sharding.rules import shard_params
@@ -89,6 +92,24 @@ def _int_batch(rows: int, cols: Dict[str, int]) -> dict:
                            device="meta") for k, w in cols.items()}
 
 
+def _model_batch(cfg: ModelConfig, rows: int, S: int, train: bool) -> dict:
+    """Meta model inputs of a train or prefill step of *rows* rows of *S*
+    positions, as the reference's ``make_batch`` lays them out: an audio
+    config's frames (rows, S, frontend_dim), a VLM's patches (rows,
+    num_patches, frontend_dim) before its S - num_patches tokens, else S
+    tokens; labels over the text for training; the adapter ids."""
+    text = {"audio": 0, "vlm": S - cfg.num_patches}.get(cfg.family, S)
+    batch = _int_batch(rows, dict({"tokens": text} if text else {},
+                                  **({"labels": text or S} if train else {}),
+                                  adapter_ids=0))
+    if cfg.family in ("audio", "vlm"):
+        n = S if cfg.family == "audio" else cfg.num_patches
+        key = "frames" if cfg.family == "audio" else "patches"
+        batch[key] = torch.empty((rows, n, cfg.frontend_dim),
+                                 dtype=dtype_of(cfg), device="meta")
+    return batch
+
+
 def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
           remat: bool = True):
     """(step, its inputs as ``meta`` tensors, the inputs by name) of this
@@ -108,8 +129,7 @@ def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
         rows = sum(ssm.rows_per_job()) // D
         parts["opt_state"] = adamw.init(parts["adapters"],
                                         per_job=ssm.num_jobs)
-        parts["batch"] = _int_batch(rows, {"tokens": S, "labels": S,
-                                           "adapter_ids": 0})
+        parts["batch"] = _model_batch(cfg, rows, S, train=True)
         fn = ssm.make_train_step(lr_fn=constant(1e-3),
                                  nano_batches=nano_batches, remat=remat,
                                  mesh=mesh, tp_mode="auto",
@@ -119,7 +139,7 @@ def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
     idx = ssm.serve_rows(mesh)
     rows = sum(ssm.rows_per_job()) if idx is None else len(idx)
     if shape.kind == "prefill":
-        parts["batch"] = _int_batch(rows, {"tokens": S, "adapter_ids": 0})
+        parts["batch"] = _model_batch(cfg, rows, S, train=False)
         fn = ssm.make_prefill_step(shape, with_cache=True, mesh=mesh)
         return fn, (parts["params"], parts["adapters"], parts["batch"]), \
             parts
@@ -161,6 +181,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
             m = model_group(mesh)[1]
             try:
                 check_tensor_parallel(cfg, m)
+                if shape.kind != "train":
+                    check_decoder(cfg)
             except (ValueError, NotImplementedError) as e:
                 if verbose:
                     print(f"[{arch} x {shape_name} x {mesh_name}] REFUSED: "

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models.quant import QuantTensor, qdot
+from repro_torch.models.quant import QuantTensor, get_dequant_impl, qdot
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -315,6 +315,15 @@ class ModelAxis:
     def columns(self, x: torch.Tensor) -> torch.Tensor:
         return _Columns.apply(x, self.group, self.size, self.index)
 
+    def cut(self, x: torch.Tensor, cols: tuple) -> torch.Tensor:
+        """The columns *cols* (slices, taken side by side: this rank's
+        entries of a layout the even blocks do not describe, such as
+        SSD's segment-wise in-projection) of a tensor every rank holds
+        whole.  The whole cotangent is every rank's in its place, zeros
+        elsewhere, summed over the axis: columns two ranks both hold (a
+        shared group, a replicated segment) add up."""
+        return _KVColumns.apply(x, self.group, cols)
+
     def kv_columns(self, x: torch.Tensor, kv_heads: int) -> torch.Tensor:
         """This rank's kv heads' columns (``kv_block``) of a tensor every
         rank holds whole, laid out as *kv_heads* heads.  Where the axis
@@ -325,8 +334,7 @@ class ModelAxis:
         heads."""
         if self.splits(kv_heads):
             return self.columns(x)
-        return _KVColumns.apply(x, self.group,
-                                self.kv_block(x.shape[-1], kv_heads))
+        return self.cut(x, (self.kv_block(x.shape[-1], kv_heads),))
 
     def whole(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' column blocks side by side, no gradient (a
@@ -370,8 +378,14 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor,
     values accumulated in f32, the output not rounded to their dtype
     (a bf16 GEMM with an f32 result on the card; f32 copies elsewhere,
     which hold bf16 values exactly); *row_block* rows of x a product
-    (``dense``)."""
+    (``dense``).  A ``QuantTensor`` *w* takes the int8 dequant-matmul
+    with its f32 output (``kernels/ops.dequant_matmul_f32``), whole: its
+    rows do not depend on the row count."""
     x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, QuantTensor):
+        from repro_torch.kernels import ops
+        y = ops.dequant_matmul_f32(x2, w.q, w.scale, get_dequant_impl())
+        return y.reshape(*x.shape[:-1], w.shape[-1])
     if on_card(x) and x.dtype == w.dtype and x.dtype != torch.float32:
         mm = lambda a: torch.mm(a, w, out_dtype=torch.float32)
     else:
@@ -385,6 +399,32 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def mm_t_f32(g: torch.Tensor, w: Any) -> torch.Tensor:
+    """g·wᵀ in f32, not rounded: the input cotangent of x·w for the
+    output cotangent *g*.  A ``QuantTensor`` *w* takes the int8 kernel's
+    dx (``kernels/ops.dequant_dx_f32``, the meshless backward's
+    expression with its f32 output)."""
+    if isinstance(w, QuantTensor):
+        from repro_torch.kernels import ops
+        g2 = g.reshape(-1, g.shape[-1])
+        y = ops.dequant_dx_f32(g2, w.q, w.scale, get_dequant_impl())
+        return y.reshape(*g.shape[:-1], w.shape[-2])
+    return mm_f32(g, w.T)
+
+
+def _save_weight(ctx, w: Any) -> None:
+    """Save a frozen weight for the backward, an int8 ``QuantTensor`` as
+    its codes and scales (saved tensors: under remat the recomputation
+    then runs through the product, as the meshless product's)."""
+    ctx.quant = isinstance(w, QuantTensor)
+    ctx.save_for_backward(*((w.q, w.scale) if ctx.quant else (w,)))
+
+
+def _saved_weight(ctx) -> Any:
+    t = ctx.saved_tensors
+    return QuantTensor(*t) if ctx.quant else t[0]
+
+
 class _RowPartial(torch.autograd.Function):
     """A rank's f32 partial of a row-parallel product, h·w by
     ``mm_f32``; the backward returns h's cotangent g·wᵀ in h's dtype (the
@@ -392,13 +432,15 @@ class _RowPartial(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, row_block=None):
-        ctx.save_for_backward(w)
+        _save_weight(ctx, w)
         ctx.dtype = h.dtype
         return mm_f32(h, w, row_block)
 
     @staticmethod
     def backward(ctx, g):
-        w, = ctx.saved_tensors
+        w = _saved_weight(ctx)
+        if isinstance(w, QuantTensor):
+            return mm_t_f32(g.to(ctx.dtype), w).to(ctx.dtype), None, None
         return dense(g.to(ctx.dtype), w.T), None, None
 
 
@@ -410,14 +452,13 @@ class _Column(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, group, row_block=None):
-        ctx.save_for_backward(w)
+        _save_weight(ctx, w)
         ctx.group, ctx.dtype = group, x.dtype
         return dense(x, w, row_block)
 
     @staticmethod
     def backward(ctx, g):
-        w, = ctx.saved_tensors
-        dx = mm_f32(g, w.T).contiguous()
+        dx = mm_t_f32(g, _saved_weight(ctx)).contiguous()
         dist.all_reduce(dx, group=ctx.group)
         return dx.to(ctx.dtype), None, None, None
 
@@ -505,20 +546,25 @@ class _Columns(torch.autograd.Function):
 
 
 class _KVColumns(torch.autograd.Function):
-    """The columns *sl* (this rank's kv heads) of a tensor every rank
-    holds whole; the whole cotangent is every rank's block cotangent in
-    its place, zeros elsewhere, summed over the axis: the replicas of a
-    head add up, and the heads land side by side."""
+    """The columns *sl* (slices side by side: this rank's kv heads, or
+    ``ModelAxis.cut``'s) of a tensor every rank holds whole; the whole
+    cotangent is every rank's block cotangent in its place, zeros
+    elsewhere, summed over the axis: the replicas of a head add up, and
+    the heads land side by side."""
 
     @staticmethod
     def forward(ctx, x, group, sl):
         ctx.group, ctx.sl, ctx.n = group, sl, x.shape[-1]
-        return x[..., sl].contiguous()
+        return torch.cat([x[..., s] for s in sl], dim=-1)
 
     @staticmethod
     def backward(ctx, g):
         full = g.new_zeros(*g.shape[:-1], ctx.n, dtype=torch.float32)
-        full[..., ctx.sl] = g
+        at = 0
+        for s in ctx.sl:
+            w = s.stop - s.start
+            full[..., s] += g[..., at:at + w]
+            at += w
         dist.all_reduce(full, group=ctx.group)
         return full.to(g.dtype), None, None
 

@@ -18,6 +18,16 @@ over the whole cache: the same function), and a full cache holds whole
 chunks (``MLACache.init``): a row's sums then do not depend on the cache
 width, which follows the batch's longest prompt, so a fused batch
 decodes each row as it would decode alone (ROADMAP C9, as C1 for GQA).
+
+Tensor parallelism (``tp``: ``models/layers.ModelAxis``): a model rank
+runs H/m heads.  ``wq`` and ``w_kv_b`` are column parallel by whole
+heads, ``wo`` row parallel.  The latent down-projection ``w_kv_a`` is
+held whole on every rank (its 512 latent + 64 rope columns: an m-th of
+them would split the latent that ``kv_norm`` normalizes whole), so
+every rank computes the latent and the rope key itself, and the caches
+stay whole; their cotangent, which each rank's heads give only a part
+of, is summed over the axis (``_enter_latent``).  The absorbed decode
+absorbs the rank's heads of ``w_kv_b``.
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.lora import MultiLoRA, proj
+from repro_torch.core.lora import MultiLoRA, column_proj, proj, row_proj
 from repro_torch.models import quant
 from repro_torch.models.attention import (DECODE_CHUNK, NEG_BIG, _is_vec,
                                           _rows_einsum, chunked_attention)
@@ -69,17 +79,30 @@ def mla_init(cfg, dtype, *, generator: torch.Generator, device="cuda",
     }
 
 
-def _project_qkv_a(cfg, params, x, positions, lora, la, row_block):
-    """Shared front: q heads + compressed latent + shared rope key."""
+def _enter_latent(tp, kv_a: torch.Tensor) -> torch.Tensor:
+    """The latent and rope key every rank computes whole, entering the
+    rank's heads: identity; the cotangent summed over the axis."""
+    return tp.enter(kv_a)
+
+
+def _project_qkv_a(cfg, params, x, positions, lora, la, row_block,
+                   tp=None):
+    """Shared front: q heads (the rank's, under *tp*) + compressed latent
+    + shared rope key."""
     B, S, _ = x.shape
-    H = cfg.num_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-    q = proj(x, params["wq"], None, lora, la.get("q"),
-             row_block).reshape(B, S, H, qk)
+    if tp is None:
+        q = proj(x, params["wq"], None, lora, la.get("q"), row_block)
+    else:
+        q = column_proj(tp, x, params["wq"], None, lora, la.get("q"),
+                        row_block=row_block)
+    q = q.reshape(B, S, -1, qk)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     kv_a = proj(x, params["w_kv_a"], None, lora, la.get("kv_a"), row_block)
+    if tp is not None:
+        kv_a = _enter_latent(tp, kv_a)
     latent, k_rope = kv_a.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     latent = rms_norm(latent, params["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
@@ -88,10 +111,11 @@ def _project_qkv_a(cfg, params, x, positions, lora, la, row_block):
 
 
 def _expand_attend(cfg, params, q_nope, q_rope, latent, k_rope, chunk):
-    """Expand the latent to per-head K/V and attend causally (the flash
+    """Expand the latent to per-head K/V (the heads of ``w_kv_b`` given:
+    a rank's under tensor parallelism) and attend causally (the flash
     path: q/k of nope + rope against v of ``v_head_dim``)."""
     B, S = latent.shape[:2]
-    H = cfg.num_heads
+    H = q_nope.shape[2]
     kv = quant.qdot(latent, params["w_kv_b"])   # fused dequant if int8
     kv = kv.reshape(B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
     k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
@@ -131,7 +155,7 @@ def mla_block(cfg, params: dict, x: torch.Tensor, *,
               lora_ab: Optional[dict] = None,
               cache: Optional[MLACache] = None, cache_pos=None,
               ring: bool = False, chunk: int = 1024,
-              row_block: Optional[int] = None
+              row_block: Optional[int] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[MLACache]]:
     """x: (B, S, d). Returns (out, cache).  Without a cache: the expand
     path (training, prefill).  With a cache and S > 1: the prompt goes
@@ -139,13 +163,14 @@ def mla_block(cfg, params: dict, x: torch.Tensor, *,
     and one token: the absorbed decode at an int position, a per-row (B,)
     position (full cache) or through a ring (int position).
     ``row_block``: rows per base product and per absorbed-decode product
-    (``layers.dense``, ``attention._rows_einsum``)."""
+    (``layers.dense``, ``attention._rows_einsum``).  ``tp``: the model
+    rank's H/m heads (module docstring)."""
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = cfg.num_heads // (1 if tp is None else tp.size)
     la = lora_ab or {}
     rb = row_block
     q_nope, q_rope, latent, k_rope = _project_qkv_a(
-        cfg, params, x, positions, lora, la, rb)
+        cfg, params, x, positions, lora, la, rb, tp)
 
     if cache is not None and ring and _is_vec(cache_pos):
         raise ValueError("ring decode needs a shared int position")
@@ -162,6 +187,8 @@ def mla_block(cfg, params: dict, x: torch.Tensor, *,
                                cache_pos, ring, rb).to(x.dtype)
 
     out = out.reshape(B, S, H * cfg.v_head_dim)
+    if tp is not None:
+        return row_proj(tp, out, params["wo"], lora, la.get("o"), rb), cache
     y = proj(out, params["wo"], None, lora, la.get("o"), rb)
     return y, cache
 
@@ -173,9 +200,10 @@ def _absorbed_attend(cfg, params, q_nope, q_rope, cache: MLACache, pos,
     (or count-masked in a ring), softmax, context over the latent, W_vb
     out; over key chunks of ``DECODE_CHUNK`` with an online softmax
     (chunks past a row's keys add exact zeros and rescale by 1).
-    Returns (B, S, H, v_head_dim) f32."""
-    B, S = q_nope.shape[:2]
-    H, buf = cfg.num_heads, cache.latent.shape[1]
+    Returns (B, S, H, v_head_dim) f32 (H: the heads of ``w_kv_b`` and
+    *q_nope*, a rank's under tensor parallelism)."""
+    B, S, H = q_nope.shape[:3]
+    buf = cache.latent.shape[1]
     dev = q_nope.device
     # a small dequantized f32 copy of W_kv_b (the absorb einsums are f32
     # anyway; S == 1, so this is cheap)

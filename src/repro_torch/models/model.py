@@ -260,7 +260,8 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     latent and rope key, *buf* wide (whole decode chunks) or a ring of
     ``min(buf, sliding_window)`` slots; the recurrent mixers keep their
     state and conv tail.  Under ``tp`` an attention cache holds the
-    rank's kv heads (``ModelAxis.kv_local``)."""
+    rank's kv heads (``ModelAxis.kv_local``), a recurrent mixer's its
+    heads or channels; MLA's latent cache stays whole."""
     if spec.mixer == "mla":
         b = min(buf, cfg.sliding_window) if ring else buf
         return MLACache.init(batch, b, cfg, dtype_of(cfg), layers=layers,
@@ -273,8 +274,8 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
         return KVCache.init(batch, b, kv, cfg.head_dim, dtype_of(cfg),
                             layers=layers, device=device, ring=is_ring)
     if spec.mixer == "ssd":
-        return SSDCache.init(batch, cfg, layers=layers, device=device)
-    return RGLRUCache.init(batch, cfg, layers=layers, device=device)
+        return SSDCache.init(batch, cfg, layers=layers, device=device, tp=tp)
+    return RGLRUCache.init(batch, cfg, layers=layers, device=device, tp=tp)
 
 
 def init_caches(cfg: ModelConfig, batch: int, buf: int, ring: bool = False,
@@ -302,10 +303,9 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
     in place, aux is the MoE FFN's load-balance loss (0 for the other
     FFNs).  A local-attention layer with a cache decodes through a ring
     whatever *ring* says, as in the reference.  ``row_block``: rows per
-    dense product of the attention, MLA and FFN blocks (``layers.dense``;
-    the serving engine's decode, which takes no recurrent mixer).
-    ``tp``: tensor parallelism over the model axis (attention mixers;
-    the MLP where the axis divides d_ff, the MoE)."""
+    dense product of the blocks (``layers.dense``; the serving decode).
+    ``tp``: tensor parallelism over the model axis (every mixer; the MLP
+    where the axis divides d_ff, the MoE)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     aux = torch.zeros((), device=x.device)
     if spec.mixer in ("attn", "local_attn"):
@@ -319,13 +319,13 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
         out, cache = mla_block(cfg, p["attn"], h, positions=positions,
                                lora=lora, lora_ab=ad, cache=cache,
                                cache_pos=cache_pos, ring=ring,
-                               row_block=row_block)
+                               row_block=row_block, tp=tp)
     elif spec.mixer == "ssd":
         out, cache = ssd_block(cfg, p["ssd"], h, lora=lora, lora_ab=ad,
-                               cache=cache)
+                               cache=cache, row_block=row_block, tp=tp)
     else:
         out, cache = rglru_block(cfg, p["rg"], h, lora=lora, lora_ab=ad,
-                                 cache=cache)
+                                 cache=cache, row_block=row_block, tp=tp)
     x = x + out
     if spec.ffn == "none":
         return x, cache, aux
@@ -394,28 +394,48 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
     """Resolve modality inputs to (B, S, d) activations.  Returns (x,
     text_offset): logits and labels align from text_offset on (the
     patches' count for a VLM batch with patches, else 0).  Under ``tp``
-    with a vocab the axis divides, the rank holds its block of the
-    embedding's rows: its lookup is masked to the ids in the block and
-    summed over the axis (exact: one term is not zero)."""
+    the front end's projection (frames, patches) is the rank's block of
+    its d_model columns gathered whole, where the axis divides d_model,
+    and the token lookup the rank's block of the embedding's rows
+    (``_embed_ids``), where it divides the vocab."""
     dt = dtype_of(cfg)
     if cfg.family == "audio":
-        x = dense(batch["frames"].to(dt), params["frontend"])
+        x = _frontend(cfg, params, batch["frames"].to(dt), tp)
         S = x.shape[1]
         x = x + _sinusoid(S, cfg.d_model, pos_offset,
                           device=x.device).to(dt)[None]
         return x, 0
     if cfg.family == "vlm" and "patches" in batch:
-        pe = dense(batch["patches"].to(dt), params["frontend"])
-        te = params["embed"][batch["tokens"].long()]
+        pe = _frontend(cfg, params, batch["patches"].to(dt), tp)
+        te = _embed_ids(cfg, params, batch["tokens"].long(), tp)
         return torch.cat([pe, te], dim=1), pe.shape[1]
-    ids = batch["tokens"].long()
+    return _embed_ids(cfg, params, batch["tokens"].long(), tp), 0
+
+
+def _frontend(cfg: ModelConfig, params: dict, feats: torch.Tensor,
+              tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The front end's projection of precomputed frames or patches; under
+    ``tp`` with d_model split, the rank's columns of it, gathered whole
+    (the inputs take no gradient: one all-gather)."""
+    x = dense(feats, params["frontend"])
+    if tp is not None and tp.splits(cfg.d_model):
+        x = tp.whole(x)
+    return x
+
+
+def _embed_ids(cfg: ModelConfig, params: dict, ids: torch.Tensor,
+               tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The embedding's rows of *ids*; under ``tp`` with a vocab the axis
+    divides, the rank holds its block of the rows: its lookup is masked
+    to the ids in the block and summed over the axis (exact: one term is
+    not zero)."""
     if tp is not None and tp.splits(cfg.vocab_size):
         V = params["embed"].shape[0]
         loc = ids - tp.index * V
         inside = (loc >= 0) & (loc < V)
         x = params["embed"][torch.where(inside, loc, 0)]
-        return tp.sum(torch.where(inside[..., None], x, 0).detach()), 0
-    return params["embed"][ids], 0
+        return tp.sum(torch.where(inside[..., None], x, 0).detach())
+    return params["embed"][ids]
 
 
 # ----------------------------------------------------------------- forward

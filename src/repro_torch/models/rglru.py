@@ -18,6 +18,15 @@ cache.
 Block: x -> [W_x -> causal conv -> RG-LRU] * gelu(W_gate x) -> W_out,
 gelu in its tanh form (``layers.gelu``).  LoRA targets: ``rg_in``,
 ``rg_gate``, ``rg_out``.
+
+Tensor parallelism (``tp``: ``models/layers.ModelAxis``): a model rank
+holds W/m channels.  ``w_x`` and ``w_gate`` are column parallel, the
+conv, the recurrence and their caches local to the rank's channels
+(``conv_w``, ``lam``, ``b_a``, ``b_i`` cut by channels), ``w_out`` row
+parallel.  The gates' ``w_a`` and ``w_i`` are dense (W, W) with their
+output columns over the axis: the rank's r and i need the whole conv
+output u, one all-gather a layer (``_gather_u``; its cotangent summed
+back over the axis, each rank's columns having read it).
 """
 from __future__ import annotations
 
@@ -25,8 +34,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.lora import MultiLoRA, proj
-from repro_torch.models.layers import dense_init, dtype_of, gelu, softplus
+from repro_torch.core.lora import MultiLoRA, column_proj, proj, row_proj
+from repro_torch.models.layers import (dense, dense_init, dtype_of, gelu,
+                                       softplus)
 from repro_torch.models.ssd import _causal_conv
 
 _C = 8.0
@@ -37,8 +47,11 @@ class RGLRUCache(NamedTuple):
     conv: torch.Tensor    # (L?, B, cw - 1, width)
 
     @staticmethod
-    def init(batch, cfg, layers: Optional[int] = None, device="cuda"):
-        w = cfg.lru_width
+    def init(batch, cfg, layers: Optional[int] = None, device="cuda",
+             tp=None):
+        """Zeroed state and conv tail; under *tp* the model rank's
+        channels'."""
+        w = cfg.lru_width // (1 if tp is None else tp.size)
         ls = (layers,) if layers is not None else ()
         return RGLRUCache(
             torch.zeros(ls + (batch, w), device=device),
@@ -88,18 +101,35 @@ def _lru_scan(a: torch.Tensor, b: torch.Tensor,
     return b
 
 
+def _gather_u(tp, u: torch.Tensor) -> torch.Tensor:
+    """The ranks' conv outputs side by side (B, S, W): the gates' input.
+    The cotangent, which each rank's gate columns give only a part of,
+    is summed over the axis, and the rank takes its block back."""
+    return tp.enter(tp.gather(u))
+
+
 def rglru_block(cfg, params: dict, x: torch.Tensor, *,
                 lora: Optional[MultiLoRA] = None,
                 lora_ab: Optional[dict] = None,
-                cache: Optional[RGLRUCache] = None
+                cache: Optional[RGLRUCache] = None,
+                row_block: Optional[int] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[RGLRUCache]]:
     """x: (B, S, d) -> (y, cache).  With a cache: S = 1 is one recurrent
     step, S > 1 a scan from the cached state; the cache is updated in
-    place."""
+    place.  ``row_block``: rows per product (the serving decode);
+    ``tp``: the model rank's channels (module docstring; its cache the
+    rank's, ``RGLRUCache.init(tp=)``)."""
     B, S, _ = x.shape
     la = lora_ab or {}
-    u = proj(x, params["w_x"], None, lora, la.get("rg_in"))
-    gate = proj(x, params["w_gate"], None, lora, la.get("rg_gate"))
+    rb = row_block
+    if tp is None:
+        u = proj(x, params["w_x"], None, lora, la.get("rg_in"), rb)
+        gate = proj(x, params["w_gate"], None, lora, la.get("rg_gate"), rb)
+    else:
+        u = column_proj(tp, x, params["w_x"], None, lora, la.get("rg_in"),
+                        row_block=rb)
+        gate = column_proj(tp, x, params["w_gate"], None, lora,
+                           la.get("rg_gate"), row_block=rb)
 
     new_conv = None
     if cache is not None:
@@ -110,8 +140,10 @@ def rglru_block(cfg, params: dict, x: torch.Tensor, *,
         u = _causal_conv(u, params["conv_w"])
 
     uf = u.float()
-    r = torch.sigmoid(uf @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(uf @ params["w_i"].float() + params["b_i"])
+    uw = uf if tp is None else _gather_u(tp, u).float()
+    w_a, w_i = params["w_a"].float(), params["w_i"].float()
+    r = torch.sigmoid(dense(uw, w_a, rb) + params["b_a"])
+    i = torch.sigmoid(dense(uw, w_i, rb) + params["b_i"])
     log_a = -_C * softplus(params["lam"])[None, None, :] * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
@@ -128,5 +160,8 @@ def rglru_block(cfg, params: dict, x: torch.Tensor, *,
         cache.conv.copy_(new_conv)
 
     y = y.to(x.dtype) * gelu(gate.float()).to(x.dtype)
-    out = proj(y, params["w_out"], None, lora, la.get("rg_out"))
-    return out, cache
+    if tp is None:
+        return proj(y, params["w_out"], None, lora, la.get("rg_out"),
+                    rb), cache
+    return row_proj(tp, y, params["w_out"], lora, la.get("rg_out"),
+                    rb), cache

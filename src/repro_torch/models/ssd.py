@@ -20,6 +20,19 @@ LoRA targets: the in/out projections (``ssd_in`` / ``ssd_out``).  A
 cache's state and conv tail are written IN PLACE (the reference returns
 new arrays): the caller's layer-stacked cache is the one that decodes
 next.
+
+Tensor parallelism (``tp``: ``models/layers.ModelAxis``): a model rank
+runs its H/m heads.  ``w_in``'s columns are the concatenation [z, x, B,
+C, dt], so the rank's block of it is taken segment by segment
+(``tp_columns``): z and x by its heads, B and C by its groups (8/m, or
+where m is a multiple of 8 the one group its m/8 replicas share), dt
+whole; ``conv_w`` by the same x, B, C channels; ``A_log``, ``D``,
+``dt_bias`` and ``gate_norm`` by heads; ``w_out`` by rows.  The
+in-projection is column parallel (its LoRA delta whole on every rank,
+cut to the rank's columns by ``ModelAxis.cut``), the conv, scan and
+decode step local, the gated RMSNorm over the whole d_inner one f32
+all-reduce of the rows' sums of squares, the out-projection row
+parallel.
 """
 from __future__ import annotations
 
@@ -28,11 +41,56 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lora import MultiLoRA, proj
+from repro_torch.core.lora import MultiLoRA, proj, row_proj
 from repro_torch.models.layers import (dense_init, dtype_of, grad_cast,
                                        rms_norm, softplus)
 
 NGROUPS = 8   # B/C projection groups
+
+
+def tp_heads(H: int, size: int, index: int) -> Tuple[slice, slice]:
+    """(heads, groups): model rank *index*'s heads (H/m, contiguous) and
+    the B/C groups they read (8/m where m divides 8; where m is a
+    multiple of 8, the one group the rank's heads lie in, shared by m/8
+    ranks).  Any other m would split a group: refused."""
+    if H % size or (NGROUPS % size and size % NGROUPS):
+        raise ValueError(f"a model axis of {size} does not divide {H} SSD "
+                         f"heads, or neither divides nor is a multiple of "
+                         f"its {NGROUPS} groups (ROADMAP A4)")
+    hl = H // size
+    heads = slice(index * hl, (index + 1) * hl)
+    if NGROUPS % size == 0:
+        gl = NGROUPS // size
+        return heads, slice(index * gl, (index + 1) * gl)
+    g = index // (size // NGROUPS)
+    return heads, slice(g, g + 1)
+
+
+def tp_columns(di: int, N: int, H: int, size: int,
+               index: int) -> dict:
+    """Model rank *index*'s columns (slices, side by side) of each SSD
+    leaf cut over the model axis, by leaf name: ``w_in``'s [z, x, B, C,
+    dt] segment by segment (dt whole), ``conv_w``'s [x, B, C] channels,
+    and the per-head and per-channel vectors."""
+    heads, groups = tp_heads(H, size, index)
+    P = di // H
+    ch = slice(heads.start * P, heads.stop * P)
+    gb = slice(groups.start * N, groups.stop * N)
+    sh = lambda sl, o: slice(sl.start + o, sl.stop + o)
+    GN = NGROUPS * N
+    return {"w_in": (ch, sh(ch, di), sh(gb, 2 * di), sh(gb, 2 * di + GN),
+                     slice(2 * di + 2 * GN, 2 * di + 2 * GN + H)),
+            "conv_w": (ch, sh(gb, di), sh(gb, di + GN)),
+            "A_log": (heads,), "D": (heads,), "dt_bias": (heads,),
+            "gate_norm": (ch,)}
+
+
+def _widths(cfg, tp) -> Tuple[int, int]:
+    """(heads, groups) a rank holds (the whole model's without *tp*)."""
+    if tp is None:
+        return cfg.ssm_nheads, NGROUPS
+    heads, groups = tp_heads(cfg.ssm_nheads, tp.size, tp.index)
+    return heads.stop - heads.start, groups.stop - groups.start
 
 
 class SSDCache(NamedTuple):
@@ -40,9 +98,13 @@ class SSDCache(NamedTuple):
     conv: torch.Tensor    # (L?, B, conv_w - 1, conv_dim): causal-conv tail
 
     @staticmethod
-    def init(batch, cfg, layers: Optional[int] = None, device="cuda"):
-        H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
-        conv_dim = cfg.ssm_d_inner + 2 * NGROUPS * N
+    def init(batch, cfg, layers: Optional[int] = None, device="cuda",
+             tp=None):
+        """Zeroed state and conv tail; under *tp* the model rank's: its
+        heads' state, its channels' tail (``tp_columns``)."""
+        H, G = _widths(cfg, tp)
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        conv_dim = H * P + 2 * G * N
         ls = (layers,) if layers is not None else ()
         return SSDCache(
             torch.zeros(ls + (batch, H, P, N), device=device),
@@ -147,21 +209,57 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, s
 
 
+def _sum_squares(xf: torch.Tensor) -> torch.Tensor:
+    """The rows' sums of squares (..., 1), f32: a model rank's term of
+    the gated norm's variance."""
+    return (xf * xf).sum(dim=-1, keepdim=True)
+
+
+def _gated_norm(y: torch.Tensor, gamma: torch.Tensor, eps: float, tp,
+                width: int, row_block: Optional[int]) -> torch.Tensor:
+    """``rms_norm`` of a rank's d_inner/m columns *y* over the whole
+    d_inner (*width*): the ranks' f32 sums of squares summed over the
+    axis (``ModelAxis.sum``; the cotangents of the sum summed back,
+    ``enter``: each rank's columns read it)."""
+    xf = y.float()
+    var = tp.sum(tp.enter(_sum_squares(xf)), row_block=row_block) / width
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(y.dtype)
+
+
 def ssd_block(cfg, params: dict, x: torch.Tensor, *,
               lora: Optional[MultiLoRA] = None,
               lora_ab: Optional[dict] = None,
               cache: Optional[SSDCache] = None,
-              chunk: Optional[int] = None
+              chunk: Optional[int] = None,
+              row_block: Optional[int] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[SSDCache]]:
     """Full Mamba-2 mixer. x: (B, S, d) -> (y, cache).  With a cache: S =
     1 is one recurrent step, S > 1 a chunked prefill from the cached
-    state; the cache is updated in place."""
+    state; the cache is updated in place.  ``row_block``: rows per
+    in/out product and per sum over the model axis (the serving
+    decode); ``tp``: the model rank's heads (module docstring; its
+    cache the rank's, ``SSDCache.init(tp=)``)."""
     B, S, _ = x.shape
-    di, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
-                   cfg.ssm_head_dim)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H, G = _widths(cfg, tp)
+    di = H * P
     la = lora_ab or {}
-    zxbcdt = proj(x, params["w_in"], None, lora, la.get("ssd_in"))
-    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * NGROUPS * N, H], dim=-1)
+    rb = row_block
+    if tp is None:
+        zxbcdt = proj(x, params["w_in"], None, lora, la.get("ssd_in"), rb)
+        dt = zxbcdt[..., -H:]
+    else:
+        zxbcdt = tp.column(x, params["w_in"], rb)
+        if lora is not None and la.get("ssd_in") is not None:
+            cols = tp_columns(cfg.ssm_d_inner, N, cfg.ssm_nheads, tp.size,
+                              tp.index)["w_in"]
+            d = tp.cut(lora.apply(x, la["ssd_in"]), cols)
+            zxbcdt = zxbcdt + d.to(zxbcdt.dtype)
+        heads, _ = tp_heads(cfg.ssm_nheads, tp.size, tp.index)
+        dt = zxbcdt[..., zxbcdt.shape[-1] - cfg.ssm_nheads:][..., heads]
+    z, xBC = torch.split(zxbcdt[..., :2 * di + 2 * G * N],
+                         [di, di + 2 * G * N], dim=-1)
     dt = softplus(dt.float() + params["dt_bias"])
 
     new_conv = None
@@ -172,11 +270,11 @@ def ssd_block(cfg, params: dict, x: torch.Tensor, *,
     else:
         xBC = _causal_conv(xBC, params["conv_w"])
     xBC = F.silu(xBC.float()).to(x.dtype)
-    xs, Bm, Cm = torch.split(xBC, [di, NGROUPS * N, NGROUPS * N], dim=-1)
+    xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = xs.reshape(B, S, H, P)
-    hpg = H // NGROUPS                     # broadcast groups to heads
-    Bm = Bm.reshape(B, S, NGROUPS, N).repeat_interleave(hpg, dim=2)
-    Cm = Cm.reshape(B, S, NGROUPS, N).repeat_interleave(hpg, dim=2)
+    hpg = H // G                           # broadcast groups to heads
+    Bm = Bm.reshape(B, S, G, N).repeat_interleave(hpg, dim=2)
+    Cm = Cm.reshape(B, S, G, N).repeat_interleave(hpg, dim=2)
 
     A = -torch.exp(params["A_log"])
     if cache is not None and S == 1:
@@ -199,6 +297,11 @@ def ssd_block(cfg, params: dict, x: torch.Tensor, *,
     y = y.reshape(B, S, di).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(y, params["gate_norm"], cfg.norm_eps)
-    out = proj(y, params["w_out"], None, lora, la.get("ssd_out"))
-    return out, cache
+    if tp is None:
+        y = rms_norm(y, params["gate_norm"], cfg.norm_eps)
+        return proj(y, params["w_out"], None, lora, la.get("ssd_out"),
+                    rb), cache
+    y = _gated_norm(y, params["gate_norm"], cfg.norm_eps, tp,
+                    cfg.ssm_d_inner, rb)
+    return row_proj(tp, y, params["w_out"], lora, la.get("ssd_out"),
+                    rb), cache

@@ -20,10 +20,13 @@ executing runtime drops it (``runtime_param_specs``, the reference's
 
 ``shard_params`` cuts a backbone tree to one model rank's slices under
 the runtime specs (the placement GSPMD makes of
-``runtime_param_shardings`` in the reference), except that where the
-model axis is wider than the kv heads (m a multiple of KV) a rank's
-wk/wv/bk/bv are its one kv head whole, shared by m / KV ranks: the
-rules' m-way split of those columns would cut a head.
+``runtime_param_shardings`` in the reference), except where the port's
+executed layout departs from them (``shard_params`` lists each case):
+kv heads shared across ranks, int8 ``QuantTensor`` leaves (cut as the
+dense leaf they stand for; the rules replicate their codes and scales),
+SSD's segment-wise in-projection and conv channels, MLA's replicated
+latent projection, and RG-LRU's row-parallel out-projection and
+per-channel vectors.
 
 Caches: ``cache_specs`` are the reference's ``_cache_spec`` /
 ``cache_shardings`` over the ``init_caches`` structure (the dry-run
@@ -31,7 +34,9 @@ layout: batch over the batch axes, kv heads over "model", or, where
 "model" does not divide them, the head dim); ``runtime_cache_specs`` is
 the layout the port's serve steps execute: the batch over ("pod",
 "data") where it divides, kv heads over "model" where m divides them,
-else ``KVShare`` (each rank one head whole).
+else ``KVShare`` (each rank one head whole); SSD state by heads and its
+conv tail by the segment-wise channels (``Cut``), RG-LRU state and conv
+tail by channels, MLA's latent and rope key whole.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.models.quant import QuantTensor
 
 # leaf-name -> (trailing-dims spec), applied right-aligned.
 # "M" = model axis, "D" = data axis (FSDP-style second weight axis),
@@ -124,11 +131,19 @@ def _is_shape(x) -> bool:
         isinstance(v, int) for v in x)
 
 
-def _walk(tree, fn, path=()):
+def _walk(tree, fn, path=(), quant_leaf=False):
+    """*fn*(path, leaf) over a tree; a ``QuantTensor`` is walked into as
+    its codes and scales (named "q" and "scale": no rule names them, as
+    the reference's pytree keys), or with *quant_leaf* is one leaf."""
     if isinstance(tree, dict):
-        return {k: _walk(v, fn, path + (str(k),)) for k, v in tree.items()}
+        return {k: _walk(v, fn, path + (str(k),), quant_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)) and not _is_shape(tree):
-        return [_walk(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+        return [_walk(v, fn, path + (str(i),), quant_leaf)
+                for i, v in enumerate(tree)]
+    if isinstance(tree, QuantTensor) and not quant_leaf:
+        return QuantTensor(fn(path + ("q",), tree.q),
+                           fn(path + ("scale",), tree.scale))
     return fn(path, tree)
 
 
@@ -141,7 +156,10 @@ def param_specs(axis_sizes, params, *, drop: Tuple[str, ...] = ()) -> Any:
     tuples as leaves) against a ``{axis_name: size}`` geometry.  MoE
     ``w_in``/``w_out`` are 3-D (E, d, f) stacks -> expert parallel; SSD's
     are 2-D -> tensor parallel.  ``drop`` removes rule tags
-    (``drop=("D", "B")``: the executing runtime's pure TP specs)."""
+    (``drop=("D", "B")``: the executing runtime's pure TP specs).  An
+    int8 ``QuantTensor`` leaf gets a ``QuantTensor`` of two replicated
+    specs, as in the reference (its codes and scales match no rule);
+    ``shard_params`` cuts them all the same."""
     return _walk(params, lambda path, leaf: leaf_spec(
         axis_sizes, path, _shape(leaf), drop))
 
@@ -160,12 +178,25 @@ class KVShare:
     axis: str = "model"
 
 
+@dataclass(frozen=True)
+class Cut:
+    """A runtime spec entry for a dim the model axis cuts otherwise than
+    into m even blocks (SSD's conv tail: the rank's heads' x channels
+    beside its B and C groups, a group shared by m / 8 ranks where m is
+    a multiple of 8): each rank holds *width* entries of it."""
+    width: int
+    axis: str = "model"
+
+
 def local_shape(shape: Sequence[int], spec: Spec, axis_sizes) -> Tuple[int, ...]:
     """One rank's share of *shape* under *spec*."""
     out = list(shape)
     for i, entry in enumerate(spec):
         if isinstance(entry, KVShare):
             out[i] = 1
+            continue
+        if isinstance(entry, Cut):
+            out[i] = entry.width
             continue
         axes = () if entry is None else (
             entry if isinstance(entry, tuple) else (entry,))
@@ -177,46 +208,118 @@ def local_shape(shape: Sequence[int], spec: Spec, axis_sizes) -> Tuple[int, ...]
 KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
+def _block_of(n: int, model: int, index: int) -> Tuple[slice]:
+    w = n // model
+    return (slice(index * w, (index + 1) * w),)
+
+
+def executed_cut(path: Sequence[str], want: Tuple[int, ...], block,
+                 model: int, index: int, kv_heads: int):
+    """(dim, slices) of model rank *index*'s share (of *model*) of the
+    leaf at *path*, whole shape *want* (*block*: the whole tree's dict
+    holding it, for a mixer's widths): the rank holds the *slices* of
+    dim *dim*, side by side; None where it holds the leaf whole.  The
+    runtime specs' even block of the "model" dim, except:
+
+    * kv heads shared across ranks (``kv_heads`` < m, m a multiple of
+      KV): wk/wv/bk/bv are the rank's one kv head whole (head index //
+      (m / KV)), not the rules' n/m columns (a slice of a head);
+    * SSD (``models/ssd.tp_columns``): ``w_in``'s columns segment by
+      segment, z and x by the rank's heads, B and C by its groups, dt
+      whole (80 columns, replicated: the local width stays a multiple of
+      16, which the int8 kernel needs); ``conv_w``'s channels likewise
+      (x, B, C); ``A_log``, ``D``, ``dt_bias`` and ``gate_norm`` by heads
+      (the rules replicate them; a contiguous m-th of ``w_in`` would give
+      rank 0 all of z);
+    * MLA's ``w_kv_a`` whole (its 512 latent + 64 rope columns: a
+      contiguous block would split the latent that ``kv_norm`` needs
+      whole; every rank computes the latent, ``models/mla``);
+    * RG-LRU's ``w_out`` by rows (row parallel; the rules replicate it:
+      right-aligned, the MoE's three tags give a 2-D leaf no model
+      split), and ``lam``, ``b_a``, ``b_i`` by channels (no rule names
+      them)."""
+    name = next((k for k in reversed(path) if not k.isdigit()), "")
+    nd = len(want)
+    if model == 1:
+        return None
+    if "ssd" in path:
+        from repro_torch.models.ssd import NGROUPS, tp_columns
+        H = _shape(block["A_log"])[-1]
+        di = _shape(block["gate_norm"])[-1]
+        N = (_shape(block["conv_w"])[-1] - di) // (2 * NGROUPS)
+        cols = tp_columns(di, N, H, model, index)
+        if name in cols:
+            return nd - 1, cols[name]
+        if name == "w_out":
+            return nd - 2, _block_of(want[-2], model, index)
+        return None
+    if "rg" in path:
+        if name == "w_out":
+            return nd - 2, _block_of(want[-2], model, index)
+        if name in ("lam", "b_a", "b_i"):
+            return nd - 1, _block_of(want[-1], model, index)
+    if name == "w_kv_a":
+        return None
+    if 0 < kv_heads < model and model % kv_heads == 0 and name in KV_LEAVES:
+        w = want[-1] // kv_heads
+        start = (index // (model // kv_heads)) * w
+        return nd - 1, (slice(start, start + w),)
+    spec = leaf_spec({"data": 1, "model": model}, path, want, RUNTIME_DROP)
+    dim = next((i for i, e in enumerate(spec) if e == "model"), None)
+    if dim is None:
+        return None
+    return dim, _block_of(want[dim], model, index)
+
+
+def _take(t: torch.Tensor, dim: int, slices) -> torch.Tensor:
+    """The *slices* of *t*'s dim *dim* side by side, a fresh copy (no
+    view keeps the whole leaf alive)."""
+    parts = [t.narrow(dim, s.start, s.stop - s.start) for s in slices]
+    return (parts[0] if len(parts) == 1 else torch.cat(parts, dim)).clone()
+
+
 def shard_params(params, full, model: int, index: int, *, kv_heads: int):
     """Model rank *index*'s slices (of *model*) of the backbone tree
-    *params*, under the runtime specs of the FULL tree *full* (the same
-    structure; shapes, ``meta`` tensors or the tensors themselves): a
-    leaf split over "model" is cut to its *index*-th contiguous block
-    along that dim and copied (no view keeps the whole leaf alive); a
-    leaf already of its share's shape is kept as it is, so cutting twice
-    is cutting once.  Every other leaf is the caller's, shared.
+    *params*, under the executed layout (``executed_cut``: the runtime
+    specs of the FULL tree *full*, the same structure as dense leaves --
+    shapes, ``meta`` tensors or the tensors themselves --, and where the
+    port departs from them): a leaf the model axis cuts is cut to the
+    rank's columns or rows and copied; a leaf already of its share's
+    shape is kept as it is, so cutting twice is cutting once.  Every
+    other leaf is the caller's, shared.  An int8 ``QuantTensor`` is cut
+    as the dense leaf it stands for: its codes likewise, its scales
+    (one a column) with the columns, whole for a row cut.
 
     ``kv_heads`` (the config's KV, required: attention assumes whole
     heads) with a model axis wider than them (m a multiple of KV):
     ``KV_LEAVES`` are cut to the rank's one kv head whole, head index //
     (m / KV), not to the rules' n/m columns (a slice of a head)."""
-    sizes = {"data": 1, "model": int(model)}
-    specs = runtime_param_specs(sizes, full)
-    shared = 0 < kv_heads < model and model % kv_heads == 0
+    model = int(model)
 
     def cut(path, leaf):
-        spec = _get(specs, path)
         want = _shape(_get(full, path))
-        dim = next((i for i, e in enumerate(spec) if e == "model"), None)
-        name = next((k for k in reversed(path) if not k.isdigit()), "")
-        if shared and name in KV_LEAVES:
-            dim, w = len(want) - 1, want[-1] // kv_heads
-            start = (index // (model // kv_heads)) * w
-        elif dim is None or model == 1:
+        how = executed_cut(path, want, _get(full, path[:-1]), model, index,
+                           kv_heads)
+        if how is None:
             return leaf
-        else:
-            w = want[dim] // model
-            start = index * w
-        have = tuple(leaf.shape)
+        dim, slices = how
+        w = sum(s.stop - s.start for s in slices)
         loc = want[:dim] + (w,) + want[dim + 1:]
+        have = tuple(leaf.shape)
         if have == loc:
             return leaf
         if have != want:
             raise ValueError(f"{'/'.join(path)}: a leaf of shape {have} is "
                              f"neither the whole {want} nor a model "
                              f"rank's {loc}")
-        return leaf.narrow(dim, start, w).clone()
-    return _walk(params, cut)
+        if isinstance(leaf, QuantTensor):
+            rows = dim == len(want) - 2
+            return QuantTensor(_take(leaf.q, dim, slices),
+                               leaf.scale if rows else
+                               _take(leaf.scale, leaf.scale.ndim - 1,
+                                     slices))
+        return _take(leaf, dim, slices)
+    return _walk(params, cut, quant_leaf=True)
 
 
 # ------------------------------------------------------------- caches
@@ -264,16 +367,24 @@ def _cache_leaf_specs(axis_sizes, cache, lead: tuple, runtime: bool):
         s2 = (*lead, fit(B, b, bsz), None, mfit(R))
         return MLACache(s1, s2)
     if isinstance(cache, SSDCache):
-        B, H, _, _ = shape(cache.state)[-4:]
-        s1 = (*lead, fit(B, b, bsz), mfit(H))
+        B, H, P, N = shape(cache.state)[-4:]
+        s1 = (*lead, fit(B, b, bsz), mfit(H) if not runtime else
+              fit(H, m, msz))
         B, _, C = shape(cache.conv)[-3:]
-        s2 = (*lead, fit(B, b, bsz), None, mfit(C))
+        c_ax = mfit(C)
+        if runtime and m is not None and msz > 1:
+            # the rank's heads' x channels beside its B and C groups
+            from repro_torch.models.ssd import tp_columns
+            cols = tp_columns(H * P, N, H, msz, 0)["conv_w"]
+            c_ax = Cut(sum(c.stop - c.start for c in cols))
+        s2 = (*lead, fit(B, b, bsz), None, c_ax)
         return SSDCache(s1, s2)
     if isinstance(cache, RGLRUCache):
         B, W = shape(cache.h)[-2:]
-        s1 = (*lead, fit(B, b, bsz), mfit(W))
+        s1 = (*lead, fit(B, b, bsz), fit(W, m, msz) if runtime else mfit(W))
         B, _, W2 = shape(cache.conv)[-3:]
-        s2 = (*lead, fit(B, b, bsz), None, mfit(W2))
+        s2 = (*lead, fit(B, b, bsz), None,
+              fit(W2, m, msz) if runtime else mfit(W2))
         return RGLRUCache(s1, s2)
     raise TypeError(type(cache))
 
@@ -301,9 +412,11 @@ def runtime_cache_specs(axis_sizes, caches: list, cfg) -> list:
     ``runtime_param_specs`` is for params: the batch over ("pod",
     "data") where it divides the rows (else replicated), a KV cache's
     heads over "model" where m divides them, else ``KVShare`` (each rank
-    its one head whole); the head dim is never split.  The other mixers'
-    caches (MLA, SSD, RG-LRU) keep their batch entry only: those mixers
-    are refused under a model axis (ROADMAP A8c)."""
+    its one head whole); the head dim is never split.  SSD's state by
+    heads and its conv tail by the rank's channels (``Cut``: its heads'
+    x beside its B and C groups, ``models/ssd.tp_columns``); RG-LRU's
+    state and conv tail by channels; MLA's latent and rope key whole
+    (every rank computes them, ``models/mla``)."""
     from repro_torch.models.model import segment_plan
     return [{k: _cache_leaf_specs(axis_sizes, v, (None,) if seg.scanned
                                   else (), runtime=True)

@@ -22,9 +22,11 @@ reference on the CPU.
     (``test_collectives_of_a_decode_step``);
   * one full-width production row, tinyllama-1.1b x decode_32k x 16x16,
     ends ``ok`` with its resident and cache bytes a rank equal to their
-    closed forms, and deepseek-v2-lite-16b ends ``refused`` naming
-    ROADMAP A8c (both in a subprocess: a dry run makes a fake world of
-    its own, which no later test in the worker may see).
+    closed forms, deepseek-v2-lite-16b x train_4k (MLA over the model
+    axis, ROADMAP A8c) ends ``ok`` and fits, and smollm-360m ends
+    ``refused`` naming A4 (its 15 heads over 16 ranks; all in a
+    subprocess: a dry run makes a fake world of its own, which no later
+    test in the worker may see).
 """
 import dataclasses
 import json
@@ -58,6 +60,7 @@ from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.ssm import SharedSuperModel
 from repro_torch.launch import roofline
 from repro_torch.launch import step_analysis as SA
+from repro_torch.launch.dryrun import dryrun_one
 from repro_torch.launch.mesh import fake_world, make_local_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -294,20 +297,38 @@ def test_production_rows():
             "from repro_torch.launch.dryrun import dryrun_one\n"
             "rows = [dryrun_one('tinyllama-1.1b', 'decode_32k', "
             "verbose=False), dryrun_one('deepseek-v2-lite-16b', "
+            "'train_4k', verbose=False), dryrun_one('smollm-360m', "
             "'train_4k', verbose=False)]\n"
             "print(json.dumps(rows))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
-    ok, refused = json.loads(out.stdout.strip().splitlines()[-1])
+    ok, mla, refused = json.loads(out.stdout.strip().splitlines()[-1])
     assert ok["status"] == "ok", ok
     resident, caches = _closed_forms()
     assert ok["resident_bytes"] == resident
     assert ok["cache_bytes"] == caches
     assert ok["fits"] and ok["peak_bytes"] > resident + caches
     assert ok["model_axis"] == 16 and ok["rows_per_rank"] == 8
-    assert refused["status"] == "refused" and refused["roadmap"] == "A8c"
+    # MLA over the model axis (ROADMAP A8c) runs: 16 heads, one a rank
+    assert mla["status"] == "ok" and mla["fits"], mla
+    assert mla["model_axis"] == 16
+    # what still refuses: smollm's 15 heads over 16 ranks (A4)
+    assert refused["status"] == "refused" and refused["roadmap"] == "A4"
+
+
+@pytest.mark.parametrize("shape,status,roadmap", [
+    ("prefill_32k", "refused", "A9"), ("decode_32k", "skipped", None),
+    ("long_500k", "skipped", None)])
+def test_encoder_rows(shape, status, roadmap):
+    """hubert-xlarge's serve rows: a decode shape is skipped, as the
+    reference's ``applicable`` skips it; its prefill, which the
+    reference builds, is refused naming the port's gap (A9), not
+    skipped."""
+    row = dryrun_one("hubert-xlarge", shape, verbose=False)
+    assert row["status"] == status, row
+    assert row.get("roadmap") == roadmap
 
 
 def test_fake_world_refuses_a_process_with_a_group(tmp_path):
@@ -348,3 +369,25 @@ def test_meta_as_card_is_this_threads_and_meta_only():
         other.join()
     assert seen == {"card": False, "flash": None}
     assert not layers.on_card(meta) and layers.meta_flash() is None
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-26b",
+                                  "tinyllama-1.1b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_model_batch_matches_the_references_make_batch(arch, shape):
+    """The dry run's inputs of a train or prefill step
+    (``dryrun._model_batch``) have the names, shapes and dtypes of the
+    reference's ``make_batch`` stand-ins at the same rows: an audio
+    config's frames, a VLM's patches before its text, the labels over
+    the text."""
+    from repro_torch.launch.dryrun import _model_batch
+    rows = 8
+    want = RM.input_specs(ref_get_config(arch), ref_get_shape(shape),
+                          batch_override=rows)
+    got = _model_batch(get_config(arch), rows, get_shape(shape).seq_len,
+                       train=shape == "train_4k")
+    assert got.pop("adapter_ids").shape == (rows,)
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in got.items()} == {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()
+        if shape == "train_4k" or k != "labels"}

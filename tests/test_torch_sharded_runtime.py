@@ -274,12 +274,12 @@ def _cfg_and_specs():
                  id="kw1-A7b")])
 def test_tp_modes_other_than_dp_refuse(kw, match):
     """"auto" (ROADMAP A4, old A7c) is ported: the engine passes it
-    through, and over a model axis of 2 it refuses what the port does not
-    run there: the int8 backbone (A8b) and MLA (A8c).  "pipeline" (old
-    A7b) is ported and refuses what the reference refuses: no mesh, a
-    depth of 1, a depth that does not divide the scanned stack (a MoE
-    model's too: it is no longer refused, A3); the engine passes it
-    through."""
+    through, and over a model axis of 2 the int8 backbone (A8b) and MLA
+    (A8c) build; what it refuses is a model axis inside pipeline stages
+    (A8d, ``make_local_mesh(model=, stages=)``).  "pipeline" (old A7b) is
+    ported and refuses what the reference refuses: no mesh, a depth of
+    1, a depth that does not divide the scanned stack (a MoE model's
+    too: it is no longer refused, A3); the engine passes it through."""
     cfg, jobs = _cfg_and_specs()
     if kw["tp_mode"] == "pipeline":
         with pytest.raises(ValueError, match="needs a mesh"):
@@ -302,18 +302,21 @@ def test_tp_modes_other_than_dp_refuse(kw, match):
                 .make_train_step(lr_fn=constant(1e-2), mesh=object(),
                                  pipeline_stages=4, **kw)
         return
-    with pytest.raises(NotImplementedError, match=match + "b"):
-        GroupRuntime.from_specs(cfg, jobs, impl="torch", block_t=8,
-                                device="cpu", mesh=StandInMesh(),
-                                quantize="int8", **kw)
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    rt = GroupRuntime.from_specs(cfg, jobs, impl="torch", block_t=8,
+                                 device="cpu", mesh=StandInMesh(),
+                                 quantize="int8", **kw)
+    assert rt.model_axis == (2, 0) and rt.quantize == "int8"
     eng = ElasticEngine(cfg, params={}, mesh=object(), device="cpu", **kw)
     assert eng._rt_kwargs["tp_mode"] == "auto"
     mla = dataclasses.replace(
         get_config("deepseek-v2-lite-16b").reduced(), dtype="float32")
-    with pytest.raises(NotImplementedError, match=match + "c"):
-        SharedSuperModel(mla, jobs, impl="torch", block_t=8) \
-            .make_train_step(lr_fn=constant(1e-2), mesh=StandInMesh(),
-                             **kw)
+    assert callable(SharedSuperModel(mla, jobs, impl="torch", block_t=8)
+                    .make_train_step(lr_fn=constant(1e-2),
+                                     mesh=StandInMesh(), **kw))
+    with fake_world(4, 0):
+        with pytest.raises(ValueError, match=match + "d"):
+            make_local_mesh(model=2, stages=2)
 
 
 @pytest.mark.parametrize("impl", ["ref", "loop"])
@@ -344,8 +347,8 @@ def test_moe_over_a_mesh_refuses():
     """A MoE model's sharded step is no longer refused (ROADMAP A3, old
     A7d; tests/test_torch_moe_mesh.py trains it): over a ("data",
     "model") mesh it builds the tensor-parallel step (expert parallel:
-    the model axis divides its E); a MoE model with MLA over a model
-    axis is what still refuses (A8c)."""
+    the model axis divides its E), a MoE model with MLA too (A8c); what
+    still refuses is a model axis that splits its MLA heads (A4)."""
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
                               dtype="float32")
     assert cfg.num_experts % 2 == 0
@@ -354,10 +357,14 @@ def test_moe_over_a_mesh_refuses():
                                         mesh=StandInMesh(), tp_mode="auto"))
     mla = dataclasses.replace(
         get_config("deepseek-v2-lite-16b").reduced(), dtype="float32")
-    with pytest.raises(NotImplementedError, match="A8c"):
-        SharedSuperModel(mla, W.specs("ab"), impl="torch", block_t=8) \
-            .make_train_step(lr_fn=constant(1e-2), mesh=StandInMesh(),
-                             tp_mode="auto")
+    mla_ssm = SharedSuperModel(mla, W.specs("ab"), impl="torch", block_t=8)
+    assert callable(mla_ssm.make_train_step(
+        lr_fn=constant(1e-2), mesh=StandInMesh(), tp_mode="auto"))
+    three = StandInMesh()
+    three.size = lambda dim: (1, 3)[dim]
+    with pytest.raises(ValueError, match="A4"):
+        mla_ssm.make_train_step(lr_fn=constant(1e-2), mesh=three,
+                                tp_mode="auto")
     assert ref_get_config("qwen3-moe-30b-a3b").num_experts
 
 

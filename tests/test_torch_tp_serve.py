@@ -80,6 +80,16 @@ def _weights(rcfg, seed=3):
 def _ref_greedy(ssm, params, adapters, toks):
     """The reference's prefill and TPS_DECODE greedy steps: logits (B,
     1 + TPS_DECODE, V), ids, and its KV caches after the last step."""
+    lg, caches = ref_serve(ssm, params, adapters, toks)
+    kv = caches[0]["0"]
+    return {"logits": lg, "ids": lg.argmax(-1), "k": np.asarray(kv.k),
+            "v": np.asarray(kv.v)}
+
+
+def ref_serve(ssm, params, adapters, toks):
+    """The reference's single-device prefill of *toks* and TPS_DECODE
+    greedy steps: (logits (B, 1 + TPS_DECODE, V), its caches after the
+    last step)."""
     jp = jax.tree.map(jnp.asarray, params)
     ja = jax.tree.map(jnp.asarray, adapters)
     ids = jnp.asarray(np.repeat(np.arange(len(W.TPS_RANKS), dtype=np.int32),
@@ -95,10 +105,7 @@ def _ref_greedy(ssm, params, adapters, toks):
                                            "adapter_ids": ids},
                           jnp.int32(pos))
         logits.append(np.asarray(lg[:, 0]))
-    lg = np.stack(logits, axis=1)
-    kv = caches[0]["0"]
-    return {"logits": lg, "ids": lg.argmax(-1), "k": np.asarray(kv.k),
-            "v": np.asarray(kv.v)}
+    return np.stack(logits, axis=1), caches
 
 
 @pytest.fixture(scope="module")

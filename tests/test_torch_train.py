@@ -444,14 +444,16 @@ def test_uniform_group_adapter_isolation(uniform_setup):
 # --------------------------------------------------------- refusals
 def test_make_train_step_refuses_what_is_not_ported():
     """Tensor parallelism (``tp_mode="auto"``, ROADMAP A4) builds on a
-    ("data", "model") mesh; what it does not run over a model axis of 2
-    is refused with its ROADMAP line: MLA and the other mixers and front
-    ends (A8c), head counts that would split a head (A4: a model axis
-    of 3 over 4 query heads; one of 4 over 2 kv heads shares each kv
-    head between 2 ranks and is taken), and an unknown tp_mode.  Pipeline stages (old A7b) are ported: without a
-    mesh they are ignored, as in the reference; on a mesh a depth of 1
-    or one that does not divide the scanned stack is refused before the
-    mesh is touched.  Uniform layouts and nano batches build."""
+    ("data", "model") mesh for every family and the int8 backbone (A8b,
+    A8c: MLA builds over a model axis of 2 and ``check_tensor_parallel``
+    takes ``quantize="int8"``); what it still refuses is a model axis
+    that would split a head, naming A4 (a model axis of 3 over 4 query
+    heads; one of 4 over 2 kv heads shares each kv head between 2 ranks
+    and is taken; mamba2's 8 B/C groups over 5), and an unknown tp_mode.
+    Pipeline stages (old A7b) are ported: without a mesh they are
+    ignored, as in the reference; on a mesh a depth of 1 or one that
+    does not divide the scanned stack is refused before the mesh is
+    touched.  Uniform layouts and nano batches build."""
     from repro_torch.configs import get_config
     from repro_torch.core.ssm import check_tensor_parallel
     cfg = _cfgs("float32")[1]
@@ -464,15 +466,15 @@ def test_make_train_step_refuses_what_is_not_ported():
         ragged.make_train_step(lr_fn=lr, mesh=StandInMesh(),
                                tp_mode="fsdp")
     mla = get_config("deepseek-v2-lite-16b").reduced()
-    with pytest.raises(NotImplementedError, match="A8c"):
-        SharedSuperModel(mla, _specs(LoRAJobSpec), impl="cuda",
-                         block_t=BT).make_train_step(
-            lr_fn=lr, mesh=StandInMesh(), tp_mode="auto")
+    assert callable(SharedSuperModel(mla, _specs(LoRAJobSpec), impl="cuda",
+                                     block_t=BT).make_train_step(
+        lr_fn=lr, mesh=StandInMesh(), tp_mode="auto"))
     with pytest.raises(ValueError, match="split a head"):
         check_tensor_parallel(cfg, 3)
     check_tensor_parallel(cfg, 4)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        check_tensor_parallel(cfg, 2, quantize="int8")
+    check_tensor_parallel(cfg, 2, quantize="int8")
+    with pytest.raises(ValueError, match="A4"):
+        check_tensor_parallel(get_config("mamba2-2.7b"), 5)
     check_tensor_parallel(mla, 1)
     assert callable(ragged.make_train_step(lr_fn=lr, tp_mode="pipeline",
                                            pipeline_stages=2))

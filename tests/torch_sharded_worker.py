@@ -1251,8 +1251,9 @@ def tps_greedy(cfg, specs, params, adapters, toks, mesh, ring=False,
     """Prefill TPS_PROMPT tokens of this rank's rows of *toks* (the
     whole batch's prompts, job-major), then TPS_DECODE greedy steps:
     the logits of each step (B_loc, 1 + TPS_DECODE, V), the ids chosen
-    (B_loc, 1 + TPS_DECODE), this rank's caches after the last step and
-    where it sits."""
+    (B_loc, 1 + TPS_DECODE), this rank's caches after the last step
+    (the first layer's k and v, where it is an attention layer, and every
+    leaf's shape) and where it sits."""
     from repro_torch.core.ssm import SharedSuperModel
     from repro_torch.launch.mesh import model_group
     from repro_torch.models import model as M
@@ -1285,11 +1286,14 @@ def tps_greedy(cfg, specs, params, adapters, toks, mesh, ring=False,
     lg = torch.stack(logits, dim=1)
     kv = caches[0]["0"]
     return {"rows": rows.numpy(), "logits": lg.numpy(),
-            "ids": lg.argmax(-1).numpy(), "k": kv.k.numpy(),
-            "v": kv.v.numpy(),
+            "ids": lg.argmax(-1).numpy(),
+            "k": kv.k.numpy() if hasattr(kv, "k") else None,
+            "v": kv.v.numpy() if hasattr(kv, "v") else None,
+            "caches": {k: tuple(v.shape) for k, v in flat_t(
+                [list(c.values()) for c in caches]).items()},
             "model_axis": None if tp is None else (tp.size, tp.index),
-            "kv_head": None if tp is None else tp.kv_head(
-                cfg.num_kv_heads),
+            "kv_head": None if tp is None or not cfg.num_kv_heads
+            else tp.kv_head(cfg.num_kv_heads),
             "kv_local": None if tp is None else tp.kv_local(
                 cfg.num_kv_heads)}
 
@@ -1413,7 +1417,7 @@ def _one_replica_backward(ctx, g):
     m = dist.get_world_size(ctx.group)
     blocks = [torch.empty_like(g) for _ in range(m)]
     dist.all_gather(blocks, g.contiguous(), group=ctx.group)
-    r = m * (ctx.sl.stop - ctx.sl.start) // ctx.n
+    r = m * (ctx.sl[0].stop - ctx.sl[0].start) // ctx.n
     return torch.cat(blocks[::r], dim=-1), None, None
 
 
@@ -1429,6 +1433,92 @@ def kvr_planted(inputs):
         layers._KVColumns.backward = real
 
 
+# ------ the other families and the int8 backbone over a model axis
+# (ROADMAP A8b, A8c; tests/test_torch_tp_families{,_serve}.py): reduced
+# f32 configs through ``GroupRuntime(tp_mode="auto")`` at data 1 x model
+# 2 on each pair, and at data 1 x model 4 over the world where the axis
+# meets a shared layout (mamba2's B/C groups: 8 a rank at m 2, 2 at m 4;
+# recurrentgemma's 2 kv heads, each shared by 2 ranks at m 4).  Job set
+# "rag" (mixed ranks: the ragged kernels' plain versions).
+TPF_ARCHS = {"ds": "deepseek-v2-lite-16b", "mb": "mamba2-2.7b",
+             "rg": "recurrentgemma-9b", "hb": "hubert-xlarge",
+             "iv": "internvl2-26b", "q8": "tinyllama-1.1b"}
+TPF_M4 = ("mb", "rg")
+TPF_DECODERS = ("ds", "mb", "rg", "iv")
+
+
+def tpf_cfg(key, get=None):
+    """The reduced f32 config of a ``TPF_ARCHS`` key (*get*: the
+    reference's registry instead); deepseek's MoE takes the ragged
+    dispatch (expert parallel over the model axis)."""
+    cfg = dataclasses.replace((get or get_config)(TPF_ARCHS[key]).reduced(),
+                              dtype="float32")
+    if key == "ds":
+        cfg = dataclasses.replace(cfg, moe_impl="ragged")
+    return cfg
+
+
+def tpf_run(inputs, key, mesh) -> dict:
+    """Job set "rag" on config *key* through ``GroupRuntime(tp_mode=
+    "auto")`` on *mesh*, 2 steps; "q8" with ``quantize="int8"``."""
+    w = inputs[f"tpf:{key}"]
+    rt = GroupRuntime.from_specs(
+        tpf_cfg(key), specs("rag"), params=w["params"],
+        adapters=w["adapters"], mesh=mesh, tp_mode="auto",
+        quantize="int8" if key == "q8" else None,
+        **dict(KW, impl="cuda"))
+    rt.run(2)
+    return dict(summary(rt), model_axis=rt.model_axis,
+                shapes={k: tuple(v.shape)
+                        for k, v in flat_q(rt.params).items()},
+                dtypes={k: str(v.dtype)
+                        for k, v in flat_q(rt.params).items()})
+
+
+def tpf_parity(inputs):
+    """Every ``TPF_ARCHS`` config at data 1 x model 2 (each pair), and
+    ``TPF_M4`` at data 1 x model 4 (the world)."""
+    pairs = tp_pairs()
+    out = {"m2": {k: tpf_run(inputs, k, pairs) for k in TPF_ARCHS}}
+    world = world_mesh(model=4)
+    out["m4"] = {k: tpf_run(inputs, k, world) for k in TPF_M4}
+    return out
+
+
+def tpf_serve(inputs):
+    """The decoders served meshless, at data 1 x model 2 (each pair) and,
+    for ``TPF_M4``, at data 1 x model 4; fused vs solo under each mesh
+    (each job's rows served alone, its adapter re-packed, every product
+    and every sum over the model axis TPS_ROWS rows at a time)."""
+    from repro_torch.core.ssm import SharedSuperModel
+    meshes = {"m2": tp_pairs(), "m4": world_mesh(model=4)}
+    sp = tps_specs()
+    out = {}
+    for key in TPF_DECODERS:
+        cfg, w = tpf_cfg(key), inputs[f"tpfs:{key}"]
+        layout = SharedSuperModel(cfg, sp, block_t=BT).layout
+        toks = inputs["tpfs:toks"]
+
+        def run(mesh, s=sp, ad=w["adapters"], rows=slice(None), rb=None):
+            return tps_greedy(cfg, s, w["params"], ad, toks[rows], mesh,
+                              row_block=rb)
+        res = {"meshless": run(None)}
+        for name in ("m2", "m4") if key in TPF_M4 else ("m2",):
+            res[name] = run(meshes[name])
+            fused = run(meshes[name], rb=TPS_ROWS)
+            solo = [run(meshes[name], [s], solo_adapters(w["adapters"],
+                                                         layout, k),
+                        slice(k * TPS_ROWS, (k + 1) * TPS_ROWS), TPS_ROWS)
+                    for k, s in enumerate(sp)]
+            res[f"{name}_fused_solo"] = {
+                part: (fused[part], np.concatenate([x[part] for x in solo]))
+                for part in ("logits", "ids")}
+        out[key] = res
+    return out
+
+
+TP_FAMILIES = ["tpf_parity"]
+TP_FAMILIES_SERVE = ["tpf_serve"]
 KV_REPLICAS = ["kvr_runtime", "kvr_step", "kvr_planted"]
 TP_SERVE = ["tps_meshes_run", "tps_ring", "tps_fused_solo", "tps_moe"]
 MOE_MESH = ["moe_dp", "moe_pipeline"]
