@@ -44,8 +44,8 @@ each on standard output:
             of recurrentgemma-9b) and the other families' (2048 -> 3072
             and 576 of MLA, 1280 -> 1280 of hubert) at the train shape,
             flash at (192, 128) causal and 80 non-causal beside SDPA;
-  serve   — ``ServeEngine`` over full-width tinyllama-1.1b with seeded
-            random weights: a mixed-rank adapter set (ragged kernel) and a
+  serve   — ``ServeEngine`` over full-width tinyllama-1.1b cut to
+            SERVE_LAYERS layers, with seeded random weights: a mixed-rank adapter set (ragged kernel) and a
             uniform-width set (masked kernel), launch counts read around
             that run, fused-vs-solo logits, the C1 probe (request 1's
             decode steps fused and solo, op by op) and whole-sequence
@@ -130,7 +130,10 @@ each on standard output:
             ring too), each within max(bar, 2 x floor); ``ServeEngine``
             on deepseek (prefill logits fused vs solo asserted, whole
             sequences compared and reported, ``c1_probe`` where they
-            part) and its launcher ``train --no-aimd`` (masked);
+            part) and its launcher ``train --no-aimd`` (masked); hubert's
+            cached prefill (two adapters, four requests of 512 frames:
+            logits vs the cacheless forward within 0.25, fused vs solo
+            bit-equal, B1 once a LoRA projection, B9 once a layer);
   calibrate — ``OnlineCalibrator(H100)`` fed the steady steps of train,
             train_uniform, nano (N = 1 and 4) and quant: the fitted
             constants (mfu_cap, launch and step overheads) and each
@@ -203,7 +206,10 @@ each on standard output:
             ranks on cuda:0: (a) two ranks, P = 2 x D = 1: the train
             group at N = 2 "rank_desc" and N = 4 (ragged kernels, B9),
             the uniform group at N = 2 (masked kernels); (b) four ranks,
-            P = 2 x D = 2: the train group at N = 2.  Each run's step 1
+            P = 2 x D = 2: the train group at N = 2; (c) eight ranks,
+            the (stage 2, data 2, model 2) mesh: (b) on each model index,
+            the replicas bit-equal to one another and to (b) at every
+            (stage, data) position.  Each run's step 1
             against the meshless run (losses, adapter gradients at
             2^-6), a zeroed handoff that limit must catch, occupancy
             counters, launches a rank (its stage's layers x the pattern
@@ -228,7 +234,9 @@ each on standard output:
             recurrentgemma-9b at 3, mamba2-2.7b, hubert-xlarge and
             internvl2-26b at 2), and the int8 backbone (tinyllama-1.1b
             and mamba2-2.7b at 2, B10's f32 partials), each with a
-            planted fault on its new collective;
+            planted fault on its new collective; smollm-360m at 2 layers,
+            its 15 heads over 2 ranks: its attention whole on every rank
+            (a zeroed whole attention on rank 1 planted);
   tp_serve — the serve steps over a model axis (``make_prefill_step(
             mesh=)``, ``make_serve_step(mesh=)``), eight gloo ranks on
             cuda:0: (a) full-width, full-depth tinyllama-1.1b at data 1 x
@@ -255,10 +263,11 @@ each on standard output:
             0.25; (d)-(g) deepseek-v2-lite-16b, mamba2-2.7b,
             recurrentgemma-9b and internvl2-26b cut to 2-3 layers at
             data 1 x model 2, (a)'s checks (deepseek's routes forced as
-            (c)'s).  The five multi-rank phases run their ranks in one
-            pool of eight processes spawned once (``RankPool``).  Beside
-            it, the dry run's prediction of (a)'s serve peak on rank 0,
-            recorded;
+            (c)'s); (h) smollm-360m at 4 layers, its attention and its
+            caches whole on each rank.  The five multi-rank phases run
+            their ranks in one pool of eight processes spawned once
+            (``RankPool``).  Beside it, the dry run's prediction of
+            (a)'s serve peak on rank 0, recorded;
   dryrun  — (after the serve phase) the dry run's analysis
             of one step of the train group through ``impl="torch"``
             (``launch/step_analysis``, meta tensors) against the same
@@ -320,7 +329,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -341,6 +352,10 @@ MULTIPLE = 16                 # rank padding granule (the bf16 MMA k-step)
 MIXED = (8, 16, 32, 64)       # pads 16/16/32/64: non-uniform -> ragged route
 UNIFORM = (16, 16, 12, 16)    # pads all 16: uniform -> masked route
 N_REQ = 16                    # requests per active set
+# the serve phase's depth: its serves are host-bound (the device is busy
+# 0.5 s of a 6 s serve at 22 layers), and at full depth the phase took
+# 192 s of the whole run's time limit
+SERVE_LAYERS = 8
 B_STD = 0.005                 # std of the random LoRA B (0 would make the
 #                               delta vanish: standard LoRA init has B = 0)
 
@@ -2497,7 +2512,91 @@ def model_checks(cfg, params, specs, layout, adapters, dev,
         for ring in rings:
             out["serve_steps_ring" if ring else "serve_steps"] = \
                 serve_steps_check(cfg, params, dev, ring=ring)
+    else:
+        out["encoder_prefill"] = encoder_prefill_check(cfg, params, dev)
     return out
+
+
+# an encoder's cached prefill: two adapters, ENC_ROWS requests each of
+# ENC_FRAMES frames
+ENC_RANKS, ENC_ROWS, ENC_FRAMES = (8, 64), 2, 512
+
+
+def encoder_prefill_check(cfg, params, dev) -> dict:
+    """An encoder's cached prefill (``make_prefill_step`` on hubert-
+    xlarge): two adapters of ranks ENC_RANKS (the ragged route), ENC_ROWS
+    requests each of ENC_FRAMES frames drawn from a seed; the last
+    position's logits against the cacheless forward's (LOGIT_ATOL), the
+    caches finite with every layer's keys written; each request
+    prefilled alone, its adapter re-packed as a one-job group's, equal to
+    its row of the fused prefill bit for bit (the dense products on one
+    request's frames at a time); B1 once a LoRA projection and B9 once a
+    layer in the fused prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.jobs import LoRAJobSpec
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.models import model as M
+    specs = [LoRAJobSpec(f"enc{i}-r{r}", rank=r, batch_size=ENC_ROWS,
+                         seq_len=ENC_FRAMES) for i, r in enumerate(ENC_RANKS)]
+    ssm = SharedSuperModel(cfg, specs, impl="cuda", block_t=BLOCK_T)
+    ad = train_adapters(cfg, ENC_RANKS, ssm.layout, dev)
+    B = ENC_ROWS * len(specs)
+    g = torch.Generator(device=dev).manual_seed(13)
+    frames = (torch.randn((B, ENC_FRAMES, cfg.frontend_dim), generator=g,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    ids = torch.arange(len(specs), device=dev,
+                       dtype=torch.int32).repeat_interleave(ENC_ROWS)
+    shape = InputShape("encoder", ENC_FRAMES, B, "prefill")
+    prefill = ssm.make_prefill_step(shape)
+    batch = {"frames": frames, "adapter_ids": ids}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (logits, caches), launches = counted(
+        lambda: prefill(params, ad, batch, row_block=ENC_FRAMES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logits = logits[:, 0].float()
+    with torch.no_grad():
+        plain = M.forward(cfg, params, ad, ssm.lora_ctx(ids),
+                          {"frames": frames})[0][:, -1].float()
+    diff = (logits - plain).abs().max().item()
+    kv = [c for seg in caches for c in seg.values()]
+    written = all(bool(t[..., :ENC_FRAMES, :, :].abs().amax(
+        dim=(-1, -2, -3)).gt(0).all()) for c in kv for t in c)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for c in kv for t in c)
+    del caches, kv
+    solo_diff = 0.0
+    for k, r in enumerate(ENC_RANKS):
+        one = SharedSuperModel(cfg, [LoRAJobSpec(
+            f"enc-solo-r{r}", rank=r, batch_size=1, seq_len=ENC_FRAMES)],
+            impl="cuda", block_t=BLOCK_T)
+        step = one.make_prefill_step(dataclasses.replace(shape,
+                                                         global_batch=1))
+        sad = tps_solo_adapters(ad, ssm.layout, k)
+        for i in range(k * ENC_ROWS, (k + 1) * ENC_ROWS):
+            lg, _ = step(params, sad, {
+                "frames": frames[i:i + 1],
+                "adapter_ids": torch.zeros(1, dtype=torch.int32,
+                                           device=dev)},
+                row_block=ENC_FRAMES)
+            solo_diff = max(solo_diff, (lg[0, 0].float()
+                                        - logits[i]).abs().max().item())
+    n_proj = sum(len(s.lora_targets) for s in M.layer_specs(cfg))
+    want = dict({w.__name__: 0 for w in lora_wrappers()},
+                ragged_lora_fwd=n_proj,
+                flash_attention_fwd=sum(s.mixer in ("attn", "mla")
+                                        for s in M.layer_specs(cfg)))
+    return {"ranks": list(ENC_RANKS), "requests": B, "frames": ENC_FRAMES,
+            "logits_max_abs_diff_vs_cacheless": diff,
+            "logit_atol": LOGIT_ATOL,
+            "fused_vs_solo_max_abs_diff": solo_diff,
+            "caches_written": written, "finite": finite, "wall_s": wall,
+            "launches": launches, "launches_expected": want,
+            "ok": bool(diff <= LOGIT_ATOL and solo_diff == 0.0 and written
+                       and finite)}
 
 
 def serve_steps_check(cfg, params, dev, ring: bool = False) -> dict:
@@ -2977,7 +3076,8 @@ def families_phase(dev):
     profiled step, the H100 spec's price; then ``model_checks`` on the
     trained adapters (gradients against "loop"; fused against solo
     cross entropy; the decoders' serve steps, deepseek's through the MLA
-    ring too); for FAM_ENGINE, ``family_engine`` and the launcher's
+    ring too; the encoder's cached prefill, ``encoder_prefill_check``);
+    for FAM_ENGINE, ``family_engine`` and the launcher's
     ``train --arch ... --no-aimd`` at its defaults (ranks {16, 8, 4, 2}:
     the masked kernels B6-B8) for FAM_LAUNCH_STEPS steps, exact
     launches."""
@@ -3065,7 +3165,7 @@ def families_phase(dev):
         emit(line)
         failed += [f"{cfg.name}.{k}" for k, v in checks.items()
                    if not v["ok"]]
-        for key in ("serve_steps", "serve_steps_ring"):
+        for key in ("serve_steps", "serve_steps_ring", "encoder_prefill"):
             serve = checks.get(key)
             if serve is None:
                 continue
@@ -5525,7 +5625,11 @@ def cluster_sharded_phase(src, cfg):
 # tinyllama-1.1b cut into P = 2 stages of 11 layers, the train cell's
 # jobs (4 x 512 tokens a job), PP_STEPS steps a run, "cuda", block_t 128,
 # remat, gloo ranks spawned onto cuda:0.  (a) Two ranks, P = 2 x D = 1;
-# (b) all four, P = 2 x D = 2.  Each run against the meshless run of its
+# (b) four, P = 2 x D = 2; (c) all eight, the (stage 2, data 2, model 2)
+# mesh of ``make_local_mesh(model=2, stages=2)`` (ROADMAP A8d): each
+# model index a replica of (b)'s pipeline, the replicas' adapters, Adam
+# moments and losses bit-equal to one another and to (b)'s, each rank's
+# resident backbone (b)'s.  Each run against the meshless run of its
 # group with the same seeds (rank 0 trains it first, one step): step 1's
 # per-job losses at SHARD_LOSS_TOL and step 1's adapter gradients (Adam's
 # first moments, assembled whole over the stages) within SHARD_GRAD_RTOL
@@ -5535,7 +5639,7 @@ def cluster_sharded_phase(src, cfg):
 # read above that limit.  Occupancy, launches a rank (its stage's 11
 # layers x the pattern x N), every rank's losses and each rank's resident
 # backbone bytes (PP_RESIDENT_CUT below the meshless run's) are asserted.
-PP_RANKS = 4
+PP_RANKS = 8
 PP_STAGES = 2
 PP_STEPS = 2
 PP_RUNS = (                    # (name, group, ranks, GroupRuntime options)
@@ -5543,7 +5647,10 @@ PP_RUNS = (                    # (name, group, ranks, GroupRuntime options)
      {"nano_batches": 2, "nano_order": "rank_desc"}),
     ("gather_n4", "train", 2, {"nano_batches": 4}),
     ("uniform_gather_n2", "uniform", 2, {"nano_batches": 2}),
-    ("gather_n2_d2", "train", 4, {"nano_batches": 2}))
+    ("gather_n2_d2", "train", 4, {"nano_batches": 2}),
+    ("gather_n2_d2_m2", "train", 8, {"nano_batches": 2}))
+PP_REPLICA_OF = {"gather_n2_d2_m2": "gather_n2_d2"}    # (c) and (b)
+PP_WARM = 4                    # ranks that take the meshless steps
 PP_PLANTED = "gather_n2_rank_desc"
 PP_RESIDENT_CUT = 0.40
 
@@ -5591,10 +5698,13 @@ def pipeline_mode_runs(rank, cfg, dev) -> dict:
         layout = SharedSuperModel(cfg, specs, block_t=TRAIN_BLOCK_T).layout
         groups[g] = (specs, train_adapters(cfg, SHARDED_GROUPS[g], layout,
                                            dev))
-        # every rank takes the meshless step (rank 0 holds the runs
-        # against it): a spawned process's first step on the card costs
-        # 13-16 s (PERF.md §7), paid here at once on every rank instead
-        # of once a fresh rank in the timed runs
+        # the first PP_WARM ranks take the meshless step (rank 0 holds
+        # the runs against it): a spawned process's first step on the
+        # card costs 13-16 s (PERF.md §7), paid here at once instead of
+        # once a fresh rank in the timed runs; eight full-depth meshless
+        # steps at once do not fit on one card
+        if rank >= PP_WARM:
+            continue
         solo = GroupRuntime.from_specs(
             cfg, specs, params=params, adapters=groups[g][1],
             **{k: v for k, v in kw.items()
@@ -5605,7 +5715,8 @@ def pipeline_mode_runs(rank, cfg, dev) -> dict:
         del solo
     torch.cuda.empty_cache()
     meshes = {2: mesh_mod.partition_mesh([2], stages=PP_STAGES)[0],
-              4: mesh_mod.make_local_mesh(stages=PP_STAGES)}
+              4: mesh_mod.partition_mesh([4], stages=PP_STAGES)[0],
+              8: mesh_mod.make_local_mesh(model=2, stages=PP_STAGES)}
     dist.barrier()
     out = {"rank": rank, "runs": {}}
     failed = []
@@ -5646,6 +5757,7 @@ def pipeline_mode_runs(rank, cfg, dev) -> dict:
         res = {"group": grp, "ranks": list(SHARDED_GROUPS[grp]),
                "options": opts, "stages": P, "data_shards": rt.data_shards,
                "stage": rt._stage_idx, "nano": N,
+               "model_axis": list(rt.model_axis),
                "per_step_per_job_loss": losses.tolist(),
                "step_times_s": rt.report.step_times, "wall_s": wall,
                "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -5655,6 +5767,19 @@ def pipeline_mode_runs(rank, cfg, dev) -> dict:
                "launches": launches, "expected_launches_per_step": expect}
         res["occupancy_ok"] = (res["pipe_useful_slots"] == N * P
                                and res["pipe_slots"] == (N + P - 1) * P)
+        if name in PP_REPLICA_OF or name in PP_REPLICA_OF.values():
+            # the stage-local state's digest: the parent holds (c)'s
+            # ranks to (b)'s at the same (stage, data) position
+            mine = [rt.adapters, rt.opt_state.mu, rt.opt_state.nu]
+            res["shard"] = rt._shard
+            res["state_sha256"] = hashlib.sha256(
+                _flat_state(mine).numpy().tobytes()).hexdigest()
+        if name in PP_REPLICA_OF:
+            # the model replicas of each (stage, data) rank: the same bits
+            res["replicas_equal"] = _ranks_equal(mine,
+                                                 group=mesh.model_group)
+            if not res["replicas_equal"]:
+                failed.append(f"{name} (model replicas differ)")
         if prof:
             res["profile_last_step"] = prof["one_step"]
         if rank == 0:
@@ -5771,6 +5896,19 @@ def pipeline_mode_phase(src, cfg):
         got = [r["runs"][name]["per_step_per_job_loss"] for r in ranks
                if name in r["runs"]]
         agree[name] = all(g == got[0] for g in got[1:])
+    # (c)'s ranks against (b)'s at the same (stage, data) position: the
+    # same losses, stage-local state bits and resident backbone
+    replica_of = {}
+    for name, model1 in PP_REPLICA_OF.items():
+        by_pos = {(r["runs"][model1]["stage"], r["runs"][model1]["shard"]):
+                  r["runs"][model1] for r in ranks if model1 in r["runs"]}
+        replica_of[name] = [
+            (lambda a, b: a["state_sha256"] == b["state_sha256"]
+             and a["per_step_per_job_loss"] == b["per_step_per_job_loss"]
+             and a["resident_backbone_bytes"] == b["resident_backbone_bytes"])
+            (r["runs"][name], by_pos[(r["runs"][name]["stage"],
+                                      r["runs"][name]["shard"])])
+            for r in ranks]
     r0 = ranks[0]
     emit({"phase": "pipeline_mode", "model": cfg.name,
           "layers": cfg.num_layers, "stages": PP_STAGES,
@@ -5783,12 +5921,16 @@ def pipeline_mode_phase(src, cfg):
           "note": "the ranks share one H100: no time here is a multi-GPU "
                   "number",
           "seconds": seconds, "losses_equal_on_every_rank": agree,
+          "model_replicas_equal_to_model_1_run": replica_of,
           "rank0_idle_share_step": r0["runs"][PP_RUNS[0][0]].get(
               "profile_last_step", {}).get("device_idle_share"),
           "by_rank": ranks, "launches": launches, "card": card_line()})
     if not all(agree.values()):
         raise AssertionError(f"pipeline_mode: ranks report different "
                              f"losses: {agree}")
+    if not all(all(v) for v in replica_of.values()):
+        raise AssertionError(f"pipeline_mode: the model replicas part from "
+                             f"the model-1 run: {replica_of}")
     if err is not None:
         raise err
     return launches
@@ -5828,7 +5970,10 @@ def pipeline_mode_phase(src, cfg):
 # on the card), every base projection through B10, a row-parallel
 # product's partials and a column-parallel product's dx partials from
 # its f32 epilogue, summed over the axis before the one rounding; their
-# meshless steps int8 too.  Each of (d) and (e) meets the same bars.
+# meshless steps int8 too; (f) smollm-360m at full width (d 960, 15
+# heads of 64 over 5 kv heads) cut to 2 layers: the axis of 2 would split
+# its heads, so its attention runs whole on every rank and its MLP and
+# vocab are cut.  Each of (d)-(f) meets the same bars.
 # TP_PLANTED reruns a run for one step with a fault on its collective,
 # which must read above the run's gradient limit: rank 1's partial of
 # layer 0's first row-parallel product (wo) left out of its all-reduce
@@ -5836,7 +5981,7 @@ def pipeline_mode_phase(src, cfg):
 # squares without rank 1's term; RG-LRU's gathered conv output with rank
 # 1's block zeroed; MLA's latent without its cotangent summed over the
 # axis (every rank's latent path then sees its own heads' cotangent
-# only).
+# only); smollm's whole attention's output zeroed on rank 1.
 TP_RANKS = 2
 TP_STEPS = 2
 TP_AUTO = {"tp_mode": "auto"}
@@ -5851,6 +5996,7 @@ TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
     ("mb_int8", "mamba2-2.7b", 2, None, "train", TP_INT8),
     ("hb_train", "hubert-xlarge", 2, None, "train", TP_AUTO),
     ("iv_train", "internvl2-26b", 2, None, "train", TP_AUTO),
+    ("sm_train", "smollm-360m", 2, None, "train", TP_AUTO),
     ("moe_capacity", "qwen3-moe-30b-a3b", 2, "capacity", "train",
      {"tp_mode": "auto"}),
     ("moe_ragged", "qwen3-moe-30b-a3b", 2, "ragged", "train",
@@ -5860,7 +6006,7 @@ TP_RUNS = (      # (name, arch, layers, moe_impl, group, GroupRuntime options)
      {"tp_mode": "pipeline", "pipeline_stages": 2, "nano_batches": 2}))
 TP_PLANTED = {"tl_train": "row_partial", "tl_int8": "row_partial",
               "mb_train": "ssd_norm", "rg_train": "rglru_u",
-              "ds_train": "mla_latent"}
+              "ds_train": "mla_latent", "sm_train": "whole_attn"}
 TP_RESIDENT_CUT = 0.40
 
 
@@ -5911,10 +6057,12 @@ def tp_planted(kind: str, rank: int):
     sum of squares zeros; "rglru_u": RG-LRU's gathered conv output with
     rank 1's block zeroed, on every rank; "mla_latent": MLA's latent
     entering the rank's heads without its cotangent summed over the
-    axis, on every rank."""
+    axis, on every rank; "whole_attn": rank 1's output of an attention
+    that runs whole (the axis would split its heads) zeroed."""
     import torch
     from repro_torch.models import attention as A
     from repro_torch.models import mla, rglru, ssd
+    from repro_torch.models import model as M
     from repro_torch.models.quant import QuantTensor
     seen = [0]
 
@@ -5938,7 +6086,10 @@ def tp_planted(kind: str, rank: int):
         "ssd_norm": (ssd, "_sum_squares", (lambda xf: real(xf) * 0)
                      if rank == 1 else None),
         "rglru_u": (rglru, "_gather_u", gather_u),
-        "mla_latent": (mla, "_enter_latent", lambda tp, kv_a: kv_a)}[kind]
+        "mla_latent": (mla, "_enter_latent", lambda tp, kv_a: kv_a),
+        "whole_attn": (M, "attn_block", (lambda *a, **kw: (
+            lambda o: (o[0] * 0, o[1]))(real(*a, **kw)))
+            if rank == 1 else None)}[kind]
     real = getattr(mod, attr)
     if fake is not None:
         setattr(mod, attr, fake)
@@ -5966,17 +6117,25 @@ def quant_launches(cfg) -> int:
     return fwd + bwd - readers[M.layer_specs(cfg)[0].mixer]
 
 
-def _ranks_equal(tree) -> bool:
-    """Whether every rank holds the same bits of *tree* (a max and a min
-    over the world of its flattened leaves, on the host)."""
+def _flat_state(tree):
+    """*tree*'s leaves flattened into one f32 host vector."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    leaves = [t for part in (tree if isinstance(tree, list) else [tree])
+              for t in tree_leaves(part)]
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in leaves])
+
+
+def _ranks_equal(tree, group=None) -> bool:
+    """Whether every rank (of *group*, default the world) holds the same
+    bits of *tree* (a max and a min of its flattened leaves, on the
+    host)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.optim.adamw import tree_leaves
-    flat = torch.cat([t.detach().float().reshape(-1).cpu()
-                      for t in tree_leaves(tree)])
+    flat = _flat_state(tree)
     hi, lo = flat.clone(), flat.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
     return bool(torch.equal(hi, lo))
 
 
@@ -6003,7 +6162,7 @@ def tp_forward_probe(cfg, params, mesh, dev) -> dict:
                          seed=1).next_batch()
     tokens = torch.from_numpy(batch["tokens"]).to(dev)
     loc = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
-                       tp.index, kv_heads=cfg.num_kv_heads)
+                       tp.index, cfg=cfg)
     first = lambda tree: M._tree_map(lambda v: v[0], tree)
     p, q = first(params["segments"][0]["0"]), first(loc["segments"][0]["0"])
 
@@ -6355,6 +6514,9 @@ def tensor_parallel_phase(src):
 #       mixers have no per-row position: there every prompt is
 #       TPS_REC_PROMPT tokens, prefilled but its last, which the first
 #       decode step takes at one shared position.
+#   (h) smollm-360m at full width cut to 4 layers, data 1 x model 2 on
+#       ranks 0-1: its 15 heads over 5 kv heads run whole on every rank
+#       (the axis would split them), their caches whole; (a)'s checks.
 TPS_WORLD = 8
 TPS_PROMPTS = 8
 TPS_ROWS = BLOCK_T
@@ -6371,7 +6533,8 @@ TPS_FAMILIES = (   # (part, arch, layers, moe_impl, recurrent)
     ("d", "deepseek-v2-lite-16b", 2, "ragged", False),
     ("e", "mamba2-2.7b", 2, None, True),
     ("f", "recurrentgemma-9b", 3, None, True),
-    ("g", "internvl2-26b", 2, None, False))
+    ("g", "internvl2-26b", 2, None, False),
+    ("h", "smollm-360m", 4, None, False))
 
 
 def tps_batch(cfg, dev, names, seed=3, width=None):
@@ -6556,7 +6719,7 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False,
     toks, _, lens = batch
     tp = ModelAxis(*model_group(mesh))
     local = shard_params(params, M.init_model(cfg, device="meta"), tp.size,
-                         tp.index, kv_heads=cfg.num_kv_heads)
+                         tp.index, cfg=cfg)
     serve = lambda p, ad, mesh_, feed=None: tps_serve(
         cfg, specs, p, ad, batch, mesh_, steps, feed=feed,
         row_block=TPS_ROWS)
@@ -6594,8 +6757,11 @@ def tps_part(cfg, params, mesh, dev, steps, solo=(), moe=False,
                 ragged_lora_fwd=n_proj * (1 + steps),
                 flash_attention_fwd=sum(s.mixer in ("attn", "mla")
                                         for s in M.layer_specs(cfg)))
+    whole = M.whole_mixers(cfg, tp.size)
     out = {"layers": cfg.num_layers, "model_axis": [tp.size, tp.index],
-           "kv_heads_a_rank": tp.kv_local(cfg.num_kv_heads),
+           "whole_mixers": list(whole),
+           "kv_heads_a_rank": (cfg.num_kv_heads if "attn" in whole
+                               else tp.kv_local(cfg.num_kv_heads)),
            "rows": int(toks.shape[0]), "prompt_width": int(toks.shape[1]),
            "prompt_lens": lens[real].tolist(), "decode_steps": steps,
            "greedy_ids_equal_meshless": not diff.any(),
@@ -6856,7 +7022,7 @@ def _tps_dry_prediction() -> dict:
     with fake_world(2, 0):
         mesh = make_local_mesh(model=2)
         full = M.init_model(cfg, device="meta")
-        params = shard_params(full, full, 2, 0, kv_heads=cfg.num_kv_heads)
+        params = shard_params(full, full, 2, 0, cfg=cfg)
         adapters = M.init_adapters(cfg, MIXED, layout=ssm.layout,
                                    device="meta")
         pre, (_, caches) = SA.analyze(
@@ -7215,7 +7381,9 @@ def main() -> int:
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     measured = {}                 # steady steps: the calibrate phase's input
-    counts = {"serve": serve_phase(cfg, params, sets, dev)}
+    serve_cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS)
+    counts = {"serve": serve_phase(
+        serve_cfg, M.init_model(serve_cfg, seed=0, device=dev), sets, dev)}
     dryrun_step_bytes(cfg, params, dev, dry_predicted)
     counts["train"], bf16_losses, bf16_step = train_phase(
         cfg, params, dev, measured=measured)
@@ -7259,11 +7427,14 @@ def main() -> int:
         del params
         counts["cluster_sharded"] = cluster_sharded_phase(
             os.path.abspath(args.src), cfg)
-        counts["pipeline_mode"] = pipeline_mode_phase(
-            os.path.abspath(args.src), cfg)
+        # pipeline_mode last: its eight full-depth ranks leave CUDA
+        # contexts in every pool process, and tensor_parallel's whole-vocab
+        # steps need the room fresh processes leave (an OOM otherwise)
         counts["tensor_parallel"] = tensor_parallel_phase(
             os.path.abspath(args.src))
         counts["tp_serve"] = tp_serve_phase(os.path.abspath(args.src))
+        counts["pipeline_mode"] = pipeline_mode_phase(
+            os.path.abspath(args.src), cfg)
 
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel replaced, headline (step, shape filter))

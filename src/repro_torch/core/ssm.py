@@ -17,7 +17,7 @@ into a single executable model:
     same fused batch through prefill and decode over full KV caches, ring
     caches (local attention, the sliding-window variant), MLA latent
     caches (full or ring) and recurrent state; an encoder (non-causal)
-    has no decode and is refused there.
+    prefills its caches and has no decode step.
 
 ``make_train_step(mesh=...)`` is the data-parallel sharded step
 (``tp_mode="dp"``): every mesh axis folds into row sharding over a
@@ -37,8 +37,9 @@ holds the slices ``sharding/rules.shard_params`` gives it: column
 parallel q/k/v/gate/up, row parallel o/down, vocab-split embedding and
 head, E/m experts a rank, MLA, SSD and RG-LRU by heads or channels, the
 front ends' d_model columns, an int8 backbone's codes and scales cut as
-the dense leaves), the adapters and their Adam state whole on every
-rank.  A MoE model runs through every mode: per shard (or micro)
+the dense leaves; a mixer the axis would split through a head whole,
+``models/model.whole_mixers``), the adapters and their Adam state whole on
+every rank.  A MoE model runs through every mode: per shard (or micro)
 under "dp" and "pipeline", expert parallel under "auto".
 """
 from __future__ import annotations
@@ -65,39 +66,6 @@ def check_tp_mode(tp_mode: str) -> None:
     """Refuse a tp_mode the reference does not have."""
     if tp_mode not in TP_MODES:
         raise ValueError(f"unknown tp_mode {tp_mode!r}")
-
-
-def check_tensor_parallel(cfg: ModelConfig, model: int,
-                          quantize: Optional[str] = None) -> None:
-    """Refuse, naming the ROADMAP line, what tensor parallelism over a
-    model axis of *model* > 1 ranks does not run: an axis that would
-    split a head (A4).  Attention: query heads the axis does not divide,
-    or kv heads it neither divides nor is a multiple of (where m is a
-    multiple of KV, m / KV ranks hold the same kv head); MLA: its heads;
-    SSD: its heads, or B/C groups it neither divides nor is a multiple
-    of; RG-LRU: its channels.  Every family runs over the axis
-    otherwise, and so does the backbone in any storage (*quantize*: an
-    int8 backbone is cut as its dense leaves are)."""
-    if model <= 1:
-        return
-    kinds = {s.mixer for s in M.layer_specs(cfg)}
-    bad = []
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    if kinds & {"attn", "local_attn"} and (H % model
-                                           or (KV % model and model % KV)):
-        bad.append(f"its {H} query heads and {KV} kv heads")
-    if "mla" in kinds and H % model:
-        bad.append(f"its {H} MLA heads")
-    if "ssd" in kinds:          # refuses a split head or B/C group (A4)
-        from repro_torch.models.ssd import tp_heads
-        tp_heads(cfg.ssm_nheads, model, 0)
-    if "rglru" in kinds and cfg.lru_width % model:
-        bad.append(f"its {cfg.lru_width} RG-LRU channels")
-    if bad:
-        raise ValueError(
-            f"{cfg.name}: a model axis of {model} would split a head of "
-            f"{' and '.join(bad)} (the divisibility drop would split a "
-            "head; ROADMAP A4)")
 
 
 @dataclass
@@ -350,7 +318,6 @@ class SharedSuperModel:
         cfg, K = self.cfg, self.num_jobs
         auto = tp_mode == "auto"
         mgroup, m, midx = model_group(mesh) if auto else (None, 1, 0)
-        check_tensor_parallel(cfg, m)
         tp = ModelAxis(mgroup, m, midx) if m > 1 else None
         exact = grad_sync == "gather"
         assert grad_sync in ("gather", "psum"), grad_sync
@@ -476,6 +443,14 @@ class SharedSuperModel:
         the reported losses) in the same order, and both ranks of a pair
         issue its handoffs in the same order (the N activations, then the
         N cotangents in reverse), so no wait closes a cycle.
+
+        Model axis.  On the (stage, data, model) mesh of
+        ``make_local_mesh(model=, stages=)`` the ``StageMesh`` is this
+        rank's model index's (stage, data) grid: every model rank runs its
+        (stage, data) rank's program on the same rows and whole stage
+        weights, its handoffs and data groups within its model index, as
+        the reference's ``shard_map`` (which names only "stage" and the
+        data axis) runs it.
 
         Reduction.  With ``grad_sync="psum"`` the stage's gradients are
         all-reduced over its data group; "gather" needs nothing (the
@@ -693,7 +668,6 @@ class SharedSuperModel:
         from repro_torch.launch.mesh import model_group
         from repro_torch.models.layers import ModelAxis
         mgroup, m, midx = model_group(mesh)
-        check_tensor_parallel(self.cfg, m)
         tp = ModelAxis(mgroup, m, midx) if m > 1 else None
         idx = self.serve_rows(mesh)
         if idx is None:
@@ -719,7 +693,9 @@ class SharedSuperModel:
         path (the kernel on the card) where it has no window; the LoRA
         delta takes the impl's kernels through ``lora_ctx``.  As in the
         reference, ``ring`` and not ``shape.sliding_window_variant``
-        picks the caches.  An encoder has no decode: refused.
+        picks the caches.  An encoder (non-causal: hubert-xlarge) writes
+        its caches and attends over the prompt's own keys, not causally
+        (``attn_block``), as its cacheless forward does.
 
         ``mesh``: a ("data", "model") or ("pod", "data", "model") mesh.
         The step then takes this rank's rows (``serve_rows``) and its
@@ -735,7 +711,6 @@ class SharedSuperModel:
         prompt width gives every product a solo batch's shape, so fused
         and solo prefills write the same caches on the card)."""
         cfg = self.cfg
-        check_decoder(cfg)
         tp, rows = self._serve_axes(mesh)
 
         @torch.no_grad()
@@ -812,14 +787,12 @@ class SharedSuperModel:
 
 
 def check_decoder(cfg: ModelConfig) -> None:
-    """The serve steps decode: a non-causal encoder (hubert-xlarge) has
-    no next token to serve (the reference's tests skip it).  The
-    reference's prefill step builds for an encoder all the same; the
-    port's refuses it (ROADMAP A9)."""
+    """The decode step: a non-causal encoder (hubert-xlarge) has no next
+    token to serve (the reference's tests skip it; its prefill step
+    runs)."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} is an encoder (causal=False): it has "
-                         "no decode steps, and the port has no encoder "
-                         "prefill step (ROADMAP A9)")
+                         "no decode step (its prefill step runs)")
 
 
 def _chunked(train_step: Callable) -> Callable:

@@ -85,10 +85,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import LoRAJobSpec
 from repro_torch.core.nanobatch import AIMDController
-from repro_torch.core.ssm import (SharedSuperModel, check_tensor_parallel,
-                                  check_tp_mode, scanned_segment_index,
-                                  stage_flat, stage_slices,
-                                  valid_nano_counts)
+from repro_torch.core.ssm import (SharedSuperModel, check_tp_mode,
+                                  scanned_segment_index, stage_flat,
+                                  stage_slices, valid_nano_counts)
 from repro_torch.data.pipeline import FusedBatcher, JobStream, frontend_inputs
 from repro_torch.elastic.migrate import (JobTrainState, fuse_states,
                                          unfuse_state)
@@ -220,6 +219,11 @@ class GroupRuntime:
             self._sync_groups = []
         self.data_shards = D
         self.model_axis = (1, 0)
+        if self.pipeline_stages > 1 and mesh.model > 1:
+            # a (stage, data, model) mesh: this rank replicates its
+            # (stage, data) rank; the replicas agree on AIMD's step time
+            self.model_axis = (mesh.model, mesh.model_index)
+            self._sync_groups.insert(0, mesh.model_group)
         # the frozen backbone in int8, once, before any step is built
         # (idempotent: a quantized tree's QuantTensors are reused), and
         # before the model axis cuts it: a row block's codes and scales
@@ -230,7 +234,6 @@ class GroupRuntime:
             from repro_torch.launch.mesh import model_group
             from repro_torch.sharding.rules import shard_params
             mgroup, m, midx = model_group(mesh)
-            check_tensor_parallel(cfg, m, quantize)
             if m > 1:
                 self.model_axis = (m, midx)
                 # model axis first: the barrier then orders the data
@@ -238,7 +241,7 @@ class GroupRuntime:
                 self._sync_groups.insert(0, mgroup)
                 params = shard_params(params, M.init_model(cfg,
                                                            device="meta"),
-                                      m, midx, kv_heads=cfg.num_kv_heads)
+                                      m, midx, cfg=cfg)
         self.ssm = SharedSuperModel(cfg, self.specs, impl=impl,
                                     block_t=block_t, data_shards=D)
         self.batcher = FusedBatcher(self.specs, cfg.vocab_size,

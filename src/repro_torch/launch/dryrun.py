@@ -21,12 +21,16 @@ route ``impl="torch"`` (the reference's dry run compiles ``impl="xla"``),
 and the gradients' ``grad_sync="psum"``, one all-reduce of the adapters'
 partial gradients over "data", as the reference's runtime reduces them.
 
-Every row ends in a status: ``ok`` (with ``fits``: the analysis's peak
-within the card's 80 GB), ``refused`` (what tensor parallelism does not
-run, with its ROADMAP line: A4 for heads the model axis would split, A9
-for an encoder's prefill, which the reference builds and the port's
-serve steps refuse), ``skipped`` (no decode for an encoder, as
-``applicable`` says) or ``fail`` (an exception).
+Beside the executed layout every ``ok`` row prices the reference's own
+dry-run layout (``layout_2d``, the ``*_2d`` columns): the weights 2-D
+with their "D" dim over "data", each layer's FSDP all-gathers, at most
+one layer's gathered slabs live, and the residual stream's saved
+activations split over "model" ("sp").  A mixer the model axis would
+split through a head runs whole on every rank (``whole_mixers``).
+
+Every row ends in a status: ``ok`` (with ``fits`` and ``fits_2d``: the
+peak within the card's 80 GB under each layout), ``skipped`` (no decode
+for an encoder, as ``applicable`` says) or ``fail`` (an exception).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -37,10 +41,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import re
+import math
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -48,8 +52,7 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, applicable, get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.configs.registry import get_shape
 from repro_torch.core.jobs import LoRAJobSpec
-from repro_torch.core.ssm import (SharedSuperModel, check_decoder,
-                                  check_tensor_parallel)
+from repro_torch.core.ssm import SharedSuperModel
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import step_analysis as SA
 from repro_torch.launch.mesh import (data_group, fake_world,
@@ -58,7 +61,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import constant
-from repro_torch.sharding.rules import shard_params
+from repro_torch.sharding import rules
 
 # paper §4.1: ranks sampled from {2,4,8,16} — the dry-run group uses one
 # of each so the fused kernel sees heterogeneous ranks.
@@ -120,8 +123,7 @@ def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
     ssm = SharedSuperModel(cfg, make_group(cfg, shape), impl="torch",
                            block_t=128, data_shards=D if train else 1)
     full = M.init_model(cfg, device="meta")
-    parts = {"params": shard_params(full, full, m, mi,
-                                    kv_heads=cfg.num_kv_heads),
+    parts = {"params": rules.shard_params(full, full, m, mi, cfg=cfg),
              "adapters": M.init_adapters(cfg, ssm.ranks.tolist(),
                                          layout=ssm.layout, device="meta")}
     S = shape.seq_len
@@ -155,9 +157,116 @@ def build(cfg: ModelConfig, shape: InputShape, mesh, nano_batches: int = 1,
                 parts["batch"]), parts
 
 
-def _roadmap_line(err: Exception) -> Optional[str]:
-    m = re.search(r"ROADMAP (A\d+[a-z]?)", str(err))
-    return m.group(1) if m else None
+# ------------------------------------------ the reference's 2-D layout
+def _unit(cfg: ModelConfig, path) -> tuple:
+    """The gather unit of a backbone leaf under FSDP: one layer (a cycle
+    of a scanned segment, each layer of an unrolled one) or one top-level
+    weight (the embedding, the head, the front end)."""
+    if path[0] != "segments":
+        return (path[0],)
+    seg = M.segment_plan(cfg)[int(path[1])]
+    return ("segments", path[1]) if seg.scanned else tuple(path[:3])
+
+
+def param_bytes_2d(cfg: ModelConfig, axis_sizes: Dict[str, int]) -> int:
+    """One rank's bytes of the backbone under the reference's dry-run
+    layout (``rules.param_specs`` with the "D" tag kept: each weight's
+    Megatron dim over "model" and its other matmul dim over "data",
+    ``src/repro/launch/dryrun.py:83``)."""
+    full = M.init_model(cfg, device="meta")
+    specs = rules.param_specs(axis_sizes, full)
+    total = [0]
+
+    def add(path, t):
+        spec = rules._get(specs, path)
+        total[0] += (math.prod(rules.local_shape(t.shape, spec, axis_sizes))
+                     * t.element_size())
+        return t
+    rules._walk(full, add)
+    return total[0]
+
+
+def fsdp_gathers(cfg: ModelConfig, axis_sizes: Dict[str, int]
+                 ) -> Dict[tuple, int]:
+    """{gather unit: bytes one rank receives when the unit's "D" slabs
+    are all-gathered over "data"}: each leaf the 2-D specs split over
+    "data", its share under the runtime specs ("D" dropped: the slab the
+    rank computes with) less its 2-D shard.  A scanned segment's unit is
+    one cycle (its leaves' bytes over the cycles)."""
+    full = M.init_model(cfg, device="meta")
+    two = rules.param_specs(axis_sizes, full)
+    one = rules.runtime_param_specs(axis_sizes, full)
+    out: Dict[tuple, int] = {}
+
+    def add(path, t):
+        s2, s1 = rules._get(two, path), rules._get(one, path)
+        b2 = math.prod(rules.local_shape(t.shape, s2, axis_sizes))
+        b1 = math.prod(rules.local_shape(t.shape, s1, axis_sizes))
+        if b1 == b2:
+            return t
+        key = _unit(cfg, path)
+        per = (b1 - b2) * t.element_size()
+        if len(key) == 2:               # a scanned segment: per cycle
+            per //= M.segment_plan(cfg)[int(key[1])].repeats
+        out[key] = out.get(key, 0) + per
+        return t
+    rules._walk(full, add)
+    return out
+
+
+def saved_residual_bytes(cfg: ModelConfig, shape: InputShape, rows: int,
+                         remat: bool) -> int:
+    """The residual stream's activations a train step keeps for its
+    backward, one rank of *rows* rows: one (rows, S, d) tensor a layer
+    (the input its norm saves), or with *remat* one checkpoint a cycle
+    of a scanned segment.  0 for a serve step (no backward)."""
+    if shape.kind != "train":
+        return 0
+    n = sum(seg.repeats * (1 if seg.scanned and remat else len(seg.specs))
+            for seg in M.segment_plan(cfg))
+    item = torch.empty((), dtype=dtype_of(cfg)).element_size()
+    return n * rows * shape.seq_len * cfg.d_model * item
+
+
+def layout_2d(cfg: ModelConfig, shape: InputShape, mesh_sizes: Dict[str, int],
+              rows: int, remat: bool, executed: Dict, data_link: str
+              ) -> Dict:
+    """The row's numbers under the reference's dry-run layout beside the
+    executed ones (*executed*: the analysis's param, resident and peak
+    bytes and its collective bytes by link): the weights 2-D
+    (``param_bytes_2d``); each layer's "D" slabs all-gathered over
+    "data" before use (``fsdp_gathers``), once in the forward and once
+    more for a train step's backward (the remat recompute and the
+    backward share the re-gathered slab), priced on the data group's
+    link; at most one unit's gathered slabs live at once; the residual
+    stream's saved activations split over "model" (the reference's "sp",
+    ``src/repro/sharding/specs.py:85-93``) and, for a batch under 16,
+    over "data" too.  FLOPs do not change."""
+    m, D = mesh_sizes.get("model", 1), mesh_sizes.get("data", 1)
+    p2 = param_bytes_2d(cfg, mesh_sizes)
+    gathers = fsdp_gathers(cfg, mesh_sizes)
+    passes = 2 if shape.kind == "train" else 1
+    per_step = passes * sum(
+        b * (M.segment_plan(cfg)[int(k[1])].repeats if len(k) == 2 else 1)
+        for k, b in gathers.items())
+    saved = saved_residual_bytes(cfg, shape, rows, remat)
+    sp = m * (D if shape.global_batch < 16 else 1)
+    saved2 = saved // sp
+    peak2 = (executed["peak"] - executed["params"] + p2
+             + max(gathers.values(), default=0) - (saved - saved2))
+    coll = dict(executed["coll"])
+    coll[data_link] = coll.get(data_link, 0.0) + per_step
+    return {"param_bytes_2d": p2,
+            "resident_bytes_2d": executed["resident"] - executed["params"]
+            + p2,
+            "fsdp_gather_bytes": per_step, "fsdp_gather_passes": passes,
+            "fsdp_gather_max_layer_bytes": max(gathers.values(), default=0),
+            "saved_residual_bytes": saved,
+            "saved_residual_bytes_2d": saved2,
+            "peak_bytes_2d": peak2, "mem_gb_per_device_2d": peak2 / 1e9,
+            "fits_2d": peak2 <= RL.HBM_BYTES,
+            "collective_bytes_by_link_2d": coll,
+            "t_collective_s_2d": RL.collective_time(coll)}
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
@@ -179,26 +288,25 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
         with fake_world(chips, DRY_RANK):
             mesh = make_production_mesh(multi_pod=multi_pod)
             m = model_group(mesh)[1]
-            try:
-                check_tensor_parallel(cfg, m)
-                if shape.kind != "train":
-                    check_decoder(cfg)
-            except (ValueError, NotImplementedError) as e:
-                if verbose:
-                    print(f"[{arch} x {shape_name} x {mesh_name}] REFUSED: "
-                          f"{e}")
-                return dict(head, status="refused", roadmap=_roadmap_line(e),
-                            reason=str(e))
             fn, args, parts = build(cfg, shape, mesh,
                                     nano_batches=nano_batches, remat=remat)
             rep, _ = SA.analyze(fn, args)
-            D = data_group(mesh, "data")[1]
+            dgroup, D, _ = data_group(mesh, "data")
+            data_link = RL.link_of(tuple(
+                torch.distributed.get_process_group_ranks(dgroup)))
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         coll = {}
         for (kind, ranks), b in rep.collective_groups.items():
             link = RL.link_of(ranks)
             coll[link] = coll.get(link, 0.0) + b
         resident = sum(tree_bytes(parts[k]) for k in
                        ("params", "adapters", "opt_state") if k in parts)
+        rows = int(parts["batch"]["adapter_ids"].shape[0])
+        two = layout_2d(cfg, shape, {k: int(v) for k, v in sizes.items()},
+                        rows, remat, {"peak": rep.peak_bytes,
+                                      "params": tree_bytes(parts["params"]),
+                                      "resident": resident, "coll": coll},
+                        data_link)
         rl = RL.RooflineReport(
             arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
             flops=rep.flops, flops_f32=rep.flops_f32,
@@ -208,8 +316,9 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
             peak_bytes=rep.peak_bytes, resident_bytes=resident)
         out = dict(head, status="ok", analysis_s=time.time() - t0,
                    model_axis=m, data_shards=D, ops=rep.ops,
-                   rows_per_rank=int(parts["batch"]["adapter_ids"]
-                                     .shape[0]),
+                   whole_mixers=list(M.whole_mixers(cfg, m)),
+                   rows_per_rank=rows,
+                   param_bytes=tree_bytes(parts["params"]),
                    flops=rep.flops, flops_f32=rep.flops_f32,
                    f32_share=rep.flops_f32 / max(rep.flops, 1.0),
                    eager_bytes=rep.eager_bytes,
@@ -220,13 +329,20 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                    peak_bytes=rep.peak_bytes, resident_bytes=resident,
                    cache_bytes=tree_bytes(parts.get("caches", [])),
                    batch_bytes=tree_bytes(parts["batch"]),
-                   **rl.row())
+                   **rl.row(), **two)
         if verbose:
             print(f"[{arch} x {shape_name} x {mesh_name}] OK "
                   f"({out['analysis_s']:.1f}s analysis, {rep.ops} ops)")
             print(f"  peak {rep.peak_bytes / 1e9:.2f} GB/rank (fits "
                   f"{RL.CARD}'s 80 GB: {rl.fits}), resident "
                   f"{resident / 1e9:.2f} GB")
+            print(f"  2-D layout: peak {two['peak_bytes_2d'] / 1e9:.2f} "
+                  f"GB/rank (fits: {two['fits_2d']}), resident "
+                  f"{two['resident_bytes_2d'] / 1e9:.2f} GB, FSDP gathers "
+                  f"{two['fsdp_gather_bytes'] / 1e9:.2f} GB/step, saved "
+                  f"residual {two['saved_residual_bytes'] / 1e9:.2f} -> "
+                  f"{two['saved_residual_bytes_2d'] / 1e9:.2f} GB, "
+                  f"collective {two['t_collective_s_2d'] * 1e3:.2f}ms")
             print(f"  per-rank: flops={rep.flops:.3e} (f32: "
                   f"{out['f32_share']:.0%}) eager bytes="
                   f"{rep.eager_bytes:.3e}")

@@ -137,22 +137,19 @@ def make_local_mesh(model: int = 1, device_type: str = "cpu",
     "cpu": the mesh only lays out ranks, and the runtime's ``device``
     places the tensors.
 
-    ``stages`` is clamped the same way against the world (the
-    reference clamps it against the data slice); more than one stage
-    gives the (stage, data) ``StageMesh`` over the world.  The port's
-    pipeline mesh has no model axis (pipeline x tensor parallelism is
-    ROADMAP A8d), so *model* must then be 1."""
+    ``stages`` is clamped the same way against the data slice n // m,
+    as in the reference; more than one stage gives the (stage, data,
+    model) ``StageMesh`` over the world (rank s·D·m + d·m + i is stage
+    s, data index d, model index i).  As in the reference's pipeline
+    step, whose ``shard_map`` names only "stage" and "data", a model
+    rank is a replica of its (stage, data) rank: the same rows and the
+    same whole stage weights."""
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     m = clamp_model(model, n)
     p = clamp_model(stages, n // m)
     if p > 1:
-        if m > 1:
-            raise ValueError(
-                f"a pipeline mesh is (stage, data): model={model} needs "
-                "a model axis inside the stages, which the port does not "
-                "run (ROADMAP A8d: pipeline x tensor parallelism)")
-        return stage_mesh(list(range(n)), p)
+        return stage_mesh(list(range(n)), p, model=m)
     return init_device_mesh(device_type, (n // m, m),
                             mesh_dim_names=("data", "model"))
 
@@ -357,7 +354,15 @@ class StageMesh:
     s, data index d.  The groups are this rank's: its stage's data group
     (D ranks), its column (the P stages at its data index, in stage
     order), the pairs it shares with the previous and the next stage at
-    its data index (None at the ends) and the whole slice."""
+    its data index (None at the ends) and the whole slice.
+
+    With a model axis (``model`` > 1, the (stage, data, model) mesh of
+    ``make_local_mesh(model=, stages=)``) the slice holds ``model``
+    replicas of that (stage, data) grid: ``ranks`` and every group above
+    are this rank's replica's (model index ``model_index``), so its
+    handoffs and data groups stay within one model index;
+    ``model_group`` is the ``model`` ranks at this rank's (stage,
+    data)."""
     ranks: Tuple[Tuple[int, ...], ...]
     stage: int
     shard: int
@@ -368,6 +373,9 @@ class StageMesh:
     slice_group: object
     axis: str = "data"
     stage_axis: str = "stage"
+    model: int = 1
+    model_index: int = 0
+    model_group: object = None
 
     @property
     def stages(self) -> int:
@@ -378,16 +386,25 @@ class StageMesh:
         return len(self.ranks[0])
 
     @property
-    def mesh_dim_names(self) -> Tuple[str, str]:
-        return (self.stage_axis, self.axis)
+    def mesh_dim_names(self) -> Tuple[str, ...]:
+        return ((self.stage_axis, self.axis) if self.model == 1
+                else (self.stage_axis, self.axis, "model"))
 
     @property
     def mesh(self) -> torch.Tensor:
-        return torch.tensor(self.ranks)
+        """The global ranks: (stage, data), or (stage, data, model)."""
+        grid = torch.tensor(self.ranks)
+        if self.model == 1:
+            return grid
+        base = grid - self.model_index
+        return base[..., None] + torch.arange(self.model)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.stage_axis: self.stages, self.axis: self.data}
+        out = {self.stage_axis: self.stages, self.axis: self.data}
+        if self.model > 1:
+            out["model"] = self.model
+        return out
 
     def rank_of(self, stage: int, shard: Optional[int] = None) -> int:
         """The global rank at *stage* and data index *shard* (default:
@@ -395,14 +412,21 @@ class StageMesh:
         return self.ranks[stage][self.shard if shard is None else shard]
 
 
-def _stage_group_keys(ranks: Sequence[int], stages: int
+def _stage_group_keys(ranks: Sequence[int], stages: int, model: int = 1
                       ) -> List[Tuple[Tuple[int, ...], str]]:
     """(ranks, tag) of every process group of a (stages, D) carve of
     *ranks*, in the one order every rank of the world makes them: the
     stages' data groups, the columns, the neighbouring pairs, the
     slice.  For P = 2 a pair is its column (the cache returns the same
-    group)."""
+    group).  With *model* > 1 the ranks are (stage, data, model): each
+    model index's (stages, D) carve in index order, then the model
+    groups of every (stage, data)."""
     ranks = [int(r) for r in ranks]
+    if model > 1:
+        keys = [k for i in range(model)
+                for k in _stage_group_keys(ranks[i::model], stages)]
+        return keys + [(tuple(ranks[j:j + model]), "model")
+                       for j in range(0, len(ranks), model)]
     D = len(ranks) // stages
     grid = [ranks[s * D:(s + 1) * D] for s in range(stages)]
     keys = [(tuple(grid[s]), "") for s in range(stages)]
@@ -415,26 +439,30 @@ def _stage_group_keys(ranks: Sequence[int], stages: int
 
 
 def stage_mesh(mesh_or_ranks, stages: int, axis: str = "data",
-               stage_axis: str = "stage") -> StageMesh:
+               stage_axis: str = "stage", model: int = 1) -> StageMesh:
     """Carve a group's slice (a 1-D mesh, a ``StageMesh`` or a list of
     ranks) into a (*stage_axis*, *axis*) ``StageMesh`` of *stages*
     stages: stage s is the s-th consecutive run of D = n / P ranks of
     the slice's order, so each stage's handoff peer is its neighbouring
     run (the reference's ``stage_mesh``).  A depth that does not divide
     the slice is refused with the legal divisors (``_check_stages``).
+    *model* > 1: the slice's ranks are (stage, data, model), and this
+    rank's mesh is its model index's (stage, data) replica
+    (``StageMesh``).
 
     Over the whole world every rank calls this and the groups are made
     here; over part of the world the slice's ranks find them made by
     ``partition_mesh(stages=)``, and a carve that was not prepared so
     is refused (``dist.new_group`` would wait for the ranks outside)."""
     if isinstance(mesh_or_ranks, StageMesh):
-        ranks = [r for row in mesh_or_ranks.ranks for r in row]
+        ranks = mesh_or_ranks.mesh.flatten().tolist()
+        model = mesh_or_ranks.model
     elif isinstance(mesh_or_ranks, (list, tuple)):
         ranks = [int(r) for r in mesh_or_ranks]
     else:
         ranks = mesh_or_ranks.mesh.flatten().tolist()
-    stages = _check_stages(stages, len(ranks), "group submesh")
-    keys = _stage_group_keys(ranks, stages)
+    stages = _check_stages(stages, len(ranks) // model, "group submesh")
+    keys = _stage_group_keys(ranks, stages, model)
     whole = sorted(ranks) == list(range(dist.get_world_size()))
     if not whole:
         if _GROUPS_WORLD[0] is not dist.group.WORLD or any(
@@ -444,9 +472,18 @@ def stage_mesh(mesh_or_ranks, stages: int, axis: str = "data",
                 f"every rank of the world: carve the pool with "
                 f"partition_mesh(..., stages={stages})")
     groups = [subgroup(k, tag=tag) for k, tag in keys]
+    me = dist.get_rank()
+    mi = ranks.index(me) % model
+    if model > 1:
+        start = ranks.index(me) - mi
+        model_group = subgroup(ranks[start:start + model], tag="model")
+        ranks = ranks[mi::model]
+        groups = [subgroup(k, tag=tag)
+                  for k, tag in _stage_group_keys(ranks, stages)]
+    else:
+        model_group = None
     D = len(ranks) // stages
     grid = tuple(tuple(ranks[s * D:(s + 1) * D]) for s in range(stages))
-    me = dist.get_rank()
     s_me = next(s for s in range(stages) if me in grid[s])
     d_me = grid[s_me].index(me)
     col = tuple(grid[s][d_me] for s in range(stages))
@@ -457,7 +494,8 @@ def stage_mesh(mesh_or_ranks, stages: int, axis: str = "data",
         column_group=subgroup(col, tag="stage"),
         prev_group=subgroup(prev_key, tag="stage") if prev_key else None,
         next_group=subgroup(next_key, tag="stage") if next_key else None,
-        slice_group=groups[-1], axis=axis, stage_axis=stage_axis)
+        slice_group=groups[-1], axis=axis, stage_axis=stage_axis,
+        model=model, model_index=mi, model_group=model_group)
 
 
 def handoff(t: torch.Tensor, group, src: int) -> torch.Tensor:

@@ -42,6 +42,12 @@ NODE_GPUS = 8                # GPUs a node (DGX / HGX H100)
 CARD = "NVIDIA H100 80GB HBM3"   # nvidia-smi's name of the card priced
 
 
+def collective_time(coll_bytes: Dict[str, float]) -> float:
+    """Seconds to move *coll_bytes* ({link: bytes}) at the links' rates."""
+    return (coll_bytes.get("nvlink", 0.0) / NVLINK_BW
+            + coll_bytes.get("network", 0.0) / NETWORK_BW)
+
+
 def link_of(ranks: Tuple[int, ...]) -> str:
     """"nvlink" for a group inside one node, else "network"."""
     return ("nvlink" if len({r // NODE_GPUS for r in ranks}) <= 1
@@ -74,8 +80,7 @@ class RooflineReport:
 
     @property
     def t_collective(self) -> float:
-        return (self.coll_bytes.get("nvlink", 0.0) / NVLINK_BW
-                + self.coll_bytes.get("network", 0.0) / NETWORK_BW)
+        return collective_time(self.coll_bytes)
 
     @property
     def bottleneck(self) -> str:

@@ -13,7 +13,10 @@
                Pallas kernel.  Prefill into a full cache reads the first
                S cache columns, which is the reference's scan over the
                whole ``buf``-wide cache with ``kv_len = S``, the same
-               function;
+               function.  An encoder's (non-causal) prefill writes its
+               keys into the cache and attends over its own keys as the
+               cacheless forward does (the reference's cached branch
+               attends causally: ROADMAP C14);
   * decode   — q (S=1..n) over the cache with per-row positions: the
                online-softmax chunk scan in plain PyTorch (the reference
                runs it outside any Pallas kernel too), over key chunks of
@@ -445,7 +448,14 @@ def attn_block(cfg, params: dict, x: torch.Tensor, *,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     window = cfg.sliding_window if local else None
-    if cache is not None and ring:
+    if cache is not None and not cfg.causal:
+        # an encoder's prefill: its keys go into the cache, and it attends
+        # over its own keys as the cacheless forward does (non-causal);
+        # the reference's cached branch attends causally (ROADMAP C14)
+        cache_update(cache, k, v, cache_pos, ring=ring)
+        out = chunked_attention(q, k, v, q_offset=0, kv_len=S,
+                                causal=False, window=window, chunk=chunk)
+    elif cache is not None and ring:
         out = ring_attention(q, k, v, cache, cache_pos, chunk=chunk)
     elif cache is not None:
         cache = cache_update(cache, k, v, cache_pos)

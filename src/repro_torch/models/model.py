@@ -92,6 +92,46 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     return specs
 
 
+def mixer_runs_whole(cfg: ModelConfig, mixer: str, model: int) -> bool:
+    """Whether a *mixer* layer runs whole on every rank of a model axis
+    of *model* ranks: where the axis would split a head.  Attention:
+    query heads the axis does not divide, or kv heads it neither divides
+    nor is a multiple of (where m is a multiple of KV, m / KV ranks hold
+    the same kv head); MLA: its heads; SSD: its heads, or B/C groups it
+    neither divides nor is a multiple of; RG-LRU: its channels.  The
+    reference's rules cut such a layer's weights through a head where
+    the dim divides; the port keeps its weights, LoRA deltas and caches
+    whole on every rank, and it makes no collective (its input, the
+    residual stream, is the same on every rank)."""
+    if model <= 1:
+        return False
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if mixer in ("attn", "local_attn"):
+        return bool(H % model or (KV % model and model % KV))
+    if mixer == "mla":
+        return bool(H % model)
+    if mixer == "ssd":
+        from repro_torch.models.ssd import NGROUPS
+        return bool(cfg.ssm_nheads % model
+                    or (NGROUPS % model and model % NGROUPS))
+    return bool(cfg.lru_width % model)
+
+
+def whole_mixers(cfg: ModelConfig, model: int) -> Tuple[str, ...]:
+    """The mixer kinds of *cfg* that run whole over a model axis of
+    *model* ranks (``mixer_runs_whole``), sorted."""
+    return tuple(sorted({s.mixer for s in layer_specs(cfg)
+                         if mixer_runs_whole(cfg, s.mixer, model)}))
+
+
+def mixer_axis(cfg: ModelConfig, mixer: str, tp: Optional[ModelAxis]
+               ) -> Optional[ModelAxis]:
+    """*tp* for a mixer the axis splits, None for one that runs whole."""
+    if tp is None or mixer_runs_whole(cfg, mixer, tp.size):
+        return None
+    return tp
+
+
 def segment_plan(cfg: ModelConfig) -> List[Segment]:
     """Head (first_k_dense) unrolled, then scanned cycles + remainder."""
     specs = layer_specs(cfg)
@@ -261,7 +301,9 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     ``min(buf, sliding_window)`` slots; the recurrent mixers keep their
     state and conv tail.  Under ``tp`` an attention cache holds the
     rank's kv heads (``ModelAxis.kv_local``), a recurrent mixer's its
-    heads or channels; MLA's latent cache stays whole."""
+    heads or channels; MLA's latent cache stays whole, and so does the
+    cache of a mixer that runs whole (``mixer_runs_whole``)."""
+    tp = mixer_axis(cfg, spec.mixer, tp)
     if spec.mixer == "mla":
         b = min(buf, cfg.sliding_window) if ring else buf
         return MLACache.init(batch, b, cfg, dtype_of(cfg), layers=layers,
@@ -304,10 +346,12 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
     FFNs).  A local-attention layer with a cache decodes through a ring
     whatever *ring* says, as in the reference.  ``row_block``: rows per
     dense product of the blocks (``layers.dense``; the serving decode).
-    ``tp``: tensor parallelism over the model axis (every mixer; the MLP
-    where the axis divides d_ff, the MoE)."""
+    ``tp``: tensor parallelism over the model axis (every mixer the axis
+    does not split through a head, ``mixer_axis``; the MLP where the
+    axis divides d_ff, the MoE)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     aux = torch.zeros((), device=x.device)
+    ffn_tp, tp = tp, mixer_axis(cfg, spec.mixer, tp)
     if spec.mixer in ("attn", "local_attn"):
         local = spec.mixer == "local_attn"
         out, cache = attn_block(cfg, p["attn"], h, positions=positions,
@@ -333,11 +377,12 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, ad: dict,
     if spec.ffn == "moe":
         # the row blocks reach the shared experts; the expert products
         # group a row with whatever rows routed to the same expert
-        out2, aux = moe_ffn(cfg, p["ffn"], h2, row_block=row_block, tp=tp)
+        out2, aux = moe_ffn(cfg, p["ffn"], h2, row_block=row_block,
+                            tp=ffn_tp)
     else:
         out2 = swiglu(p["ffn"], h2, row_block,
-                      tp=tp if tp is not None and tp.splits(cfg.d_ff)
-                      else None)
+                      tp=ffn_tp if ffn_tp is not None
+                      and ffn_tp.splits(cfg.d_ff) else None)
     return x + out2, cache, aux
 
 
@@ -389,7 +434,8 @@ def _sinusoid(S: int, d: int, offset=0, device=None) -> torch.Tensor:
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
-                 pos_offset=0, tp: Optional[ModelAxis] = None
+                 pos_offset=0, tp: Optional[ModelAxis] = None,
+                 row_block: Optional[int] = None
                  ) -> Tuple[torch.Tensor, int]:
     """Resolve modality inputs to (B, S, d) activations.  Returns (x,
     text_offset): logits and labels align from text_offset on (the
@@ -397,27 +443,29 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
     the front end's projection (frames, patches) is the rank's block of
     its d_model columns gathered whole, where the axis divides d_model,
     and the token lookup the rank's block of the embedding's rows
-    (``_embed_ids``), where it divides the vocab."""
+    (``_embed_ids``), where it divides the vocab.  ``row_block``: rows
+    per front-end product (``layers.dense``; the serving path)."""
     dt = dtype_of(cfg)
     if cfg.family == "audio":
-        x = _frontend(cfg, params, batch["frames"].to(dt), tp)
+        x = _frontend(cfg, params, batch["frames"].to(dt), tp, row_block)
         S = x.shape[1]
         x = x + _sinusoid(S, cfg.d_model, pos_offset,
                           device=x.device).to(dt)[None]
         return x, 0
     if cfg.family == "vlm" and "patches" in batch:
-        pe = _frontend(cfg, params, batch["patches"].to(dt), tp)
+        pe = _frontend(cfg, params, batch["patches"].to(dt), tp, row_block)
         te = _embed_ids(cfg, params, batch["tokens"].long(), tp)
         return torch.cat([pe, te], dim=1), pe.shape[1]
     return _embed_ids(cfg, params, batch["tokens"].long(), tp), 0
 
 
 def _frontend(cfg: ModelConfig, params: dict, feats: torch.Tensor,
-              tp: Optional[ModelAxis]) -> torch.Tensor:
+              tp: Optional[ModelAxis],
+              row_block: Optional[int] = None) -> torch.Tensor:
     """The front end's projection of precomputed frames or patches; under
     ``tp`` with d_model split, the rank's columns of it, gathered whole
     (the inputs take no gradient: one all-gather)."""
-    x = dense(feats, params["frontend"])
+    x = dense(feats, params["frontend"], row_block)
     if tp is not None and tp.splits(cfg.d_model):
         x = tp.whole(x)
     return x
@@ -485,7 +533,7 @@ def forward(cfg: ModelConfig, params: dict, adapters: Optional[dict],
         raise ValueError("per-row cache positions need token inputs")
     x, text_off = embed_inputs(cfg, params, batch,
                                pos_offset=0 if vec_pos else cache_pos or 0,
-                               tp=tp)
+                               tp=tp, row_block=row_block)
     B, S, _ = x.shape
     ar = torch.arange(S, device=x.device)
     if vec_pos:

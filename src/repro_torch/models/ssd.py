@@ -52,11 +52,12 @@ def tp_heads(H: int, size: int, index: int) -> Tuple[slice, slice]:
     """(heads, groups): model rank *index*'s heads (H/m, contiguous) and
     the B/C groups they read (8/m where m divides 8; where m is a
     multiple of 8, the one group the rank's heads lie in, shared by m/8
-    ranks).  Any other m would split a group: refused."""
+    ranks).  Any other m would split a head or a group: refused here,
+    since the mixer then runs whole (``models/model.mixer_runs_whole``)."""
     if H % size or (NGROUPS % size and size % NGROUPS):
         raise ValueError(f"a model axis of {size} does not divide {H} SSD "
                          f"heads, or neither divides nor is a multiple of "
-                         f"its {NGROUPS} groups (ROADMAP A4)")
+                         f"its {NGROUPS} groups: the mixer runs whole")
     hl = H // size
     heads = slice(index * hl, (index + 1) * hl)
     if NGROUPS % size == 0:

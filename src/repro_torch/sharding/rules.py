@@ -213,16 +213,29 @@ def _block_of(n: int, model: int, index: int) -> Tuple[slice]:
     return (slice(index * w, (index + 1) * w),)
 
 
-def executed_cut(path: Sequence[str], want: Tuple[int, ...], block,
-                 model: int, index: int, kv_heads: int):
-    """(dim, slices) of model rank *index*'s share (of *model*) of the
-    leaf at *path*, whole shape *want* (*block*: the whole tree's dict
-    holding it, for a mixer's widths): the rank holds the *slices* of
-    dim *dim*, side by side; None where it holds the leaf whole.  The
-    runtime specs' even block of the "model" dim, except:
+def _in_whole_mixer(cfg, path: Sequence[str], model: int) -> bool:
+    """Whether *path* lies in a layer's mixer block
+    (``segments/i/j/attn|ssd|rg``) that runs whole over *model* ranks
+    (``models/model.mixer_runs_whole``)."""
+    if len(path) < 4 or path[0] != "segments" or \
+            path[3] not in ("attn", "ssd", "rg"):
+        return False
+    from repro_torch.models.model import mixer_runs_whole, segment_plan
+    spec = segment_plan(cfg)[int(path[1])].specs[int(path[2])]
+    return mixer_runs_whole(cfg, spec.mixer, model)
 
-    * kv heads shared across ranks (``kv_heads`` < m, m a multiple of
-      KV): wk/wv/bk/bv are the rank's one kv head whole (head index //
+
+def executed_cut(path: Sequence[str], want: Tuple[int, ...], block,
+                 model: int, index: int, cfg):
+    """(dim, slices) of model rank *index*'s share (of *model*) of the
+    leaf at *path* of *cfg*'s backbone, whole shape *want* (*block*: the
+    whole tree's dict holding it, for a mixer's widths): the rank holds
+    the *slices* of dim *dim*, side by side; None where it holds the
+    leaf whole.  The runtime specs' even block of the "model" dim,
+    except:
+
+    * kv heads shared across ranks (KV < m, m a multiple of KV):
+      wk/wv/bk/bv are the rank's one kv head whole (head index //
       (m / KV)), not the rules' n/m columns (a slice of a head);
     * SSD (``models/ssd.tp_columns``): ``w_in``'s columns segment by
       segment, z and x by the rank's heads, B and C by its groups, dt
@@ -237,10 +250,14 @@ def executed_cut(path: Sequence[str], want: Tuple[int, ...], block,
     * RG-LRU's ``w_out`` by rows (row parallel; the rules replicate it:
       right-aligned, the MoE's three tags give a 2-D leaf no model
       split), and ``lam``, ``b_a``, ``b_i`` by channels (no rule names
-      them)."""
+      them);
+    * a mixer block the axis would split through a head
+      (``_in_whole_mixer``) whole, where the rules cut any dim it
+      divides (smollm-360m's 960 q columns over 16 ranks cut through its
+      15 heads)."""
     name = next((k for k in reversed(path) if not k.isdigit()), "")
     nd = len(want)
-    if model == 1:
+    if model == 1 or _in_whole_mixer(cfg, path, model):
         return None
     if "ssd" in path:
         from repro_torch.models.ssd import NGROUPS, tp_columns
@@ -260,6 +277,7 @@ def executed_cut(path: Sequence[str], want: Tuple[int, ...], block,
             return nd - 1, _block_of(want[-1], model, index)
     if name == "w_kv_a":
         return None
+    kv_heads = cfg.num_kv_heads
     if 0 < kv_heads < model and model % kv_heads == 0 and name in KV_LEAVES:
         w = want[-1] // kv_heads
         start = (index // (model // kv_heads)) * w
@@ -278,7 +296,7 @@ def _take(t: torch.Tensor, dim: int, slices) -> torch.Tensor:
     return (parts[0] if len(parts) == 1 else torch.cat(parts, dim)).clone()
 
 
-def shard_params(params, full, model: int, index: int, *, kv_heads: int):
+def shard_params(params, full, model: int, index: int, *, cfg):
     """Model rank *index*'s slices (of *model*) of the backbone tree
     *params*, under the executed layout (``executed_cut``: the runtime
     specs of the FULL tree *full*, the same structure as dense leaves --
@@ -290,16 +308,18 @@ def shard_params(params, full, model: int, index: int, *, kv_heads: int):
     as the dense leaf it stands for: its codes likewise, its scales
     (one a column) with the columns, whole for a row cut.
 
-    ``kv_heads`` (the config's KV, required: attention assumes whole
-    heads) with a model axis wider than them (m a multiple of KV):
-    ``KV_LEAVES`` are cut to the rank's one kv head whole, head index //
-    (m / KV), not to the rules' n/m columns (a slice of a head)."""
+    ``cfg`` (the backbone's config, required) decides where heads would
+    be split: with a model axis wider than its kv heads (m a multiple of
+    KV) ``KV_LEAVES`` are cut to the rank's one kv head whole, head
+    index // (m / KV), not to the rules' n/m columns (a slice of a
+    head); a mixer the axis would split through a head is whole on
+    every rank (``models/model.mixer_runs_whole``)."""
     model = int(model)
 
     def cut(path, leaf):
         want = _shape(_get(full, path))
         how = executed_cut(path, want, _get(full, path[:-1]), model, index,
-                           kv_heads)
+                           cfg)
         if how is None:
             return leaf
         dim, slices = how
@@ -323,11 +343,15 @@ def shard_params(params, full, model: int, index: int, *, kv_heads: int):
 
 
 # ------------------------------------------------------------- caches
-def _cache_leaf_specs(axis_sizes, cache, lead: tuple, runtime: bool):
+def _cache_leaf_specs(axis_sizes, cache, lead: tuple, runtime: bool,
+                      whole: bool = False):
     """The specs of one cache namedtuple's leaves (the reference's
     ``_cache_spec``): right-aligned over the trailing dims, *lead* for a
     stacked segment's layer axis.  ``runtime``: the port's executed
-    layout (``runtime_cache_specs``)."""
+    layout (``runtime_cache_specs``); ``whole``: a mixer that runs whole
+    (its cache split over the batch axes only)."""
+    if whole:
+        axis_sizes = {a: n for a, n in axis_sizes.items() if a != "model"}
     from repro_torch.models.attention import KVCache
     from repro_torch.models.mla import MLACache
     from repro_torch.models.rglru import RGLRUCache
@@ -348,11 +372,9 @@ def _cache_leaf_specs(axis_sizes, cache, lead: tuple, runtime: bool):
         B, _, KV, hd = shape(cache.k)[-4:]
         kv_ax = fit(KV, m, msz)
         if runtime:
+            # a model axis that does not divide the kv heads is a multiple
+            # of them here: any other runs the attention whole
             if kv_ax is None and m is not None and msz > 1:
-                if msz % KV:
-                    raise ValueError(f"a model axis of {msz} neither "
-                                     f"divides nor is divided by {KV} kv "
-                                     "heads (ROADMAP A4)")
                 kv_ax = KVShare()
             hd_ax = None
         else:
@@ -416,10 +438,14 @@ def runtime_cache_specs(axis_sizes, caches: list, cfg) -> list:
     heads and its conv tail by the rank's channels (``Cut``: its heads'
     x beside its B and C groups, ``models/ssd.tp_columns``); RG-LRU's
     state and conv tail by channels; MLA's latent and rope key whole
-    (every rank computes them, ``models/mla``)."""
-    from repro_torch.models.model import segment_plan
-    return [{k: _cache_leaf_specs(axis_sizes, v, (None,) if seg.scanned
-                                  else (), runtime=True)
+    (every rank computes them, ``models/mla``).  A mixer the axis would
+    split through a head runs whole (``models/model.mixer_runs_whole``):
+    its cache is split over the batch axes only."""
+    from repro_torch.models.model import mixer_runs_whole, segment_plan
+    m = axis_sizes.get("model", 1)
+    return [{k: _cache_leaf_specs(
+                axis_sizes, v, (None,) if seg.scanned else (), runtime=True,
+                whole=mixer_runs_whole(cfg, seg.specs[int(k)].mixer, m))
              for k, v in seg_c.items()}
             for seg, seg_c in zip(segment_plan(cfg), caches)]
 

@@ -23,10 +23,11 @@ reference on the CPU.
   * one full-width production row, tinyllama-1.1b x decode_32k x 16x16,
     ends ``ok`` with its resident and cache bytes a rank equal to their
     closed forms, deepseek-v2-lite-16b x train_4k (MLA over the model
-    axis, ROADMAP A8c) ends ``ok`` and fits, and smollm-360m ends
-    ``refused`` naming A4 (its 15 heads over 16 ranks; all in a
-    subprocess: a dry run makes a fake world of its own, which no later
-    test in the worker may see).
+    axis, ROADMAP A8c) ends ``ok`` and fits, and smollm-360m ends ``ok``
+    with its attention whole on every rank (A4: its 15 heads over 16
+    ranks); each row's 2-D layout columns (A8e) add up from its executed
+    ones (all in a subprocess: a dry run makes a fake world of its own,
+    which no later test in the worker may see).
 """
 import dataclasses
 import json
@@ -113,7 +114,8 @@ def test_cache_specs_match_the_reference(arch):
 def test_runtime_cache_specs_split_or_share_the_kv_heads():
     """The executed layout: kv heads over "model" where m divides them,
     else one head a rank (``KVShare``); the batch over the batch axes
-    where it divides; never the head dim."""
+    where it divides; never the head dim; a whole mixer's (ROADMAP A4)
+    over the batch axes only."""
     cfg = get_config("tinyllama-1.1b")                  # 4 kv heads
     caches = M.init_caches(cfg, 128, 64, device="meta")
     for sizes, kv in (({"data": 2, "model": 2}, "model"),
@@ -127,8 +129,11 @@ def test_runtime_cache_specs_split_or_share_the_kv_heads():
         loc = rules.local_shape(caches[0]["0"].k.shape, spec, sizes)
         assert loc[3] == (1 if isinstance(kv, rules.KVShare) else 4 //
                           sizes["model"])
-    with pytest.raises(ValueError, match="ROADMAP A4"):
-        rules.runtime_cache_specs({"data": 1, "model": 3}, caches, cfg)
+    # a model axis of 3 over 32 query heads would split a head: the
+    # attention runs whole, its caches split over the batch axes only
+    spec = rules.runtime_cache_specs({"data": 1, "model": 3}, caches,
+                                     cfg)[0]["0"].k
+    assert spec == (None, "data", None, None, None)
 
 
 def test_shard_params_cuts_a_shared_kv_head_whole():
@@ -140,7 +145,7 @@ def test_shard_params_cuts_a_shared_kv_head_whole():
     full = M.init_model(cfg, device="meta")
     hd = cfg.head_dim
     for i in range(4):
-        cut = rules.shard_params(params, full, 4, i, kv_heads=2)
+        cut = rules.shard_params(params, full, 4, i, cfg=cfg)
         a, w = cut["segments"][0]["0"]["attn"], \
             params["segments"][0]["0"]["attn"]
         h = i // 2
@@ -254,7 +259,7 @@ def test_collectives_of_a_decode_step():
     with fake_world(2, 1):
         mesh = make_local_mesh(model=2)
         full = M.init_model(cfg, device="meta")
-        params = rules.shard_params(full, full, m, 1, kv_heads=2)
+        params = rules.shard_params(full, full, m, 1, cfg=cfg)
         _, adapters = ssm.init(device="meta")
         caches = ssm.init_decode_caches(shape, device="meta", mesh=mesh)
         step = ssm.make_serve_step(mesh=mesh)
@@ -299,12 +304,12 @@ def test_production_rows():
             "verbose=False), dryrun_one('deepseek-v2-lite-16b', "
             "'train_4k', verbose=False), dryrun_one('smollm-360m', "
             "'train_4k', verbose=False)]\n"
-            "print(json.dumps(rows))\n")
+            "print(json.dumps(rows, default=str))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
-    ok, mla, refused = json.loads(out.stdout.strip().splitlines()[-1])
+    ok, mla, whole = json.loads(out.stdout.strip().splitlines()[-1])
     assert ok["status"] == "ok", ok
     resident, caches = _closed_forms()
     assert ok["resident_bytes"] == resident
@@ -314,21 +319,48 @@ def test_production_rows():
     # MLA over the model axis (ROADMAP A8c) runs: 16 heads, one a rank
     assert mla["status"] == "ok" and mla["fits"], mla
     assert mla["model_axis"] == 16
-    # what still refuses: smollm's 15 heads over 16 ranks (A4)
-    assert refused["status"] == "refused" and refused["roadmap"] == "A4"
+    # smollm's 15 heads over 16 ranks: its attention runs whole on every
+    # rank, the rest of the layer cut (A4)
+    assert whole["status"] == "ok" and whole["whole_mixers"] == ["attn"]
+    assert whole["model_axis"] == 16
+    # the reference's 2-D layout beside the executed one (A8e): the
+    # executed peak with the 2-D weights for the 1-D ones, one layer's
+    # gathered slabs and the residual split over "model"; the gathers on
+    # the data group's link (across nodes); one FLOPs count for both
+    for row in (ok, mla, whole):
+        assert row["param_bytes_2d"] < row["param_bytes"]
+        assert row["resident_bytes_2d"] == (row["resident_bytes"]
+                                            - row["param_bytes"]
+                                            + row["param_bytes_2d"])
+        assert row["peak_bytes_2d"] == (
+            row["peak_bytes"] - row["param_bytes"] + row["param_bytes_2d"]
+            + row["fsdp_gather_max_layer_bytes"]
+            - row["saved_residual_bytes"] + row["saved_residual_bytes_2d"])
+        assert row["collective_bytes_by_link_2d"]["network"] == \
+            pytest.approx(row["collective_bytes_by_link"].get("network", 0)
+                          + row["fsdp_gather_bytes"], rel=1e-12)
+        assert row["t_collective_s_2d"] > row["t_collective_s"]
+        assert not [k for k in row if "flops" in k and k.endswith("_2d")]
+    assert ok["fsdp_gather_passes"] == 1 and ok["saved_residual_bytes"] == 0
+    assert mla["fsdp_gather_passes"] == whole["fsdp_gather_passes"] == 2
+    assert whole["saved_residual_bytes_2d"] * 16 == \
+        whole["saved_residual_bytes"] > 0
 
 
 @pytest.mark.parametrize("shape,status,roadmap", [
-    ("prefill_32k", "refused", "A9"), ("decode_32k", "skipped", None),
+    ("prefill_32k", "ok", None), ("decode_32k", "skipped", None),
     ("long_500k", "skipped", None)])
 def test_encoder_rows(shape, status, roadmap):
     """hubert-xlarge's serve rows: a decode shape is skipped, as the
     reference's ``applicable`` skips it; its prefill, which the
-    reference builds, is refused naming the port's gap (A9), not
-    skipped."""
+    reference builds, runs (ROADMAP A9: the cached encoder prefill,
+    16 heads over the 16 model ranks, caches by the runtime specs)."""
     row = dryrun_one("hubert-xlarge", shape, verbose=False)
     assert row["status"] == status, row
     assert row.get("roadmap") == roadmap
+    if status == "ok":
+        assert row["fits"] and row["peak_bytes"] > row["resident_bytes"]
+        assert row["whole_mixers"] == [] and row["rows_per_rank"] == 2
 
 
 def test_fake_world_refuses_a_process_with_a_group(tmp_path):

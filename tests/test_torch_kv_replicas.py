@@ -2,7 +2,7 @@
 CPU: four gloo ranks (one spawn for the file, tests/torch_sharded_worker
 .py, scenarios ``kvr_*``) train reduced f32 tinyllama-1.1b (H 4, KV 2)
 at data 1 x model 4, so each kv head is held whole by 2 model ranks
-(``sharding/rules.shard_params(kv_heads=)``, ``ModelAxis.kv_columns``),
+(``sharding/rules.shard_params(cfg=)``, ``ModelAxis.kv_columns``),
 through ``GroupRuntime(tp_mode="auto")`` with a mixed-rank group ("rag":
 the ragged kernels' plain versions) and a uniform one ("ab": the masked
 kernels'), and through ``make_train_step(mesh=, tp_mode="auto")`` called
@@ -15,9 +15,9 @@ than 85% of the coordinates, Adam steps exactly; every rank's adapters
 and moments are bit-equal. A planted cut that takes each kv head's
 cotangent from one replica instead of the replicas' sum (each replica's
 covers only its own query heads) must miss the k/v bars.
-``check_tensor_parallel`` still refuses a model axis that does not
-divide the query heads, or that neither divides nor is a multiple of the
-kv heads, naming ROADMAP A4.
+Where a model axis does not divide the query heads, or neither divides
+nor is a multiple of the kv heads, the attention runs whole on every
+rank (``models/model.whole_mixers`` names it; ROADMAP A4).
 """
 import dataclasses
 
@@ -27,7 +27,6 @@ import pytest
 from repro.configs import get_config as ref_get_config
 
 from repro_torch.configs import get_config
-from repro_torch.core.ssm import check_tensor_parallel
 
 import torch_sharded_common as C
 import torch_sharded_worker as W
@@ -107,13 +106,16 @@ def test_one_replica_instead_of_the_sum_misses_the_bars(runs):
     (4, 2, 2, True), (4, 2, 4, True), (32, 4, 16, True), (64, 8, 16, True),
     (4, 2, 3, False), (4, 2, 8, False), (12, 4, 6, False), (15, 5, 16, False)])
 def test_refusals_name_the_roadmap_line(heads, kv, m, ok):
-    """A model axis is taken where it divides the query heads and
-    divides or is a multiple of the kv heads; refused otherwise, naming
-    ROADMAP A4."""
+    """The attention is split over a model axis that divides its query
+    heads and divides or is a multiple of its kv heads; otherwise it runs
+    whole on every rank (ROADMAP A4, no longer refused):
+    ``whole_mixers`` names it, and a rank's caches of it are
+    whole."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ModelAxis
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               num_heads=heads, num_kv_heads=kv)
-    if ok:
-        check_tensor_parallel(cfg, m)
-        return
-    with pytest.raises(ValueError, match="ROADMAP A4"):
-        check_tensor_parallel(cfg, m)
+    assert M.whole_mixers(cfg, m) == (() if ok else ("attn",))
+    kv_loc = M.init_caches(cfg, 2, 8, device="meta",
+                           tp=ModelAxis(None, m, m - 1))[0]["0"].k.shape[-2]
+    assert (kv_loc == kv) == (not ok)

@@ -270,7 +270,8 @@ def test_refusals_without_a_world():
     pipeline step is no longer refused (ROADMAP A3): it reaches the
     depth check, and a depth that does not divide its stack raises the
     reference's error.  tp_mode "auto" is accepted by the engine (A4);
-    a pipeline mesh with a model axis stays refused (A8d)."""
+    a pipeline mesh with a model axis is no longer refused (A8d: each
+    model index a replica, tests/test_torch_whole_mixers.py runs it)."""
     cfg, jobs = W.cfg_f32(), W.specs("ab")
     with pytest.raises(ValueError, match="needs a mesh"):
         GroupRuntime.from_specs(cfg, jobs, impl="cuda", block_t=8,
@@ -289,7 +290,12 @@ def test_refusals_without_a_world():
     eng = ElasticEngine(cfg, params={}, device="cpu", tp_mode="auto")
     assert eng._rt_kwargs["tp_mode"] == "auto"
     src = inspect.getsource(make_local_mesh)
-    assert "ROADMAP A8d" in src and "a model axis inside the stages" in src
+    assert "ROADMAP A8d" not in src and "raise" not in src
+    assert "stage_mesh(list(range(n)), p, model=m)" in src
+    keys = _stage_group_keys(list(range(8)), 2, model=2)
+    assert keys[-4:] == [((0, 1), "model"), ((2, 3), "model"),
+                         ((4, 5), "model"), ((6, 7), "model")]
+    assert keys[0] == ((0, 2), "") and ((0, 4), "stage") in keys
 
 
 # ----------------------------------------------------- the reference's

@@ -269,14 +269,15 @@ def _cfg_and_specs():
 
 
 @pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(tp_mode="auto"), "A8", id="kw0-A7c"),
+    pytest.param(dict(tp_mode="auto"), "model", id="kw0-A7c"),
     pytest.param(dict(tp_mode="pipeline"), "pipeline_stages >= 2",
                  id="kw1-A7b")])
 def test_tp_modes_other_than_dp_refuse(kw, match):
     """"auto" (ROADMAP A4, old A7c) is ported: the engine passes it
     through, and over a model axis of 2 the int8 backbone (A8b) and MLA
-    (A8c) build; what it refuses is a model axis inside pipeline stages
-    (A8d, ``make_local_mesh(model=, stages=)``).  "pipeline" (old A7b) is
+    (A8c) build; a pipeline mesh with a model axis is the reference's
+    (stage, data, model) mesh, each model index a replica (A8d,
+    ``make_local_mesh(model=, stages=)``).  "pipeline" (old A7b) is
     ported and refuses what the reference refuses: no mesh, a depth of
     1, a depth that does not divide the scanned stack (a MoE model's
     too: it is no longer refused, A3); the engine passes it through."""
@@ -315,8 +316,11 @@ def test_tp_modes_other_than_dp_refuse(kw, match):
                     .make_train_step(lr_fn=constant(1e-2),
                                      mesh=StandInMesh(), **kw))
     with fake_world(4, 0):
-        with pytest.raises(ValueError, match=match + "d"):
-            make_local_mesh(model=2, stages=2)
+        mesh = make_local_mesh(model=2, stages=2)
+        assert mesh.mesh_dim_names[-1] == match and mesh.shape == {
+            "stage": 2, "data": 1, "model": 2}
+        assert (mesh.stage, mesh.shard, mesh.model_index) == (0, 0, 0)
+        assert mesh.ranks == ((0,), (2,))
 
 
 @pytest.mark.parametrize("impl", ["ref", "loop"])
@@ -347,8 +351,9 @@ def test_moe_over_a_mesh_refuses():
     """A MoE model's sharded step is no longer refused (ROADMAP A3, old
     A7d; tests/test_torch_moe_mesh.py trains it): over a ("data",
     "model") mesh it builds the tensor-parallel step (expert parallel:
-    the model axis divides its E), a MoE model with MLA too (A8c); what
-    still refuses is a model axis that splits its MLA heads (A4)."""
+    the model axis divides its E), a MoE model with MLA too (A8c), and
+    one over a model axis that would split its MLA heads, which then run
+    whole (A4)."""
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
                               dtype="float32")
     assert cfg.num_experts % 2 == 0
@@ -362,9 +367,13 @@ def test_moe_over_a_mesh_refuses():
         lr_fn=constant(1e-2), mesh=StandInMesh(), tp_mode="auto"))
     three = StandInMesh()
     three.size = lambda dim: (1, 3)[dim]
-    with pytest.raises(ValueError, match="A4"):
-        mla_ssm.make_train_step(lr_fn=constant(1e-2), mesh=three,
-                                tp_mode="auto")
+    # 4 MLA heads over 3: MLA runs whole on every rank (A4); no other
+    # dimension is refused (d_ff, the experts and the vocab the axis
+    # does not divide stay whole too)
+    from repro_torch.models.model import whole_mixers
+    assert whole_mixers(mla, 3) == ("mla",)
+    assert callable(mla_ssm.make_train_step(lr_fn=constant(1e-2),
+                                            mesh=three, tp_mode="auto"))
     assert ref_get_config("qwen3-moe-30b-a3b").num_experts
 
 

@@ -143,12 +143,12 @@ def test_shard_params_cuts_each_rank_its_block():
     contiguous block; the others are the caller's leaves; the ranks'
     blocks put back together are the leaf; cutting a cut tree keeps it;
     a leaf of another shape is refused, and so is a call without the
-    config's kv heads."""
+    config (its kv heads and whole mixers decide the cut)."""
     cfg = get_config("qwen3-moe-30b-a3b").reduced()
     params = M.init_model(cfg, seed=0, device="cpu")
     full = M.init_model(cfg, device="meta")
     spec = _flat(rules.runtime_param_specs({"data": 1, "model": 2}, full))
-    cuts = [rules.shard_params(params, full, 2, r, kv_heads=cfg.num_kv_heads)
+    cuts = [rules.shard_params(params, full, 2, r, cfg=cfg)
             for r in range(2)]
     whole, parts = _flat(params), [_flat(c) for c in cuts]
     for k, leaf in whole.items():
@@ -160,15 +160,15 @@ def test_shard_params_cuts_each_rank_its_block():
         assert parts[0][k].shape[dim] * 2 == leaf.shape[dim]
     assert spec["segments/0/0/ffn/w_in"] == (None, "model")      # E
     again = _flat(rules.shard_params(cuts[1], full, 2, 1,
-                                      kv_heads=cfg.num_kv_heads))
+                                      cfg=cfg))
     assert all(again[k] is v for k, v in parts[1].items())
     nbytes = lambda t: sum(v.numel() * v.element_size()
                            for v in _flat(t).values())
     assert nbytes(cuts[0]) < 0.6 * nbytes(params)
     bad = dict(params, embed=params["embed"][:3])
     with pytest.raises(ValueError, match="neither the whole"):
-        rules.shard_params(bad, full, 2, 0, kv_heads=cfg.num_kv_heads)
-    with pytest.raises(TypeError, match="kv_heads"):
+        rules.shard_params(bad, full, 2, 0, cfg=cfg)
+    with pytest.raises(TypeError, match="cfg"):
         rules.shard_params(params, full, 2, 0)
 
 

@@ -39,7 +39,6 @@ from repro.models import model as RM  # noqa: F401  (the import cycle)
 from repro.models import quant as RQ
 from repro.sharding import rules as ref_rules
 
-from repro_torch.core.ssm import check_tensor_parallel
 from repro_torch.data.pipeline import frontend_inputs
 from repro_torch.models import model as M
 from repro_torch.models.convert import adapters_from_numpy, params_from_numpy
@@ -145,7 +144,7 @@ def _local_shapes(key, m, index) -> dict:
         from repro_torch.models.quant import quantize_params
         full = quantize_params(M.init_model(cfg, device="cpu"))
     cut = rules.shard_params(full, M.init_model(cfg, device="meta"), m,
-                             index, kv_heads=cfg.num_kv_heads)
+                             index, cfg=cfg)
     return {k: tuple(v.shape) for k, v in W.flat_q(cut).items()}
 
 
@@ -210,7 +209,7 @@ def test_a_ranks_int8_slices_are_the_references_arrays_cut(key):
     for m in (2, 4):
         for i in range(m):
             cut = rules.shard_params(port, full, m, i,
-                                     kv_heads=cfg.num_kv_heads)
+                                     cfg=cfg)
             got = cut["segments"][0]["0"]
             if key == "q8":
                 a = blk["attn"]
@@ -300,11 +299,12 @@ def test_runtime_cache_and_param_layout_of_the_families(arch, m):
     """At full size on ``meta`` tensors: each family's caches made for a
     model rank (``init_caches(tp=)``) have the local shapes of
     ``runtime_cache_specs`` (SSD's conv tail a ``Cut``; MLA's latent
-    whole), and ``check_tensor_parallel`` takes the family at m."""
+    whole), and no mixer of the family runs whole at m
+    (``whole_mixers``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import ModelAxis
     cfg = get_config(arch)
-    check_tensor_parallel(cfg, m, quantize="int8")
+    assert M.whole_mixers(cfg, m) == ()
     if not cfg.supports_decode():
         return
     whole = M.init_caches(cfg, 4, 256, device="meta")

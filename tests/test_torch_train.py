@@ -445,17 +445,17 @@ def test_uniform_group_adapter_isolation(uniform_setup):
 def test_make_train_step_refuses_what_is_not_ported():
     """Tensor parallelism (``tp_mode="auto"``, ROADMAP A4) builds on a
     ("data", "model") mesh for every family and the int8 backbone (A8b,
-    A8c: MLA builds over a model axis of 2 and ``check_tensor_parallel``
-    takes ``quantize="int8"``); what it still refuses is a model axis
-    that would split a head, naming A4 (a model axis of 3 over 4 query
-    heads; one of 4 over 2 kv heads shares each kv head between 2 ranks
-    and is taken; mamba2's 8 B/C groups over 5), and an unknown tp_mode.
+    A8c: MLA builds over a model axis of 2); it refuses an unknown tp_mode.  A
+    model axis that would split a head runs that mixer whole on every
+    rank (A4; ``models/model.whole_mixers`` names it): 3 over 4 query
+    heads, mamba2's 8 B/C groups over 5; one of 4 over 2 kv heads
+    shares each kv head between 2 ranks and splits.
     Pipeline stages (old A7b) are ported: without a mesh they are
     ignored, as in the reference; on a mesh a depth of 1 or one that
     does not divide the scanned stack is refused before the mesh is
     touched.  Uniform layouts and nano batches build."""
     from repro_torch.configs import get_config
-    from repro_torch.core.ssm import check_tensor_parallel
+    from repro_torch.models.model import whole_mixers
     cfg = _cfgs("float32")[1]
     lr = constant(LR)
     ragged = SharedSuperModel(cfg, _specs(LoRAJobSpec), impl="cuda",
@@ -465,17 +465,18 @@ def test_make_train_step_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="unknown tp_mode"):
         ragged.make_train_step(lr_fn=lr, mesh=StandInMesh(),
                                tp_mode="fsdp")
+    three = StandInMesh()
+    three.size = lambda dim: (1, 3)[dim]
     mla = get_config("deepseek-v2-lite-16b").reduced()
     assert callable(SharedSuperModel(mla, _specs(LoRAJobSpec), impl="cuda",
                                      block_t=BT).make_train_step(
         lr_fn=lr, mesh=StandInMesh(), tp_mode="auto"))
-    with pytest.raises(ValueError, match="split a head"):
-        check_tensor_parallel(cfg, 3)
-    check_tensor_parallel(cfg, 4)
-    check_tensor_parallel(cfg, 2, quantize="int8")
-    with pytest.raises(ValueError, match="A4"):
-        check_tensor_parallel(get_config("mamba2-2.7b"), 5)
-    check_tensor_parallel(mla, 1)
+    assert whole_mixers(cfg, 3) == ("attn",)
+    assert callable(ragged.make_train_step(lr_fn=lr, mesh=three,
+                                           tp_mode="auto"))
+    assert whole_mixers(cfg, 4) == whole_mixers(cfg, 2) == ()
+    assert whole_mixers(get_config("mamba2-2.7b"), 5) == ("ssd",)
+    assert whole_mixers(mla, 1) == ()
     assert callable(ragged.make_train_step(lr_fn=lr, tp_mode="pipeline",
                                            pipeline_stages=2))
     with pytest.raises(ValueError, match="pipeline_stages >= 2"):

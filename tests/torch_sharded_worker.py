@@ -1178,7 +1178,7 @@ def tp_step_and_engine(inputs):
     step = ssm.make_train_step(lr_fn=constant(LR), remat=False, mesh=mesh,
                                tp_mode="auto")
     params = shard_params(w["params"], M.init_model(cfg, device="meta"),
-                          m, mi, kv_heads=cfg.num_kv_heads)
+                          m, mi, cfg=cfg)
     adapters = w["adapters"]
     ad, _, met = step(params, adapters,
                       adamw.init(adapters, per_job=len(jobs)), mine)
@@ -1270,7 +1270,7 @@ def tps_greedy(cfg, specs, params, adapters, toks, mesh, ring=False,
     if mesh is not None:
         tp = ModelAxis(*model_group(mesh))
         local = shard_params(params, M.init_model(cfg, device="meta"),
-                             tp.size, tp.index, kv_heads=cfg.num_kv_heads)
+                             tp.size, tp.index, cfg=cfg)
     prefill = ssm.make_prefill_step(tps_shape(), ring=ring, mesh=mesh)
     step = ssm.make_serve_step(ring=ring, mesh=mesh)
     lp, caches = prefill(local, adapters, {"tokens": t[:, :TPS_PROMPT],
@@ -1402,7 +1402,7 @@ def kvr_step(inputs):
     step = ssm.make_train_step(lr_fn=constant(LR), remat=False, mesh=mesh,
                                tp_mode="auto")
     params = shard_params(w["params"], M.init_model(cfg, device="meta"), m,
-                          mi, kv_heads=cfg.num_kv_heads)
+                          mi, cfg=cfg)
     wk = params["segments"][0]["0"]["attn"]["wk"]
     ad, _, met = step(params, w["adapters"],
                       adamw.init(w["adapters"], per_job=len(jobs)), batch)
@@ -1517,7 +1517,141 @@ def tpf_serve(inputs):
     return out
 
 
+# ------------- mixers a model axis would split run whole (ROADMAP A4)
+# (tests/test_torch_whole_mixers.py): reduced f32 configs whose mixer
+# the axis of 2 would cut through a head, through ``GroupRuntime(
+# tp_mode="auto")``, job set "rag": attention of 3 query heads over 1 kv
+# head ("wl", data 1 and data 2), MLA of 3 heads ("wm", its MoE expert
+# parallel beside it), RG-LRU over 255 channels ("wr", local attention
+# split beside it).  The rest of each layer is cut as the rules say.
+WM_ARCHS = {"wl": "tinyllama-1.1b", "wm": "deepseek-v2-lite-16b",
+            "wr": "recurrentgemma-9b"}
+WM_D2 = ("wl",)
+
+
+def wm_cfg(key, get=None):
+    """The reduced f32 config of a ``WM_ARCHS`` key (*get*: the
+    reference's registry instead), replaced so that a model axis of 2
+    splits its mixer's heads or channels."""
+    cfg = dataclasses.replace((get or get_config)(WM_ARCHS[key]).reduced(),
+                              dtype="float32")
+    if key == "wl":
+        return dataclasses.replace(cfg, num_heads=3, num_kv_heads=1)
+    if key == "wm":
+        return dataclasses.replace(cfg, num_heads=3, num_kv_heads=3,
+                                   moe_impl="ragged")
+    return dataclasses.replace(cfg, lru_width=255)
+
+
+def wm_run(inputs, key, mesh) -> dict:
+    """Job set "rag" on config *key* through ``GroupRuntime(tp_mode=
+    "auto")`` on *mesh*, 2 steps: the summary and the rank's leaves'
+    shapes."""
+    w = inputs[f"wm:{key}"]
+    rt = GroupRuntime.from_specs(
+        wm_cfg(key), specs("rag"), params=w["params"],
+        adapters=w["adapters"], mesh=mesh, tp_mode="auto",
+        **dict(KW, impl="cuda"))
+    rt.run(2)
+    return dict(summary(rt), model_axis=rt.model_axis, shards=rt.data_shards,
+                shapes={k: tuple(v.shape) for k, v in flat_t(rt.params)
+                        .items()})
+
+
+def wm_serve(key, w, mesh) -> dict:
+    """Job set "rag"'s prefill of 8 prompts of 16 tokens (an audio
+    config: frames) and, for a decoder, 2 decode steps, meshless and on
+    *mesh* (this rank's slices, its whole mixers whole): the last
+    column's logits of each step and the rank's cache shapes."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.ssm import SharedSuperModel
+    from repro_torch.launch.mesh import model_group
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import shard_params
+    cfg = wm_cfg(key) if key in WM_ARCHS else dataclasses.replace(
+        get_config("hubert-xlarge").reduced(), dtype="float32")
+    sp = specs("rag")
+    shape = InputShape("p", 32, 8, "decode")
+    g = torch.Generator().manual_seed(5)
+    if cfg.family == "audio":
+        batch = {"frames": torch.randn((8, 16, cfg.frontend_dim),
+                                       generator=g) * 0.02}
+    else:
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (8, 18),
+                                         generator=g, dtype=torch.int32)}
+    batch["adapter_ids"] = torch.arange(2, dtype=torch.int32) \
+        .repeat_interleave(4)
+    out = {}
+    for name, msh in (("meshless", None), ("mesh", mesh)):
+        ssm = SharedSuperModel(cfg, sp, impl="cuda", block_t=BT)
+        params = w["params"]
+        if msh is not None:
+            _, m, mi = model_group(msh)
+            params = shard_params(params, M.init_model(cfg, device="meta"),
+                                  m, mi, cfg=cfg)
+        first = {k: (v[:, :16] if k == "tokens" else v)
+                 for k, v in batch.items()}
+        lg, caches = ssm.make_prefill_step(shape, mesh=msh)(
+            params, w["adapters"], first)
+        logits = [lg[:, 0]]
+        if cfg.causal:
+            step = ssm.make_serve_step(mesh=msh)
+            for i in range(2):
+                lg, caches = step(params, w["adapters"], caches,
+                                  {"tokens": batch["tokens"][:, 16 + i:
+                                                             17 + i],
+                                   "adapter_ids": batch["adapter_ids"]},
+                                  16 + i)
+                logits.append(lg[:, 0])
+        out[name] = {"logits": torch.stack(logits).numpy(),
+                     "caches": {k: tuple(v.shape)
+                                for k, v in flat_t(caches).items()}}
+    return out
+
+
+def wm_parity(inputs):
+    """Every ``WM_ARCHS`` config at data 1 x model 2 (each pair), the
+    ``WM_D2`` ones also at data 2 x model 2 (the world); the serve steps
+    of "wl" and of reduced hubert-xlarge (its cached prefill, A9) at
+    data 1 x model 2 beside the meshless ones."""
+    pairs = tp_pairs()
+    out = {"d1": {k: wm_run(inputs, k, pairs) for k in WM_ARCHS}}
+    world = tp_world()
+    out["d2"] = {k: wm_run(inputs, k, world) for k in WM_D2}
+    out["serve"] = {k: wm_serve(k, inputs[f"wm:{k}"], pairs)
+                    for k in ("wl", "hb")}
+    return out
+
+
+# -------------- a pipeline mesh with a model axis (ROADMAP A8d)
+# ``make_local_mesh(model=2, stages=2)`` over the world: (stage 2, data
+# 1, model 2), each model index a replica of the (stage, data) pipeline.
+def ppm_parity(inputs, out_dir):
+    """Job set "pl" (N = 2 "rank_desc") on the (2, 1, 2) mesh, beside the
+    model-1 pipeline (P = 2 x D = 1) on each 2-rank slice; the mesh's
+    layout and each rank's writer flag; its checkpoints written to
+    *out_dir*."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(model=2, stages=2)
+    kw = PIPE_RUNS["g2_rank_desc"]
+    rt = runtime(inputs, "pl", mesh, impl="cuda", **dict(PIPE, **kw))
+    rt.run(2)
+    m = rt.report.last_metrics
+    got = dict(summary(rt), useful=np.asarray(m["pipe_useful_slots"]),
+               slots=np.asarray(m["pipe_slots"]), stage=rt._stage_idx,
+               shards=rt.data_shards, model_axis=rt.model_axis,
+               writer=rt._writer(), shape=dict(mesh.shape),
+               grid=mesh.mesh.tolist(), replica=[list(r) for r in
+                                                 mesh.ranks],
+               resident=sum(t.numel() * t.element_size()
+                            for t in flat_q(rt.params).values()))
+    rt.save_checkpoints(str(out_dir))
+    got["model1"] = pipe_run(inputs, "pl", pipe_pairs(), **kw)
+    return got
+
+
 TP_FAMILIES = ["tpf_parity"]
+WHOLE_MIXERS = ["wm_parity", "ppm_parity"]
 TP_FAMILIES_SERVE = ["tpf_serve"]
 KV_REPLICAS = ["kvr_runtime", "kvr_step", "kvr_planted"]
 TP_SERVE = ["tps_meshes_run", "tps_ring", "tps_fused_solo", "tps_moe"]
